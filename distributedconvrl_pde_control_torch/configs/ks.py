@@ -1,0 +1,230 @@
+"""Kuramoto-Sivashinsky experiment presets.
+
+Counterpart of ``distributedconvrl_pde_control_tpu/configs/ks.py``: the
+constants of `scripts/KS/setup/KSSetup.jl` and the per-experiment scripts
+KS22 / KS200 / KS500 / KS200_disturbed, and `build_ks` for the reference's
+CNAB2 stepper. The JAX package's throughput tiers (`stepper="etdrk4"`,
+`spectral_carry`, `spectral_featurize`) and reduced-precision transform
+tiers are not ported yet: `build_ks` refuses them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent, DDPGConfig
+from distributedconvrl_pde_control_torch.envs.features import Conv1DFeaturizer, gaussian_kernels_1d
+from distributedconvrl_pde_control_torch.envs.pde_env import PDEEnv
+from distributedconvrl_pde_control_torch.ops.ks import KSSolver
+from distributedconvrl_pde_control_torch.train.drivers import Setup
+
+
+@dataclasses.dataclass(frozen=True)
+class KSConfig:
+    """Constants of a KS experiment (entry script + KSSetup.jl:20-77).
+    Field for field the JAX package's KSConfig, so presets and config
+    overrides carry over."""
+
+    name: str = "KS22"
+    seed: int = 609
+    lx: float = 22.0
+    nx: int = 192
+    sensor_step: int = 24  # sensor_positions = 1:step:nx (1-based)
+    n_actuators: int = 8
+    sigma_sensors: float = 0.7
+    sigma_actuators: float = 0.7
+    mu: float = 0.0  # inhomogeneous disturbance amplitude
+    # env
+    te: float = 5.0
+    t0: float = 0.0
+    dt: float = 0.1
+    oversampling: int = 30
+    # transform tier of the JAX package; the port computes every transform
+    # in float32 ("auto", "native" and "matmul" all mean that here)
+    fft_mode: str = "auto"
+    # integrator: "cnab2" = the reference's do_step (30 substeps,
+    # KSSetup.jl:130-160); "etdrk4" and the carry tiers are JAX-only so far
+    stepper: str = "cnab2"
+    nl_fft_mode: str | None = None
+    spectral_carry: bool = False
+    spectral_featurize: bool = False
+    max_value: float = 30.0
+    check_max_value: str = "y"
+    # featurization
+    window_size: int = 1
+    temporal_steps: int = 1
+    memory_size: int = 0
+    agent_power: float = 7.5
+    action_punish: float = 0.002
+    delta_action_punish: float = 0.002
+    # agent (KSSetup.jl:39-77)
+    nna_scale: float = 0.6
+    nna_scale_critic: float = 7.0
+    drop_middle_layer: bool = True
+    gamma: float = 0.99
+    polyak: float = 0.995
+    batch_size: int = 3
+    start_steps: int = 6
+    update_after: int = 10
+    update_freq: int = 1
+    update_loops: int = 20
+    learning_rate: float = 5e-4
+    learning_rate_critic: float = 1e-3
+    act_limit: float = 1.0
+    act_noise: float = 1.2
+    capacity: int = 150_000
+    # training protocol (KSSetup.jl:304-319 + entry script loops)
+    loops: int = 8
+    no_steps: int = 800
+    noise_decay: float = 0.2
+    min_best_episode: int = 1
+
+    @property
+    def sensor_positions(self) -> np.ndarray:
+        return np.arange(1, self.nx + 1, self.sensor_step)  # 1-based like the reference
+
+    @property
+    def actuators_to_sensors(self) -> np.ndarray:
+        return np.arange(self.n_actuators)  # collect(1:n), 0-based here
+
+
+# Shipped experiment constants (scripts/KS/*/*.jl).
+KS22 = KSConfig(name="KS22", seed=609, lx=22.0, nx=192, sensor_step=24, n_actuators=8,
+                sigma_sensors=0.7, sigma_actuators=0.7, loops=8)
+KS200 = KSConfig(name="KS200", seed=59, lx=200.0, nx=240, sensor_step=3, n_actuators=80,
+                 sigma_sensors=1.0, sigma_actuators=1.0, loops=6)
+# KS500: zero-shot transfer target - eval-only, agent trained on KS200
+# (scripts/KS/KS500/KS500.jl:21-24).
+KS500 = KSConfig(name="KS500", seed=914, lx=500.0, nx=600, sensor_step=3, n_actuators=200,
+                 sigma_sensors=1.0, sigma_actuators=1.0)
+# Disturbed dynamics, eval-only with the mu=0 agent (KS200_disturbed.jl:16-24).
+KS200_DISTURBED = dataclasses.replace(KS200, name="KS200_disturbed", seed=914, mu=0.02)
+# Coarse-grid training tier of the JAX package: Lx=22 on 64 points.
+KS22_64 = dataclasses.replace(KS22, name="KS22_64", nx=64, sensor_step=8)
+
+PRESETS = {c.name: c for c in (KS22, KS200, KS500, KS200_DISTURBED, KS22_64)}
+
+
+def ks_standard_y0(nx: int) -> np.ndarray:
+    """y0_1D_standard: a 0.5-amplitude block over grid cells 4..44
+    (KSSetup.jl:53)."""
+    return np.asarray([0.5 if 4 <= i <= 44 else 0.0 for i in range(1, nx + 1)], np.float32)
+
+
+def ks_random_init(cfg: KSConfig, device: str = "cuda"):
+    """`generate_random_init` (KSSetup.jl:288-298): 8 random sines with unit-
+    normalized coefficients, rescaled to ||y0|| = 30. Returns
+    `init(generator, n) -> (n, nx)`; the coefficients are drawn on the CPU
+    from the given torch.Generator."""
+    dx = cfg.lx / cfg.nx
+    x = torch.arange(1, cfg.nx + 1, dtype=torch.float32) * dx
+    n_sin = 8
+    harmonics = torch.stack([torch.sin(i * x / (2.0 * np.pi)) for i in range(1, n_sin + 1)])
+    harmonics = harmonics.to(device)
+
+    def init(generator: torch.Generator, n: int) -> torch.Tensor:
+        a = torch.rand((n, n_sin), generator=generator, dtype=torch.float32) * 2.0 - 1.0
+        a = (a / torch.linalg.norm(a, dim=-1, keepdim=True)).to(device)
+        y0 = a @ harmonics
+        return y0 * 30.0 / torch.linalg.norm(y0, dim=-1, keepdim=True)
+
+    return init
+
+
+def build_ks(cfg: KSConfig = KS22, device: str = "cuda") -> Setup:
+    """Assemble the distributed-agent KS setup (KSSetup.jl:249-300) on `device`."""
+    if cfg.spectral_featurize and not cfg.spectral_carry:
+        raise ValueError("spectral_featurize requires spectral_carry")
+    if cfg.spectral_carry and cfg.stepper != "etdrk4":
+        raise ValueError("spectral_carry requires stepper='etdrk4'")
+    if cfg.stepper != "cnab2" or cfg.spectral_carry or cfg.spectral_featurize:
+        raise NotImplementedError(
+            "the port runs stepper='cnab2' only; ETDRK4 and the spectral-carry/"
+            "featurize tiers are ROADMAP.md queue 1 item 3 (KS solvers) and item 6")
+    if cfg.fft_mode not in ("auto", "native", "matmul") or cfg.nl_fft_mode is not None:
+        raise NotImplementedError(
+            "reduced-precision transform tiers are ROADMAP.md queue 1 item 16")
+    solver = KSSolver(nx=cfg.nx, lx=cfg.lx, dt=cfg.dt, oversampling=cfg.oversampling,
+                      mu=cfg.mu, device=device)
+    sensors = gaussian_kernels_1d(cfg.sensor_positions, cfg.nx, cfg.lx, cfg.sigma_sensors,
+                                  norm_mode=1)
+    actuators = gaussian_kernels_1d(cfg.sensor_positions, cfg.nx, cfg.lx, cfg.sigma_actuators,
+                                    norm_mode=2)[cfg.actuators_to_sensors]
+    sensor_matrix = torch.as_tensor(sensors, dtype=torch.float32, device=device)
+    actuator_matrix = torch.as_tensor(actuators, dtype=torch.float32, device=device)
+    a2s = torch.as_tensor(cfg.actuators_to_sensors, device=device)
+
+    featurizer = Conv1DFeaturizer(
+        sensor_matrix=sensor_matrix,
+        actuators_to_sensors=a2s,
+        scale=1.0 / cfg.max_value,
+        window_size=cfg.window_size,
+        temporal_steps=cfg.temporal_steps,
+        memory_size=cfg.memory_size,
+    )
+    reward_sel = sensor_matrix[a2s]  # sensor kernels at actuator sites
+
+    def reward_fn(y, action, delta_action):
+        """KSSetup.jl:162-184, per env: (B, nx) -> (B, n_actuators)."""
+        dots = ((y * 6.0) @ reward_sel.T).abs() ** 1.3 / (cfg.max_value * 3.0)
+        return (
+            -dots.abs()
+            - cfg.action_punish * action[:, 0] ** 2
+            - cfg.delta_action_punish * delta_action[:, 0] ** 2
+        )
+
+    def prepare_action(action):
+        """KSSetup.jl:231-245: forcing = sum_i agent_power * a_i * g_i."""
+        return cfg.agent_power * (action[:, 0] @ actuator_matrix)
+
+    env = PDEEnv(
+        step_fn=solver.step,
+        featurize=featurizer,
+        prepare_action=prepare_action,
+        reward_fn=reward_fn,
+        y0=torch.as_tensor(ks_standard_y0(cfg.nx), device=device),
+        action_shape=(1 + cfg.memory_size, cfg.n_actuators),
+        n_rewards=cfg.n_actuators,
+        te=cfg.te,
+        t0=cfg.t0,
+        dt=cfg.dt,
+        max_value=cfg.max_value,
+        check_max_value=cfg.check_max_value,
+    )
+
+    agent = DDPGAgent(DDPGConfig(
+        ns=featurizer.obs_dim,
+        na_rows=1 + cfg.memory_size,
+        n_actuators=cfg.n_actuators,
+        gamma=cfg.gamma,
+        polyak=cfg.polyak,
+        batch_size=cfg.batch_size,
+        start_steps=cfg.start_steps,
+        update_after=cfg.update_after,
+        update_freq=cfg.update_freq,
+        update_loops=cfg.update_loops,
+        act_limit=cfg.act_limit,
+        act_noise=cfg.act_noise,
+        memory_size=cfg.memory_size,
+        nna_scale=cfg.nna_scale,
+        nna_scale_critic=cfg.nna_scale_critic,
+        drop_middle_layer=cfg.drop_middle_layer,
+        learning_rate=cfg.learning_rate,
+        learning_rate_critic=cfg.learning_rate_critic,
+        capacity=cfg.capacity,
+    ))
+
+    return Setup(
+        name=cfg.name,
+        env=env,
+        agent=agent,
+        seed=cfg.seed,
+        random_init=ks_random_init(cfg, device),
+        loops=cfg.loops,
+        no_steps=cfg.no_steps,
+        noise_decay=cfg.noise_decay,
+        min_best_episode=cfg.min_best_episode,
+    )

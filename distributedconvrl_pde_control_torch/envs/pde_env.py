@@ -1,0 +1,127 @@
+"""Batched PDE-control environment.
+
+Counterpart of ``distributedconvrl_pde_control_tpu/envs/pde_env.py`` on the
+standard solver path (the JAX package's spectral-carry tiers are not ported
+yet). Where the JAX env is one env under `vmap`, here every EnvState field
+has the env batch as its leading dimension:
+
+  * `PDEEnv.reset` reproduces RLBase.reset! (PDEenv.jl:183-193) for a batch
+    of initial fields y0 (B, nx), or a batch of one from the default y0;
+  * `PDEEnv.step` reproduces the step operator (PDEenv.jl:195-241):
+    delta_action, prepare_action, solver step, reward, featurize, time
+    advance, and termination at te, on blow-up (`check_max_value` in
+    {"y", "reward", "none"}) or on a non-finite field or reward.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class EnvState:
+    """Batched snapshot of the environment (PDEenv.jl:26-62)."""
+
+    y: torch.Tensor  # (B, nx) PDE field
+    obs: torch.Tensor  # (B, obs_dim, n_actuators)
+    action: torch.Tensor  # (B, action_rows, n_actuators) last action
+    delta_action: torch.Tensor
+    forcing: torch.Tensor  # (B, nx) env.p, the prepared forcing
+    steps: torch.Tensor  # (B,) int32
+    time: torch.Tensor  # (B,) float32
+    reward: torch.Tensor  # (B, n_rewards)
+    done: torch.Tensor  # (B,) bool
+
+
+def where_state(mask: torch.Tensor, new: EnvState, old: EnvState) -> EnvState:
+    """Per env, `new` where mask (B,) is true and `old` elsewhere."""
+    def pick(n, o):
+        return torch.where(mask.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
+
+    return EnvState(**{f.name: pick(getattr(new, f.name), getattr(old, f.name))
+                       for f in dataclasses.fields(EnvState)})
+
+
+@dataclasses.dataclass(frozen=True)
+class PDEEnv:
+    """A batch of PDE control environments: dynamics + featurization + reward.
+
+    All callables act on the whole batch:
+      step_fn(y, forcing) -> y'                (the solver step, kernel K1)
+      featurize(y, prev_obs, action) -> obs    (None args at reset)
+      prepare_action(action) -> forcing        (action smearing)
+      reward_fn(y, action, delta_action) -> rewards (B, n_rewards)
+    """
+
+    step_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    featurize: Callable[..., torch.Tensor]
+    prepare_action: Callable[[torch.Tensor], torch.Tensor]
+    reward_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+    y0: torch.Tensor  # (nx,) default initial field
+    action_shape: tuple  # (action_rows, n_actuators)
+    n_rewards: int
+    te: float = 2.0
+    t0: float = 0.0
+    dt: float = 0.005
+    max_value: float = 20.0
+    check_max_value: str = "y"  # "y" | "reward" | "none" (PDEenv.jl:226-240)
+
+    @property
+    def max_steps(self) -> int:
+        """Episode length cap: steps until time >= te."""
+        return int(math.ceil((self.te - self.t0) / self.dt - 1e-9))
+
+    def reset(self, y0: Optional[torch.Tensor] = None) -> EnvState:
+        """Reset a batch from initial fields y0 (B, nx), or a batch of one
+        from the env's default y0."""
+        y = (self.y0[None] if y0 is None else y0).to(torch.float32)
+        b, dev = y.shape[0], y.device
+        action0 = torch.zeros((b,) + tuple(self.action_shape), dtype=torch.float32, device=dev)
+        return EnvState(
+            y=y,
+            obs=self.featurize(y, None, None),
+            action=action0,
+            delta_action=torch.zeros_like(action0),
+            forcing=self.prepare_action(action0),
+            steps=torch.zeros(b, dtype=torch.int32, device=dev),
+            time=torch.full((b,), self.t0, dtype=torch.float32, device=dev),
+            reward=torch.zeros((b, self.n_rewards), dtype=torch.float32, device=dev),
+            done=torch.zeros(b, dtype=torch.bool, device=dev),
+        )
+
+    def step(self, state: EnvState, action: torch.Tensor) -> EnvState:
+        """Step operator (PDEenv.jl:195-241) on the whole batch."""
+        delta_action = action - state.action
+        forcing = self.prepare_action(action)
+        y = self.step_fn(state.y, forcing)
+        reward = self.reward_fn(y, action, delta_action)
+        obs = self.featurize(y, state.obs, action)
+        steps = state.steps + 1
+        # time = t0 + steps*dt (not accumulated) so the te comparison is
+        # exact under f32 - 50 additions of f32(0.1) drift below 5.0
+        time = (torch.tensor(self.t0, dtype=torch.float32)
+                + steps.to(torch.float32) * torch.tensor(self.dt, dtype=torch.float32))
+        done = time >= self.te * (1.0 - 1e-6)
+        if self.check_max_value == "y":
+            done = done | (y.abs().amax(dim=-1) > self.max_value)
+        elif self.check_max_value == "reward":
+            done = done | (reward.abs().amax(dim=-1) > self.max_value)
+        # non-finite fields always terminate (the reference reaches the same
+        # outcome through max() comparisons)
+        finite = torch.isfinite(y.abs()).all(dim=-1) & torch.isfinite(reward).all(dim=-1)
+        done = done | ~finite
+        return EnvState(
+            y=y,
+            obs=obs,
+            action=action,
+            delta_action=delta_action,
+            forcing=forcing,
+            steps=steps,
+            time=time,
+            reward=reward,
+            done=done,
+        )

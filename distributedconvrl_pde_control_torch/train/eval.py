@@ -1,0 +1,67 @@
+"""Evaluation rollouts: the plot_heat protocol.
+
+Counterpart of ``distributedconvrl_pde_control_tpu/train/eval.py``
+(``rollout``, ``actor_policy``): a policy rollout with horizon override and
+delayed actuation (plotting.jl:4-73: te/dt overridden, zero action until
+p_t_action, best-actor swap-in). Traces come back as host arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from distributedconvrl_pde_control_torch.envs.pde_env import PDEEnv, where_state
+
+
+@torch.no_grad()
+def rollout(env: PDEEnv, policy_fn: Callable, y0: Optional[torch.Tensor] = None,
+            te: Optional[float] = None, t_action: float = 0.0) -> dict:
+    """Roll `policy_fn(obs) -> action` on one env of `env`.
+
+    `obs` is the env's (1, obs_dim, n_actuators) batch of one and the action
+    (1, action_rows, n_actuators). te overrides the horizon (the
+    reference's p_te); actions are zero until time >= t_action (the
+    reference's p_t_action). An env that is done stays frozen: later steps
+    repeat its last state and record active=False. Returns a dict of traces
+    y, action, forcing, reward, active, plus steps, completed and time.
+    """
+    if te is not None:
+        env = dataclasses.replace(env, te=float(te))
+    n_steps = env.max_steps
+    t_action_steps = int(round(t_action / env.dt))
+    estate = env.reset(None if y0 is None else y0.reshape(1, -1))
+    outs = {k: [] for k in ("y", "action", "forcing", "reward", "active")}
+    for step_idx in range(n_steps):
+        if step_idx < t_action_steps:
+            action = torch.zeros_like(estate.action)
+        else:
+            action = policy_fn(estate.obs)
+        active = ~estate.done
+        estate = where_state(active, env.step(estate, action), estate)
+        for k in ("y", "action", "forcing", "reward"):
+            outs[k].append(getattr(estate, k)[0])
+        outs["active"].append(active[0])
+    traces = {k: torch.stack(v).cpu().numpy() for k, v in outs.items()}
+    traces["steps"] = int(traces["active"].sum())
+    traces["completed"] = bool(estate.time[0] >= env.te * (1 - 1e-6))
+    traces["time"] = env.dt * np.arange(1, n_steps + 1)
+    return traces
+
+
+def actor_policy(agent, actor_params, act_limit: float = 1.0):
+    """Deterministic policy from actor params (eval mode: no noise, no
+    warmup - the plot_heat start_steps=-1 override, plotting.jl:31).
+    Maps observations (B, ns, n_act) to actions (B, na_rows, n_act) with
+    every actuator column of every env as one batch of the shared actor."""
+
+    def policy_fn(obs):
+        b, ns, n_act = obs.shape
+        cols = obs.permute(1, 0, 2).reshape(ns, b * n_act)
+        a = torch.clamp(agent.actor_apply(actor_params, cols), -act_limit, act_limit)
+        return a.reshape(-1, b, n_act).permute(1, 0, 2)
+
+    return policy_fn

@@ -1,0 +1,112 @@
+"""Kernel K1 on the card, the wrappers' refusal to fall back, and the port's
+independence from JAX.
+
+Tests marked `gpu` build K1 with nvcc and compare it with its plain version
+on a CUDA device; they decide inside the test whether there is one and skip
+without it. Run them on a machine with a GPU:
+
+    python -m pytest tests/test_torch_kernels_gpu.py -m gpu
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from distributedconvrl_pde_control_torch.ops.kernels import build, ks_kernel
+from distributedconvrl_pde_control_torch.ops.ks import KSSolver
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nx,os_,mu,batch,atol", [
+    (192, 10, 0.0, 8, 2e-4), (64, 5, 0.02, 4, 1e-5), (192, 5, 0.0, 512, 2e-4),
+    (192, 30, 0.0, 1000, 1e-3), (240, 30, 0.02, 33, 1e-3),
+])
+def test_k1_matches_plain_on_gpu(nx, os_, mu, batch, atol):
+    _need_cuda()
+    rng = np.random.default_rng(nx + batch)
+    y = torch.tensor(rng.standard_normal((batch, nx)), dtype=torch.float32, device="cuda")
+    f = torch.tensor(0.3 * rng.standard_normal((batch, nx)), dtype=torch.float32, device="cuda")
+    solver = KSSolver(nx=nx, lx=22.0, dt=0.1, oversampling=os_, mu=mu, device="cuda")
+    before = ks_kernel.KS_CNAB2.launches
+    got = solver.step(y, f)
+    torch.cuda.synchronize()
+    assert ks_kernel.KS_CNAB2.launches == before + 1
+    want = ks_kernel.ks_cnab2_plain(y, f, solver)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= atol
+
+
+@pytest.mark.gpu
+def test_k1_wrapper_rejects_bad_inputs_on_gpu():
+    _need_cuda()
+    solver = KSSolver(nx=192, lx=22.0, dt=0.1, oversampling=30, device="cuda")
+    ops, tw = solver.kernel_constants
+    y = torch.zeros(4, 192, device="cuda")
+    for bad in (y.double(), y.t().contiguous().t(), y[:, :190].contiguous()):
+        with pytest.raises(ValueError):
+            ks_kernel.KS_CNAB2(bad, y, ops, tw, 30, 0.1)
+
+
+def test_k1_wrapper_never_falls_back():
+    """A tensor off the CUDA device never reaches the plain version through
+    the kernel handle, and a non-CPU, non-CUDA tensor is refused by the
+    step entry point instead of being run some other way."""
+    solver = KSSolver(nx=64, lx=22.0, dt=0.1, oversampling=5, device="cpu")
+    ops, tw = solver.kernel_constants
+    y = torch.zeros(4, 64)
+    before = ks_kernel.KS_CNAB2.launches
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ks_kernel.KS_CNAB2(y, y, ops, tw, 5, 0.1)
+    meta = torch.empty(4, 64, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ks_kernel.ks_cnab2_step(meta, meta, solver)
+    assert ks_kernel.KS_CNAB2.launches == before
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """No compiler, no kernel: the build says so instead of degrading."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build, "_LOADED", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load(ks_kernel.SOURCE)
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    """Every module of the port, and chip_smoke.py, imports without pulling
+    in jax, flax, optax or anything of the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import distributedconvrl_pde_control_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'distributedconvrl_pde_control_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len([n for n in sys.modules if n.startswith(p.__name__)]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20  # every module of the port was imported
+    # chip_smoke imports the port inside main(); none of its imports is JAX
+    modules = [ln.split()[1] for ln in (ROOT / "chip_smoke.py").read_text().splitlines()
+               if ln.strip().startswith(("import ", "from "))]
+    assert "distributedconvrl_pde_control_torch.ops.kernels" in modules
+    assert not [m for m in modules if m.split(".")[0] in
+                ("jax", "jaxlib", "flax", "optax", "distributedconvrl_pde_control_tpu")]
