@@ -6,8 +6,9 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the port's CUDA kernel from the source in the checkout and print
-     ptxas's register/shared-memory lines;
+  2. build the port's CUDA kernels (K1, K2) from the sources in the checkout,
+     one nvcc each, started together, and print ptxas's register/shared-memory
+     lines;
   3. kernel K1 (the fused KS CNAB2 step) against its plain PyTorch version
      on the card, at the three shapes of tests/test_pallas_kernels.py and at
      the two shapes the main path gives it (nx=192, 30 substeps, 1 env for
@@ -22,10 +23,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
   6. K1's time per launch (CUDA events) beside its bound and its plain
      version's time;
   7. the device time of 5 batched env steps by kernel, and the device's
-     idle share, from torch.profiler.
+     idle share, from torch.profiler;
+  8. kernel K2 (the NS advection term with the 2/3-rule mask) against its
+     plain PyTorch version on the card, at the Pallas test's shape (n=32,
+     batch 4), at n=16 and n=128, and at the fluid path's two shapes (n=256,
+     batch 1 and 16) on spectra of real case-4 vortex fields and of white
+     noise;
+  9. the Fluid_16_256 protocol on the card (256x256 grid, 16x16 actuators, 81
+     RK4 substeps per env step, the shipped best actor of
+     artifacts/Fluid_16_256): 1 env for te=2 (100 env steps), trained and
+     no-action; every step must stay active and the trained controller's mean
+     energy must stay below 0.7 of the uncontrolled one;
+ 10. the same evaluation at 16 envs for 5 steps: env-steps/s and peak device
+     memory;
+ 11. the fluid slice on the card against the port on the CPU at a small size
+     (32x32 grid, 4x4 actuators, 2 envs, 6 steps, actuation from step 2), on
+     the fixed-step and the adaptive stepper, and 10 steps of the adaptive
+     Fluid_8 preset at its own 128x128 grid;
+ 12. K2's time per call (CUDA events) at n=256, batch 1 and 16, beside its
+     bound and its plain version's time;
+ 13. the device time of one fluid env step by kernel group (torch.profiler).
 
-K1's launch count is set to 0 just before phases 4-5 (the main path) and read
-just after them. The second-to-last line is the kernels JSON line and the
+K1's launch count is set to 0 just before phases 4-5 (the KS path) and read
+just after them; K2's is set to 0 just before phases 9-10 (the fluid path) and
+read just after them. The second-to-last line is the kernels JSON line and the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -52,6 +73,30 @@ SHAPES = [  # (label, nx, oversampling, mu, batch, atol)
     ("nx192_os30_b16384", 192, 30, 0.0, N_ENVS, 1e-3),
 ]
 MAIN_PATH_SHAPES = ("nx192_os30_b1", "nx192_os30_b16384")
+# K2 against its plain version: (label, n, batch, input spectra, constants).
+# "normal" spectra are fft2 of white noise, which puts comparable energy in
+# every kept mode (the band edge and the Nyquist row and column included);
+# "case4" spectra are those of real vortex fields, what the solver feeds K2.
+# "fftfreq" constants are the Pallas kernel's (negative Nyquist wavenumber),
+# "solver" constants the fluid path's (make_sharded_ops). The tolerance is 1e-4
+# of the largest expected value at every shape, the Pallas kernel's own
+# (tests/test_pallas_kernels.py); both sides are float32 FFTs of length <= 256
+# whose rounding is ~1e-6 of that scale, so it leaves ~100x room.
+K2_SHAPES = [
+    ("n32_b4", 32, 4, "normal", "fftfreq"),
+    ("n16_b4", 16, 4, "normal", "fftfreq"),
+    ("n128_b8", 128, 8, "normal", "fftfreq"),
+    ("n128_b1", 128, 1, "case4", "solver"),  # the adaptive Fluid_8 rollout of phase 11
+    ("n256_b1", 256, 1, "case4", "solver"),
+    ("n256_b16", 256, 16, "case4", "solver"),
+    ("n256_b1_noise", 256, 1, "normal", "solver"),
+    ("n256_b16_noise", 256, 16, "normal", "solver"),
+]
+K2_MAIN_PATH_SHAPES = ("n256_b1", "n256_b16", "n256_b1_noise", "n256_b16_noise")
+K2_TIMED_SHAPES = ("n256_b1", "n256_b16")
+K2_RTOL = 1e-4
+FLUID_P_TE = 2.0  # 100 env steps of dt = 0.02
+FLUID_BATCH, FLUID_BATCH_STEPS = 16, 5
 
 
 def check(cond: bool, msg: str):
@@ -83,9 +128,21 @@ def main() -> int:
         return 1
     import numpy as np
 
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+
+    from distributedconvrl_pde_control_torch.configs.fluid import FLUID_16_256
     from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
     from distributedconvrl_pde_control_torch.ops.kernels import build, ks_kernel
+    from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
     from distributedconvrl_pde_control_torch.ops.ks import KSSolver
+    from distributedconvrl_pde_control_torch.ops.navier_stokes import initial_condition
+    from distributedconvrl_pde_control_torch.parallel.multichip import (
+        ShardedFluidTrainer,
+        ShardedTrainConfig,
+        load_actor_for_eval,
+    )
+    from distributedconvrl_pde_control_torch.parallel.ns_sharded import make_sharded_ops
     from distributedconvrl_pde_control_torch.train.batched import BatchedTrainer, BatchedTrainerConfig
     from distributedconvrl_pde_control_torch.train.checkpoint import actor_from_jax, load_best_actor
     from distributedconvrl_pde_control_torch.train.eval import actor_policy, rollout
@@ -101,11 +158,14 @@ def main() -> int:
 
     print("== 2. build")
     t0 = time.perf_counter()
-    log = build.build(ks_kernel.SOURCE)
-    print(f"built {ks_kernel.SOURCE} in {time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        if "ptxas" in line:
-            print(f"{ks_kernel.SOURCE}: {line.strip()}")
+    sources = (ks_kernel.SOURCE, k2.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
+        logs = list(pool.map(build.build, sources))
+    print(f"built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
+    for source, log in zip(sources, logs):
+        for line in log.splitlines():
+            if "ptxas" in line:
+                print(f"{source}: {line.strip()}")
     rows, threads = ks_kernel.launch_shape(192, N_ENVS)
     print(f"K1 at 192 points x {N_ENVS} rows: {rows} rows and {threads} threads per CTA, "
           f"{ks_kernel.smem_bytes(192, rows)} B of dynamic shared memory")
@@ -225,13 +285,184 @@ def main() -> int:
                       "kernels": len(kern), "launches": sum(e.count for e in kern),
                       "top": [[e.key[:60], e.count, e.self_device_time_total] for e in top]}))
 
+    print("== 8. K2 against its plain version")
+    fluid_ops = make_sharded_ops(256, 256, device=dev)  # the fluid path's constants
+    k2_inputs, k2_errs, k2_rel_errs = {}, {}, {}
+    for label, n, batch, kind, consts_kind in K2_SHAPES:
+        if kind == "normal":  # the Pallas test's inputs
+            rng = np.random.default_rng(0)
+            w = torch.fft.fft2(torch.tensor(rng.standard_normal((batch, n, n)), dtype=torch.float32,
+                                            device=dev))
+        else:
+            rng = np.random.default_rng(76)
+            w = torch.tensor(np.stack([initial_condition(4, n, n, 1.0, 1.0, rng)
+                                       for _ in range(batch)]).astype(np.complex64), device=dev)
+        consts = (k2.fftfreq_constants(n, device=dev) if consts_kind == "fftfreq" else
+                  fluid_ops if n == 256 else make_sharded_ops(n, n, device=dev))
+        k2_inputs[label] = w
+        got = k2.ns_advection(w, consts)
+        want = k2.ns_advection_plain(w, consts)
+        torch.cuda.synchronize()
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        k2_errs[label], k2_rel_errs[label] = err, err / scale
+        print(f"{label}: max_abs_err {err:.3e} = {err / scale:.2e} of max|want| {scale:.4e} "
+              f"(rtol {K2_RTOL:.0e} of it)")
+        check(bool(torch.isfinite(torch.view_as_real(got)).all()) and scale > 0
+              and err <= K2_RTOL * scale, f"K2 disagrees at {label}")
+
+    fluid_dir = str(ROOT / "artifacts" / "Fluid_16_256")
+    n_steps = int(round(FLUID_P_TE / FLUID_16_256.dt))
+    k2.NS_ADVECTION.launches = 0  # the fluid path starts here
+
+    print(f"== 9. Fluid_16_256 protocol (1 env, te={FLUID_P_TE}: {n_steps} env steps of "
+          f"{FLUID_16_256.oversampling} RK4 substeps)")
+    ftrainer = ShardedFluidTrainer(FLUID_16_256, (1, 1), ShardedTrainConfig(n_envs=1), device=dev)
+    factor = load_actor_for_eval(fluid_dir, ftrainer)
+    fw0 = ftrainer.eval_w0()
+    energies, fluid_secs = {}, {}
+    for label, t_act in (("trained", 0), ("no action", n_steps)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs = ftrainer.make_eval_fn(n_steps, t_action_steps=t_act)(factor, fw0)
+        torch.cuda.synchronize()
+        fluid_secs[label] = time.perf_counter() - t0
+        check(recs["energy"].shape == (n_steps, 1) and bool(recs["active"].all()),
+              f"fluid rollout ({label}) did not keep every step active")
+        check(bool(np.isfinite(recs["energy"]).all() and np.isfinite(recs["reward_mean"]).all()),
+              f"fluid rollout ({label}) is not finite")
+        energies[label] = float(recs["energy"][recs["active"]].mean())
+    launches_protocol = k2.NS_ADVECTION.launches
+    print(json.dumps({"row": "Fluid_16_256 te=2 on the 2/3-rule solver", "mesh": "1x1", "grid": 256,
+                      **energies, "ratio": energies["trained"] / energies["no action"],
+                      "p_te": FLUID_P_TE, "steps": n_steps, "seconds": fluid_secs,
+                      "K2_calls": launches_protocol}))
+    check(energies["trained"] < 0.7 * energies["no action"],
+          f"trained energy {energies['trained']} not below 0.7 of no action {energies['no action']}")
+
+    print(f"== 10. batched width: {FLUID_BATCH} envs, {FLUID_BATCH_STEPS} steps")
+    btrainer = ShardedFluidTrainer(FLUID_16_256, (1, 1), ShardedTrainConfig(n_envs=FLUID_BATCH),
+                                   device=dev)
+    bw0 = btrainer.eval_w0()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    brecs = btrainer.make_eval_fn(FLUID_BATCH_STEPS)(factor, bw0)
+    torch.cuda.synchronize()
+    bsecs = time.perf_counter() - t0
+    fluid_peak = torch.cuda.max_memory_allocated()
+    k2_launches = k2.NS_ADVECTION.launches  # the fluid path ends here
+    fluid_rate = FLUID_BATCH * FLUID_BATCH_STEPS / bsecs
+    print(json.dumps({"slice": "Fluid_16_256 batched eval", "n_envs": FLUID_BATCH,
+                      "steps": FLUID_BATCH_STEPS, "seconds": bsecs, "env_steps_per_s": fluid_rate,
+                      "env_steps_per_s_1env": n_steps / fluid_secs["trained"],
+                      "peak_mem_bytes": fluid_peak, "K2_calls": k2_launches - launches_protocol,
+                      "card": card}))
+    check(brecs["energy"].shape == (FLUID_BATCH_STEPS, FLUID_BATCH) and bool(brecs["active"].all())
+          and bool(np.isfinite(brecs["energy"]).all()), "batched fluid eval malformed")
+    # every env starts from the same field: its records agree with the 1-env rollout's
+    check(bool(np.allclose(brecs["energy"], brecs["energy"][:, :1], rtol=1e-5)),
+          "batched fluid envs from one field disagree with each other")
+    check(launches_protocol > 0 and k2_launches - launches_protocol > 0,
+          "K2 was not launched on the fluid path")
+
+    print("== 11. the fluid slice on the card against the CPU (32x32, 2 envs, 6 steps)")
+    rng = np.random.default_rng(5)
+    small_w0 = torch.tensor(np.stack([
+        np.fft.ifft2(initial_condition(4, 32, 32, 1.0, 1.0, rng)).real for _ in range(2)
+    ]).astype(np.float32))
+    for stepper, over in (("fixed-step rk4", {}), ("adaptive rk4", {"adaptive": True})):
+        small = dataclasses.replace(FLUID_16_256, nx=32, sensors_per_axis=4, **over)
+        small_recs = []
+        for d in (dev, "cpu"):
+            tr = ShardedFluidTrainer(small, (1, 1), ShardedTrainConfig(n_envs=2), device=d)
+            small_recs.append(tr.make_eval_fn(6, t_action_steps=2)(load_actor_for_eval(fluid_dir, tr),
+                                                                   small_w0))
+        check(bool((small_recs[0]["active"] == small_recs[1]["active"]).all()
+                   and small_recs[1]["active"].all()),
+              f"card and CPU fluid evals differ in active steps ({stepper})")
+        for key in ("energy", "reward_mean"):
+            rel = float(np.abs(small_recs[0][key] / small_recs[1][key] - 1.0).max())
+            print(f"{stepper}, {key}: max rel difference card vs CPU {rel:.2e} (rtol 1e-4)")
+            check(rel <= 1e-4, f"card and CPU fluid evals disagree ({stepper}, {key})")
+    # an adaptive preset at its own width: Fluid_8 (128x128, 8x8 actuators, do_step2), 10 steps
+    from distributedconvrl_pde_control_torch.configs.fluid import FLUID_8
+
+    atrainer = ShardedFluidTrainer(FLUID_8, (1, 1), ShardedTrainConfig(n_envs=1), device=dev)
+    aactor = load_actor_for_eval(str(ROOT / "artifacts" / "Fluid_8"), atrainer)
+    before = k2.NS_ADVECTION.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arecs = atrainer.make_eval_fn(10)(aactor, atrainer.eval_w0())
+    torch.cuda.synchronize()
+    print(json.dumps({"row": "Fluid_8 (adaptive do_step2, 128x128), 10 steps", "energy_first":
+                      float(arecs["energy"][0, 0]), "energy_last": float(arecs["energy"][-1, 0]),
+                      "seconds": time.perf_counter() - t0,
+                      "K2_calls": k2.NS_ADVECTION.launches - before}))
+    check(bool(arecs["active"].all() and np.isfinite(arecs["energy"]).all()),
+          "adaptive fluid rollout malformed")
+
+    print("== 12. K2 time at the fluid path's shapes")
+    k2_times = {}
+    for label in K2_TIMED_SHAPES:
+        w = k2_inputs[label]
+        batch = w.shape[0]
+        ms = cuda_ms(lambda: k2.ns_advection(w, fluid_ops), 200)
+        pms = cuda_ms(lambda: k2.ns_advection_plain(w, fluid_ops), 50)
+        b_ms = 1e3 * k2.min_bytes(256, batch) / PEAK_BYTES_PER_S
+        o_ms = 1e3 * k2.flops(256, batch) / PEAK_F32_FLOPS
+        k2_times[label] = {"ms": ms, "plain_ms": pms, "bound_ms": max(b_ms, o_ms),
+                           "bound_by": "bytes" if b_ms > o_ms else "operations"}
+        print(f"K2 {label}: {ms:.4f} ms/call (3 launches), plain {pms:.4f} ms, bound "
+              f"{max(b_ms, o_ms):.6f} ms (bytes {b_ms:.6f} ms for {k2.min_bytes(256, batch)} B, "
+              f"operations {o_ms:.6f} ms for {k2.flops(256, batch):.0f} flop); {card}")
+    step_ms_1 = 1e3 * fluid_secs["trained"] / n_steps
+    calls_per_step = 4 * FLUID_16_256.oversampling
+    print(f"at 1 env an env step takes {step_ms_1:.3f} ms on the host clock and makes "
+          f"{calls_per_step} K2 calls: {calls_per_step * k2_times['n256_b1']['ms']:.3f} ms of K2 "
+          f"device time ({100 * calls_per_step * k2_times['n256_b1']['ms'] / step_ms_1:.1f}%); "
+          f"the bound of one call at batch 1 is below the cost of a launch")
+
+    print("== 13. device time of one fluid env step by kernel group (torch.profiler)")
+    one_step = ftrainer.make_eval_fn(1)
+    one_step(factor, fw0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step(factor, fw0)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    groups = {}
+    for e in kern:
+        name = e.key
+        group = ("K2" if "ns_adv" in name else
+                 "fft (boundary transforms)" if "fft" in name.lower() else
+                 "matmul (sensors, forcing, actor)" if "gemm" in name.lower() or "gemv" in name.lower()
+                 else "elementwise and other")
+        g = groups.setdefault(group, [0, 0.0])
+        g[0] += e.count
+        g[1] += e.self_device_time_total
+    busy_us = sum(g[1] for g in groups.values())
+    print(json.dumps({"profile": "Fluid_16_256, 1 env, 1 env step, under the profiler",
+                      "wall_us": wall_us, "device_busy_us": busy_us if kern else "not measured",
+                      "idle_share": 1.0 - busy_us / wall_us if kern else "not measured",
+                      "launches": sum(g[0] for g in groups.values()),
+                      "groups": {k: {"launches": v[0], "device_us": v[1]} for k, v in groups.items()}}))
+
     print(json.dumps({"kernels": [{
         "name": "ks_cnab2", "route": "cuda",
         "source": "distributedconvrl_pde_control_torch/csrc/" + ks_kernel.SOURCE,
         "replaces": ks_kernel.REPLACES, "launches": launches,
         "max_abs_err": max(errs[k] for k in MAIN_PATH_SHAPES), "ms": k_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-        "library_ms": None, "status": "ok"}]}))
+        "library_ms": None, "status": "ok"}, {
+        "name": "ns_advection", "route": "cuda",
+        "source": "distributedconvrl_pde_control_torch/csrc/" + k2.SOURCE,
+        "replaces": k2.REPLACES, "launches": k2_launches,
+        "max_abs_err": max(k2_errs[k] for k in K2_MAIN_PATH_SHAPES),
+        "max_err_of_scale": max(k2_rel_errs[k] for k in K2_MAIN_PATH_SHAPES),
+        **k2_times["n256_b1"], "library_ms": None, "status": "ok",
+        "shape": "n256_b1", "at_n256_b16": k2_times["n256_b16"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

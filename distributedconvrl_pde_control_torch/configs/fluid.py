@@ -1,0 +1,199 @@
+"""2D Navier-Stokes vorticity-control presets (scripts/Fluid/*).
+
+Counterpart of ``distributedconvrl_pde_control_tpu/configs/fluid.py``: the
+constants of the Fluid_8/16/32 scripts and FluidSetup.jl, the sensor and
+actuator kernels, the featurizer and the agent configuration of a preset.
+The env state is the REAL vorticity field, as in the reference package. The
+presets run on the 2/3-rule solver (``parallel/multichip.py``); the
+single-device env constructor `build_fluid` is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from distributedconvrl_pde_control_torch.agents.ddpg import DDPGConfig
+from distributedconvrl_pde_control_torch.envs.features import Conv2DFeaturizer, taylor_kernels_2d
+
+
+@dataclasses.dataclass(frozen=True)
+class FluidConfig:
+    """Constants of a fluid experiment (Fluid_8/16/32 scripts + FluidSetup.jl).
+    Field for field the JAX package's FluidConfig, so presets and config
+    overrides carry over."""
+
+    name: str = "Fluid_8"
+    seed: int = 531
+    sensors_per_axis: int = 8
+    variance: float = 0.08
+    evaluation: bool = False  # eval: nx=256, seed=76 (FluidSetup.jl:33-36)
+    nx: int = 128
+    lx: float = 1.0
+    nu: float = 5e-5
+    dealias: bool = True
+    # transform tier of the JAX package; the port computes every transform
+    # in float32 ("auto" only; the reduced-precision tiers are not ported)
+    fft_mode: str = "auto"
+    nl_fft_mode: str | None = None
+    adaptive: bool = False  # do_step2 semantics: adaptive RK4, tol 1e0
+    adaptive_tol: float = 1.0  # FluidSetup.jl:179
+    # fixed-step scheme when adaptive=False: "rk4" = the reference's do_step
+    # (FluidSetup.jl:163-172, oversampling = 16*nx*dt substeps); "ifrk4" =
+    # the integrating-factor tier at `fast_oversampling` substeps
+    stepper: str = "rk4"
+    # substeps for the ifrk4 tier; None = oversampling/4
+    fast_oversampling: int | None = None
+    # env (FluidSetup.jl:44-57)
+    te: float = 6.0
+    t0: float = 0.0
+    dt: float = 0.02
+    max_value: float = 3.0
+    check_max_value: str = "reward"
+    # featurization (FluidSetup.jl:65-77, 188-261)
+    window_size: int = 3
+    temporal_steps: int = 1
+    memory_size: int = 0
+    agent_power: float = 70.0
+    action_punish: float = 0.002
+    delta_action_punish: float = 0.002
+    sensor_scale: float = 1.0 / 70.0
+    reward_norm: float = 320.0
+    reward_pow: float = 1.1
+    # extensions of the JAX package's single-device env (not read by the
+    # 2/3-rule path; kept so config overrides carry over)
+    energy_reward_weight: float = 0.0
+    abs_sensor_channel: bool = False
+    # agent (FluidSetup.jl:79-95)
+    nna_scale: float = 1.8
+    nna_scale_critic: float = 17.0
+    drop_middle_layer: bool = True
+    gamma: float = 0.99
+    polyak: float = 0.995
+    batch_size: int = 3
+    start_steps: int = 10
+    update_after: int = 10
+    update_freq: int = 1
+    update_loops: int = 20
+    learning_rate: float = 5e-4
+    learning_rate_critic: float = 1e-3
+    act_limit: float = 1.0
+    act_noise: float = 1.2
+    capacity: int = 1_800_000
+    # training protocol (FluidSetup.jl:541-556, Fluid_8.jl:27)
+    loops: int = 10
+    no_steps: int = 580
+    noise_decay: float = 0.6
+    min_best_episode: int = 1
+
+    @property
+    def grid_nx(self) -> int:
+        return 256 if self.evaluation else self.nx
+
+    @property
+    def grid_seed(self) -> int:
+        return 76 if self.evaluation else self.seed
+
+    @property
+    def oversampling(self) -> int:
+        # oversampling = floor(16 * nx * dt) (FluidSetup.jl:47)
+        return int(np.floor(16 * self.grid_nx * self.dt))
+
+    @property
+    def fast_oversampling_eff(self) -> int:
+        if self.fast_oversampling is not None:
+            return self.fast_oversampling
+        return max(1, int(np.ceil(self.oversampling / 4)))
+
+    @property
+    def positions(self):
+        """Sensor/actuator lattice (FluidSetup.jl:61-63), 1-based (i, j)."""
+        n = self.grid_nx
+        step = n // self.sensors_per_axis
+        return [(i, j) for i in range(1, n + 1, step) for j in range(1, n + 1, step)]
+
+
+# adaptive=True is the recipe of the shipped single-grid presets (the
+# reference installs do_step2, FluidSetup.jl:333); the 256^2 presets run the
+# fixed-step do_step (FluidSetup.jl:163-172).
+FLUID_8 = FluidConfig(name="Fluid_8", seed=531, sensors_per_axis=8, variance=0.08,
+                      adaptive=True)
+FLUID_16 = FluidConfig(name="Fluid_16", seed=436, sensors_per_axis=16, variance=0.04,
+                       adaptive=True)
+FLUID_32 = FluidConfig(name="Fluid_32", seed=886, sensors_per_axis=32, variance=0.022,
+                       adaptive=True)
+# The scale-out presets: trained at the reference's evaluation resolution.
+FLUID_8_256 = FluidConfig(name="Fluid_8_256", seed=531, sensors_per_axis=8,
+                          variance=0.08, nx=256)
+FLUID_16_256 = FluidConfig(name="Fluid_16_256", seed=436, sensors_per_axis=16,
+                           variance=0.04, nx=256)
+
+PRESETS = {c.name: c for c in (FLUID_8, FLUID_16, FLUID_32, FLUID_8_256, FLUID_16_256)}
+
+
+def fluid_error_detection(y: np.ndarray) -> bool:
+    """Corrupted-field detector: neighbor jumps > 10 in real space
+    (FluidSetup.jl:263-273)."""
+    return bool(
+        np.abs(np.roll(y, 1, 0) - y).max() > 10.0 or np.abs(np.roll(y, 1, 1) - y).max() > 10.0
+    )
+
+
+def fluid_kernels(cfg: FluidConfig):
+    """Sensor/actuator Taylor-vortex kernels for a preset, shape
+    (n_act, n, n) each (FluidSetup.jl:139-161)."""
+    n = cfg.grid_nx
+    positions = cfg.positions
+    sensors = taylor_kernels_2d(positions, n, n, cfg.lx, cfg.lx, cfg.variance, norm_mode=1)
+    actuators = taylor_kernels_2d(positions, n, n, cfg.lx, cfg.lx, cfg.variance, norm_mode=2)
+    return sensors, actuators
+
+
+def fluid_featurizer(cfg: FluidConfig, sensor_matrix: torch.Tensor) -> Conv2DFeaturizer:
+    """The preset's featurizer (FluidSetup.jl:204-245), incl. the
+    actuators_to_sensors mapping and temporal/memory rows, on the device of
+    `sensor_matrix` (n_act, n*n)."""
+    return Conv2DFeaturizer(
+        sensor_matrix=sensor_matrix,
+        actuators_to_sensors=torch.arange(cfg.sensors_per_axis**2, device=sensor_matrix.device),
+        sensors_per_axis=cfg.sensors_per_axis,
+        scale=cfg.sensor_scale,
+        window_size=cfg.window_size,
+        temporal_steps=cfg.temporal_steps,
+        memory_size=cfg.memory_size,
+    )
+
+
+def fluid_agent_config(cfg: FluidConfig, obs_dim: int, capacity: int | None = None) -> DDPGConfig:
+    """The preset's DDPG hyperparameters (FluidSetup.jl:79-95)."""
+    return DDPGConfig(
+        ns=obs_dim,
+        na_rows=1 + cfg.memory_size,
+        n_actuators=cfg.sensors_per_axis**2,
+        gamma=cfg.gamma,
+        polyak=cfg.polyak,
+        batch_size=cfg.batch_size,
+        start_steps=cfg.start_steps,
+        update_after=cfg.update_after,
+        update_freq=cfg.update_freq,
+        update_loops=cfg.update_loops,
+        act_limit=cfg.act_limit,
+        act_noise=cfg.act_noise,
+        memory_size=cfg.memory_size,
+        nna_scale=cfg.nna_scale,
+        nna_scale_critic=cfg.nna_scale_critic,
+        drop_middle_layer=cfg.drop_middle_layer,
+        learning_rate=cfg.learning_rate,
+        learning_rate_critic=cfg.learning_rate_critic,
+        capacity=capacity if capacity is not None else cfg.capacity,
+    )
+
+
+def build_fluid(cfg: FluidConfig = FLUID_8, device: str = "cuda"):
+    """The single-device fluid env (3/2-rule `NSSolver`) is not ported."""
+    raise NotImplementedError(
+        "the single-device fluid env needs NSSolver (3/2-rule padding), ROADMAP.md queue 1 "
+        "item 13; the port runs fluid presets on the 2/3-rule solver: "
+        "parallel.multichip.ShardedFluidTrainer, or `experiments.run <preset> --mesh 1x1`")

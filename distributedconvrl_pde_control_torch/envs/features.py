@@ -1,10 +1,11 @@
-"""Sensor/actuator kernels and the KS featurizer.
+"""Sensor/actuator kernels and the KS and fluid featurizers.
 
 Counterpart of ``distributedconvrl_pde_control_tpu/envs/features.py``
-(``gaussian_kernels_1d``, ``_window_stack_1d``, ``_temporal_and_memory``,
-``Conv1DFeaturizer``). The env batch is an explicit leading dimension:
-fields are (B, nx), sensor readouts (B, n_sensors), observations
-(B, obs_dim, n_actuators).
+(``gaussian_kernels_1d``, ``taylor_kernels_2d``, ``_window_stack_1d``,
+``_window_stack_2d``, ``_temporal_and_memory``, ``Conv1DFeaturizer``,
+``Conv2DFeaturizer``). The env batch is an explicit leading dimension:
+fields are (B, nx) or (B, ny, nx), sensor readouts (B, n_sensors),
+observations (B, obs_dim, n_actuators).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from distributedconvrl_pde_control_torch.ops.navier_stokes import meshgrid_xy, taylor_vortex
 
 
 def gaussian_kernels_1d(
@@ -53,12 +56,57 @@ def gaussian_kernels_1d(
     return kernels
 
 
+def taylor_kernels_2d(
+    positions: Sequence[tuple],
+    nx: int,
+    ny: int,
+    lx: float,
+    ly: float,
+    variance: float,
+    norm_mode: int = 1,
+) -> np.ndarray:
+    """Taylor-vortex-shaped 2D kernels, shape (n_kernels, ny, nx).
+
+    Mirrors FluidSetup.jl:139-157: a Taylor vortex centered at the sensor
+    position (1-based grid indices), thresholded at 0.1 (the
+    sparsification), normalized by sum (sensors) or max (actuators). The
+    reference stores these as sparse matrices; here they stay dense, so the
+    sensor readout and the action smearing are one matrix product each.
+    """
+    dx, dy = lx / nx, ly / ny
+    xx, yy = meshgrid_xy(nx, ny, lx, ly)
+    kernels = np.zeros((len(positions), ny, nx))
+    for i, (pi, pj) in enumerate(positions):
+        k = taylor_vortex(xx, yy, pi * dx - dx, pj * dy - dy, variance, 1.0, lx, ly)
+        k[k < 0.1] = 0.0
+        if norm_mode == 1:
+            k = k / k.sum()
+        else:
+            k = k / k.max()
+        kernels[i] = k
+    return kernels
+
+
 def _window_stack_1d(sensors: torch.Tensor, window_size: int) -> torch.Tensor:
     """(B, n) -> (B, window_size, n): rows i = -h..h of roll(sensors, i)
     along the sensor axis (`vcat([circshift(sensors, i)' for i in -h:h]...)`,
     KSSetup.jl:204-205)."""
     h = window_size // 2
     return torch.stack([torch.roll(sensors, i, dims=-1) for i in range(-h, h + 1)], dim=1)
+
+
+def _window_stack_2d(sensors: torch.Tensor, window_size: int) -> torch.Tensor:
+    """(B, spa, spa) -> (B, window_size**2, spa*spa): rows (i, j) =
+    roll(sensors, (i, j)) over the two sensor axes, flattened row-major
+    (FluidSetup.jl:219-223; the transpose + column-major reshape there is a
+    row-major flatten)."""
+    h = window_size // 2
+    rows = [
+        torch.roll(sensors, (i, j), dims=(-2, -1)).flatten(-2)
+        for i in range(-h, h + 1)
+        for j in range(-h, h + 1)
+    ]
+    return torch.stack(rows, dim=1)
 
 
 def _temporal_and_memory(
@@ -123,3 +171,40 @@ class Conv1DFeaturizer:
 
     def __call__(self, y, prev_obs=None, action=None):
         return self.from_dots(y @ self.sensor_matrix.T, prev_obs, action)
+
+
+@dataclasses.dataclass(frozen=True)
+class Conv2DFeaturizer:
+    """Fluid-style observations (FluidSetup.jl:204-245): sensor dot products
+    against the real-space vorticity field, a window of neighbouring
+    sensors on the 2D sensor lattice, per-actuator columns."""
+
+    sensor_matrix: torch.Tensor  # (n_sensors, ny*nx), row-major sensor order
+    actuators_to_sensors: torch.Tensor  # (n_actuators,) int indices (0-based), on the device
+    sensors_per_axis: int
+    scale: float  # 1/70
+    window_size: int = 3
+    temporal_steps: int = 1
+    memory_size: int = 0
+
+    @property
+    def n_actuators(self) -> int:
+        return len(self.actuators_to_sensors)
+
+    @property
+    def obs_dim(self) -> int:
+        return self.window_size**2 * self.temporal_steps + self.memory_size
+
+    def from_dots(self, dots, prev_obs=None, action=None):
+        """Featurize from raw sensor dot products <omega, g_i> of shape
+        (B, n_sensors); sensor i sits at (i // spa, i % spa), FluidSetup.jl:216."""
+        spa = self.sensors_per_axis
+        sensors = (dots * self.scale).reshape(-1, spa, spa)
+        base = _window_stack_2d(sensors, self.window_size)
+        base = base[:, :, self.actuators_to_sensors]
+        return _temporal_and_memory(
+            base, prev_obs, action, self.temporal_steps, self.memory_size, self.n_actuators
+        )
+
+    def __call__(self, y, prev_obs=None, action=None):
+        return self.from_dots(y.flatten(-2) @ self.sensor_matrix.T, prev_obs, action)

@@ -51,7 +51,13 @@ def _target(source: str) -> Path:
 
 def build(source: str) -> str:
     """Build `source` unless its library is already built. Returns nvcc's
-    output (the -Xptxas -v lines) of the build that made the library."""
+    output (the -Xptxas -v lines) of the build that made the library.
+
+    Builds of different sources may run at the same time (one thread or
+    process each): every source has its own library and log file, nvcc keeps
+    its intermediates in per-process temporary files, and creating the build
+    directory tolerates that it exists. Two builds of the SAME source at once
+    are not supported."""
     target = _target(source)
     log_path = target.with_suffix(".log")
     if not target.exists():

@@ -1,8 +1,8 @@
-"""Spectral helpers: the KS wavenumber operators on the rfft half-spectrum.
+"""Spectral helpers: wavenumber operators and grids.
 
 Counterpart of ``distributedconvrl_pde_control_tpu/ops/spectral.py``
-(``ks_rfft_operators``). Host-side NumPy: the solver composes these further
-in float64 before casting to float32.
+(``ks_rfft_operators``, ``fft_wavenumbers``). Host-side NumPy: the solvers
+compose these further before casting to float32.
 """
 
 from __future__ import annotations
@@ -31,3 +31,13 @@ def ks_rfft_operators(nx: int, lx: float):
         d_op.astype(np.complex64),
         lin_op.astype(np.float32),
     )
+
+
+def fft_wavenumbers(n: int, length: float) -> np.ndarray:
+    """Full-spectrum wavenumbers [0..n/2, -n/2+1..-1] * 2*pi/length.
+
+    Matches `kx = [0:(nx/2); (-nx/2+1):(-1)]/Lx*2*pi` at FluidSetup.jl:106
+    (signed Nyquist kept, and positive, unlike `np.fft.fftfreq`).
+    """
+    k = np.concatenate([np.arange(0, n // 2 + 1), np.arange(-n // 2 + 1, 0)])
+    return k * 2.0 * np.pi / length

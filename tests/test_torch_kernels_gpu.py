@@ -1,8 +1,8 @@
-"""Kernel K1 on the card, the wrappers' refusal to fall back, and the port's
-independence from JAX.
+"""Kernels K1 and K2 on the card, the wrappers' refusal to fall back, and the
+port's independence from JAX.
 
-Tests marked `gpu` build K1 with nvcc and compare it with its plain version
-on a CUDA device; they decide inside the test whether there is one and skip
+Tests marked `gpu` build a kernel with nvcc and compare it with its plain
+version on a CUDA device; they decide inside the test whether there is one and skip
 without it. Run them on a machine with a GPU:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu
@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from distributedconvrl_pde_control_torch.ops.kernels import build, ks_kernel
+from distributedconvrl_pde_control_torch.ops.kernels import build, ks_kernel, ns_advection
 from distributedconvrl_pde_control_torch.ops.ks import KSSolver
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -57,6 +57,40 @@ def test_k1_wrapper_rejects_bad_inputs_on_gpu():
     for bad in (y.double(), y.t().contiguous().t(), y[:, :190].contiguous()):
         with pytest.raises(ValueError):
             ks_kernel.KS_CNAB2(bad, y, ops, tw, 30, 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,batch", [(32, 4), (16, 4), (8, 1), (128, 8), (256, 1), (256, 16),
+                                     (512, 2), (1024, 1)])
+def test_k2_matches_plain_on_gpu(n, batch):
+    """Spectra of standard-normal fields, the Pallas test's tolerance."""
+    _need_cuda()
+    rng = np.random.default_rng(n + batch)
+    w = torch.fft.fft2(torch.tensor(rng.standard_normal((batch, n, n)), dtype=torch.float32,
+                                    device="cuda"))
+    c = ns_advection.fftfreq_constants(n, device="cuda")
+    before = ns_advection.NS_ADVECTION.launches
+    got = ns_advection.ns_advection(w, c)
+    torch.cuda.synchronize()
+    assert ns_advection.NS_ADVECTION.launches == before + 1
+    want = ns_advection.ns_advection_plain(w, c)
+    assert torch.isfinite(torch.view_as_real(got)).all()
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_k2_wrapper_rejects_bad_inputs_on_gpu():
+    _need_cuda()
+    c = ns_advection.fftfreq_constants(32, device="cuda")
+    w = torch.zeros(2, 32, 32, dtype=torch.complex64, device="cuda")
+    for bad in (w.to(torch.complex128), w[0], w[:, :, :16].contiguous(), w.transpose(1, 2)):
+        with pytest.raises(ValueError):
+            ns_advection.NS_ADVECTION(bad, c)
+    with pytest.raises(ValueError, match="power of two"):
+        ns_advection.NS_ADVECTION(torch.zeros(1, 24, 24, dtype=torch.complex64, device="cuda"),
+                                  ns_advection.fftfreq_constants(24, device="cuda"))
+    with pytest.raises(ValueError, match="float32 on cuda"):
+        ns_advection.NS_ADVECTION(w, ns_advection.fftfreq_constants(32, device="cpu"))
 
 
 def test_k1_wrapper_never_falls_back():
