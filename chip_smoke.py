@@ -2,6 +2,13 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --times-only [--tree DIR]
+
+With no argument it runs the phases below. `--times-only` prints the card and
+one JSON line of both kernels' times through their wrappers at the main
+paths' shapes and nothing else; `--tree DIR` imports the package from another
+checkout inside this one (an unpacked earlier commit under build/, say), so
+that two designs of a kernel are timed in turns within one run on one card.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -10,9 +17,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      one nvcc each, started together, and print ptxas's register/shared-memory
      lines;
   3. kernel K1 (the fused KS CNAB2 step) against its plain PyTorch version
-     on the card, at the three shapes of tests/test_pallas_kernels.py and at
+     on the card, at the three shapes of tests/test_pallas_kernels.py, at
      the two shapes the main path gives it (nx=192, 30 substeps, 1 env for
-     the protocol rollout and 16384 envs for the batched eval);
+     the protocol rollout and 16384 envs for the batched eval), and at the
+     grids of the KS200 and KS500 presets (nx=240 and nx=600);
   4. the KS22 reproduce protocol on the card: the shipped best actor of
      artifacts/KS22 rolled for te=200 with actuation from t=100; its
      suppression must stay below 0.05;
@@ -21,14 +29,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      env-steps/s and peak device memory, and the same eval at 4 envs held
      against the CPU run of the port;
   6. K1's time per launch (CUDA events) beside its bound and its plain
-     version's time;
+     version's time, at 16384 rows and at the rollout's single row;
   7. the device time of 5 batched env steps by kernel, and the device's
      idle share, from torch.profiler;
   8. kernel K2 (the NS advection term with the 2/3-rule mask) against its
      plain PyTorch version on the card, at the Pallas test's shape (n=32,
      batch 4), at n=16 and n=128, and at the fluid path's two shapes (n=256,
      batch 1 and 16) on spectra of real case-4 vortex fields and of white
-     noise;
+     noise; then, at the fluid path's two shapes with the solver's constants,
+     on spectra with non-Hermitian content on the Nyquist row and column, in
+     both launch forms (one cooperative launch, the chain of three), with the
+     operands lin and f against their plain twin, and the library's loop of
+     RK4 substeps (whose stages carry the stage state and the combination)
+     against the plain composition;
   9. the Fluid_16_256 protocol on the card (256x256 grid, 16x16 actuators, 81
      RK4 substeps per env step, the shipped best actor of
      artifacts/Fluid_16_256): 1 env for te=2 (100 env steps), trained and
@@ -40,16 +53,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (32x32 grid, 4x4 actuators, 2 envs, 6 steps, actuation from step 2), on
      the fixed-step and the adaptive stepper, and 10 steps of the adaptive
      Fluid_8 preset at its own 128x128 grid;
- 12. K2's time per call (CUDA events) at n=256, batch 1 and 16, beside its
-     bound and its plain version's time;
- 13. the device time of one fluid env step by kernel group (torch.profiler).
+ 12. K2's time per call (CUDA events) at n=256, batch 1 and 16, in both
+     launch forms, beside its bound and its plain version's time; the time of
+     the right-hand side (lin and f given) and of a stage inside the library's
+     substep loop, in both forms;
+ 13. the device time of one fluid env step by kernel group (torch.profiler),
+     with the launches per env step and K2's launches per RK4 substep.
+
+Times of the kernels' first designs (PERF.md, same card and power limit) are
+printed beside the new ones in the phases' text lines; the kernels JSON line
+holds only what this run measured.
 
 K1's launch count is set to 0 just before phases 4-5 (the KS path) and read
 just after them; K2's is set to 0 just before phases 9-10 (the fluid path) and
-read just after them. The second-to-last line is the kernels JSON line and the
-last line is {"ok": true, "device": {...}}.
+read just after them (a stage of an RK4 substep is one launch of K2, counted
+by the library where it launches). The
+second-to-last line is the kernels JSON line and the last line is
+{"ok": true, "device": {...}}.
 """
 
+import argparse
 import json
 import subprocess
 import sys
@@ -71,6 +94,8 @@ SHAPES = [  # (label, nx, oversampling, mu, batch, atol)
     ("nx192_os5_b512", 192, 5, 0.0, 512, 2e-4),
     ("nx192_os30_b1", 192, 30, 0.0, 1, 1e-3),
     ("nx192_os30_b16384", 192, 30, 0.0, N_ENVS, 1e-3),
+    ("nx240_os30_mu0.02_b33", 240, 30, 0.02, 33, 1e-3),  # KS200's grid: factors 4, 4, 3, 5
+    ("nx600_os30_b37", 600, 30, 0.0, 37, 1e-3),  # KS500's grid: factors 4, 2, 3, 5, 5
 ]
 MAIN_PATH_SHAPES = ("nx192_os30_b1", "nx192_os30_b16384")
 # K2 against its plain version: (label, n, batch, input spectra, constants).
@@ -95,6 +120,10 @@ K2_SHAPES = [
 K2_MAIN_PATH_SHAPES = ("n256_b1", "n256_b16", "n256_b1_noise", "n256_b16_noise")
 K2_TIMED_SHAPES = ("n256_b1", "n256_b16")
 K2_RTOL = 1e-4
+# ms per call of the kernels' first designs on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md
+# section 6: K1 radix-4-split direct DFTs, K2 five radix-2 transforms in three launches)
+FIRST_DESIGN_MS = {"K1 16384x192": 3.7358, "K1 1x192": 0.3682, "K2 n256_b1": 0.0404,
+                   "K2 n256_b16": 0.1393}
 FLUID_P_TE = 2.0  # 100 env steps of dt = 0.02
 FLUID_BATCH, FLUID_BATCH_STEPS = 16, 5
 
@@ -120,12 +149,60 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def card_line() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def times_only(tree) -> int:
+    """K1 (`ks_cnab2_step`) at 16384x192 and 1x192 with 30 substeps and K2
+    (`ns_advection`, no optional operand) at n=256, batch 1 and 16 with the
+    fluid solver's constants, from the checkout `tree` or this one."""
+    if tree:
+        sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
+    from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
+    from distributedconvrl_pde_control_torch.ops.ks import KSSolver
+    from distributedconvrl_pde_control_torch.parallel.ns_sharded import make_sharded_ops
+
+    card = card_line()
+    print(card)
+    rng = np.random.default_rng(0)
+    times = {}
+    solver = KSSolver(nx=192, lx=22.0, dt=0.1, oversampling=30, device="cuda")
+    for batch, iters in ((N_ENVS, 20), (1, 200)):
+        y = torch.tensor(3.0 * rng.standard_normal((batch, 192)), dtype=torch.float32, device="cuda")
+        f = torch.tensor(rng.standard_normal((batch, 192)), dtype=torch.float32, device="cuda")
+        times[f"K1 {batch}x192"] = cuda_ms(lambda: ks_kernel.ks_cnab2_step(y, f, solver), iters)
+    ops = make_sharded_ops(256, 256, device="cuda")
+    for batch in (1, 16):
+        w = torch.fft.fft2(torch.tensor(rng.standard_normal((batch, 256, 256)), dtype=torch.float32,
+                                        device="cuda"))
+        times[f"K2 n256_b{batch}"] = cuda_ms(lambda: k2.ns_advection(w, ops), 200)
+    print(json.dumps({"tree": tree or ".", "card": card, "ms_per_call": times}))
+    return 0
+
+
 def main() -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--times-only", action="store_true",
+                        help="time both kernels through their wrappers and stop")
+    parser.add_argument("--tree", default=None,
+                        help="with --times-only: checkout to import the port from")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.times_only:
+        return times_only(args.tree)
+    if args.tree:
+        parser.error("--tree needs --times-only")
     import numpy as np
 
     import dataclasses
@@ -149,9 +226,7 @@ def main() -> int:
 
     dev = "cuda"
     print("== 1. device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
@@ -166,9 +241,13 @@ def main() -> int:
         for line in log.splitlines():
             if "ptxas" in line:
                 print(f"{source}: {line.strip()}")
-    rows, threads = ks_kernel.launch_shape(192, N_ENVS)
-    print(f"K1 at 192 points x {N_ENVS} rows: {rows} rows and {threads} threads per CTA, "
-          f"{ks_kernel.smem_bytes(192, rows)} B of dynamic shared memory")
+    pairs, threads = ks_kernel.launch_shape(192, N_ENVS)
+    print(f"K1 at 192 points x {N_ENVS} rows: stages {ks_kernel.factor_radices(192)}, {pairs} row "
+          f"pairs and {threads} threads per CTA, {ks_kernel.smem_bytes(192, pairs)} B of dynamic "
+          f"shared memory")
+    print(f"K2 at 256^2: batch 1 column tile {k2.column_tile(256, 1)}, {k2.row_pairs(256, 1)} row "
+          f"pair(s) per block; batch 16 column tile {k2.column_tile(256, 16)}, "
+          f"{k2.row_pairs(256, 16)} row pairs per block")
 
     print("== 3. K1 against its plain version")
     setup = build_ks(KS22, device=dev)
@@ -183,7 +262,8 @@ def main() -> int:
             y, f = slice_y[:batch].contiguous(), slice_f[:batch].contiguous()
         else:
             rng = np.random.default_rng(1 if batch == 512 else 0)
-            amp_y, amp_f = {8: (0.4, 0.2), 4: (0.0, 0.0), 512: (0.3, 0.1)}[batch]
+            amp_y, amp_f = {8: (0.4, 0.2), 4: (0.0, 0.0), 512: (0.3, 0.1), 33: (3.0, 1.0),
+                            37: (3.0, 1.0)}[batch]
             y = torch.tensor(amp_y * rng.standard_normal((batch, nx)), dtype=torch.float32, device=dev)
             f = torch.tensor(amp_f * rng.standard_normal((batch, nx)), dtype=torch.float32, device=dev)
         got = ks_kernel.ks_cnab2_step(y, f, solver)
@@ -251,7 +331,7 @@ def main() -> int:
         print(f"4-env eval score={score}: cuda {vals[0]:.7f} cpu {vals[1]:.7f} rel {rel:.2e} (rtol 1e-4)")
         check(rel <= 1e-4, f"card and CPU evals disagree ({score})")
 
-    print("== 6. K1 time at the slice's shape")
+    print("== 6. K1 time at the slice's shapes")
     solver = KSSolver(nx=192, lx=22.0, dt=0.1, oversampling=30, device=dev)
     k_ms = cuda_ms(lambda: ks_kernel.ks_cnab2_step(slice_y, slice_f, solver), 20)
     plain_ms = cuda_ms(lambda: ks_kernel.ks_cnab2_plain(slice_y, slice_f, solver), 5)
@@ -260,9 +340,20 @@ def main() -> int:
     bytes_ms, ops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
     bound_ms = max(bytes_ms, ops_ms)
     step_ms = 1e3 * N_ENVS / rates["min"]
-    print(f"K1 {k_ms:.4f} ms/launch, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+    print(f"K1 {k_ms:.4f} ms/launch (first design {FIRST_DESIGN_MS['K1 16384x192']} ms), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"(bytes {bytes_ms:.4f} ms for {n_bytes} B, operations {ops_ms:.4f} ms for {flops:.0f} flop: FFT count); "
           f"K1 is {100 * k_ms / step_ms:.1f}% of the {step_ms:.4f} ms batched env step; {card}")
+    one_y, one_f = slice_y[:1].contiguous(), slice_f[:1].contiguous()
+    k1_one = {"ms": cuda_ms(lambda: ks_kernel.ks_cnab2_step(one_y, one_f, solver), 200),
+              "plain_ms": cuda_ms(lambda: ks_kernel.ks_cnab2_plain(one_y, one_f, solver), 5),
+              "bound_ms": max(1e3 * 3 * 192 * 4 / PEAK_BYTES_PER_S,
+                              1e3 * ks_kernel.flops_per_row(192, 30) / PEAK_F32_FLOPS),
+              "bound_by": "operations"}
+    print(f"K1 at 1x192 (the rollout's shape): {k1_one['ms']:.4f} ms/launch (first design "
+          f"{FIRST_DESIGN_MS['K1 1x192']} ms), plain {k1_one['plain_ms']:.4f} ms, bound "
+          f"{k1_one['bound_ms']:.7f} ms (operations: one row's FFT count; one CTA runs 64 "
+          f"dependent transforms, so the launch is latency, not work); {card}")
     print(json.dumps({"slice": "KS22 batched eval", "n_envs": N_ENVS, "env_steps_per_s": rates["min"],
                       "env_steps_per_s_first_call": rates["mean"], "peak_mem_bytes": peak_mem,
                       "rollout_seconds": t_roll, "card": card}))
@@ -309,6 +400,55 @@ def main() -> int:
               f"(rtol {K2_RTOL:.0e} of it)")
         check(bool(torch.isfinite(torch.view_as_real(got)).all()) and scale > 0
               and err <= K2_RTOL * scale, f"K2 disagrees at {label}")
+
+    def k2_check(label, got, want):
+        torch.cuda.synchronize()
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        print(f"{label}: max_abs_err {err:.3e} = {err / scale:.2e} of max|want| {scale:.4e} "
+              f"(rtol {K2_RTOL:.0e} of it)")
+        check(bool(torch.isfinite(torch.view_as_real(got)).all()) and scale > 0
+              and err <= K2_RTOL * scale, f"K2 disagrees at {label}")
+        return err / scale
+
+    fluid_lin = (-FLUID_16_256.nu * fluid_ops.k2).contiguous()  # the solver's -nu k^2
+    rng = np.random.default_rng(3)
+
+    def complex_noise(batch, scale, keep=None):
+        z = rng.standard_normal((batch, 256, 256)) + 1j * rng.standard_normal((batch, 256, 256))
+        return torch.tensor(scale * (z if keep is None else z * keep), dtype=torch.complex64, device=dev)
+
+    nyquist = np.zeros((256, 256))
+    nyquist[128, :] = nyquist[:, 128] = 1.0
+    k2_fused_errs = {}
+    for label in K2_TIMED_SHAPES:
+        w = k2_inputs[label]
+        batch, amp = w.shape[0], w.abs().max().item()
+        # non-Hermitian content on the Nyquist row and column, as large as the spectrum's peak:
+        # a kernel that packed its inverses without symmetrising would leak it
+        w_ny = (w + complex_noise(batch, amp, nyquist)).contiguous()
+        want = k2.ns_advection_plain(w_ny, fluid_ops)
+        for chain in (False, True):
+            form = "chain of three launches" if chain else "one cooperative launch"
+            k2_check(f"{label} non-Hermitian Nyquist, {form}",
+                     k2.NS_ADVECTION(w_ny, fluid_ops, chain=chain), want)
+        f_hat = complex_noise(batch, 0.1 * amp)
+        k2_fused_errs[f"{label} rhs"] = k2_check(
+            f"{label} fused right-hand side (lin, f)",
+            k2.ns_advection(w, fluid_ops, lin=fluid_lin, f=f_hat),
+            k2.ns_rhs_plain(w, fluid_ops, lin=fluid_lin, f=f_hat))
+        # the stage state and the RK4 combination exist only inside the library's loop; a
+        # substep 10x the path's gives their terms weight against the rounding
+        dt_os = 10.0 * FLUID_16_256.dt / FLUID_16_256.oversampling
+        before = k2.NS_ADVECTION.launches
+        got = k2.ns_rk4_substeps(w, fluid_ops, fluid_lin, f_hat, dt_os, 3)
+        check(k2.NS_ADVECTION.launches - before == 12,
+              f"the library reports {k2.NS_ADVECTION.launches - before} launches for 3 RK4 substeps")
+        want = k2.ns_rk4_plain(w, fluid_ops, fluid_lin, f_hat, dt_os, 3)
+        k2_fused_errs[f"{label} rk4"] = k2_check(f"{label} 3 RK4 substeps in the library's loop",
+                                                 got, want)
+        moved = (want - w).abs().max().item() / amp
+        print(f"{label}: those substeps moved the state by {moved:.2e} of its peak")
+        check(moved > 1e-3, "the RK4 comparison's substeps did not move the state")
 
     fluid_dir = str(ROOT / "artifacts" / "Fluid_16_256")
     n_steps = int(round(FLUID_P_TE / FLUID_16_256.dt))
@@ -406,31 +546,50 @@ def main() -> int:
     for label in K2_TIMED_SHAPES:
         w = k2_inputs[label]
         batch = w.shape[0]
+        f_hat = complex_noise(batch, 1.0)
         ms = cuda_ms(lambda: k2.ns_advection(w, fluid_ops), 200)
+        chain_ms = cuda_ms(lambda: k2.NS_ADVECTION(w, fluid_ops, chain=True), 200)
+        rhs_ms = cuda_ms(lambda: k2.ns_advection(w, fluid_ops, lin=fluid_lin, f=f_hat), 200)
+        subs = 20
+        loop_ms = cuda_ms(lambda: k2.ns_rk4_substeps(w, fluid_ops, fluid_lin, f_hat, 1e-6, subs),
+                          5) / (4 * subs)
+        # the same loop in the chain form: the library queues the launches back to back, so
+        # the two forms are compared on the device's pace and not on the host's
+        chain_loop_ms = cuda_ms(lambda: k2.NS_ADVECTION.rk4(w, fluid_ops, fluid_lin, f_hat, 1e-6,
+                                                            subs, chain=True), 5) / (4 * subs)
         pms = cuda_ms(lambda: k2.ns_advection_plain(w, fluid_ops), 50)
         b_ms = 1e3 * k2.min_bytes(256, batch) / PEAK_BYTES_PER_S
         o_ms = 1e3 * k2.flops(256, batch) / PEAK_F32_FLOPS
         k2_times[label] = {"ms": ms, "plain_ms": pms, "bound_ms": max(b_ms, o_ms),
-                           "bound_by": "bytes" if b_ms > o_ms else "operations"}
-        print(f"K2 {label}: {ms:.4f} ms/call (3 launches), plain {pms:.4f} ms, bound "
-              f"{max(b_ms, o_ms):.6f} ms (bytes {b_ms:.6f} ms for {k2.min_bytes(256, batch)} B, "
+                           "bound_by": "bytes" if b_ms > o_ms else "operations", "chain_ms": chain_ms,
+                           "rhs_ms": rhs_ms, "stage_in_loop_ms": loop_ms,
+                           "chain_stage_in_loop_ms": chain_loop_ms}
+        print(f"K2 {label}: {ms:.4f} ms/call as one cooperative launch (the main path's form), "
+              f"{chain_ms:.4f} ms as the chain of three launches, first design "
+              f"{FIRST_DESIGN_MS['K2 ' + label]} ms; with lin and f {rhs_ms:.4f} ms; a stage "
+              f"{loop_ms:.4f} ms inside the library's substep loop ({chain_loop_ms:.4f} ms as the "
+              f"chain there); plain {pms:.4f} ms, "
+              f"bound {max(b_ms, o_ms):.6f} ms (bytes {b_ms:.6f} ms for {k2.min_bytes(256, batch)} B, "
               f"operations {o_ms:.6f} ms for {k2.flops(256, batch):.0f} flop); {card}")
     step_ms_1 = 1e3 * fluid_secs["trained"] / n_steps
     calls_per_step = 4 * FLUID_16_256.oversampling
-    print(f"at 1 env an env step takes {step_ms_1:.3f} ms on the host clock and makes "
-          f"{calls_per_step} K2 calls: {calls_per_step * k2_times['n256_b1']['ms']:.3f} ms of K2 "
-          f"device time ({100 * calls_per_step * k2_times['n256_b1']['ms'] / step_ms_1:.1f}%); "
-          f"the bound of one call at batch 1 is below the cost of a launch")
+    k2_step_ms = calls_per_step * k2_times["n256_b1"]["stage_in_loop_ms"]
+    print(f"at 1 env an env step takes {step_ms_1:.3f} ms on the host clock and launches K2 "
+          f"{calls_per_step} times from one call into its library: {k2_step_ms:.3f} ms of K2 "
+          f"device time ({100 * k2_step_ms / step_ms_1:.1f}%); the bound of one launch at batch 1 "
+          f"is below the cost of a launch; {card}")
 
     print("== 13. device time of one fluid env step by kernel group (torch.profiler)")
     one_step = ftrainer.make_eval_fn(1)
     one_step(factor, fw0)
+    counted = k2.NS_ADVECTION.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         one_step(factor, fw0)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    counted = k2.NS_ADVECTION.launches - counted
     kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     groups = {}
     for e in kern:
@@ -448,6 +607,13 @@ def main() -> int:
                       "idle_share": 1.0 - busy_us / wall_us if kern else "not measured",
                       "launches": sum(g[0] for g in groups.values()),
                       "groups": {k: {"launches": v[0], "device_us": v[1]} for k, v in groups.items()}}))
+    k2_group = groups.get("K2", [0, 0.0])
+    print(f"launches per env step {sum(g[0] for g in groups.values())} (the first design: 2,377), of "
+          f"which K2 {k2_group[0]}: {k2_group[0] / FLUID_16_256.oversampling:.1f} per RK4 substep "
+          f"(the first design: 28 launches per substep, 12 of them K2's)")
+    check(k2_group[0] == 4 * FLUID_16_256.oversampling and counted == k2_group[0],
+          f"the profiler saw {k2_group[0]} launches of K2 in one env step and its library counted "
+          f"{counted}; expected 4 per substep")
 
     print(json.dumps({"kernels": [{
         "name": "ks_cnab2", "route": "cuda",
@@ -455,12 +621,14 @@ def main() -> int:
         "replaces": ks_kernel.REPLACES, "launches": launches,
         "max_abs_err": max(errs[k] for k in MAIN_PATH_SHAPES), "ms": k_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-        "library_ms": None, "status": "ok"}, {
+        "library_ms": None, "status": "ok", "shape": "16384x192, 30 substeps",
+        "at_1x192": k1_one}, {
         "name": "ns_advection", "route": "cuda",
         "source": "distributedconvrl_pde_control_torch/csrc/" + k2.SOURCE,
         "replaces": k2.REPLACES, "launches": k2_launches,
         "max_abs_err": max(k2_errs[k] for k in K2_MAIN_PATH_SHAPES),
         "max_err_of_scale": max(k2_rel_errs[k] for k in K2_MAIN_PATH_SHAPES),
+        "max_fused_err_of_scale": max(k2_fused_errs.values()),
         **k2_times["n256_b1"], "library_ms": None, "status": "ok",
         "shape": "n256_b1", "at_n256_b16": k2_times["n256_b16"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,19 +11,33 @@
 // with N_prev for the first substep taken from rdft(y^2), f_hat scaled by
 // dt, and the disturbance added outside the A_inv solve.
 //
-// Design. One CTA owns `rows` env rows (a multiple of 4). Their half
-// spectrum (u_hat, N_prev, f_hat as re/im, `nfp` bins each) and one real
-// work row (nx) stay in shared memory for every substep; only y and f are
-// read and out written in device memory. The transforms are direct DFTs
-// with the twiddle factors cos/sin(2*pi*i/nx) read from a shared table of
-// nx entries at index (j*k) mod nx, instead of the dense (nx, nf) cos/sin
-// matrices of the TPU kernel (four of them, ~300 KB at nx=192, more than a
-// CTA's 227 KB of shared memory). Each transform splits the grid index as
-// j = j0 + m*nx/4 (m = 0..3): the four points share one twiddle up to a
-// power of i, so a length-4 DFT combines them and the inner loop runs over
-// j0 < nx/4 only (a radix-4 first stage, about 2.7x fewer multiply-adds
-// than the dense DFT). A thread task covers 4 rows (one float4 of the
-// [bin][row] shared layout), so every twiddle read serves 4 rows.
+// Design. One CTA owns `pairs` pairs of env rows (a power of two, up to 8)
+// for the whole step: their half spectra (u_hat, N_prev, f_hat, nx/2 + 1
+// bins each) and one complex work line of nx points per pair stay in shared
+// memory for every substep; only y and f are read and out written in device
+// memory. The two real rows of a pair ride one complex transform as its real
+// and imaginary part and are split (after a forward transform) or merged
+// (before an inverse one) by Hermitian symmetry, which is exact; the DC and
+// Nyquist bins enter the inverse by their real parts only, as in irfft.
+//
+// The transforms are in-place mixed-radix FFTs over the factors of nx (4, 2,
+// 3 and 5 as butterflies in registers; any other factor by a generic
+// out-of-place stage, so every nx % 4 == 0 is taken). Neighbouring butterfly
+// stages share a pass: a thread loads up to 16 points, runs both stages on
+// them in registers and stores them, so 192 = (4*4)(4*3) is two passes over
+// shared memory where the first version summed 192-term DFTs. The inverse is
+// decimation in frequency (natural order in, digit-reversed out) and the
+// forward decimation in time (digit-reversed in, natural out); between them
+// the field is only squared, pointwise, so no stage ever permutes data: only
+// the first load and the last store go through the position table `pos`. In
+// a substep the innermost pass is where the transform turns round: it runs
+// its inverse stages, squares and runs its forward stages on the same
+// registers. A substep at nx = 192 is thus three passes and the spectral
+// pass, one barrier each; the split, the CNAB2 update and the merge for the
+// next inverse are one pass (a thread owns bins k and nx - k of a pair).
+// Work lines are laid out [point][pair], so that neighbouring threads take
+// the same task of neighbouring pairs: consecutive shared-memory words
+// whatever the stage's stride, and one broadcast twiddle read.
 //
 // What bounds it. The kernel reads 2 and writes 1 float per grid point and
 // env step (37.7 MB at batch 16384, nx 192: ~11 us at 3.35 TB/s). The step
@@ -31,9 +45,11 @@
 // real FFTs at 2.5*nx*log2(nx) flops plus the per-bin update
 // (`ks_kernel.flops_per_row`; ~0.067 ms at 16384 rows on 67 TFLOP/s), so
 // the function is bound by arithmetic, not by memory. The design keeps all
-// substep state on chip so that only the arithmetic remains; its direct
-// DFTs spend ~1.8 MFLOP per row, ~7x the FFT count, which an in-kernel FFT
-// would remove. Everything is float32. Requires nx % 4 == 0.
+// substep state on chip and runs its transforms at the FFT's count; what
+// remains is the shared-memory traffic of its passes (each reads and writes
+// the line once, the spectral pass also three half spectra), one barrier per
+// pass, and the registers of the 16-point passes (128 per thread, so an SM
+// holds 512 threads). Everything is float32. Requires nx % 4 == 0.
 //
 // Plain C interface (built by nvcc, loaded with ctypes): every call returns
 // a cudaError_t code, 0 on success, checked by the Python wrapper.
@@ -43,247 +59,409 @@
 
 namespace {
 
-constexpr int kOps = 6;  // a_inv, b, g_alpha, dist_re, dist_im, irdft weight
+constexpr int kOps = 5;  // a_inv, b, g_alpha, dist_re, dist_im
+constexpr int kMaxFactors = 16;
+constexpr int kMaxThreads = 512;
 
-struct Smem {
-  float2* tw;   // nx twiddles (cos, sin)(2*pi*i/nx)
-  float* a_inv; // nfp each, zero in the padded bins
-  float* b;
-  float* ga;
-  float* dre;
-  float* dim;
-  float* w;     // irdft weights 1/nx (DC, Nyquist), 2/nx otherwise
-  float* ur;    // [nfp][rows] half spectrum u_hat
-  float* ui;
-  float* npr;   // [nfp][rows] previous nonlinear term
-  float* npi;
-  float* fr;    // [nfp][rows] forcing spectrum * dt
-  float* fi;
-  float* buf;   // [nx][rows] real work row (y, y^2, f or u^2)
+// The transform of one grid size: nx is the product of the radices of its
+// `passes` passes, in the order of the inverse (decimation in frequency)
+// transform. A pass runs one stage of radix r1 or, with r2 > 1, two stages
+// (r1, then r2) on points a thread keeps in registers between them. Pass s
+// works on blocks of len_s = nx / (r1 r2 of the passes before) points;
+// magic[s] = floor(2^32 / sub) + 1 divides a task index by sub = len_s /
+// (r1 r2) with one multiply (sub > 1).
+struct Plan {
+  int nx, passes;
+  int r1[kMaxFactors], r2[kMaxFactors];
+  unsigned magic[kMaxFactors];
 };
 
-__host__ __device__ inline size_t smem_floats(int nx, int nfp, int rows) {
-  return 2 * (size_t)nx + (size_t)kOps * nfp + 6 * (size_t)nfp * rows + (size_t)nx * rows;
+struct Smem {
+  float4* u;    // [nfh][pairs] u_hat of the pair's rows: (re a, im a, re b, im b)
+  float4* np;   // previous nonlinear term, same layout
+  float4* f;    // forcing spectrum * dt, same layout
+  float2* z;    // [nx][pairs] work line: row a in .x, row b in .y
+  float2* z2;   // second work line, only with a generic stage (else = z)
+  float2* tw;   // nx twiddles (cos, sin)(2*pi*i/nx)
+  float* ops;   // [kOps][nfh]
+  int* pos;     // position of natural index j in digit-reversed order
+};
+
+__host__ __device__ inline size_t smem_floats(int nx, int pairs, int generic) {
+  const size_t nfh = nx / 2 + 1;
+  return 3 * 4 * nfh * pairs + 2 * (size_t)nx * pairs * (generic ? 2 : 1) + 2 * (size_t)nx +
+         kOps * nfh + nx;
 }
 
-__device__ inline Smem carve(float* base, int nx, int nfp, int rows) {
+__device__ inline Smem carve(float4* base, int nx, int pairs, int generic) {
+  const size_t nfh = nx / 2 + 1;
   Smem s;
-  s.tw = reinterpret_cast<float2*>(base);
-  float* p = base + 2 * nx;
-  s.a_inv = p; p += nfp;
-  s.b = p; p += nfp;
-  s.ga = p; p += nfp;
-  s.dre = p; p += nfp;
-  s.dim = p; p += nfp;
-  s.w = p; p += nfp;
-  const size_t spec = (size_t)nfp * rows;
-  s.ur = p; p += spec;
-  s.ui = p; p += spec;
-  s.npr = p; p += spec;
-  s.npi = p; p += spec;
-  s.fr = p; p += spec;
-  s.fi = p; p += spec;
-  s.buf = p;
+  s.u = base;
+  s.np = s.u + nfh * pairs;
+  s.f = s.np + nfh * pairs;
+  s.z = reinterpret_cast<float2*>(s.f + nfh * pairs);
+  s.z2 = generic ? s.z + (size_t)nx * pairs : s.z;
+  s.tw = s.z2 + (size_t)nx * pairs;
+  s.ops = reinterpret_cast<float*>(s.tw + nx);
+  s.pos = reinterpret_cast<int*>(s.ops + kOps * nfh);
   return s;
 }
 
-__device__ inline void to4(const float4 v, float a[4]) {
-  a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
+__device__ inline float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ inline float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+__device__ inline float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+// a * (+i) for the inverse, a * (-i) for the forward transform
+template <bool kInverse>
+__device__ inline float2 mul_i(float2 a) {
+  return kInverse ? make_float2(-a.y, a.x) : make_float2(a.y, -a.x);
+}
+// exp(+-2 pi i idx / nx), idx < nx; + for the inverse
+template <bool kInverse>
+__device__ inline float2 twiddle_at(const float2* tw, int idx) {
+  float2 t = tw[idx];
+  if (!kInverse) t.y = -t.y;
+  return t;
 }
 
-// Forward real DFT X_k = sum_j buf_j exp(-2 pi i j k / nx) at the four bins
-// k = 4*kq + c (c = 0..3) for the rows 4g..4g+3 of buf.
-__device__ inline void rdft_quad(const Smem& s, int nx, int rows, int kq, int g,
-                                 float xr[4][4], float xi[4][4]) {
-  const int q = nx >> 2;
-  int idx[4], stride[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    idx[c] = 0;
-    stride[c] = (4 * kq + c) % nx;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) { xr[c][r] = 0.f; xi[c][r] = 0.f; }
-  }
-  const float* col = s.buf + 4 * g;
-  for (int j0 = 0; j0 < q; ++j0) {
-    float a0[4], a1[4], a2[4], a3[4];
-    to4(*reinterpret_cast<const float4*>(col + (size_t)j0 * rows), a0);
-    to4(*reinterpret_cast<const float4*>(col + (size_t)(j0 + q) * rows), a1);
-    to4(*reinterpret_cast<const float4*>(col + (size_t)(j0 + 2 * q) * rows), a2);
-    to4(*reinterpret_cast<const float4*>(col + (size_t)(j0 + 3 * q) * rows), a3);
-    const float2 t0 = s.tw[idx[0]], t1 = s.tw[idx[1]];
-    const float2 t2 = s.tw[idx[2]], t3 = s.tw[idx[3]];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      // length-4 DFT of (a0, a1, a2, a3) at the four residues of k mod 4
-      const float sp = a0[r] + a2[r], pp = a1[r] + a3[r];
-      const float e0 = sp + pp, e2 = sp - pp;
-      const float d = a0[r] - a2[r], qd = a1[r] - a3[r];
-      // k = 0 mod 4: e0 * e^{-i th};  k = 2 mod 4: e2 * e^{-i th}
-      xr[0][r] += e0 * t0.x;  xi[0][r] -= e0 * t0.y;
-      xr[2][r] += e2 * t2.x;  xi[2][r] -= e2 * t2.y;
-      // k = 1 mod 4: (d - i qd) e^{-i th};  k = 3 mod 4: (d + i qd) e^{-i th}
-      xr[1][r] += d * t1.x - qd * t1.y;  xi[1][r] -= d * t1.y + qd * t1.x;
-      xr[3][r] += d * t3.x + qd * t3.y;  xi[3][r] -= d * t3.y - qd * t3.x;
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      idx[c] += stride[c];
-      if (idx[c] >= nx) idx[c] -= nx;
-    }
-  }
+// R-point DFT in registers, natural order in and out.
+template <int R, bool kInverse>
+__device__ __forceinline__ void butterfly(float2 (&x)[R]) {
+  if constexpr (R == 2) {
+    const float2 a = x[0], b = x[1];
+    x[0] = cadd(a, b);
+    x[1] = csub(a, b);
+  } else if constexpr (R == 3) {
+    const float h = 0.86602540378443865f;  // sin(2 pi / 3)
+    const float2 s = cadd(x[1], x[2]), d = csub(x[1], x[2]);
+    const float2 t = make_float2(x[0].x - 0.5f * s.x, x[0].y - 0.5f * s.y);
+    const float2 e = mul_i<kInverse>(make_float2(h * d.x, h * d.y));
+    x[0] = cadd(x[0], s);
+    x[1] = cadd(t, e);
+    x[2] = csub(t, e);
+  } else if constexpr (R == 4) {
+    const float2 t0 = cadd(x[0], x[2]), t1 = csub(x[0], x[2]);
+    const float2 t2 = cadd(x[1], x[3]), t3 = mul_i<kInverse>(csub(x[1], x[3]));
+    x[0] = cadd(t0, t2);
+    x[1] = cadd(t1, t3);
+    x[2] = csub(t0, t2);
+    x[3] = csub(t1, t3);
+  } else if constexpr (R == 5) {
+    const float c1 = 0.30901699437494742f, c2 = -0.80901699437494742f;  // cos(2 pi / 5), cos(4 pi / 5)
+    const float s1 = 0.95105651629515357f, s2 = 0.58778525229247313f;   // sin(2 pi / 5), sin(4 pi / 5)
+    const float2 a1 = cadd(x[1], x[4]), a2 = cadd(x[2], x[3]);
+    const float2 b1 = csub(x[1], x[4]), b2 = csub(x[2], x[3]);
+    const float2 t1 = make_float2(x[0].x + c1 * a1.x + c2 * a2.x, x[0].y + c1 * a1.y + c2 * a2.y);
+    const float2 t2 = make_float2(x[0].x + c2 * a1.x + c1 * a2.x, x[0].y + c2 * a1.y + c1 * a2.y);
+    const float2 u1 = mul_i<kInverse>(make_float2(s1 * b1.x + s2 * b2.x, s1 * b1.y + s2 * b2.y));
+    const float2 u2 = mul_i<kInverse>(make_float2(s2 * b1.x - s1 * b2.x, s2 * b1.y - s1 * b2.y));
+    x[0] = cadd(x[0], cadd(a1, a2));
+    x[1] = cadd(t1, u1);
+    x[2] = cadd(t2, u2);
+    x[3] = csub(t2, u2);
+    x[4] = csub(t1, u1);
+  }  // R == 1: nothing to do
 }
 
-// Inverse real DFT u_j = sum_k w_k (ur_k cos - ui_k sin)(2 pi j k / nx) at
-// the four points j = j0 + m*nx/4 (m = 0..3) for the rows 4g..4g+3.
-__device__ inline void irdft_quad(const Smem& s, int nx, int nfp, int rows, int j0, int g,
-                                  float u[4][4]) {
-  // A_c = sum over k = c mod 4 of W_k e^{i th_k}, th_k = 2 pi j0 k / nx;
-  // classes 0 and 2 only ever need their real part
-  float a0r[4], a2r[4], a1r[4], a1i[4], a3r[4], a3i[4];
+// The stages of one pass on the R1 * R2 points a thread holds: point
+// q = m1 * R2 + m2 of x sits at p + q * sub of a block of R1 * R2 * sub
+// points. Decimation in frequency (kDif): the radix-R1 stage on the whole
+// block (butterflies over m1, then twiddles), then the radix-R2 stage on each
+// of its R1 sub-blocks; decimation in time runs the mirror image, the R2
+// stage first and twiddles before butterflies. tw1 = nx / (block length),
+// tw2 = nx / (sub-block length) scale the twiddle indices.
+template <int R1, int R2, bool kInverse, bool kDif>
+__device__ __forceinline__ void pass_stages(float2 (&x)[R1 * R2], const float2* tw, int p,
+                                            int sub, int tw1, int tw2) {
+  float2 w2[R2];  // the R2 stage's twiddles do not depend on the sub-block
+  if (R2 > 1 && sub > 1) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    a0r[r] = a2r[r] = a1r[r] = a1i[r] = a3r[r] = a3i[r] = 0.f;
+    for (int k = 1; k < R2; ++k) w2[k] = twiddle_at<kInverse>(tw, p * k * tw2);
   }
-  int idx = 0;  // (j0 * k) mod nx
-  for (int k0 = 0; k0 < nfp; k0 += 4) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int k = k0 + c;
-      const float2 t = s.tw[idx];
-      const float wk = s.w[k];
-      const float cw = t.x * wk, sw = t.y * wk;
-      float zr[4], zi[4];
-      to4(*reinterpret_cast<const float4*>(s.ur + (size_t)k * rows + 4 * g), zr);
-      to4(*reinterpret_cast<const float4*>(s.ui + (size_t)k * rows + 4 * g), zi);
+  for (int half = 0; half < 2; ++half) {
+    if ((half == 0) == kDif) {  // the radix-R1 stage
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float re = zr[r] * cw - zi[r] * sw;
-        if (c == 0) a0r[r] += re;
-        if (c == 2) a2r[r] += re;
-        if (c == 1) { a1r[r] += re; a1i[r] += zr[r] * sw + zi[r] * cw; }
-        if (c == 3) { a3r[r] += re; a3i[r] += zr[r] * sw + zi[r] * cw; }
-      }
-      idx += j0;
-      if (idx >= nx) idx -= nx;
-    }
-  }
-  // u(j0 + m nx/4) = Re(A0 + i^m A1 + (-1)^m A2 + (-i)^m A3)
+      for (int m2 = 0; m2 < R2; ++m2) {
+        float2 t[R1];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    u[0][r] = a0r[r] + a1r[r] + a2r[r] + a3r[r];
-    u[1][r] = a0r[r] - a1i[r] - a2r[r] + a3i[r];
-    u[2][r] = a0r[r] - a1r[r] + a2r[r] - a3r[r];
-    u[3][r] = a0r[r] + a1i[r] - a2r[r] - a3i[r];
-  }
-}
-
-enum RdftMode { kInitU = 0, kInitN = 1, kInitF = 2, kSubstep = 3 };
-
-// One pass over all (bin quad, row group) tasks: X = rdft(buf), then the
-// mode's use of X for every bin k < nf (padded bins are kept at zero).
-__device__ inline void rdft_pass(const Smem& s, int mode, int nx, int nfp, int rows,
-                                 float dt_os) {
-  const int nf = nx / 2 + 1;
-  const int nq = nfp / 4, groups = rows / 4;
-  const float dt2 = 0.5f * dt_os, dt32 = 1.5f * dt_os;
-  for (int t = threadIdx.x; t < nq * groups; t += blockDim.x) {
-    const int kq = t % nq, g = t / nq;
-    float xr[4][4], xi[4][4];
-    rdft_quad(s, nx, rows, kq, g, xr, xi);
+        for (int m1 = 0; m1 < R1; ++m1) t[m1] = x[m1 * R2 + m2];
+        const int at = (p + m2 * sub) * tw1;
+        if (!kDif && (R2 > 1 || sub > 1)) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int k = 4 * kq + c;
-      const bool live = k < nf;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const size_t i = (size_t)k * rows + 4 * g + r;
-        const float sr = live ? xr[c][r] : 0.f, si = live ? xi[c][r] : 0.f;
-        if (mode == kInitU) {
-          s.ur[i] = sr;
-          s.ui[i] = si;
-        } else if (mode == kInitN) {
-          s.npr[i] = s.ga[k] * si;
-          s.npi[i] = -s.ga[k] * sr;
-        } else if (mode == kInitF) {
-          s.fr[i] = sr * dt_os;
-          s.fi[i] = si * dt_os;
-        } else {
-          const float nr = s.ga[k] * si, ni = -s.ga[k] * sr;
-          const float ur = s.a_inv[k] * (s.b[k] * s.ur[i] + dt32 * nr - dt2 * s.npr[i] + s.fr[i]) + s.dre[k];
-          const float ui = s.a_inv[k] * (s.b[k] * s.ui[i] + dt32 * ni - dt2 * s.npi[i] + s.fi[i]) + s.dim[k];
-          s.ur[i] = live ? ur : 0.f;
-          s.ui[i] = live ? ui : 0.f;
-          s.npr[i] = nr;
-          s.npi[i] = ni;
+          for (int m1 = 1; m1 < R1; ++m1) t[m1] = cmul(t[m1], twiddle_at<kInverse>(tw, at * m1));
         }
+        butterfly<R1, kInverse>(t);
+        if (kDif && (R2 > 1 || sub > 1)) {
+#pragma unroll
+          for (int m1 = 1; m1 < R1; ++m1) t[m1] = cmul(t[m1], twiddle_at<kInverse>(tw, at * m1));
+        }
+#pragma unroll
+        for (int m1 = 0; m1 < R1; ++m1) x[m1 * R2 + m2] = t[m1];
+      }
+    } else if (R2 > 1) {  // the radix-R2 stage
+#pragma unroll
+      for (int m1 = 0; m1 < R1; ++m1) {
+        float2 t[R2];
+#pragma unroll
+        for (int m2 = 0; m2 < R2; ++m2) t[m2] = x[m1 * R2 + m2];
+        if (!kDif && sub > 1) {
+#pragma unroll
+          for (int m2 = 1; m2 < R2; ++m2) t[m2] = cmul(t[m2], w2[m2]);
+        }
+        butterfly<R2, kInverse>(t);
+        if (kDif && sub > 1) {
+#pragma unroll
+          for (int m2 = 1; m2 < R2; ++m2) t[m2] = cmul(t[m2], w2[m2]);
+        }
+#pragma unroll
+        for (int m2 = 0; m2 < R2; ++m2) x[m1 * R2 + m2] = t[m2];
       }
     }
   }
 }
 
-// Copy rows [row0, row0 + rows) of src (batch, nx) into buf as [j][row];
-// rows past the batch are zero.
-__device__ inline void load_rows(const Smem& s, const float* __restrict__ src, int batch,
-                                 int nx, int rows, int row0) {
-  for (int e = threadIdx.x; e < rows * nx; e += blockDim.x) {
+enum PassMode { kInversePass = 0, kForwardPass = 1, kTurnPass = 2 };
+
+// One pass of the in-place transforms of all pairs, on blocks of `len`
+// points: a thread takes the R1 * R2 points p + q * sub (sub = len / (R1 *
+// R2)) of one block of one pair. kInversePass: decimation-in-frequency stages
+// with exp(+i); kForwardPass: decimation-in-time stages with exp(-i);
+// kTurnPass (sub == 1, the innermost pass): the inverse stages, the square of
+// both components of every point, and the forward stages on the same
+// registers, which is where the transform turns round in a substep.
+template <int R1, int R2, int kMode>
+__device__ inline void fft_pass(float2* z, const float2* tw, int nx, int len, unsigned magic,
+                                int pairs, int lgp) {
+  constexpr int R = R1 * R2;
+  const int sub = len / R, tasks = (nx / R) << lgp, step = sub << lgp;
+  const int tw1 = nx / len, tw2 = tw1 * R1;
+  for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
+    const int pair = t & (pairs - 1), j = t >> lgp;
+    const int blk = sub == 1 ? j : (int)__umulhi((unsigned)j, magic);
+    const int p = j - blk * sub;
+    float2* base = z + ((size_t)(blk * len + p) << lgp) + pair;
+    float2 x[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) x[q] = base[q * step];
+    if (kMode != kForwardPass) pass_stages<R1, R2, true, true>(x, tw, p, sub, tw1, tw2);
+    if (kMode == kTurnPass) {
+#pragma unroll
+      for (int q = 0; q < R; ++q) x[q] = make_float2(x[q].x * x[q].x, x[q].y * x[q].y);
+    }
+    if (kMode != kInversePass) pass_stages<R1, R2, false, false>(x, tw, p, sub, tw1, tw2);
+#pragma unroll
+    for (int q = 0; q < R; ++q) base[q * step] = x[q];
+  }
+  __syncthreads();
+}
+
+// The same stage for any radix r, out of place (z -> z2): a thread computes
+// one output point as an r-term sum.
+template <bool kInverse, bool kDif>
+__device__ inline void fft_stage_generic(const float2* z, float2* z2, const float2* tw, int nx,
+                                         int r, int len, int pairs, int lgp, bool square) {
+  const int sub = len / r, tasks = nx << lgp, tw_mul = nx / len, root_mul = nx / r;
+  for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
+    const int pair = t & (pairs - 1), o = t >> lgp;
+    const int blk = o / len, rem = o - blk * len;
+    const int k = rem / sub, p = rem - k * sub;
+    float2 acc = make_float2(0.f, 0.f);
+    int mk = 0;  // (m * k) mod r
+    for (int m = 0; m < r; ++m) {
+      float2 x = z[((size_t)(blk * len + p + m * sub) << lgp) + pair];
+      if (square) x = make_float2(x.x * x.x, x.y * x.y);
+      int idx = mk * root_mul + (kDif ? 0 : p * m * tw_mul);
+      if (idx >= nx) idx -= nx;
+      acc = cadd(acc, cmul(x, twiddle_at<kInverse>(tw, idx)));
+      mk += k;
+      if (mk >= r) mk -= r;
+    }
+    if (kDif) acc = cmul(acc, twiddle_at<kInverse>(tw, p * k * tw_mul));
+    z2[((size_t)o << lgp) + pair] = acc;
+  }
+  __syncthreads();
+}
+
+template <int kMode>
+__device__ inline void run_pass(Smem& s, const Plan& plan, int pass, int len, int pairs, int lgp,
+                                bool square) {
+  const int r1 = plan.r1[pass], r2 = plan.r2[pass];
+  const unsigned magic = plan.magic[pass];
+#define KS_PASS(A, B)                                                            \
+  case A * 8 + B:                                                                \
+    fft_pass<A, B, kMode>(s.z, s.tw, plan.nx, len, magic, pairs, lgp);           \
+    return;
+  switch (r1 * 8 + r2) {
+    KS_PASS(4, 4) KS_PASS(4, 3) KS_PASS(4, 2) KS_PASS(2, 3) KS_PASS(2, 5) KS_PASS(3, 3)
+    KS_PASS(3, 5) KS_PASS(4, 1) KS_PASS(2, 1) KS_PASS(3, 1) KS_PASS(5, 1)
+    default: break;
+  }
+#undef KS_PASS
+  // any other radix: one stage, out of place (never a turn pass)
+  if (kMode == kInversePass)
+    fft_stage_generic<true, true>(s.z, s.z2, s.tw, plan.nx, r1, len, pairs, lgp, false);
+  else
+    fft_stage_generic<false, false>(s.z, s.z2, s.tw, plan.nx, r1, len, pairs, lgp, square);
+  float2* done = s.z2;
+  s.z2 = s.z;
+  s.z = done;
+}
+
+// The pairs of neighbouring factors (r1, r2) that run as one pass: those that
+// `factor_radices`'s order (4s, a 2, 3s, 5s) can produce with at most 16
+// points per thread. run_pass has a case for each.
+inline bool shares_pass(int r1, int r2) {
+  const int pairs[][2] = {{4, 4}, {4, 3}, {4, 2}, {2, 3}, {2, 5}, {3, 3}, {3, 5}};
+  for (const auto& pr : pairs)
+    if (pr[0] == r1 && pr[1] == r2) return true;
+  return false;
+}
+
+// Unscaled inverse transforms of the work lines: natural order in,
+// digit-reversed out. With `turn` the innermost pass also squares the points
+// and runs its forward stages (kTurnPass); forward_lines(skip = 1) finishes
+// that forward transform. The caller synchronises before; ends in a barrier.
+__device__ inline void inverse_lines(Smem& s, const Plan& plan, int pairs, int lgp, bool turn) {
+  int len = plan.nx;
+  for (int pass = 0; pass < plan.passes; ++pass) {
+    if (turn && pass == plan.passes - 1)
+      run_pass<kTurnPass>(s, plan, pass, len, pairs, lgp, false);
+    else
+      run_pass<kInversePass>(s, plan, pass, len, pairs, lgp, false);
+    len /= plan.r1[pass] * plan.r2[pass];
+  }
+}
+
+// Forward transforms: digit-reversed order in, natural out, leaving out the
+// `skip` innermost passes; `square` squares the points as the first pass
+// reads them (a generic stage only: the butterflies square in the turn pass).
+__device__ inline void forward_lines(Smem& s, const Plan& plan, int pairs, int lgp, int skip,
+                                     bool square) {
+  int len = 1;
+  for (int pass = plan.passes - 1; pass >= 0; --pass) {
+    len *= plan.r1[pass] * plan.r2[pass];
+    if (pass >= plan.passes - skip) continue;
+    run_pass<kForwardPass>(s, plan, pass, len, pairs, lgp, square && pass == plan.passes - 1);
+  }
+}
+
+enum Mode { kInitU = 0, kInitN = 1, kInitF = 2, kSubstep = 3 };
+
+// One pass over the bins k <= nx/2 of all pairs: split the transformed work
+// line into the rows' half spectra X, use them as `mode` says, and (from
+// kInitF on) merge u_hat / nx back into the work line for the next inverse.
+__device__ inline void spectral_pass(const Smem& s, int mode, int nx, int pairs, int lgp,
+                                     float dt_os, float inv_nx) {
+  const int nfh = nx / 2 + 1, tasks = nfh << lgp;
+  const float dt2 = 0.5f * dt_os, dt32 = 1.5f * dt_os;
+  const float* a_inv = s.ops;
+  const float* b = s.ops + nfh;
+  const float* ga = s.ops + 2 * nfh;
+  const float* dre = s.ops + 3 * nfh;
+  const float* dim = s.ops + 4 * nfh;
+  for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
+    const int pair = t & (pairs - 1), k = t >> lgp;
+    const int km = k ? nx - k : 0;
+    float2* zk = s.z + ((size_t)k << lgp) + pair;
+    float2* zm = s.z + ((size_t)km << lgp) + pair;
+    const float2 za = *zk, zb = make_float2(zm->x, -zm->y);
+    // X of row a = (Z[k] + conj Z[-k]) / 2, of row b = (Z[k] - conj Z[-k]) / (2i)
+    const float xar = 0.5f * (za.x + zb.x), xai = 0.5f * (za.y + zb.y);
+    const float xbr = 0.5f * (za.y - zb.y), xbi = -0.5f * (za.x - zb.x);
+    const size_t i = ((size_t)k << lgp) + pair;
+    if (mode == kInitU) {
+      s.u[i] = make_float4(xar, xai, xbr, xbi);
+      continue;
+    }
+    const float g = ga[k];
+    if (mode == kInitN) {
+      s.np[i] = make_float4(g * xai, -g * xar, g * xbi, -g * xbr);
+      continue;
+    }
+    float4 u = s.u[i];
+    if (mode == kInitF) {
+      s.f[i] = make_float4(xar * dt_os, xai * dt_os, xbr * dt_os, xbi * dt_os);
+    } else {
+      const float4 n = make_float4(g * xai, -g * xar, g * xbi, -g * xbr);
+      const float4 np = s.np[i], f = s.f[i];
+      const float ai = a_inv[k], bk = b[k], dr = dre[k], di = dim[k];
+      u.x = ai * (bk * u.x + dt32 * n.x - dt2 * np.x + f.x) + dr;
+      u.y = ai * (bk * u.y + dt32 * n.y - dt2 * np.y + f.y) + di;
+      u.z = ai * (bk * u.z + dt32 * n.z - dt2 * np.z + f.z) + dr;
+      u.w = ai * (bk * u.w + dt32 * n.w - dt2 * np.w + f.w) + di;
+      s.u[i] = u;
+      s.np[i] = n;
+    }
+    // Z[k] = A[k] + i B[k] with A, B the Hermitian extensions of the rows'
+    // spectra; DC and Nyquist by their real parts, as irfft takes them
+    if (km == k || k == 0) {
+      *zk = make_float2(u.x * inv_nx, u.z * inv_nx);
+    } else {
+      *zk = make_float2((u.x - u.w) * inv_nx, (u.y + u.z) * inv_nx);
+      *zm = make_float2((u.x + u.w) * inv_nx, (u.z - u.y) * inv_nx);
+    }
+  }
+  __syncthreads();
+}
+
+// Rows [row0, row0 + 2 * pairs) of src (batch, nx) into the work line at
+// their digit-reversed positions, squared if asked; rows past the batch are
+// zero. Ends in a barrier.
+__device__ inline void load_rows(const Smem& s, const float* __restrict__ src, int batch, int nx,
+                                 int pairs, int lgp, int row0, bool square) {
+  float* zf = reinterpret_cast<float*>(s.z);
+  for (int e = threadIdx.x; e < 2 * pairs * nx; e += blockDim.x) {
     const int r = e / nx, j = e - r * nx;
     const int row = row0 + r;
-    s.buf[(size_t)j * rows + r] = row < batch ? src[(size_t)row * nx + j] : 0.f;
+    const float v = row < batch ? src[(size_t)row * nx + j] : 0.f;
+    zf[2 * (((size_t)s.pos[j] << lgp) + (r >> 1)) + (r & 1)] = square ? v * v : v;
   }
+  __syncthreads();
 }
 
-__global__ void __launch_bounds__(512)
+__global__ void __launch_bounds__(kMaxThreads)
 ks_cnab2_kernel(const float* __restrict__ y, const float* __restrict__ f,
                 const float* __restrict__ ops, const float2* __restrict__ twiddle,
-                float* __restrict__ out, int batch, int nx, int nfp, int rows,
-                int substeps, float dt_os) {
+                const int* __restrict__ pos, float* __restrict__ out, int batch, Plan plan,
+                int generic, int pairs, int lgp, int substeps, float dt_os) {
   extern __shared__ float4 smem4[];
-  const Smem s = carve(reinterpret_cast<float*>(smem4), nx, nfp, rows);
-  const int row0 = blockIdx.x * rows;
-  const int q = nx >> 2, groups = rows / 4;
+  const int nx = plan.nx, nfh = nx / 2 + 1;
+  Smem s = carve(smem4, nx, pairs, generic);
+  const int row0 = blockIdx.x * 2 * pairs;
+  const float inv_nx = 1.0f / (float)nx;
+  // the innermost pass turns round if it is a butterfly pass; a generic stage squares as it reads
+  const bool turn = plan.r1[plan.passes - 1] <= 5;
 
-  for (int i = threadIdx.x; i < nx; i += blockDim.x) s.tw[i] = twiddle[i];
-  for (int i = threadIdx.x; i < kOps * nfp; i += blockDim.x) s.a_inv[i] = ops[i];
-  load_rows(s, y, batch, nx, rows, row0);
+  for (int i = threadIdx.x; i < nx; i += blockDim.x) {
+    s.tw[i] = twiddle[i];
+    s.pos[i] = pos[i];
+  }
+  for (int i = threadIdx.x; i < kOps * nfh; i += blockDim.x) s.ops[i] = ops[i];
   __syncthreads();
-  rdft_pass(s, kInitU, nx, nfp, rows, dt_os);  // u_hat = rdft(y)
-  __syncthreads();
-  for (int e = threadIdx.x; e < rows * nx; e += blockDim.x) s.buf[e] *= s.buf[e];
-  __syncthreads();
-  rdft_pass(s, kInitN, nx, nfp, rows, dt_os);  // N_prev = G rdft(y^2)
-  __syncthreads();
-  load_rows(s, f, batch, nx, rows, row0);
-  __syncthreads();
-  rdft_pass(s, kInitF, nx, nfp, rows, dt_os);  // f_hat = dt rdft(f)
-  __syncthreads();
+  load_rows(s, y, batch, nx, pairs, lgp, row0, false);
+  forward_lines(s, plan, pairs, lgp, 0, false);
+  spectral_pass(s, kInitU, nx, pairs, lgp, dt_os, inv_nx);  // u_hat = rdft(y)
+  load_rows(s, y, batch, nx, pairs, lgp, row0, true);
+  forward_lines(s, plan, pairs, lgp, 0, false);
+  spectral_pass(s, kInitN, nx, pairs, lgp, dt_os, inv_nx);  // N_prev = G rdft(y^2)
+  load_rows(s, f, batch, nx, pairs, lgp, row0, false);
+  forward_lines(s, plan, pairs, lgp, 0, false);
+  spectral_pass(s, kInitF, nx, pairs, lgp, dt_os, inv_nx);  // f_hat = dt rdft(f)
 
-  for (int step = 0; step <= substeps; ++step) {
-    const bool last = step == substeps;
-    for (int t = threadIdx.x; t < q * groups; t += blockDim.x) {
-      const int j0 = t % q, g = t / q;
-      float u[4][4];
-      irdft_quad(s, nx, nfp, rows, j0, g, u);
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int j = j0 + m * q;
-        if (last) {
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int row = row0 + 4 * g + r;
-            if (row < batch) out[(size_t)row * nx + j] = u[m][r];
-          }
-        } else {
-          *reinterpret_cast<float4*>(s.buf + (size_t)j * rows + 4 * g) =
-              make_float4(u[m][0] * u[m][0], u[m][1] * u[m][1],
-                          u[m][2] * u[m][2], u[m][3] * u[m][3]);
-        }
-      }
-    }
-    if (last) break;
-    __syncthreads();
-    rdft_pass(s, kSubstep, nx, nfp, rows, dt_os);
-    __syncthreads();
+  for (int step = 0; step < substeps; ++step) {
+    inverse_lines(s, plan, pairs, lgp, turn);                  // u, and with `turn` u^2
+    forward_lines(s, plan, pairs, lgp, turn ? 1 : 0, !turn);  // rdft(u^2)
+    spectral_pass(s, kSubstep, nx, pairs, lgp, dt_os, inv_nx);
+  }
+  inverse_lines(s, plan, pairs, lgp, false);
+  const float* zf = reinterpret_cast<const float*>(s.z);
+  for (int e = threadIdx.x; e < 2 * pairs * nx; e += blockDim.x) {
+    const int r = e / nx, j = e - r * nx;
+    const int row = row0 + r;
+    if (row < batch)
+      out[(size_t)row * nx + j] = zf[2 * (((size_t)s.pos[j] << lgp) + (r >> 1)) + (r & 1)];
   }
 }
 
@@ -291,21 +469,52 @@ ks_cnab2_kernel(const float* __restrict__ y, const float* __restrict__ f,
 
 extern "C" {
 
-size_t ks_cnab2_smem_bytes(int nx, int nfp, int rows) {
-  return smem_floats(nx, nfp, rows) * sizeof(float);
+size_t ks_cnab2_smem_bytes(int nx, int pairs, int generic) {
+  return smem_floats(nx, pairs, generic) * sizeof(float);
 }
 
+// y, f, out: (batch, nx) float32; ops: (5, nx/2 + 1); twiddle: (nx, 2); pos:
+// (nx) int32; radix: the `stages` factors of nx in the order of the inverse
+// stages. Neighbouring factors that `shares_pass` lists share a pass. pairs = 2^lgp row pairs per CTA;
+// generic: some factor is none of 2, 3, 4, 5 (the kernel then keeps a second
+// work line). The Python wrapper checks and picks pairs and threads.
 int ks_cnab2_launch(const float* y, const float* f, const float* ops, const float* twiddle,
-                    float* out, int batch, int nx, int nfp, int rows, int threads,
-                    int substeps, float dt_os, void* stream) {
-  const size_t smem = ks_cnab2_smem_bytes(nx, nfp, rows);
-  cudaError_t err = cudaFuncSetAttribute(ks_cnab2_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (batch + rows - 1) / rows;
+                    const int* pos, float* out, int batch, int nx, const int* radix, int stages,
+                    int lgp, int threads, int substeps, float dt_os, void* stream) {
+  if (stages < 1 || stages > kMaxFactors || threads < 32 || threads > kMaxThreads)
+    return (int)cudaErrorInvalidValue;
+  Plan plan;
+  plan.nx = nx;
+  plan.passes = 0;
+  int len = nx, generic = 0;
+  for (int s = 0; s < stages; ++s) {
+    const int r1 = radix[s];
+    int r2 = 1;
+    if (r1 < 2 || len % r1) return (int)cudaErrorInvalidValue;
+    if (r1 > 5) generic = 1;
+    if (s + 1 < stages && shares_pass(r1, radix[s + 1]) && len % (r1 * radix[s + 1]) == 0)
+      r2 = radix[++s];
+    const int sub = len / (r1 * r2);
+    plan.r1[plan.passes] = r1;
+    plan.r2[plan.passes] = r2;
+    plan.magic[plan.passes] = sub > 1 ? (unsigned)(0x100000000ull / (unsigned)sub) + 1u : 0u;
+    ++plan.passes;
+    len = sub;
+  }
+  if (len != 1) return (int)cudaErrorInvalidValue;
+  const int pairs = 1 << lgp;
+  const size_t smem = ks_cnab2_smem_bytes(nx, pairs, generic);
+  static size_t allowed = 0;  // more than the default 48 KB must be allowed first
+  if (smem > allowed) {
+    cudaError_t err = cudaFuncSetAttribute(ks_cnab2_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed = smem;
+  }
+  const int grid = (batch + 2 * pairs - 1) / (2 * pairs);
   ks_cnab2_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      y, f, ops, reinterpret_cast<const float2*>(twiddle), out, batch, nx, nfp, rows,
-      substeps, dt_os);
+      y, f, ops, reinterpret_cast<const float2*>(twiddle), pos, out, batch, plan, generic, pairs,
+      lgp, substeps, dt_os);
   return (int)cudaGetLastError();
 }
 

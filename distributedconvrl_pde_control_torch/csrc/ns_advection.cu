@@ -1,5 +1,6 @@
 // Fused 2D Navier-Stokes advection term with the 2/3-rule mask (kernel K2)
-// for Hopper (sm_90a).
+// for Hopper (sm_90a), with the Runge-Kutta stage arithmetic around it as
+// optional operands.
 //
 // Replaces distributedconvrl_pde_control_tpu/ops/pallas/ns_advection.py::
 // PallasAdvection2D._kernel. For a batch of full n x n vorticity spectra
@@ -8,248 +9,620 @@
 //   psi = w * inv_k2                       (inv_k2[0][0] = 0)
 //   u    = Re IFFT2( i ky psi)             v    = Re IFFT2(-i kx psi)
 //   dwdx = Re IFFT2( i kx w)               dwdy = Re IFFT2( i ky w)
-//   out  = FFT2(-u dwdx - v dwdy) * mask23
+//   adv  = FFT2(-u dwdx - v dwdy) * mask23
 //
 // kx varies along the last axis, ky along rows; both are given as vectors
 // (the signed Nyquist entry is the caller's), inv_k2 and mask23 as (n, n)
-// arrays. The inverse carries 1/n per axis. Everything is float32.
+// arrays. The inverse carries 1/n per axis. Everything is float32. With all
+// optional operands null, out = adv. Otherwise, with ws = w + alpha * k_prev
+// taking the place of w above (k_prev null: ws = w):
 //
-// Design. The TPU kernel keeps two dense n x n cos/sin matrices and a whole
-// batch tile in its fast memory and runs ~38 matrix products. Here a field
-// (512 KB at n = 256) does not fit one block's shared memory and one block
-// per field would leave most of the card idle at batch 1, so the 2D
-// transforms are split by axis into three launches of line transforms, each
-// a radix-2 FFT of length n in shared memory (a line is 8n bytes):
+//   rhs = lin * ws + adv + f               (lin, f each optional)
+//   out = rhs                              (k1 null)
+//   out = w + dt6 * (k1 + 2 (k2 + k_prev) + rhs)    (k1, k2 given: the RK4
+//                                                    combination, k_prev = k3)
 //
-//   1. ns_adv_inverse_cols: a block takes `tc` neighbouring columns of one
-//      of the four spectra, forms the spectrum from w on the fly, inverse-
-//      transforms along rows (axis -2) and writes a (batch, 4, n, n) complex
-//      scratch. Neighbouring columns keep the global accesses in 8*tc-byte
-//      runs.
-//   2. ns_adv_rows: a block takes one row of the four scratch fields,
-//      inverse-transforms along the row, keeps the real parts, forms
-//      -u dwdx - v dwdy and forward-transforms that line back into field 0
-//      of the scratch.
-//   3. ns_adv_forward_cols: forward transform along axis -2 of field 0,
-//      times the mask, into out.
+// Design. The four inverses keep only real parts, so they are packed in
+// pairs: Re IFFT2(a) = IFFT2(H a) with (H a)[k] = (a[k] + conj a[-k]) / 2, and
 //
-// The inverse passes are decimation in frequency (natural order in,
-// bit-reversed out) and the forward passes decimation in time (bit-reversed
-// in, natural out). The real-space product is pointwise, so it does not
-// care that both of its axes are in bit-reversed order, and no pass ever
-// permutes data. Twiddles cos/sin(2 pi k / n), k < n/2, are computed in
+//   IFFT2(H u^ + i H v^) = u + i v,   IFFT2(H dwdx^ + i H dwdy^) = dwdx + i dwdy.
+//
+// H is formed explicitly from ws at k and at -k with the wavenumbers and
+// inv_k2 read at both places: a positive Nyquist wavenumber makes i k ws
+// non-Hermitian on the Nyquist row and column and RK stages are Hermitian
+// only to rounding; the reference drops those parts by taking real parts,
+// and packing without H would leak them into the partner field. The forward
+// transform takes a real field: two real lines ride one complex line
+// transform and are split by symmetry, and only rows ky <= n/2 are
+// transformed along the second axis; row -ky is the conjugate mirror. That
+// is 2.5 complex 2D transforms where the first version ran five.
+//
+// A field (512 KB at n = 256) does not fit one block's shared memory, so the
+// transforms run by lines, in three passes over a (batch, 2, n, n) scratch:
+//
+//   1. rows, inverse: a block takes row pairs (r, -r) of ws (each needs the
+//      other for H), forms the two packed spectra of both rows, inverse-
+//      transforms the lines along the row and writes the scratch. n/2 + 1
+//      pairs per field.
+//   2. columns: a block takes `tc` neighbouring columns of both scratch
+//      fields, inverse-transforms them along axis -2, forms the product
+//      -u dwdx - v dwdy, packs column pairs (2j, 2j+1) as re/im of one line,
+//      forward-transforms tc/2 lines, splits them by symmetry and writes rows
+//      ky <= n/2 of scratch field 0.
+//   3. rows, forward: a block takes row ky <= n/2 of scratch field 0,
+//      forward-transforms it along the row, and writes rows ky and -ky of
+//      out with the mask and the optional stage arithmetic (all row reads).
+//
+// A line transform holds 2^K points per thread (K <= 4) and runs K radix-2
+// stages in registers with constant twiddles, then one table twiddle per
+// point; a 256-point line is two such groups with one barrier between them,
+// where the radix-2 version had eight. Shared-memory lines are padded by one
+// point in 16, so that the strided accesses of the short-span groups fall on
+// distinct banks. The inverse passes are decimation in frequency (natural
+// order in, bit-reversed out) and the forward passes decimation in time
+// (bit-reversed in, natural out). The real-space product is pointwise, so it
+// does not care that both of its axes are in bit-reversed order, and no pass
+// ever permutes data. Twiddles cos/sin(2 pi k / n), k < n/2, are computed in
 // float64 on the host and read from shared memory.
 //
+// The passes are __device__ functions of a virtual block index. On the card
+// one cooperative kernel runs all three: persistent blocks walk each pass's
+// virtual blocks, with a grid-wide barrier between passes, so a stage is one
+// launch (at batch 1 the field and the scratch sit in L2 and launches are the
+// cost). Three __global__ wrappers launch the same passes as a chain; that
+// form is what runs on the CPU, one block after another, in the tests, and it
+// is timed beside the cooperative one by chip_smoke.py. The library has two
+// entry points. ns_advection_launch is the function with lin and f alone.
+// ns_advection_rk4_launch makes the 4 * substeps stage launches of a run of
+// RK4 substeps from one call, with k1, k2, k3 and the intermediate states in
+// a work buffer, so the host pays one call per env step instead of one per
+// stage; it alone gives a stage k_prev, alpha and the combination. Both add
+// the kernel launches they issued to *launched, counted where they are made.
+//
 // What bounds it. The function reads w and writes out, 16 n^2 bytes per
-// field (1 MB at n = 256: 0.31 us at 3.35 TB/s). Its four inverses keep only
-// real parts and its forward takes a real field, so two complex inverses of
-// packed pairs and one real-to-complex forward would do: 2.5 complex 2D
-// FFTs, 2.5 * 5 n^2 log2(n^2) flops plus ~30 per point (15 MFLOP at n = 256:
+// field (1 MB at n = 256: 0.31 us at 3.35 TB/s); 2.5 complex 2D FFTs are
+// 2.5 * 5 n^2 log2(n^2) flops plus ~30 per point (15 MFLOP at n = 256:
 // 0.22 us at 67 TFLOP/s). So the bound is the bytes, and at batch 1 it is
-// below the cost of one launch. This first version runs five full complex
-// transforms, as the reference does (twice the flops of that count), and
-// spends its time on the scratch round trips (each field crosses L2 twice
-// more) and on 3 launches. n must be a power of two, 8..1024.
+// below the cost of one launch: there a stage is a chain of three dependent
+// passes and two grid barriers over an L2-resident field, and its time is
+// their latency. At batch 16 what the passes really move (the scratch: two
+// fields written and read, half a field written and read; with the stage
+// operands also k_prev, f, k1, k2 and w twice) is several times the
+// function's bytes and no longer fits L2. n must be a power of two, 8..1024.
 //
 // Plain C interface (built by nvcc, loaded with ctypes): the launch returns
 // a cudaError_t code, 0 on success, checked by the Python wrapper.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#ifdef __CUDACC__
+#include <cooperative_groups.h>
+#endif
 
 namespace {
 
-constexpr int kFields = 4;  // u, v, dw/dx, dw/dy
+constexpr int kPacked = 2;  // u + i v and dw/dx + i dw/dy
+constexpr int kMaxThreads = 256;
+constexpr int kMaxStages = 4;  // radix-2 stages a thread runs in registers between barriers
+
+// The optional operands of a launch (null pointers: not given).
+struct Stage {
+  const float2* k_prev;  // ws = w + alpha * k_prev
+  float alpha;
+  const float* lin;   // (n, n): + lin * ws
+  const float2* f;    // (batch, n, n): + f
+  const float2* k1;   // with k2: out = w + dt6 * (k1 + 2 (k2 + k_prev) + rhs)
+  const float2* k2;
+  float dt6;
+};
 
 __device__ inline float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
 __device__ inline float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
 __device__ inline float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
+__device__ inline float2 scal(float s, float2 a) { return make_float2(s * a.x, s * a.y); }
+__device__ inline float2 cconj(float2 a) { return make_float2(a.x, -a.y); }
 
-// In-place radix-2 FFTs of `lines` lines of length n = 2^logn in shared
-// memory; element i of a line sits at x[line * line_stride + i * idx_stride].
-// kInverse picks exp(+i theta) (unscaled). kDif: decimation in frequency,
-// natural order in, bit-reversed order out; otherwise decimation in time,
-// bit-reversed in, natural out. tw[k] = (cos, sin)(2 pi k / n), k < n/2.
-// With lines_fastest, neighbouring threads take the same butterfly of
-// neighbouring lines. The caller synchronises before; every stage ends in
-// a __syncthreads().
+// Point i of a shared-memory line sits at pad(i): one spare point in 16.
+__host__ __device__ inline int pad(int i) { return i + (i >> 4); }
+
+// exp(+-2 pi i idx / n) for idx < n from the half table; + for the inverse.
+template <bool kInverse>
+__device__ inline float2 twiddle_at(const float2* tw, int idx, int n) {
+  const int half_n = n >> 1;
+  float2 t = idx < half_n ? tw[idx] : tw[idx - half_n];
+  if (idx >= half_n) t = make_float2(-t.x, -t.y);
+  if (!kInverse) t.y = -t.y;
+  return t;
+}
+
+// v * exp(+-2 pi i k / 16), k = 0..7 known at compile time after unrolling.
+template <bool kInverse>
+__device__ __forceinline__ float2 mul_root16(float2 v, int k) {
+  const float c1 = 0.92387953251128674f, s1 = 0.38268343236508977f, h = 0.70710678118654752f;
+  float c, s;
+  switch (k) {
+    case 0: return v;
+    case 4: return kInverse ? make_float2(-v.y, v.x) : make_float2(v.y, -v.x);
+    case 1: c = c1; s = s1; break;
+    case 2: c = h; s = h; break;
+    case 3: c = s1; s = c1; break;
+    case 5: c = -s1; s = c1; break;
+    case 6: c = -h; s = h; break;
+    default: c = -c1; s = s1; break;
+  }
+  if (!kInverse) s = -s;
+  return make_float2(v.x * c - v.y * s, v.x * s + v.y * c);
+}
+
+template <int K>
+__device__ __forceinline__ int bitrev(int m) {
+  int r = 0;
+#pragma unroll
+  for (int b = 0; b < K; ++b) r |= ((m >> b) & 1) << (K - 1 - b);
+  return r;
+}
+
+// 2^K-point transform in registers, K radix-2 stages. Decimation in
+// frequency: natural order in, bit-reversed out.
+template <int K, bool kInverse>
+__device__ __forceinline__ void radix_dif(float2 (&v)[1 << K]) {
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    const int hm = 1 << (K - 1 - t);
+#pragma unroll
+    for (int m = 0; m < (1 << K); ++m) {
+      if (m & hm) continue;
+      const float2 a = v[m], b = v[m + hm];
+      v[m] = cadd(a, b);
+      v[m + hm] = mul_root16<kInverse>(csub(a, b), (m & (hm - 1)) * (8 / hm));
+    }
+  }
+}
+
+// Decimation in time: bit-reversed order in, natural out.
+template <int K, bool kInverse>
+__device__ __forceinline__ void radix_dit(float2 (&v)[1 << K]) {
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    const int hm = 1 << t;
+#pragma unroll
+    for (int m = 0; m < (1 << K); ++m) {
+      if (m & hm) continue;
+      const float2 a = v[m], b = mul_root16<kInverse>(v[m + hm], (m & (hm - 1)) * (8 / hm));
+      v[m] = cadd(a, b);
+      v[m + hm] = csub(a, b);
+    }
+  }
+}
+
+// One group of K radix-2 stages of `lines` in-place line transforms of
+// length n in shared memory, on blocks of 2^lg points: a thread takes the
+// 2^K points p + m * 2^(lg-K) of one block. Point i of a line sits at
+// x[line * line_stride + pad(i) * idx_stride]. With lines_fastest,
+// neighbouring threads take the same points of neighbouring lines.
+template <int K, bool kInverse, bool kDif>
+__device__ inline void fft_group(float2* x, const float2* tw, int n, int lg, int lines,
+                                 int line_stride, int idx_stride, bool lines_fastest) {
+  constexpr int R = 1 << K;
+  const int lgs = lg - K, sub = 1 << lgs;
+  const int per_line = n >> K, work = lines * per_line, tw_mul = n >> lg;
+  for (int t = threadIdx.x; t < work; t += blockDim.x) {
+    int line, j;
+    if (lines_fastest) {
+      j = t / lines;
+      line = t - j * lines;
+    } else {
+      line = t / per_line;
+      j = t - line * per_line;
+    }
+    const int p = j & (sub - 1);
+    const int i0 = ((j >> lgs) << lg) + p;
+    float2* base = x + (size_t)line * line_stride;
+    float2 v[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) v[m] = base[(size_t)pad(i0 + (m << lgs)) * idx_stride];
+    if (kDif) radix_dif<K, kInverse>(v);
+    if (lgs > 0) {  // point m belongs to output (input) residue bitrev(m) of the block
+#pragma unroll
+      for (int m = 1; m < R; ++m)
+        v[m] = cmul(v[m], twiddle_at<kInverse>(tw, p * bitrev<K>(m) * tw_mul, n));
+    }
+    if (!kDif) radix_dit<K, kInverse>(v);
+#pragma unroll
+    for (int m = 0; m < R; ++m) base[(size_t)pad(i0 + (m << lgs)) * idx_stride] = v[m];
+  }
+  __syncthreads();
+}
+
+// In-place transforms of `lines` lines of length n = 2^logn: ceil(logn /
+// kMaxStages) groups of 2..4 stages. kInverse picks exp(+i theta) (unscaled). kDif:
+// decimation in frequency, natural order in, bit-reversed out; otherwise
+// decimation in time, bit-reversed in, natural out. tw[k] = (cos, sin)
+// (2 pi k / n), k < n/2. The caller synchronises before; every group ends
+// in a __syncthreads().
 template <bool kInverse, bool kDif>
 __device__ inline void fft_lines(float2* x, const float2* tw, int n, int logn, int lines,
                                  int line_stride, int idx_stride, bool lines_fastest) {
-  const int half_n = n >> 1;
-  const int work = lines * half_n;
-  for (int s = 0; s < logn; ++s) {
-    const int lg = kDif ? (logn - 1 - s) : s;  // log2 of the butterfly span
-    const int half = 1 << lg;
-    const int tw_step = half_n >> lg;
-    for (int t = threadIdx.x; t < work; t += blockDim.x) {
-      int line, j;
-      if (lines_fastest) {
-        j = t / lines;
-        line = t - j * lines;
-      } else {
-        line = t / half_n;
-        j = t - line * half_n;
-      }
-      const int pos = j & (half - 1);
-      const int i0 = ((j >> lg) << (lg + 1)) + pos;
-      float2* p0 = x + (size_t)line * line_stride + (size_t)i0 * idx_stride;
-      float2* p1 = p0 + (size_t)half * idx_stride;
-      float2 w = tw[pos * tw_step];
-      if (!kInverse) w.y = -w.y;
-      const float2 a = *p0, b = *p1;
-      if (kDif) {
-        *p0 = cadd(a, b);
-        *p1 = cmul(csub(a, b), w);
-      } else {
-        const float2 bw = cmul(b, w);
-        *p0 = cadd(a, bw);
-        *p1 = csub(a, bw);
-      }
-    }
-    __syncthreads();
+  const int groups = (logn + kMaxStages - 1) / kMaxStages, base = logn / groups;
+  const int extra = logn - base * groups;
+  int lg = kDif ? logn : 0;
+  for (int s = 0; s < groups; ++s) {
+    const int gi = kDif ? s : groups - 1 - s;
+    const int k = base + (gi < extra ? 1 : 0);
+    if (!kDif) lg += k;
+    if (k == 2)
+      fft_group<2, kInverse, kDif>(x, tw, n, lg, lines, line_stride, idx_stride, lines_fastest);
+    else if (k == 3)
+      fft_group<3, kInverse, kDif>(x, tw, n, lg, lines, line_stride, idx_stride, lines_fastest);
+    else
+      fft_group<4, kInverse, kDif>(x, tw, n, lg, lines, line_stride, idx_stride, lines_fastest);
+    if (kDif) lg -= k;
   }
 }
 
-// Launch 1. grid = batch * 4 * (n / tc); block (b, q, tile) inverse-
-// transforms columns [tile*tc, tile*tc + tc) of spectrum q along axis -2.
-__global__ void __launch_bounds__(256)
-ns_adv_inverse_cols(const float2* __restrict__ w, const float* __restrict__ kx,
-                    const float* __restrict__ ky, const float* __restrict__ inv_k2,
-                    const float2* __restrict__ twiddle, float2* __restrict__ scratch,
-                    int n, int logn, int tc) {
-  extern __shared__ float2 smem[];
+__device__ inline float2 stage_state(const float2* __restrict__ w, const Stage& st, size_t at) {
+  float2 z = w[at];
+  if (st.k_prev) {
+    const float2 k = st.k_prev[at];
+    z.x += st.alpha * k.x;
+    z.y += st.alpha * k.y;
+  }
+  return z;
+}
+
+__device__ inline void load_twiddle(float2* tw, const float2* __restrict__ twiddle, int n) {
+  for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) tw[i] = twiddle[i];
+}
+
+// Pass 1, virtual block vb of batch * ceil((n/2 + 1) / ppc): row pairs
+// [p0, p0 + ppc) of field b. Lines of pair r: 4*pr + {0: z1 of row r, 1: z2
+// of row r, 2: z1 of row -r, 3: z2 of row -r}; the self-paired rows 0 and n/2
+// compute (and write) their two lines twice.
+__device__ inline void pass_rows_inverse(int vb, const float2* __restrict__ w, const Stage& st,
+                                         const float* __restrict__ kx,
+                                         const float* __restrict__ ky,
+                                         const float* __restrict__ inv_k2,
+                                         const float2* __restrict__ twiddle,
+                                         float2* scratch, int n, int logn, int ppc,
+                                         float2* smem) {
+  const int pairs = (n >> 1) + 1, tiles = (pairs + ppc - 1) / ppc;
+  const int b = vb / tiles, p0 = (vb - b * tiles) * ppc;
+  const int np = pairs - p0 < ppc ? pairs - p0 : ppc;
+  const int npad = pad(n), last = n - 1;
   float2* tw = smem;
-  float2* x = smem + (n >> 1);  // [n][tc]
+  float2* raw = tw + (n >> 1);             // [2 * ppc][n]: ws rows r and -r
+  float2* x = raw + (size_t)2 * ppc * n;   // [4 * ppc][npad]
+  const size_t field = (size_t)b * n * n;
+
+  load_twiddle(tw, twiddle, n);
+  for (int e = threadIdx.x; e < np * 2 * n; e += blockDim.x) {
+    const int h = e / n, c = e - h * n;
+    const int r = p0 + (h >> 1), row = (h & 1) ? (n - r) & last : r;
+    raw[e] = stage_state(w, st, field + (size_t)row * n + c);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < np * 2 * n; e += blockDim.x) {
+    const int h = e / n, c = e - h * n;
+    const int r = p0 + (h >> 1), row = (h & 1) ? (n - r) & last : r;
+    const int rowm = (n - row) & last, cm = (n - c) & last;
+    const float2 a = raw[e], bm = cconj(raw[(size_t)(h ^ 1) * n + cm]);  // ws[k], conj ws[-k]
+    const float kyr = ky[row], kym = ky[rowm], kxc = kx[c], kxm = kx[cm];
+    const float2 pa = scal(inv_k2[(size_t)row * n + c], a);
+    const float2 pb = scal(inv_k2[(size_t)rowm * n + cm], bm);
+    // H u^ = (i/2) uq, H v^ = (-i/2) vq, H dwdx^ = (i/2) dx, H dwdy^ = (i/2) dy
+    const float2 uq = csub(scal(kyr, pa), scal(kym, pb));
+    const float2 vq = csub(scal(kxc, pa), scal(kxm, pb));
+    const float2 dx = csub(scal(kxc, a), scal(kxm, bm));
+    const float2 dy = csub(scal(kyr, a), scal(kym, bm));
+    float2* line = x + (size_t)(2 * h) * npad + pad(c);
+    line[0] = make_float2(0.5f * (vq.x - uq.y), 0.5f * (vq.y + uq.x));      // H u^ + i H v^
+    line[npad] = make_float2(0.5f * (-dx.y - dy.x), 0.5f * (dx.x - dy.y));  // H dwdx^ + i H dwdy^
+  }
+  __syncthreads();
+  fft_lines<true, true>(x, tw, n, logn, 4 * np, npad, 1, false);
+  for (int e = threadIdx.x; e < np * 4 * n; e += blockDim.x) {
+    const int line = e / n, c = e - line * n;
+    const int h = line >> 1, q = line & 1;
+    const int r = p0 + (h >> 1), row = (h & 1) ? (n - r) & last : r;
+    scratch[(((size_t)b * kPacked + q) * n + row) * n + c] = x[(size_t)line * npad + pad(c)];
+  }
+  __syncthreads();
+}
+
+// Pass 2, virtual block vb of batch * (n / tc): columns [x0, x0 + tc) of both
+// scratch fields of field b; `scale` is 1 / n^4 (both inverses, both axes).
+__device__ inline void pass_columns(int vb, float2* scratch,
+                                    const float2* __restrict__ twiddle, int n, int logn, int tc,
+                                    float scale, float2* smem) {
   const int tiles = n / tc;
-  int bid = blockIdx.x;
-  const int tile = bid % tiles;
-  bid /= tiles;
-  const int q = bid % kFields;
-  const int b = bid / kFields;
-  const int c0 = tile * tc;
+  const int b = vb / tiles, x0 = (vb - b * tiles) * tc;
+  const int npad = pad(n), last = n - 1, wide = 2 * tc, half_tc = tc >> 1;
+  float2* tw = smem;
+  float2* x = tw + (n >> 1);               // [npad][2 * tc]: z1 columns, then z2 columns
+  float2* z = x + (size_t)npad * wide;     // [npad][tc / 2]: packed products
+  float2* sb = scratch + (size_t)b * kPacked * n * n;
 
-  for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) tw[i] = twiddle[i];
-  const float2* wb = w + (size_t)b * n * n;
-  for (int e = threadIdx.x; e < n * tc; e += blockDim.x) {
-    const int r = e / tc, c = c0 + (e - r * tc);
-    const float2 z = wb[(size_t)r * n + c];
-    const float kxc = kx[c], kyr = ky[r];
-    float2 v;
-    if (q < 2) {
-      const float ik = inv_k2[(size_t)r * n + c];
-      const float pr = ik * z.x, pi = ik * z.y;
-      v = q == 0 ? make_float2(-kyr * pi, kyr * pr)   // u_hat =  i ky psi
-                 : make_float2(kxc * pi, -kxc * pr);  // v_hat = -i kx psi
-    } else {
-      v = q == 2 ? make_float2(-kxc * z.y, kxc * z.x)   // i kx w
-                 : make_float2(-kyr * z.y, kyr * z.x);  // i ky w
+  load_twiddle(tw, twiddle, n);
+  for (int e = threadIdx.x; e < kPacked * n * tc; e += blockDim.x) {
+    const int q = e / (n * tc), rem = e - q * n * tc;
+    const int y = rem / tc, c = rem - y * tc;
+    x[(size_t)pad(y) * wide + q * tc + c] = sb[((size_t)q * n + y) * n + x0 + c];
+  }
+  __syncthreads();
+  fft_lines<true, true>(x, tw, n, logn, wide, 1, wide, true);
+  for (int e = threadIdx.x; e < n * half_tc; e += blockDim.x) {
+    const int y = e / half_tc, j = e - y * half_tc;
+    const float2* row = x + (size_t)pad(y) * wide + 2 * j;
+    const float2 uva = row[0], uvb = row[1], da = row[tc], db = row[tc + 1];
+    z[(size_t)pad(y) * half_tc + j] = make_float2(-(uva.x * da.x + uva.y * da.y) * scale,
+                                                  -(uvb.x * db.x + uvb.y * db.y) * scale);
+  }
+  __syncthreads();
+  fft_lines<false, false>(z, tw, n, logn, half_tc, 1, half_tc, true);
+  for (int e = threadIdx.x; e < ((n >> 1) + 1) * half_tc; e += blockDim.x) {
+    const int kyi = e / half_tc, j = e - kyi * half_tc;
+    const float2 za = z[(size_t)pad(kyi) * half_tc + j];
+    const float2 zb = cconj(z[(size_t)pad((n - kyi) & last) * half_tc + j]);
+    const float2 d = csub(za, zb);
+    float2* o = sb + (size_t)kyi * n + x0 + 2 * j;
+    o[0] = scal(0.5f, cadd(za, zb));           // spectrum of column 2j
+    o[1] = make_float2(0.5f * d.y, -0.5f * d.x);  // of column 2j + 1: (za - zb) / (2i)
+  }
+  __syncthreads();
+}
+
+// Pass 3, virtual block vb as in pass 1: rows ky in [p0, p0 + ppc) of scratch
+// field 0, written as rows ky and -ky of out.
+__device__ inline void pass_rows_forward(int vb, const float2* scratch,
+                                         const float2* __restrict__ w, const Stage& st,
+                                         const float* __restrict__ mask,
+                                         const float2* __restrict__ twiddle,
+                                         float2* __restrict__ out, int n, int logn, int ppc,
+                                         float2* smem) {
+  const int pairs = (n >> 1) + 1, tiles = (pairs + ppc - 1) / ppc;
+  const int b = vb / tiles, p0 = (vb - b * tiles) * ppc;
+  const int np = pairs - p0 < ppc ? pairs - p0 : ppc;
+  const int npad = pad(n), last = n - 1;
+  float2* tw = smem;
+  float2* x = tw + (n >> 1);  // [ppc][npad]
+  const float2* sb = scratch + (size_t)b * kPacked * n * n;
+  const size_t field = (size_t)b * n * n;
+
+  load_twiddle(tw, twiddle, n);
+  for (int e = threadIdx.x; e < np * n; e += blockDim.x) {
+    const int pr = e / n, c = e - pr * n;
+    x[(size_t)pr * npad + pad(c)] = sb[(size_t)(p0 + pr) * n + c];
+  }
+  __syncthreads();
+  fft_lines<false, false>(x, tw, n, logn, np, npad, 1, false);
+  for (int e = threadIdx.x; e < np * 2 * n; e += blockDim.x) {
+    const int h = e / n, c = e - h * n;
+    const int pr = h >> 1, kyi = p0 + pr;
+    const int row = (h & 1) ? (n - kyi) & last : kyi;
+    if ((h & 1) && row == kyi) continue;  // rows 0 and n/2 mirror onto themselves
+    const float2* line = x + (size_t)pr * npad;
+    const float2 t = (h & 1) ? cconj(line[pad((n - c) & last)]) : line[pad(c)];
+    const size_t plane = (size_t)row * n + c, at = field + plane;
+    const float m = mask[plane];
+    float2 r = make_float2(m * t.x, m * t.y);
+    if (st.lin) {
+      const float2 ws = stage_state(w, st, at);
+      const float l = st.lin[plane];
+      r.x += l * ws.x;
+      r.y += l * ws.y;
     }
-    x[e] = v;
+    if (st.f) r = cadd(r, st.f[at]);
+    if (st.k1) {
+      float2 acc = scal(2.0f, cadd(st.k2[at], st.k_prev[at]));
+      acc = cadd(cadd(st.k1[at], acc), r);
+      const float2 w0 = w[at];
+      r = make_float2(w0.x + st.dt6 * acc.x, w0.y + st.dt6 * acc.y);
+    }
+    out[at] = r;
   }
   __syncthreads();
-  fft_lines<true, true>(x, tw, n, logn, tc, 1, tc, true);
-  float2* sb = scratch + ((size_t)b * kFields + q) * n * n;
-  for (int e = threadIdx.x; e < n * tc; e += blockDim.x) {
-    const int p = e / tc;
-    sb[(size_t)p * n + c0 + (e - p * tc)] = x[e];
-  }
 }
 
-// Launch 2. grid = batch * n; block (b, p) takes row p of the four scratch
-// fields: inverse along the row, real parts scaled by 1/n^2, the product,
-// forward along the row, written over row p of field 0.
-__global__ void __launch_bounds__(256)
-ns_adv_rows(float2* __restrict__ scratch, const float2* __restrict__ twiddle, int n, int logn,
-            float scale) {
+__global__ void __launch_bounds__(kMaxThreads)
+ns_adv_rows_inverse(const float2* w, Stage st, const float* kx, const float* ky,
+                    const float* inv_k2, const float2* twiddle, float2* scratch, int n, int logn,
+                    int ppc) {
   extern __shared__ float2 smem[];
-  float2* tw = smem;
-  float2* x = smem + (n >> 1);  // [4][n]
-  const int b = blockIdx.x / n, p = blockIdx.x - b * n;
-
-  for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) tw[i] = twiddle[i];
-  float2* sb = scratch + (size_t)b * kFields * n * n + (size_t)p * n;
-  for (int e = threadIdx.x; e < kFields * n; e += blockDim.x) {
-    const int q = e / n;
-    x[e] = sb[(size_t)q * n * n + (e - q * n)];
-  }
-  __syncthreads();
-  fft_lines<true, true>(x, tw, n, logn, kFields, n, 1, false);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float u = x[i].x * scale, v = x[n + i].x * scale;
-    const float dwdx = x[2 * n + i].x * scale, dwdy = x[3 * n + i].x * scale;
-    x[i] = make_float2(-u * dwdx - v * dwdy, 0.f);
-  }
-  __syncthreads();
-  fft_lines<false, false>(x, tw, n, logn, 1, n, 1, false);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) sb[i] = x[i];
+  pass_rows_inverse(blockIdx.x, w, st, kx, ky, inv_k2, twiddle, scratch, n, logn, ppc, smem);
 }
 
-// Launch 3. grid = batch * (n / tc); block (b, tile) forward-transforms
-// columns [tile*tc, tile*tc + tc) of scratch field 0 along axis -2 and
-// writes them, times the mask, to out.
-__global__ void __launch_bounds__(256)
-ns_adv_forward_cols(const float2* __restrict__ scratch, const float* __restrict__ mask,
-                    const float2* __restrict__ twiddle, float2* __restrict__ out, int n,
-                    int logn, int tc) {
+__global__ void __launch_bounds__(kMaxThreads)
+ns_adv_columns(float2* scratch, const float2* twiddle, int n, int logn, int tc, float scale) {
   extern __shared__ float2 smem[];
-  float2* tw = smem;
-  float2* x = smem + (n >> 1);  // [n][tc]
-  const int tiles = n / tc;
-  const int b = blockIdx.x / tiles, c0 = (blockIdx.x - b * tiles) * tc;
-
-  for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) tw[i] = twiddle[i];
-  const float2* sb = scratch + (size_t)b * kFields * n * n;
-  for (int e = threadIdx.x; e < n * tc; e += blockDim.x) {
-    const int p = e / tc;
-    x[e] = sb[(size_t)p * n + c0 + (e - p * tc)];
-  }
-  __syncthreads();
-  fft_lines<false, false>(x, tw, n, logn, tc, 1, tc, true);
-  float2* ob = out + (size_t)b * n * n;
-  for (int e = threadIdx.x; e < n * tc; e += blockDim.x) {
-    const int r = e / tc;
-    const size_t at = (size_t)r * n + c0 + (e - r * tc);
-    const float m = mask[at];
-    ob[at] = make_float2(x[e].x * m, x[e].y * m);
-  }
+  pass_columns(blockIdx.x, scratch, twiddle, n, logn, tc, scale, smem);
 }
+
+__global__ void __launch_bounds__(kMaxThreads)
+ns_adv_rows_forward(const float2* scratch, const float2* w, Stage st, const float* mask,
+                    const float2* twiddle, float2* out, int n, int logn, int ppc) {
+  extern __shared__ float2 smem[];
+  pass_rows_forward(blockIdx.x, scratch, w, st, mask, twiddle, out, n, logn, ppc, smem);
+}
+
+#ifdef __CUDACC__
+// The three passes in one cooperative launch: persistent blocks walk the
+// virtual blocks of each pass, with a grid-wide barrier between passes.
+__global__ void __launch_bounds__(kMaxThreads)
+ns_adv_cooperative(const float2* w, Stage st, const float* kx, const float* ky,
+                   const float* inv_k2, const float* mask, const float2* twiddle,
+                   float2* scratch, float2* out, int n, int logn, int tc, int ppc, float scale,
+                   int grid_rows, int grid_cols) {
+  extern __shared__ float2 smem[];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  for (int vb = blockIdx.x; vb < grid_rows; vb += gridDim.x)
+    pass_rows_inverse(vb, w, st, kx, ky, inv_k2, twiddle, scratch, n, logn, ppc, smem);
+  grid.sync();
+  for (int vb = blockIdx.x; vb < grid_cols; vb += gridDim.x)
+    pass_columns(vb, scratch, twiddle, n, logn, tc, scale, smem);
+  grid.sync();
+  for (int vb = blockIdx.x; vb < grid_rows; vb += gridDim.x)
+    pass_rows_forward(vb, scratch, w, st, mask, twiddle, out, n, logn, ppc, smem);
+}
+#endif
 
 inline int block_threads(int work) {
   const int t = (work + 31) / 32 * 32;
-  return t < 256 ? t : 256;
+  return t < 32 ? 32 : (t < kMaxThreads ? t : kMaxThreads);
 }
+
+// What every stage of one call shares.
+struct Launch {
+  const float* kx;
+  const float* ky;
+  const float* inv_k2;
+  const float* mask;
+  const float2* twiddle;
+  float2* scratch;
+  int batch, n, logn, tc, ppc, cooperative;
+  cudaStream_t stream;
+};
+
+size_t smem_bytes(int pass, int n, int tc, int ppc) {
+  const size_t npad = pad(n), half_n = n / 2;
+  if (pass == 0) return (half_n + (size_t)2 * ppc * n + (size_t)4 * ppc * npad) * sizeof(float2);
+  if (pass == 1) return (half_n + npad * (size_t)(2 * tc + tc / 2)) * sizeof(float2);
+  return (half_n + (size_t)ppc * npad) * sizeof(float2);
+}
+
+// One stage: out from w and the optional operands `stage`, as one cooperative
+// launch or as the chain of three; *launched grows by the launches issued.
+int launch_stage(const Launch& l, const float2* w, Stage stage, float2* out, int* launched) {
+  const int n = l.n, logn = l.logn, tc = l.tc, ppc = l.ppc;
+  cudaStream_t st = l.stream;
+  const int groups = (logn + kMaxStages - 1) / kMaxStages;
+  const int per_line = n >> (logn / groups);  // tasks of a line's widest group
+  const int row_tiles = (n / 2 + 1 + ppc - 1) / ppc;
+  const int grid_a = l.batch * row_tiles, grid_b = l.batch * (n / tc), grid_c = grid_a;
+  const size_t smem_a = smem_bytes(0, n, tc, ppc), smem_b = smem_bytes(1, n, tc, ppc);
+  const size_t smem_c = smem_bytes(2, n, tc, ppc);
+  const float scale = 1.0f / ((float)n * (float)n * (float)n * (float)n);
+
+  if (l.cooperative) {
+#ifdef __CUDACC__
+    // more than the default 48 KB of dynamic shared memory must be allowed first
+    static size_t allowed = 0;
+    static int resident = 0;  // blocks the card holds at once
+    size_t smem = smem_a > smem_b ? smem_a : smem_b;
+    if (smem > allowed) {
+      cudaError_t err = cudaFuncSetAttribute(ns_adv_cooperative,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      allowed = smem;
+      int device = 0, sms = 0, per_sm = 0;
+      cudaGetDevice(&device);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ns_adv_cooperative, kMaxThreads,
+                                                          allowed);
+      if (err != cudaSuccess) return (int)err;
+      resident = sms * per_sm;
+    }
+    smem = allowed;
+    int grid = grid_a > grid_b ? grid_a : grid_b;
+    if (grid > resident) grid = resident;
+    Launch a = l;
+    int ga = grid_a, gb = grid_b;
+    float sc = scale;
+    void* args[] = {&w, &stage, &a.kx, &a.ky, &a.inv_k2, &a.mask, &a.twiddle, &a.scratch, &out,
+                    &a.n, &a.logn, &a.tc, &a.ppc, &sc, &ga, &gb};
+    const cudaError_t err = cudaLaunchCooperativeKernel((void*)ns_adv_cooperative, dim3(grid),
+                                                        dim3(kMaxThreads), args, smem, st);
+    if (err == cudaSuccess) *launched += 1;
+    return (int)err;
+#else
+    return -1;  // a grid-wide barrier needs the card
+#endif
+  }
+  static size_t allowed_a = 0, allowed_b = 0;
+  if (smem_a > allowed_a) {
+    cudaError_t err = cudaFuncSetAttribute(ns_adv_rows_inverse,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+    if (err != cudaSuccess) return (int)err;
+    allowed_a = smem_a;
+  }
+  if (smem_b > allowed_b) {
+    cudaError_t err = cudaFuncSetAttribute(ns_adv_columns,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
+    if (err != cudaSuccess) return (int)err;
+    allowed_b = smem_b;
+  }
+  const int threads_a = block_threads(ppc * n > 4 * ppc * per_line ? ppc * n : 4 * ppc * per_line);
+  const int threads_b = block_threads(2 * tc * per_line);
+  const int threads_c = block_threads(ppc * n / 2 > ppc * per_line ? ppc * n / 2 : ppc * per_line);
+  float2* s2 = l.scratch;
+  const float2* tw2 = l.twiddle;
+  ns_adv_rows_inverse<<<grid_a, threads_a, smem_a, st>>>(w, stage, l.kx, l.ky, l.inv_k2, tw2, s2, n, logn, ppc);
+  ns_adv_columns<<<grid_b, threads_b, smem_b, st>>>(s2, tw2, n, logn, tc, scale);
+  ns_adv_rows_forward<<<grid_c, threads_c, smem_c, st>>>(s2, w, stage, l.mask, tw2, out, n, logn, ppc);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) *launched += 3;
+  return (int)err;
+}
+
+inline const float2* c2(const float* p) { return reinterpret_cast<const float2*>(p); }
 
 }  // namespace
 
 extern "C" {
 
-// w, out: (batch, n, n) complex64 as interleaved floats; scratch:
-// (batch, 4, n, n) complex64; kx, ky: (n); inv_k2, mask: (n, n); twiddle:
-// (n/2, 2). n = 2^logn, tc divides n and (n/2 + 4n) and (n/2 + n*tc) float2
-// fit in 48 KB of shared memory (the Python wrapper checks).
+// Bytes of dynamic shared memory of the three passes (the Python wrapper
+// picks tc and ppc so that two blocks fit an SM).
+size_t ns_advection_smem_bytes(int pass, int n, int tc, int ppc) {
+  return smem_bytes(pass, n, tc, ppc);
+}
+
+// The function, with lin and f optional (null or given). w, out, f: (batch,
+// n, n) complex64 as interleaved floats; scratch: (batch, 2, n, n) complex64;
+// kx, ky: (n); inv_k2, mask, lin: (n, n); twiddle: (n/2, 2). n = 2^logn in
+// 8..1024; tc is even and divides n; ppc >= 1 row pairs per block (the Python
+// wrapper checks, and picks tc and ppc). cooperative: one cooperative launch
+// in place of the chain of three. *launched grows by the launches issued.
 int ns_advection_launch(const float* w, const float* kx, const float* ky, const float* inv_k2,
                         const float* mask, const float* twiddle, float* scratch, float* out,
-                        int batch, int n, int logn, int tc, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float2* w2 = reinterpret_cast<const float2*>(w);
-  const float2* tw2 = reinterpret_cast<const float2*>(twiddle);
-  float2* s2 = reinterpret_cast<float2*>(scratch);
-  float2* o2 = reinterpret_cast<float2*>(out);
-  const int tiles = n / tc;
-  const int col_threads = block_threads(tc * (n / 2));
-  const int row_threads = block_threads(kFields * (n / 2));
-  const size_t col_smem = ((size_t)(n / 2) + (size_t)n * tc) * sizeof(float2);
-  const size_t row_smem = ((size_t)(n / 2) + (size_t)kFields * n) * sizeof(float2);
-  const int grid_a = batch * kFields * tiles, grid_b = batch * n, grid_c = batch * tiles;
-  const float scale = 1.0f / ((float)n * (float)n);
+                        const float* lin, const float* f, int batch, int n, int logn, int tc,
+                        int ppc, int cooperative, void* stream, int* launched) {
+  const Launch l = {kx, ky, inv_k2, mask, c2(twiddle), reinterpret_cast<float2*>(scratch),
+                    batch, n, logn, tc, ppc, cooperative, static_cast<cudaStream_t>(stream)};
+  const Stage stage = {nullptr, 0.f, lin, c2(f), nullptr, nullptr, 0.f};
+  return launch_stage(l, c2(w), stage, reinterpret_cast<float2*>(out), launched);
+}
 
-  ns_adv_inverse_cols<<<grid_a, col_threads, col_smem, st>>>(w2, kx, ky, inv_k2, tw2, s2, n, logn, tc);
-  ns_adv_rows<<<grid_b, row_threads, row_smem, st>>>(s2, tw2, n, logn, scale);
-  ns_adv_forward_cols<<<grid_c, col_threads, col_smem, st>>>(s2, mask, tw2, o2, n, logn, tc);
-  return (int)cudaGetLastError();
+// `substeps` classical RK4 substeps of length dt of w' = lin w + adv(w) + f:
+// four stages each, the fourth writing the combined substep. work:
+// (5, batch, n, n) complex64 for k1, k2, k3 and the states between substeps;
+// out receives the last state. Other arguments as in ns_advection_launch.
+int ns_advection_rk4_launch(const float* w, const float* kx, const float* ky,
+                            const float* inv_k2, const float* mask, const float* twiddle,
+                            float* scratch, float* work, float* out, const float* lin,
+                            const float* f, double dt, int substeps, int batch, int n, int logn,
+                            int tc, int ppc, int cooperative, void* stream, int* launched) {
+  const Launch l = {kx, ky, inv_k2, mask, c2(twiddle), reinterpret_cast<float2*>(scratch),
+                    batch, n, logn, tc, ppc, cooperative, static_cast<cudaStream_t>(stream)};
+  const size_t field = (size_t)batch * n * n;
+  float2* k = reinterpret_cast<float2*>(work);
+  float2* k1 = k, *k2 = k + field, *k3 = k + 2 * field;
+  const float2* src = c2(w);
+  const float half_dt = (float)(0.5 * dt);
+  for (int s = 0; s < substeps; ++s) {
+    float2* dst = s == substeps - 1 ? reinterpret_cast<float2*>(out) : k + (3 + (s & 1)) * field;
+    const Stage stages[4] = {{nullptr, 0.f, lin, c2(f), nullptr, nullptr, 0.f},
+                             {k1, half_dt, lin, c2(f), nullptr, nullptr, 0.f},
+                             {k2, half_dt, lin, c2(f), nullptr, nullptr, 0.f},
+                             {k3, (float)dt, lin, c2(f), k1, k2, (float)(dt / 6.0)}};
+    float2* outs[4] = {k1, k2, k3, dst};
+    for (int i = 0; i < 4; ++i) {
+      const int err = launch_stage(l, src, stages[i], outs[i], launched);
+      if (err) return err;
+    }
+    src = dst;
+  }
+  return 0;
 }
 
 const char* ns_advection_error_string(int code) {

@@ -11,6 +11,21 @@ for sm_90a at first use and called through a plain C interface.
     ``KS_CNAB2.launches``) or raises: there is no fallback;
   * on CPU tensors it runs ``ks_cnab2_plain``, the same function in plain
     PyTorch (complex ``torch.fft`` in a Python loop of substeps).
+
+Design. All substeps of an env step run in one launch with the spectra in
+shared memory; the transforms are in-place mixed-radix FFTs on pairs of env
+rows packed as one complex line. What the kernel needs of one grid size is
+made here, on the host: the factors of nx in the order its stages run them
+(``factor_radices``: butterflies of 4, 2, 3 and 5 in registers, any other
+prime by a generic stage; the source pairs neighbouring butterflies into one
+pass, 192 = (4*4)(4*3)), the digit-reversed positions its first load and
+last store go through (``digit_reversed_positions``), the twiddle table and
+the operator rows (``kernel_constants``), and how many row pairs and threads
+a CTA takes (``launch_shape``).
+
+What bounds it. Operations, not bytes: ``flops_per_row`` counts what the step
+needs (62 real FFTs and the per-bin update) whatever transform runs, and
+chip_smoke.py holds the kernel's time against that count.
 """
 
 from __future__ import annotations
@@ -22,9 +37,15 @@ import torch
 
 SOURCE = "ks_cnab2.cu"
 REPLACES = "distributedconvrl_pde_control_tpu/ops/pallas/ks_kernel.py:96"
-OPS_ROWS = 6  # a_inv, b, g_alpha, dist_re, dist_im, irdft weight
+OPS_ROWS = 5  # a_inv, b, g_alpha, dist_re, dist_im
+MAX_PAIRS = 8  # row pairs of a CTA: a quarter warp takes one pass task of 8 pairs
 MAX_THREADS = 512
+MAX_FACTORS = 16
+BUTTERFLIES = (4, 2, 3, 5)  # radices the kernel runs in registers, in order of preference
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
+SMEM_TARGET = 112_640  # what a CTA takes at most here where it can, so that two fit an SM
+SMEM_PER_SM = 233_472  # an SM's shared memory; each resident CTA reserves 1 KB more than it asks
+THREADS_PER_SM = 512  # threads an SM holds at the kernel's 128 registers per thread
 
 
 def _round_up(x: int, m: int) -> int:
@@ -57,54 +78,85 @@ def ks_cnab2_plain(y: torch.Tensor, forcing: torch.Tensor, solver) -> torch.Tens
 
 
 # ------------------------------------------------------------- constants
-def kernel_constants(solver):
-    """Operator rows (6, nfp) and twiddle table (nx, 2) the kernel reads.
+def factor_radices(nx: int) -> list[int]:
+    """The factors of nx as the kernel's stages run them: the butterflies it
+    has (4, 2, 3, 5), then whatever primes remain, ascending."""
+    radices, rest = [], nx
+    for r in BUTTERFLIES:
+        while rest % r == 0:
+            radices.append(r)
+            rest //= r
+    p = 7
+    while rest > 1:
+        while rest % p == 0:
+            radices.append(p)
+            rest //= p
+        p += 2
+    return radices
 
-    The half spectrum (nf = nx//2+1 bins) is padded to nfp, a multiple of
-    4, with zero operators and zero irdft weights. The irdft weight is 1/nx
-    at DC and Nyquist and 2/nx elsewhere. Twiddles are cos/sin(2*pi*i/nx)
-    in float64, cast to float32, with the exact zeros kept exact (so the
-    imaginary parts of the DC and Nyquist bins drop out as in irfft)."""
+
+def digit_reversed_positions(nx: int, radices: list[int]) -> np.ndarray:
+    """pos[j]: where the in-place decimation-in-frequency transform with
+    these stages leaves output j (and where the decimation-in-time mirror
+    expects input j): with j = j0 + r0*j1 + r0*r1*j2 + ..., position
+    j0*nx/r0 + j1*nx/(r0*r1) + ..."""
+    j = np.arange(nx)
+    pos, span = np.zeros(nx, np.int64), nx
+    for r in radices:
+        span //= r
+        pos += (j % r) * span
+        j = j // r
+    return pos.astype(np.int32)
+
+
+def kernel_constants(solver):
+    """What the kernel reads beside y and f: operator rows (5, nf) for the
+    nf = nx//2+1 bins, the twiddle table (nx, 2), the position table (nx,)
+    int32 on the solver's device, and the stage radices as a host int32
+    array. Twiddles are cos/sin(2*pi*i/nx) in float64, cast to float32, with
+    the exact zeros kept exact."""
     nx = solver.nx
-    nf = nx // 2 + 1
-    nfp = _round_up(nf, 4)
-    w = np.full(nf, 2.0 / nx)
-    w[0] = 1.0 / nx
-    if nx % 2 == 0:
-        w[-1] = 1.0 / nx
-    ops = torch.zeros(OPS_ROWS, nfp, dtype=torch.float32, device=solver.a_inv.device)
-    for row, vec in enumerate((solver.a_inv, solver.b_op, solver.g_alpha,
-                               solver.dist_re, solver.dist_im)):
-        ops[row, :nf] = vec
-    ops[5, :nf] = torch.as_tensor(w, dtype=torch.float32)
+    device = solver.a_inv.device
+    ops = torch.stack([solver.a_inv, solver.b_op, solver.g_alpha, solver.dist_re,
+                       solver.dist_im]).to(torch.float32).contiguous()
     ang = 2.0 * np.pi * np.arange(nx) / nx
     tw = np.stack([np.cos(ang), np.sin(ang)], axis=1)
     tw[np.abs(tw) < 1e-12] = 0.0
-    twiddle = torch.as_tensor(tw, dtype=torch.float32, device=ops.device).contiguous()
-    return ops, twiddle
+    twiddle = torch.as_tensor(tw, dtype=torch.float32, device=device).contiguous()
+    radices = factor_radices(nx)
+    pos = torch.as_tensor(digit_reversed_positions(nx, radices), device=device)
+    return ops, twiddle, pos, np.asarray(radices, dtype=np.int32)
 
 
-def smem_bytes(nx: int, rows: int) -> int:
-    """Dynamic shared memory of one CTA: twiddles, operator rows, 6 half
-    spectra and one real work row per env row (`smem_floats` in the source)."""
-    nfp = _round_up(nx // 2 + 1, 4)
-    return 4 * (2 * nx + OPS_ROWS * nfp + 6 * nfp * rows + nx * rows)
+def smem_bytes(nx: int, pairs: int, generic: bool = False) -> int:
+    """Dynamic shared memory of one CTA (`smem_floats` in the source): three
+    half spectra per row, one complex work line per pair (two where a stage
+    runs out of place), the twiddle, operator and position tables."""
+    nf = nx // 2 + 1
+    return 4 * (12 * nf * pairs + 2 * nx * pairs * (2 if generic else 1) + 2 * nx
+                + OPS_ROWS * nf + nx)
 
 
 def launch_shape(nx: int, batch: int) -> tuple[int, int]:
-    """(rows per CTA, threads per CTA) for a batch at grid size nx."""
-    nfp = _round_up(nx // 2 + 1, 4)
-    rows = 16
-    while rows > 4 and smem_bytes(nx, rows) > SMEM_LIMIT:
-        rows //= 2
-    rows = min(rows, _round_up(batch, 4))
-    tasks = max(nx // 4, nfp // 4) * (rows // 4)
-    return rows, min(MAX_THREADS, _round_up(tasks, 32))
+    """(row pairs per CTA, threads per CTA) for a batch at grid size nx: as
+    many pairs as the batch has, up to 8, fewer where two CTAs would not
+    fit an SM's shared memory; then the threads that fill an SM's registers
+    with the CTAs its shared memory holds, at most four (at nx = 192, four
+    CTAs of 8 pairs and 128 threads: measured faster than two of 16 pairs
+    and 256 threads, and than any shape with more threads per SM than the
+    registers hold)."""
+    generic = any(r not in BUTTERFLIES for r in factor_radices(nx))
+    pairs, needed = MAX_PAIRS, (batch + 1) // 2
+    while pairs > 1 and (smem_bytes(nx, pairs, generic) > SMEM_TARGET or pairs >= 2 * needed):
+        pairs //= 2
+    ctas = max(1, min(4, SMEM_PER_SM // (smem_bytes(nx, pairs, generic) + 1024)))
+    tasks = pairs * (nx // 2 + 1)  # the spectral pass, the widest
+    return pairs, max(32, min(THREADS_PER_SM // ctas // 32 * 32, _round_up(tasks, 32)))
 
 
 def flops_per_row(nx: int, oversampling: int) -> float:
     """Float32 operations one env step needs per env row: the function's
-    own count, not what K1's direct DFTs spend (several times more).
+    own count, whatever transform the kernel runs.
 
     A real FFT of length nx is counted at 2.5*nx*log2(nx) flops. One step
     needs 2*oversampling+2 of them: rfft of y, y^2 and f; irfft + rfft of
@@ -130,35 +182,48 @@ class _KSCnab2Kernel:
             from distributedconvrl_pde_control_torch.ops.kernels import build
 
             lib = build.load(SOURCE)
-            lib.ks_cnab2_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-                ctypes.c_float, ctypes.c_void_p]
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.ks_cnab2_launch.argtypes = [ptr] * 6 + [i32] * 2 + [ptr] + [i32] * 4 + [
+                ctypes.c_float, ptr]
             lib.ks_cnab2_launch.restype = ctypes.c_int
             lib.ks_cnab2_error_string.argtypes = [ctypes.c_int]
             lib.ks_cnab2_error_string.restype = ctypes.c_char_p
             self._lib = lib
         return self._lib
 
-    def __call__(self, y: torch.Tensor, forcing: torch.Tensor, ops: torch.Tensor,
-                 twiddle: torch.Tensor, oversampling: int, dt: float) -> torch.Tensor:
+    def __call__(self, y: torch.Tensor, forcing: torch.Tensor, constants, oversampling: int,
+                 dt: float) -> torch.Tensor:
         if y.device.type != "cuda":
             raise RuntimeError(f"K1 launches on CUDA tensors only, got {y.device}")
+        ops, twiddle, pos, radices = constants
         batch, nx = y.shape
         if nx % 4 or batch < 1:
             raise ValueError(f"K1 needs nx % 4 == 0 and batch >= 1, got {tuple(y.shape)}")
-        nfp = _round_up(nx // 2 + 1, 4)
-        for name, t, shape in (("y", y, (batch, nx)), ("forcing", forcing, (batch, nx)),
-                               ("ops", ops, (OPS_ROWS, nfp)), ("twiddle", twiddle, (nx, 2))):
-            if t.device != y.device or t.dtype != torch.float32:
-                raise ValueError(f"K1 {name}: need float32 on {y.device}, got {t.dtype} on {t.device}")
+        nf = nx // 2 + 1
+        for name, t, shape, dtype in (("y", y, (batch, nx), torch.float32),
+                                      ("forcing", forcing, (batch, nx), torch.float32),
+                                      ("ops", ops, (OPS_ROWS, nf), torch.float32),
+                                      ("twiddle", twiddle, (nx, 2), torch.float32),
+                                      ("pos", pos, (nx,), torch.int32)):
+            if t.device != y.device or t.dtype != dtype:
+                raise ValueError(f"K1 {name}: need {dtype} on {y.device}, got {t.dtype} on {t.device}")
             if tuple(t.shape) != shape or not t.is_contiguous():
                 raise ValueError(f"K1 {name}: need a contiguous {shape}, got {tuple(t.shape)}")
+        if radices.dtype != np.int32 or len(radices) > MAX_FACTORS or int(np.prod(radices)) != nx:
+            raise ValueError(f"K1 radices: need at most {MAX_FACTORS} int32 factors of {nx}, "
+                             f"got {radices}")
+        pairs, threads = launch_shape(nx, batch)
+        generic = any(int(r) not in BUTTERFLIES for r in radices)
+        if smem_bytes(nx, pairs, generic) > SMEM_LIMIT:
+            raise ValueError(f"K1 at nx={nx} needs {smem_bytes(nx, pairs, generic)} B of shared "
+                             f"memory per CTA, above the card's {SMEM_LIMIT}")
         lib = self._load()
-        rows, threads = launch_shape(nx, batch)
         out = torch.empty_like(y)
         stream = torch.cuda.current_stream(y.device).cuda_stream
         err = lib.ks_cnab2_launch(y.data_ptr(), forcing.data_ptr(), ops.data_ptr(),
-                                  twiddle.data_ptr(), out.data_ptr(), batch, nx, nfp,
-                                  rows, threads, oversampling, dt / oversampling, stream)
+                                  twiddle.data_ptr(), pos.data_ptr(), out.data_ptr(), batch, nx,
+                                  radices.ctypes.data, len(radices), pairs.bit_length() - 1,
+                                  threads, oversampling, dt / oversampling, stream)
         if err:
             raise RuntimeError(f"K1 launch failed: {lib.ks_cnab2_error_string(err).decode()}")
         self.launches += 1
@@ -173,5 +238,4 @@ def ks_cnab2_step(y: torch.Tensor, forcing: torch.Tensor, solver) -> torch.Tenso
     kernel on CUDA tensors, the plain version on CPU tensors."""
     if y.device.type == "cpu":
         return ks_cnab2_plain(y, forcing, solver)
-    ops, twiddle = solver.kernel_constants
-    return KS_CNAB2(y, forcing, ops, twiddle, solver.oversampling, solver.dt)
+    return KS_CNAB2(y, forcing, solver.kernel_constants, solver.oversampling, solver.dt)

@@ -1,19 +1,37 @@
-"""Kernel K2: the NS advection term with the 2/3-rule mask, its wrapper, its
-constants and its plain version.
+"""Kernel K2: the NS advection term with the 2/3-rule mask, with the
+Runge-Kutta stage arithmetic of the vorticity solver folded into its first
+and last pass; its wrapper, its constants and its plain version.
 
 Replaces ``distributedconvrl_pde_control_tpu/ops/pallas/ns_advection.py::
 PallasAdvection2D._kernel``. The CUDA source is ``csrc/ns_advection.cu``
 (its header comment gives the design and what bounds it); it is built with
 nvcc for sm_90a at first use and called through a plain C interface.
 
-``ns_advection(w, consts)`` is the one entry point, for w (B, n, n)
-complex64 full spectra indexed [ky][kx]:
+Two entry points, for w (B, n, n) complex64 full spectra indexed [ky][kx]:
 
-  * on a CUDA tensor it launches the kernel chain (and counts the call in
-    ``NS_ADVECTION.launches``) or raises: there is no fallback, and no
-    ``torch.fft`` or matrix product on that path;
-  * on a CPU tensor it runs ``ns_advection_plain``, the same function with
-    complex ``torch.fft``.
+  * ``ns_advection(w, consts, lin=None, f=None)``: with no optional operand
+    the TPU kernel's function, the masked advection term; with them the
+    solver's right-hand side ``lin * w + advection(w) + f``, written by the
+    kernel's last pass;
+  * ``ns_rk4_substeps(w, consts, lin, f, dt, substeps)``: classical RK4
+    substeps of that right-hand side. Every stage is one launch of the
+    kernel: its first pass forms the stage state ``w + alpha * k_prev`` while
+    it reads, and the fourth stage's last pass writes the combination
+    ``w + dt/6 (k1 + 2 (k2 + k3) + k4)``. One call into the library makes
+    all 4 * substeps launches.
+
+On a CUDA tensor both launch the kernel or raise: there is no fallback, and
+no ``torch.fft`` or matrix product on that path. ``NS_ADVECTION.launches``
+grows by the kernel launches the library reports having issued. On a CPU
+tensor they run ``ns_rhs_plain`` and ``ns_rk4_plain``: ``ns_advection_plain``
+(the same function with complex ``torch.fft``) composed with the same
+arithmetic in plain PyTorch.
+
+Design of the wrapper. The constants are validated once, when
+``AdvectionConstants`` is made, and their device pointers are kept on it; a
+call checks only the tensors it is given. The (B, 2, n, n) scratch is kept
+per device, stream and shape and reused: calls on one stream are ordered, so
+a later call may overwrite what an earlier one has finished with.
 """
 
 from __future__ import annotations
@@ -26,9 +44,10 @@ import torch
 
 SOURCE = "ns_advection.cu"
 REPLACES = "distributedconvrl_pde_control_tpu/ops/pallas/ns_advection.py:70"
-FIELDS = 4  # u, v, dw/dx, dw/dy: the scratch holds one complex field each
+PACKED = 2  # u + i v and dw/dx + i dw/dy: the scratch holds one complex field each
 MIN_N, MAX_N = 8, 1024
-TILE_POINTS = 4096  # complex points of a column tile in shared memory (32 KB)
+SMEM_TARGET = 98_304  # what a block takes at most here, so that two fit an SM
+MIN_BLOCKS = 132  # one block per SM of an H100
 
 
 # ------------------------------------------------------------- constants
@@ -39,7 +58,8 @@ class AdvectionConstants:
     kx varies along the last axis and ky along rows, (n, n) float32 each,
     as the reference solver holds them; `kx_vec`, `ky_vec` (n,) and the
     twiddle table (n/2, 2) are what the kernel reads beside `inv_k2` and
-    `mask23`."""
+    `mask23`. What the kernel reads is validated here, once; `pointers`
+    holds its device addresses in the order of the launch's arguments."""
 
     n: int
     kx: torch.Tensor
@@ -50,6 +70,23 @@ class AdvectionConstants:
     kx_vec: torch.Tensor
     ky_vec: torch.Tensor
     twiddle: torch.Tensor
+    pointers: tuple = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        n, device = self.n, self.inv_k2.device
+        read = (("kx_vec", self.kx_vec, (n,)), ("ky_vec", self.ky_vec, (n,)),
+                ("inv_k2", self.inv_k2, (n, n)), ("mask23", self.mask23, (n, n)),
+                ("twiddle", self.twiddle, (n // 2, 2)))
+        for name, t, shape in read:
+            if t.device != device or t.dtype != torch.float32:
+                raise ValueError(f"K2 {name}: need float32 on {device}, got {t.dtype} on {t.device}")
+            if tuple(t.shape) != shape or not t.is_contiguous():
+                raise ValueError(f"K2 {name}: need a contiguous {shape}, got {tuple(t.shape)}")
+        object.__setattr__(self, "pointers", tuple(t.data_ptr() for _, t, _ in read))
+
+    @property
+    def device(self) -> torch.device:
+        return self.inv_k2.device
 
 
 def advection_constants(kx: np.ndarray, ky: np.ndarray, device="cuda") -> AdvectionConstants:
@@ -102,9 +139,62 @@ def ns_advection_plain(w: torch.Tensor, c: AdvectionConstants) -> torch.Tensor:
     return torch.fft.fft2(-u * dwdx - v * dwdy) * c.mask23
 
 
-def column_tile(n: int) -> int:
-    """Columns per block of the two column passes."""
-    return max(1, min(8, TILE_POINTS // n))
+def ns_rhs_plain(w: torch.Tensor, c: AdvectionConstants, lin=None, f=None) -> torch.Tensor:
+    """`ns_advection` with its optional operands in plain PyTorch:
+    `ns_advection_plain`, then the arithmetic on interleaved float32 views,
+    so that the real operator multiplies both components without a complex
+    product, in the reference solver's order."""
+    out = torch.view_as_real(ns_advection_plain(w, c))
+    if lin is not None:
+        out = torch.addcmul(out, lin[..., None], torch.view_as_real(w))
+    if f is not None:
+        out = out.add_(torch.view_as_real(f))
+    return torch.view_as_complex(out)
+
+
+def ns_rk4_plain(w: torch.Tensor, c: AdvectionConstants, lin: torch.Tensor, f: torch.Tensor,
+                 dt: float, substeps: int) -> torch.Tensor:
+    """`ns_rk4_substeps` in plain PyTorch: per substep four `ns_rhs_plain`
+    and w + dt/6 (k1 + 2 (k2 + k3) + k4), in the reference's order."""
+    def rhs(wv):
+        return torch.view_as_real(ns_rhs_plain(torch.view_as_complex(wv), c, lin, f))
+
+    wv = torch.view_as_real(w)
+    for _ in range(substeps):
+        k1 = rhs(wv)
+        k2 = rhs(torch.add(wv, k1, alpha=0.5 * dt))
+        k3 = rhs(torch.add(wv, k2, alpha=0.5 * dt))
+        k4 = rhs(torch.add(wv, k3, alpha=dt))
+        wv = torch.add(wv, (k1 + (k2 + k3).mul_(2.0)).add_(k4), alpha=dt / 6.0)
+    return torch.view_as_complex(wv)
+
+
+# ---------------------------------------------------------- launch shape
+def smem_bytes(which: int, n: int, tc: int, ppc: int) -> int:
+    """Dynamic shared memory of pass `which` (0 rows inverse, 1 columns, 2
+    rows forward), as `ns_advection_smem_bytes` in the source: the twiddle
+    table and the padded lines (one spare point in 16)."""
+    npad = n + (n >> 4)
+    lines = (2 * ppc * n + 4 * ppc * npad, npad * (2 * tc + tc // 2), ppc * npad)[which]
+    return 8 * (n // 2 + lines)
+
+
+def column_tile(n: int, batch: int) -> int:
+    """Columns per block of the column pass: as wide as shared memory and a
+    full wave of blocks allow, so that the global accesses run long."""
+    tc = min(16, n)
+    while tc > 2 and (smem_bytes(1, n, tc, 1) > SMEM_TARGET or batch * (n // tc) < MIN_BLOCKS):
+        tc //= 2
+    return tc
+
+
+def row_pairs(n: int, batch: int) -> int:
+    """Row pairs (r, -r) per block of the two row passes."""
+    ppc = 4
+    while ppc > 1 and (smem_bytes(0, n, 2, ppc) > SMEM_TARGET
+                       or batch * -(-(n // 2 + 1) // ppc) < 2 * MIN_BLOCKS):
+        ppc //= 2
+    return ppc
 
 
 def flops(n: int, batch: int) -> float:
@@ -113,7 +203,8 @@ def flops(n: int, batch: int) -> float:
     so two complex inverses of packed pairs and one real-to-complex forward
     suffice: 2.5 complex 2D FFTs at 5*N*log2(N) flops for N = n*n points,
     plus ~30 flops per point for the spectral multiplies, the product and
-    the mask. (The kernel itself runs five full complex transforms.)"""
+    the mask. (The stage operands add ~10 flops per point and are not
+    counted: the bound is that of the TPU kernel's function.)"""
     points = n * n
     return batch * (2.5 * 5.0 * points * np.log2(points) + 30.0 * points)
 
@@ -125,64 +216,136 @@ def min_bytes(n: int, batch: int) -> int:
 
 # --------------------------------------------------------------- wrapper
 class _NSAdvectionKernel:
-    """Handle of the compiled kernel chain: lazy build, launch, call count."""
+    """Handle of the compiled kernel: lazy build, launches, launch count, and
+    per device, stream and shape the scratch, the work fields and the launch
+    shape kept between calls.
+
+    `chain` picks the form of a stage on the card: one cooperative launch
+    (the default, what every path runs) or the chain of three launches (what
+    the CPU tests emulate; timed beside the other by chip_smoke.py)."""
 
     def __init__(self):
-        self.launches = 0
+        self.launches = 0  # kernel launches, as the library counts them where it makes them
         self._lib = None
+        self._plans = {}  # (device, stream, batch, n) -> [scratch, logn, tc, ppc, work or None]
 
     def _load(self):
         if self._lib is None:
             from distributedconvrl_pde_control_torch.ops.kernels import build
 
             lib = build.load(SOURCE)
-            lib.ns_advection_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-                ctypes.c_void_p]
+            ptr, f64, i32 = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
+            lib.ns_advection_launch.argtypes = [ptr] * 10 + [i32] * 6 + [ptr] * 2
             lib.ns_advection_launch.restype = ctypes.c_int
+            lib.ns_advection_rk4_launch.argtypes = [ptr] * 11 + [f64] + [i32] * 7 + [ptr] * 2
+            lib.ns_advection_rk4_launch.restype = ctypes.c_int
             lib.ns_advection_error_string.argtypes = [ctypes.c_int]
             lib.ns_advection_error_string.restype = ctypes.c_char_p
             self._lib = lib
         return self._lib
 
-    def __call__(self, w: torch.Tensor, c: AdvectionConstants) -> torch.Tensor:
-        if w.device.type != "cuda":
-            raise RuntimeError(f"K2 launches on CUDA tensors only, got {w.device}")
-        n = c.n
-        if n < MIN_N or n > MAX_N or n & (n - 1):
-            raise ValueError(f"K2's line transform takes n a power of two in "
-                             f"[{MIN_N}, {MAX_N}], got {n}")
-        if w.dtype != torch.complex64 or w.dim() != 3 or tuple(w.shape[1:]) != (n, n) \
-                or w.shape[0] < 1 or not w.is_contiguous():
+    def _plan(self, w: torch.Tensor, c: AdvectionConstants):
+        """Checks w against the constants; (plan, stream) of its shape."""
+        device, n = w.device, c.n
+        if device.type != "cuda":
+            raise RuntimeError(f"K2 launches on CUDA tensors only, got {device}")
+        if c.device != device:
+            raise ValueError(f"K2 constants: need float32 on {device}, got them on {c.device}")
+        if w.dim() != 3 or w.shape[1] != n or w.shape[2] != n or w.shape[0] < 1:
             raise ValueError(f"K2 w: need a contiguous complex64 (B, {n}, {n}), "
                              f"got {w.dtype} {tuple(w.shape)}")
-        for name, t, shape in (("kx_vec", c.kx_vec, (n,)), ("ky_vec", c.ky_vec, (n,)),
-                               ("inv_k2", c.inv_k2, (n, n)), ("mask23", c.mask23, (n, n)),
-                               ("twiddle", c.twiddle, (n // 2, 2))):
-            if t.device != w.device or t.dtype != torch.float32:
-                raise ValueError(f"K2 {name}: need float32 on {w.device}, got {t.dtype} on {t.device}")
-            if tuple(t.shape) != shape or not t.is_contiguous():
-                raise ValueError(f"K2 {name}: need a contiguous {shape}, got {tuple(t.shape)}")
-        lib = self._load()
-        batch = w.shape[0]
-        out = torch.empty_like(w)
-        scratch = torch.empty((batch, FIELDS, n, n), dtype=torch.complex64, device=w.device)
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = lib.ns_advection_launch(
-            w.data_ptr(), c.kx_vec.data_ptr(), c.ky_vec.data_ptr(), c.inv_k2.data_ptr(),
-            c.mask23.data_ptr(), c.twiddle.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            batch, n, n.bit_length() - 1, column_tile(n), stream)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        key = (device.index, stream, w.shape[0], n)
+        plan = self._plans.get(key)
+        if plan is None:
+            if n < MIN_N or n > MAX_N or n & (n - 1):
+                raise ValueError(f"K2's line transform takes n a power of two in "
+                                 f"[{MIN_N}, {MAX_N}], got {n}")
+            batch = w.shape[0]
+            self._load()
+            scratch = torch.empty((batch, PACKED, n, n), dtype=torch.complex64, device=device)
+            plan = self._plans[key] = [scratch, n.bit_length() - 1, column_tile(n, batch),
+                                       row_pairs(n, batch), None]
+        return plan, stream
+
+    @staticmethod
+    def _check(c: AdvectionConstants, lin, **fields):
+        """The spectra w and f and the operator lin of one call."""
+        shape, device = fields["w"].shape, fields["w"].device
+        for name, t in fields.items():
+            if t is not None and (t.dtype is not torch.complex64 or t.shape != shape
+                                  or t.device != device or not t.is_contiguous()):
+                raise ValueError(f"K2 {name}: need a contiguous complex64 {tuple(shape)} on "
+                                 f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if lin is not None and (lin.dtype is not torch.float32 or lin.shape != c.inv_k2.shape
+                                or lin.device != device or not lin.is_contiguous()):
+            raise ValueError(f"K2 lin: need a contiguous float32 {tuple(c.inv_k2.shape)} on "
+                             f"{device}, got {lin.dtype} {tuple(lin.shape)} on {lin.device}")
+
+    def _count(self, err: int, launched: ctypes.c_int):
+        self.launches += launched.value
         if err:
-            raise RuntimeError(f"K2 launch failed: {lib.ns_advection_error_string(err).decode()}")
-        self.launches += 1
+            raise RuntimeError(
+                f"K2 launch failed: {self._lib.ns_advection_error_string(err).decode()}")
+
+    def __call__(self, w: torch.Tensor, c: AdvectionConstants, lin=None, f=None,
+                 chain: bool = False) -> torch.Tensor:
+        """`ns_advection`: one launch of the kernel (three with `chain`)."""
+        (scratch, logn, tc, ppc, _), stream = self._plan(w, c)
+        self._check(c, lin, w=w, f=f)
+        out = torch.empty_like(w)
+        launched = ctypes.c_int(0)
+        err = self._lib.ns_advection_launch(
+            w.data_ptr(), *c.pointers, scratch.data_ptr(), out.data_ptr(),
+            None if lin is None else lin.data_ptr(), None if f is None else f.data_ptr(),
+            w.shape[0], c.n, logn, tc, ppc, not chain, stream, ctypes.byref(launched))
+        self._count(err, launched)
+        return out
+
+    def rk4(self, w: torch.Tensor, c: AdvectionConstants, lin: torch.Tensor, f: torch.Tensor,
+            dt: float, substeps: int, chain: bool = False) -> torch.Tensor:
+        """`ns_rk4_substeps`: 4 * substeps launches of the kernel (three
+        times as many with `chain`), made by one call into the library."""
+        plan, stream = self._plan(w, c)
+        if substeps < 1:
+            raise ValueError(f"K2 rk4: need substeps >= 1, got {substeps}")
+        if lin is None or f is None:
+            raise ValueError("K2 rk4: needs lin and f")
+        self._check(c, lin, w=w, f=f)
+        if plan[4] is None:
+            plan[4] = torch.empty((5, *w.shape), dtype=torch.complex64, device=w.device)
+        scratch, logn, tc, ppc, work = plan
+        out = torch.empty_like(w)
+        launched = ctypes.c_int(0)
+        err = self._lib.ns_advection_rk4_launch(
+            w.data_ptr(), *c.pointers, scratch.data_ptr(), work.data_ptr(), out.data_ptr(),
+            lin.data_ptr(), f.data_ptr(), dt, substeps, w.shape[0], c.n, logn, tc, ppc,
+            not chain, stream, ctypes.byref(launched))
+        self._count(err, launched)
         return out
 
 
 NS_ADVECTION = _NSAdvectionKernel()
 
 
-def ns_advection(w: torch.Tensor, c: AdvectionConstants) -> torch.Tensor:
-    """The masked advection term of the spectra w (B, n, n) complex64: the
-    CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
+def ns_advection(w: torch.Tensor, c: AdvectionConstants, lin=None, f=None) -> torch.Tensor:
+    """The masked advection term of the spectra w (B, n, n) complex64, or
+    with the optional operands lin (n, n) float32 and f (a spectrum like w)
+    lin * w + advection(w) + f. The CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors."""
     if w.device.type == "cpu":
-        return ns_advection_plain(w, c)
-    return NS_ADVECTION(w, c)
+        return ns_rhs_plain(w, c, lin, f)
+    return NS_ADVECTION(w, c, lin, f)
+
+
+def ns_rk4_substeps(w: torch.Tensor, c: AdvectionConstants, lin: torch.Tensor, f: torch.Tensor,
+                    dt: float, substeps: int = 1) -> torch.Tensor:
+    """`substeps` classical RK4 substeps of length dt of w' = lin * w +
+    advection(w) + f on spectra w, f (B, n, n) complex64 with lin (n, n)
+    float32: every stage is one launch of the kernel with its stage
+    arithmetic folded in, and one call into the library makes them all, so
+    that the host does per env step what it would do per stage. The CUDA
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    if w.device.type == "cpu":
+        return ns_rk4_plain(w, c, lin, f, dt, substeps)
+    return NS_ADVECTION.rk4(w, c, lin, f, dt, substeps)

@@ -6,8 +6,10 @@ a periodic domain with the semantics of the reference's `do_step`
 (`scripts/KS/setup/KSSetup.jl:130-160`): Crank-Nicolson for the linear term,
 2nd-order Adams-Bashforth for the nonlinear term, `oversampling` substeps per
 environment step. The step itself is kernel K1
-(``ops/kernels/ks_kernel.py``): the CUDA kernel on CUDA tensors, its plain
-``torch.fft`` version on CPU tensors.
+(``ops/kernels/ks_kernel.py``): the CUDA kernel on CUDA tensors (all substeps
+in one launch, on an in-kernel mixed-radix FFT whose stage plan and tables
+the solver makes once, as ``kernel_constants``), its plain ``torch.fft``
+version on CPU tensors.
 """
 
 from __future__ import annotations

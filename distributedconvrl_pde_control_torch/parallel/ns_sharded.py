@@ -8,11 +8,25 @@ padding of the single-device solver; this port runs the same scheme for a
 group of one rank, where the block is the whole field. The state is the REAL
 vorticity field (B, n, n) as in the reference; inside a step the solver
 carries complex64 spectra (the reference's (re, im) float32 pairs are one
-complex tensor here, so one class serves both reference classes). The
-advection term of every Runge-Kutta stage is kernel K2
-(``ops/kernels/ns_advection.py``): the CUDA kernel on CUDA tensors, its plain
-``torch.fft`` version on CPU tensors. The boundary transforms of a step are
-``torch.fft`` (``parallel/dfft.py``).
+complex tensor here, so one class serves both reference classes).
+
+Design. Every Runge-Kutta stage is one launch of kernel K2
+(``ops/kernels/ns_advection.py``) with the stage arithmetic folded in: the
+stage state ``w + alpha * k_prev`` is formed where the kernel reads,
+``-nu k^2 ws + advection(ws) + forcing`` is what its last pass writes, and
+the fourth stage writes the combined substep
+``w + dt/6 (k1 + 2 (k2 + k3) + k4)``. An RK4 substep is four launches of
+the kernel and no other, and all substeps of an env step are launched by one
+call into the kernel's library (``ns_rk4_substeps``), so the host's work per
+env step does not grow with the substep count. The integrating-factor tier,
+whose stage states carry exp factors, calls ``ns_advection`` once per stage
+with the forcing as its operand. On CPU tensors the same calls run the
+kernel's plain version: ``torch.fft`` and the same arithmetic in PyTorch.
+The boundary transforms of a step are ``torch.fft`` (``parallel/dfft.py``).
+
+What bounds it. The device, and in it K2: at one env a stage is a chain of
+dependent passes over an L2-resident field (its bytes alone would take under
+a microsecond), at 16 envs the line transforms' shared-memory traffic.
 """
 
 from __future__ import annotations
@@ -26,6 +40,7 @@ from distributedconvrl_pde_control_torch.ops.kernels.ns_advection import (
     AdvectionConstants,
     advection_constants,
     ns_advection,
+    ns_rk4_substeps,
 )
 from distributedconvrl_pde_control_torch.ops.spectral import fft_wavenumbers
 from distributedconvrl_pde_control_torch.parallel.dfft import dfft2, difft2_real
@@ -51,8 +66,9 @@ class NSShardedSolver:
     """RK4 vorticity stepper on spectra (semantics of the reference's
     NSShardedSolver / NSShardedSolverRI for one rank).
 
-    Spectra are complex64 (B, n, n); the Runge-Kutta arithmetic runs on
-    their interleaved float32 views so that real operators multiply both
+    Spectra are complex64 (B, n, n); the arithmetic around the kernel calls
+    (the integrating factors, the adaptive stepper's error) runs on their
+    interleaved float32 views so that real operators multiply both
     components without a complex product."""
 
     nu: float
@@ -68,37 +84,27 @@ class NSShardedSolver:
     # ------------------------------------------------------------ spectra
     def _rhs_v(self, wv, fv, ops: ShardedOps, lin):
         """rhs on float views (B, n, n, 2): lin * w + advection(w) + f, with
-        lin = -nu k^2 (n, n, 1), or None for the integrating-factor tier.
-        The masked advection term is kernel K2."""
-        adv = torch.view_as_real(ns_advection(torch.view_as_complex(wv), ops))
-        if lin is not None:
-            adv = torch.addcmul(adv, lin, wv)
-        return adv.add_(fv)
+        lin = -nu k^2 (n, n), or None for the integrating-factor tier: one
+        call of kernel K2."""
+        return torch.view_as_real(ns_advection(torch.view_as_complex(wv), ops, lin=lin,
+                                               f=torch.view_as_complex(fv)))
 
     def _lin(self, ops: ShardedOps):
-        return (-self.nu * ops.k2)[..., None]
+        return -self.nu * ops.k2
 
     def rhs(self, w, forcing_hat, ops: ShardedOps):
         """-nu k^2 w + advection(w) + forcing_hat on complex spectra."""
-        return torch.view_as_complex(self._rhs_v(
-            torch.view_as_real(w.contiguous()), torch.view_as_real(forcing_hat.contiguous()),
-            ops, self._lin(ops)))
+        return ns_advection(w.contiguous(), ops, lin=self._lin(ops), f=forcing_hat.contiguous())
 
     def _rk4_substep_v(self, wv, fv, ops, dt, lin):
-        k1 = self._rhs_v(wv, fv, ops, lin)
-        k2 = self._rhs_v(torch.add(wv, k1, alpha=0.5 * dt), fv, ops, lin)
-        k3 = self._rhs_v(torch.add(wv, k2, alpha=0.5 * dt), fv, ops, lin)
-        k4 = self._rhs_v(torch.add(wv, k3, alpha=dt), fv, ops, lin)
-        # w + dt/6 (k1 + 2 (k2 + k3) + k4), in the reference's order
-        acc = k2.add_(k3).mul_(2.0)
-        acc = k1.add_(acc).add_(k4)
-        return torch.add(wv, acc, alpha=dt / 6.0)
+        """w + dt/6 (k1 + 2 (k2 + k3) + k4) on float views (B, n, n, 2):
+        four launches of kernel K2."""
+        return torch.view_as_real(ns_rk4_substeps(
+            torch.view_as_complex(wv), ops, lin, torch.view_as_complex(fv), dt))
 
     def rk4_substep(self, w, forcing_hat, ops: ShardedOps, dt):
         """One classical RK4 substep of length dt on complex spectra."""
-        return torch.view_as_complex(self._rk4_substep_v(
-            torch.view_as_real(w.contiguous()), torch.view_as_real(forcing_hat.contiguous()),
-            ops, dt, self._lin(ops)))
+        return ns_rk4_substeps(w.contiguous(), ops, self._lin(ops), forcing_hat.contiguous(), dt)
 
     # --------------------------------------------------------- real fields
     @staticmethod
@@ -115,10 +121,9 @@ class NSShardedSolver:
         reference's do_step, FluidSetup.jl:163-172)."""
         dt_os = dt / oversampling
         wv, fv, shape = self._to_spectra(omg, forcing)
-        lin = self._lin(ops)
-        for _ in range(oversampling):
-            wv = self._rk4_substep_v(wv, fv, ops, dt_os, lin)
-        return difft2_real(torch.view_as_complex(wv)).reshape(shape)
+        w = ns_rk4_substeps(torch.view_as_complex(wv), ops, self._lin(ops),
+                            torch.view_as_complex(fv), dt_os, oversampling)
+        return difft2_real(w).reshape(shape)
 
     def step_real_if(self, omg, forcing, ops: ShardedOps, dt, oversampling: int):
         """Integrating-factor RK4 tier: the viscous diagonal is integrated

@@ -277,6 +277,37 @@ def test_rhs_and_rk4_substep_match_complex_solver():
     np.testing.assert_array_equal(tw.numpy(), w)  # inputs are not written to
 
 
+def test_fused_rk4_substep_matches_unfused():
+    """`_rk4_substep_v` and `_rhs_v` give kernel K2 the stage arithmetic as
+    operands; on CPU tensors that route computes bit for bit what the
+    advection term followed by the same arithmetic in PyTorch computes."""
+    from distributedconvrl_pde_control_torch.ops.kernels.ns_advection import ns_advection
+
+    n, nu, h = 32, 5e-4, 0.0025
+    omg, forcing = _solver_inputs(n)
+    tops = tsh.make_sharded_ops(n, n, device="cpu")
+    tsolver = tsh.NSShardedSolver(nu=nu)
+    wv = torch.view_as_real(torch.from_numpy(np.fft.fft2(omg).astype(np.complex64)))
+    fv = torch.view_as_real(torch.from_numpy(np.fft.fft2(forcing).astype(np.complex64)))
+    lin = tsolver._lin(tops)
+
+    def rhs(zv, with_lin=True):
+        adv = torch.view_as_real(ns_advection(torch.view_as_complex(zv), tops))
+        if with_lin:
+            adv = torch.addcmul(adv, lin[..., None], zv)
+        return adv.add_(fv)
+
+    k1 = rhs(wv)
+    k2 = rhs(torch.add(wv, k1, alpha=0.5 * h))
+    k3 = rhs(torch.add(wv, k2, alpha=0.5 * h))
+    k4 = rhs(torch.add(wv, k3, alpha=h))
+    want = torch.add(wv, k1.clone().add_(k2.clone().add_(k3).mul_(2.0)).add_(k4), alpha=h / 6.0)
+    assert tsolver._rk4_substep_v(wv, fv, tops, h, lin).equal(want)
+    assert tsolver._rhs_v(wv, fv, tops, lin).equal(k1)
+    assert tsolver._rhs_v(wv, fv, tops, None).equal(rhs(wv, with_lin=False))
+    assert (want - wv).abs().max() > 0
+
+
 def test_solver_refuses_unported_tiers():
     with pytest.raises(NotImplementedError, match="item 16"):
         tsh.NSShardedSolverRI(nu=1e-3, fft_mode="matmul_hi")

@@ -31,7 +31,8 @@ def _need_cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("nx,os_,mu,batch,atol", [
     (192, 10, 0.0, 8, 2e-4), (64, 5, 0.02, 4, 1e-5), (192, 5, 0.0, 512, 2e-4),
-    (192, 30, 0.0, 1000, 1e-3), (240, 30, 0.02, 33, 1e-3),
+    (192, 30, 0.0, 1000, 1e-3), (240, 30, 0.02, 33, 1e-3), (192, 30, 0.02, 1, 1e-3),
+    (600, 30, 0.0, 37, 1e-3), (60, 5, 0.02, 3, 2e-4), (28, 5, 0.02, 9, 2e-4),
 ])
 def test_k1_matches_plain_on_gpu(nx, os_, mu, batch, atol):
     _need_cuda()
@@ -52,11 +53,13 @@ def test_k1_matches_plain_on_gpu(nx, os_, mu, batch, atol):
 def test_k1_wrapper_rejects_bad_inputs_on_gpu():
     _need_cuda()
     solver = KSSolver(nx=192, lx=22.0, dt=0.1, oversampling=30, device="cuda")
-    ops, tw = solver.kernel_constants
     y = torch.zeros(4, 192, device="cuda")
     for bad in (y.double(), y.t().contiguous().t(), y[:, :190].contiguous()):
         with pytest.raises(ValueError):
-            ks_kernel.KS_CNAB2(bad, y, ops, tw, 30, 0.1)
+            ks_kernel.KS_CNAB2(bad, y, solver.kernel_constants, 30, 0.1)
+    ops, tw, pos, radices = solver.kernel_constants
+    with pytest.raises(ValueError, match="radices"):
+        ks_kernel.KS_CNAB2(y, y, (ops, tw, pos, radices[:-1]), 30, 0.1)
 
 
 @pytest.mark.gpu
@@ -78,6 +81,81 @@ def test_k2_matches_plain_on_gpu(n, batch):
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
+def _complex_spectra(rng, batch, n, scale=1.0):
+    return torch.tensor(scale * (rng.standard_normal((batch, n, n))
+                                 + 1j * rng.standard_normal((batch, n, n))),
+                        dtype=torch.complex64, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,batch,chain", [(16, 2, False), (128, 1, False), (256, 1, False),
+                                           (256, 16, False), (256, 1, True), (256, 16, True)])
+def test_k2_non_hermitian_nyquist_on_gpu(n, batch, chain):
+    """The solver's constants (positive Nyquist wavenumber) on spectra that
+    are Hermitian nowhere: the packed inverses must drop what the reference
+    drops with the real part. Both launch forms."""
+    _need_cuda()
+    from distributedconvrl_pde_control_torch.parallel.ns_sharded import make_sharded_ops
+
+    c = make_sharded_ops(n, n, device="cuda")
+    w = _complex_spectra(np.random.default_rng(n + batch), batch, n, float(n))
+    before = ns_advection.NS_ADVECTION.launches
+    got = ns_advection.NS_ADVECTION(w, c, chain=chain)
+    torch.cuda.synchronize()
+    assert ns_advection.NS_ADVECTION.launches == before + (3 if chain else 1)
+    want = ns_advection.ns_advection_plain(w, c)
+    assert torch.isfinite(torch.view_as_real(got)).all()
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("operands", ["lin_f", "lin_only", "f_only"])
+@pytest.mark.parametrize("batch", [1, 16])
+def test_k2_fused_operands_match_plain_on_gpu(batch, operands):
+    """The optional operands of the function against their plain twin at
+    the fluid path's grid, with the solver's constants and operator."""
+    _need_cuda()
+    from distributedconvrl_pde_control_torch.parallel.ns_sharded import make_sharded_ops
+
+    n = 256
+    c = make_sharded_ops(n, n, device="cuda")
+    rng = np.random.default_rng(batch)
+    w = torch.fft.fft2(torch.tensor(rng.standard_normal((batch, n, n)), dtype=torch.float32,
+                                    device="cuda"))
+    lin, f = (-5e-5 * c.k2).contiguous(), _complex_spectra(rng, batch, n, 0.1 * w.abs().max().item())
+    kw = {"lin_f": dict(lin=lin, f=f), "lin_only": dict(lin=lin), "f_only": dict(f=f)}[operands]
+    got = ns_advection.ns_advection(w, c, **kw)
+    torch.cuda.synchronize()
+    want = ns_advection.ns_rhs_plain(w, c, **kw)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,batch,substeps,chain", [(32, 2, 1, False), (256, 1, 5, False),
+                                                    (256, 16, 2, False), (128, 2, 2, True)])
+def test_k2_rk4_substeps_match_plain_on_gpu(n, batch, substeps, chain):
+    """The library's RK4 loop, whose stages carry the stage state, the
+    operator, the forcing and the combination, against the plain
+    composition; the count is what the library reports having launched."""
+    _need_cuda()
+    from distributedconvrl_pde_control_torch.ops.navier_stokes import initial_condition
+    from distributedconvrl_pde_control_torch.parallel.ns_sharded import make_sharded_ops
+
+    c = make_sharded_ops(n, n, device="cuda")
+    rng = np.random.default_rng(76)
+    w = torch.tensor(np.stack([initial_condition(4, n, n, 1.0, 1.0, rng) for _ in range(batch)])
+                     .astype(np.complex64), device="cuda")
+    f = _complex_spectra(rng, batch, n, 0.05 * w.abs().max().item())
+    lin = (-5e-5 * c.k2).contiguous()
+    before = ns_advection.NS_ADVECTION.launches
+    got = ns_advection.NS_ADVECTION.rk4(w, c, lin, f, 2.5e-4, substeps, chain=chain)
+    torch.cuda.synchronize()
+    assert ns_advection.NS_ADVECTION.launches == before + (12 if chain else 4) * substeps
+    want = ns_advection.ns_rk4_plain(w, c, lin, f, 2.5e-4, substeps)
+    assert (want - w).abs().max() > 0
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
 @pytest.mark.gpu
 def test_k2_wrapper_rejects_bad_inputs_on_gpu():
     _need_cuda()
@@ -91,6 +169,12 @@ def test_k2_wrapper_rejects_bad_inputs_on_gpu():
                                   ns_advection.fftfreq_constants(24, device="cuda"))
     with pytest.raises(ValueError, match="float32 on cuda"):
         ns_advection.NS_ADVECTION(w, ns_advection.fftfreq_constants(32, device="cpu"))
+    for kw in (dict(f=w[:1]), dict(f=w.to(torch.complex128)), dict(lin=c.k2.double()),
+               dict(lin=c.k2[:16])):
+        with pytest.raises(ValueError):
+            ns_advection.NS_ADVECTION(w, c, **kw)
+    with pytest.raises(ValueError, match="substeps"):
+        ns_advection.NS_ADVECTION.rk4(w, c, c.k2, w, 0.1, 0)
 
 
 def test_k1_wrapper_never_falls_back():
@@ -98,11 +182,10 @@ def test_k1_wrapper_never_falls_back():
     the kernel handle, and a non-CPU, non-CUDA tensor is refused by the
     step entry point instead of being run some other way."""
     solver = KSSolver(nx=64, lx=22.0, dt=0.1, oversampling=5, device="cpu")
-    ops, tw = solver.kernel_constants
     y = torch.zeros(4, 64)
     before = ks_kernel.KS_CNAB2.launches
     with pytest.raises(RuntimeError, match="CUDA"):
-        ks_kernel.KS_CNAB2(y, y, ops, tw, 5, 0.1)
+        ks_kernel.KS_CNAB2(y, y, solver.kernel_constants, 5, 0.1)
     meta = torch.empty(4, 64, device="meta")
     with pytest.raises(RuntimeError, match="CUDA"):
         ks_kernel.ks_cnab2_step(meta, meta, solver)

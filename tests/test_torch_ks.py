@@ -73,30 +73,60 @@ def test_solver_operators_match_jax():
 
 
 def test_kernel_constants_layout():
-    """Padded operator rows and the twiddle table the kernel reads."""
+    """Operator rows, the twiddle and position tables and the stage radices
+    the kernel reads."""
     solver = KSSolver(nx=192, lx=22.0, dt=0.1, oversampling=30, device="cpu")
-    ops, tw = solver.kernel_constants
-    assert ops.shape == (6, 100) and tw.shape == (192, 2)
+    ops, tw, pos, radices = solver.kernel_constants
+    assert ops.shape == (5, 97) and tw.shape == (192, 2) and pos.shape == (192,)
     for row, name in enumerate(("a_inv", "b_op", "g_alpha", "dist_re", "dist_im")):
-        np.testing.assert_array_equal(ops[row, :97].numpy(), getattr(solver, name).numpy())
-    assert not ops[:, 97:].any()
-    w = ops[5, :97].numpy()
-    assert w[0] == w[96] == np.float32(1 / 192) and np.all(w[1:96] == np.float32(2 / 192))
-    # the exact zeros that make the DC/Nyquist imaginary parts drop out
+        np.testing.assert_array_equal(ops[row].numpy(), getattr(solver, name).numpy())
+    # the exact zeros of the quarter turns
     assert tw[0, 1] == tw[96, 1] == tw[48, 0] == tw[144, 0] == 0.0
     np.testing.assert_allclose(tw.numpy(), np.stack([np.cos(2 * np.pi * np.arange(192) / 192),
                                                      np.sin(2 * np.pi * np.arange(192) / 192)], 1),
                                atol=1e-7)
+    assert radices.dtype == np.int32 and radices.tolist() == [4, 4, 4, 3]
+    assert pos.dtype == torch.int32 and sorted(pos.tolist()) == list(range(192))
+    # 1 = 1 + 4*0 + ...: the first stage's sub-block 1 of 48 points; 4 = 0 + 4*1: the second's
+    assert pos[0] == 0 and pos[1] == 48 and pos[4] == 12 and pos[64] == 1
 
 
-@pytest.mark.parametrize("nx,batch", [(64, 1), (192, 1), (192, 16384), (240, 16384), (600, 37)])
+@pytest.mark.parametrize("nx,want", [(64, [4, 4, 4]), (192, [4, 4, 4, 3]), (240, [4, 4, 3, 5]),
+                                     (600, [4, 2, 3, 5, 5]), (28, [4, 7]), (404, [4, 101])])
+def test_factor_radices_and_positions(nx, want):
+    """Every preset's grid factors into the kernel's butterflies; another
+    factor stays as it is (the generic stage). The position table is the
+    permutation an in-place mixed-radix transform leaves, checked against a
+    numpy model of its stages."""
+    radices = ks_kernel.factor_radices(nx)
+    assert radices == want and int(np.prod(radices)) == nx
+    pos = ks_kernel.digit_reversed_positions(nx, radices)
+    rng = np.random.default_rng(nx)
+    x = rng.standard_normal(nx) + 1j * rng.standard_normal(nx)
+    z, length = x.copy(), nx
+    for r in radices:  # decimation in frequency, in place
+        sub = length // r
+        for start in range(0, nx, length):
+            blk = z[start:start + length].reshape(r, sub)  # [m][p]
+            out = np.fft.fft(blk, axis=0) * np.exp(-2j * np.pi * np.outer(np.arange(r), np.arange(sub)) / length)
+            z[start:start + length] = out.reshape(-1)
+        length = sub
+    np.testing.assert_allclose(z[pos], np.fft.fft(x), atol=1e-9 * nx)
+
+
+@pytest.mark.parametrize("nx,batch", [(64, 1), (192, 1), (192, 2), (192, 5), (192, 16384),
+                                      (240, 16384), (600, 37), (404, 9)])
 def test_launch_shape_fits_the_card(nx, batch):
-    rows, threads = ks_kernel.launch_shape(nx, batch)
-    assert rows % 4 == 0 and 4 <= rows <= 16
-    assert threads % 32 == 0 and 32 <= threads <= 512
-    assert ks_kernel.smem_bytes(nx, rows) <= ks_kernel.SMEM_LIMIT
-    if nx == 192 and batch == 16384:
-        assert (rows, threads, ks_kernel.smem_bytes(nx, rows)) == (16, 192, 54_624)
+    pairs, threads = ks_kernel.launch_shape(nx, batch)
+    generic = nx == 404
+    assert pairs in (1, 2, 4, 8) and (pairs == 1 or pairs < batch + 1)
+    assert threads % 32 == 0 and 32 <= threads <= ks_kernel.MAX_THREADS
+    assert ks_kernel.smem_bytes(nx, pairs, generic) <= ks_kernel.SMEM_TARGET
+    if nx == 192:
+        want = {1: (1, 128), 2: (1, 128), 5: (4, 128), 16384: (8, 128)}[batch]
+        assert (pairs, threads) == want
+        if batch == 16384:  # four CTAs of 16 rows fit an SM's shared memory
+            assert ks_kernel.smem_bytes(nx, pairs) == 53_780
 
 
 # ------------------------------------------------------------------------
@@ -114,10 +144,13 @@ _SHIM = r"""
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __restrict__
 #define __launch_bounds__(x)
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline unsigned __umulhi(unsigned a, unsigned b) { return (unsigned)(((unsigned long long)a * b) >> 32); }
 struct Dim { int x; };
 inline thread_local Dim threadIdx;
 inline Dim blockIdx, blockDim;
@@ -126,11 +159,12 @@ inline void __syncthreads() { g_bar->arrive_and_wait(); }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 #define cudaSuccess 0
+#define cudaErrorInvalidValue 1
 #define cudaFuncAttributeMaxDynamicSharedMemorySize 0
 template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "no error"; }
-inline float4 g_smem[1 << 16];
+inline float4 g_smem[1 << 14];
 template <class F> void emu_launch(int grid, int threads, F fn) {
   blockDim.x = threads;
   for (int b = 0; b < grid; ++b) {
@@ -151,37 +185,54 @@ def emulated_k1(tmp_path_factory):
         pytest.skip("no host C++ compiler to run the CUDA source on the CPU")
     src = (build.CSRC_DIR / ks_kernel.SOURCE).read_text()
     launch = "ks_cnab2_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>("
-    tail = "substeps, dt_os);\n  return (int)cudaGetLastError();"
+    tail = "lgp, substeps, dt_os);\n  return (int)cudaGetLastError();"
     assert launch in src and tail in src, "K1's launch changed: update the emulation"
     src = (src.replace("#include <cuda_runtime.h>", _SHIM)
               .replace("extern __shared__ float4 smem4[];", "float4* smem4 = g_smem;")
               .replace(launch, "emu_launch(grid, threads, [&] { ks_cnab2_kernel(")
-              .replace(tail, "substeps, dt_os); });\n  return (int)cudaGetLastError();"))
+              .replace(tail, "lgp, substeps, dt_os); });\n  return (int)cudaGetLastError();"))
     d = tmp_path_factory.mktemp("k1emu")
     (d / "k1.cpp").write_text(src)
     subprocess.run([cxx, "-std=c++20", "-O2", "-pthread", "-shared", "-fPIC", "-w",
                     "-o", str(d / "k1.so"), str(d / "k1.cpp")], check=True)
     lib = ctypes.CDLL(str(d / "k1.so"))
-    lib.ks_cnab2_launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.ks_cnab2_launch.argtypes = [ptr] * 6 + [i32] * 2 + [ptr] + [i32] * 4 + [ctypes.c_float, ptr]
     lib.ks_cnab2_launch.restype = ctypes.c_int
+    lib.ks_cnab2_smem_bytes.argtypes = [i32] * 3
+    lib.ks_cnab2_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
 @pytest.mark.parametrize("nx,os_,mu,batch,seed,amp_y,amp_f,atol", CASES[:2] + [
-    (192, 5, 0.0, 22, 1, 0.3, 0.1, 2e-4),  # two CTAs, the second one partial
-    (240, 3, 0.0, 5, 2, 1.0, 0.2, 2e-4),  # KS200's grid
+    (192, 5, 0.0, 22, 1, 0.3, 0.1, 2e-4),  # two CTAs of 8 pairs, the second one partial
+    (192, 5, 0.0, 69, 1, 0.3, 0.1, 2e-4),  # five CTAs, the last one partial, with an odd row
+    (240, 3, 0.0, 5, 2, 1.0, 0.2, 2e-4),  # KS200's grid: factors 4, 4, 3, 5; an odd batch
     (192, 30, 0.0, 6, 3, 3.0, 1.0, 1e-3),  # the slice's substeps at ||y|| ~ 30
+    (192, 30, 0.02, 1, 4, 3.0, 1.0, 1e-3),  # the rollout's single row, with the disturbance
+    (60, 4, 0.02, 3, 5, 0.5, 0.2, 2e-4),  # a small grid with a factor 5 and a factor 3
+    (600, 2, 0.0, 2, 6, 0.5, 0.2, 2e-4),  # KS500's grid: factors 4, 2, 3, 5, 5
+    (28, 4, 0.02, 7, 7, 0.5, 0.2, 2e-4),  # a factor 7: the generic out-of-place stage
+    (96, 4, 0.0, 3, 8, 0.5, 0.2, 2e-4),  # passes (4, 4) and (2, 3): the turn in a pass of two stages
+    (160, 3, 0.0, 2, 9, 0.5, 0.2, 2e-4),  # passes (4, 4) and (2, 5)
+    (144, 3, 0.02, 4, 10, 0.5, 0.2, 2e-4),  # passes (4, 4) and (3, 3)
+    (256, 3, 0.0, 2, 11, 0.5, 0.2, 2e-4),  # two passes (4, 4)
+    (36, 4, 0.0, 5, 12, 0.5, 0.2, 2e-4),  # passes (4, 3) and 3: the turn in a single stage
+    (8, 4, 0.02, 2, 13, 0.5, 0.2, 2e-4),  # the one pass (4, 2) is the turn
 ])
 def test_k1_source_matches_plain(emulated_k1, nx, os_, mu, batch, seed, amp_y, amp_f, atol):
     y, f = (torch.from_numpy(a) for a in _inputs(nx, batch, seed, amp_y, amp_f))
     solver = KSSolver(nx=nx, lx=22.0, dt=0.1, oversampling=os_, mu=mu, device="cpu")
-    ops, tw = solver.kernel_constants
-    rows, threads = ks_kernel.launch_shape(nx, batch)
+    ops, tw, pos, radices = solver.kernel_constants
+    pairs, threads = ks_kernel.launch_shape(nx, batch)
+    generic = any(int(r) not in ks_kernel.BUTTERFLIES for r in radices)
+    assert emulated_k1.ks_cnab2_smem_bytes(nx, pairs, generic) == ks_kernel.smem_bytes(nx, pairs, generic)
     out = torch.full_like(y, float("nan"))
     err = emulated_k1.ks_cnab2_launch(y.data_ptr(), f.data_ptr(), ops.data_ptr(), tw.data_ptr(),
-                                      out.data_ptr(), batch, nx, ops.shape[1], rows, threads,
-                                      os_, 0.1 / os_, None)
+                                      pos.data_ptr(), out.data_ptr(), batch, nx, radices.ctypes.data,
+                                      len(radices), pairs.bit_length() - 1, threads, os_, 0.1 / os_, None)
     assert err == 0
     want = ks_kernel.ks_cnab2_plain(y, f, solver)
     np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=0, atol=atol)
+    # an FFT's rounding, far inside the DFT-by-matmul tolerance above
+    assert np.abs(out.numpy() - want.numpy()).max() <= 0.05 * atol + 2e-6 * np.abs(want.numpy()).max()

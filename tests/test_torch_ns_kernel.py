@@ -75,7 +75,15 @@ def test_flops_bytes_and_tile():
     assert k2.flops(256, 1) == 2.5 * 5 * 65536 * 16 + 30 * 65536
     assert 1e3 * k2.min_bytes(256, 1) / 3.35e12 > 1e3 * k2.flops(256, 1) / 67e12  # bound by bytes
     assert k2.flops(256, 16) == 16 * k2.flops(256, 1)
-    assert [k2.column_tile(n) for n in (8, 16, 256, 512, 1024)] == [8, 8, 8, 8, 4]
+    # the column tile: wide where the batch fills the card, never above the shared-memory target
+    assert [k2.column_tile(n, 1) for n in (8, 16, 256, 512, 1024)] == [2, 2, 2, 2, 4]
+    assert [k2.column_tile(n, 16) for n in (8, 256, 512, 1024)] == [2, 16, 8, 4]
+    assert [k2.row_pairs(n, b) for n, b in ((256, 1), (256, 16), (1024, 16), (8, 1))] == [1, 4, 1, 1]
+    for n in (8, 256, 1024):
+        for b in (1, 16):
+            tc, ppc = k2.column_tile(n, b), k2.row_pairs(n, b)
+            assert tc % 2 == 0 and n % tc == 0 and ppc >= 1
+            assert max(k2.smem_bytes(i, n, tc, ppc) for i in range(3)) <= k2.SMEM_TARGET
 
 
 def test_k2_wrapper_never_falls_back():
@@ -109,6 +117,7 @@ _SHIM = r"""
 #define __device__
 #define __host__
 #define __restrict__
+#define __forceinline__ inline
 #define __launch_bounds__(x)
 struct float2 { float x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
@@ -119,9 +128,12 @@ inline std::unique_ptr<std::barrier<>> g_bar;
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
+#define cudaSuccess 0
+#define cudaFuncAttributeMaxDynamicSharedMemorySize 0
+template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "no error"; }
-inline float2 g_smem[1 << 13];
+inline float2 g_smem[1 << 15];
 template <class F> void emu_launch(int grid, int threads, size_t smem_bytes, F fn) {
   if (smem_bytes > sizeof(g_smem)) throw 1;
   blockDim.x = threads;
@@ -152,35 +164,144 @@ def emulated_k2(tmp_path_factory):
     subprocess.run([cxx, "-std=c++20", "-O2", "-pthread", "-shared", "-fPIC", "-w",
                     "-o", str(d / "k2.so"), str(d / "k2.cpp")], check=True)
     lib = ctypes.CDLL(str(d / "k2.so"))
-    lib.ns_advection_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.ns_advection_launch.argtypes = [ptr] * 10 + [i32] * 6 + [ptr] * 2
     lib.ns_advection_launch.restype = ctypes.c_int
+    lib.ns_advection_rk4_launch.argtypes = [ptr] * 11 + [ctypes.c_double] + [i32] * 7 + [ptr] * 2
+    lib.ns_advection_rk4_launch.restype = ctypes.c_int
+    lib.ns_advection_smem_bytes.argtypes = [i32] * 4
+    lib.ns_advection_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
-@pytest.mark.parametrize("n,batch,kind", [
-    (32, 4, "normal"),  # the Pallas test's shape
-    (16, 4, "normal"),  # two column tiles
-    (8, 1, "normal"),  # one tile, the smallest grid
-    (64, 2, "case4"),  # spectra of real vortex fields, positive-Nyquist wavenumbers
-])
-def test_k2_source_matches_plain(emulated_k2, n, batch, kind):
-    if kind == "normal":
-        w, c = torch.from_numpy(_spectra(n, batch)), k2.fftfreq_constants(n, device="cpu")
-    else:
-        from distributedconvrl_pde_control_torch.ops.spectral import fft_wavenumbers
-
-        k = fft_wavenumbers(n, 1.0)
-        w, c = torch.from_numpy(_case4_spectra(n, batch)), k2.advection_constants(k, k, device="cpu")
+def _emulate(lib, w, c, tc, ppc, lin=None, f=None):
+    """The CUDA source's launch chain on CPU tensors, as the wrapper calls it."""
+    batch, n = w.shape[0], c.n
     out = torch.full_like(w, float("nan"))
-    scratch = torch.empty((batch, k2.FIELDS, n, n), dtype=torch.complex64)
-    err = emulated_k2.ns_advection_launch(
-        w.data_ptr(), c.kx_vec.data_ptr(), c.ky_vec.data_ptr(), c.inv_k2.data_ptr(),
-        c.mask23.data_ptr(), c.twiddle.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        batch, n, n.bit_length() - 1, k2.column_tile(n), None)
-    assert err == 0
-    want = k2.ns_advection_plain(w, c)
+    scratch = torch.full((batch, k2.PACKED, n, n), float("nan"), dtype=torch.complex64)
+    launched = ctypes.c_int(0)
+    err = lib.ns_advection_launch(
+        w.data_ptr(), *c.pointers, scratch.data_ptr(), out.data_ptr(),
+        None if lin is None else lin.data_ptr(), None if f is None else f.data_ptr(),
+        batch, n, n.bit_length() - 1, tc, ppc, 0, None, ctypes.byref(launched))
+    assert err == 0 and launched.value == 3  # the chain form: one launch per pass
+    return out
+
+
+def _solver_constants(n):
+    from distributedconvrl_pde_control_torch.ops.spectral import fft_wavenumbers
+
+    k = fft_wavenumbers(n, 1.0)  # the Nyquist wavenumber is positive
+    return k2.advection_constants(k, k, device="cpu")
+
+
+def _k2_inputs(n, batch, kind):
+    """(w, constants): "normal" is the Pallas test's input with its constants;
+    "case4" spectra of real vortex fields with the solver's constants;
+    "nyquist" adds non-Hermitian content on the Nyquist row and column to
+    "normal" spectra and "complex" is non-Hermitian everywhere, both with
+    the solver's constants: the reference drops what the real part drops."""
+    if kind == "normal":
+        return torch.from_numpy(_spectra(n, batch)), k2.fftfreq_constants(n, device="cpu")
+    if kind == "case4":
+        return torch.from_numpy(_case4_spectra(n, batch)), _solver_constants(n)
+    rng = np.random.default_rng(n + batch)
+    w = _spectra(n, batch, seed=3)
+    noise = (rng.standard_normal((batch, n, n)) + 1j * rng.standard_normal((batch, n, n))) * n
+    if kind == "nyquist":
+        keep = np.zeros((n, n), bool)
+        keep[n // 2, :] = keep[:, n // 2] = True
+        noise = noise * keep
+    return torch.from_numpy((w + noise).astype(np.complex64)), _solver_constants(n)
+
+
+def _assert_close(got, want, limit=2e-6):
     scale = want.abs().max().item()
     assert scale > 0
-    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=0, atol=1e-4 * scale)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-4 * scale)
     # far inside the Pallas tolerance: float32 FFT rounding only
-    assert (out - want).abs().max().item() <= 2e-6 * scale
+    assert (got - want).abs().max().item() <= limit * scale
+
+
+@pytest.mark.parametrize("n,batch,kind,tc,ppc", [
+    # the Pallas test's shape; line groups of 3 + 2 stages
+    pytest.param(32, 4, "normal", 4, 1, id="32-4-normal"),
+    # two column tiles; row tiles of 4, 4 and 1 pairs
+    pytest.param(16, 4, "normal", 8, 4, id="16-4-normal"),
+    # the smallest grid, one group of 3 stages
+    pytest.param(8, 1, "normal", 4, 1, id="8-1-normal"),
+    (8, 2, "normal", 8, 2),  # one column tile as wide as the grid
+    # spectra of real vortex fields, positive-Nyquist wavenumbers
+    pytest.param(64, 2, "case4", 16, 2, id="64-2-case4"),
+    (16, 2, "nyquist", 2, 1),  # non-Hermitian Nyquist row and column; the narrowest tile
+    (32, 2, "complex", 8, 3),  # non-Hermitian everywhere
+    (128, 1, "nyquist", 4, 1),  # Fluid_8's grid: groups of 4 + 3 stages
+    (256, 1, "complex", 4, 1),  # the fluid path's grid at batch 1: 4 + 4 stages
+])
+def test_k2_source_matches_plain(emulated_k2, n, batch, kind, tc, ppc):
+    w, c = _k2_inputs(n, batch, kind)
+    for which in range(3):
+        assert emulated_k2.ns_advection_smem_bytes(which, n, tc, ppc) == k2.smem_bytes(which, n, tc, ppc)
+    _assert_close(_emulate(emulated_k2, w, c, tc, ppc), k2.ns_advection_plain(w, c))
+
+
+def _noise_spectra(rng, batch, n, scale):
+    return torch.from_numpy((scale * (rng.standard_normal((batch, n, n))
+                                      + 1j * rng.standard_normal((batch, n, n)))).astype(np.complex64))
+
+
+@pytest.mark.parametrize("operands", ["lin_f", "lin_only", "f_only"])
+@pytest.mark.parametrize("n,batch,kind", [(16, 2, "nyquist"), (32, 3, "case4")])
+def test_k2_source_fused_operands_match_plain(emulated_k2, n, batch, kind, operands):
+    """The optional operands of the function's launch against their plain
+    twin, on the solver's constants and operator."""
+    w, c = _k2_inputs(n, batch, kind)
+    lin, f = -5e-3 * c.k2, _noise_spectra(np.random.default_rng(11), batch, n, 0.1 * w.abs().max().item())
+    kw = {"lin_f": dict(lin=lin, f=f), "lin_only": dict(lin=lin), "f_only": dict(f=f)}[operands]
+    got = _emulate(emulated_k2, w, c, 4, 2, **kw)
+    _assert_close(got, k2.ns_rhs_plain(w, c, **kw), limit=4e-6)
+    assert k2.ns_advection(w, c, **kw).equal(k2.ns_rhs_plain(w, c, **kw))  # the CPU route
+
+
+@pytest.mark.parametrize("n,batch,kind,substeps,dt", [
+    (16, 2, "case4", 1, 2.5e-4),
+    (32, 1, "case4", 3, 2.5e-4),  # the states alternate between the two work fields
+    (8, 1, "case4", 2, 1e-3),  # the smallest grid
+    (16, 3, "nyquist", 2, 2.5e-4),  # stage states that are not Hermitian on the Nyquist lines
+    (32, 2, "complex", 1, 1e-4),  # nor anywhere
+    (64, 1, "case4", 1, 1e-3),  # a long substep: the stage arithmetic carries weight
+])
+def test_k2_source_rk4_matches_plain(emulated_k2, n, batch, kind, substeps, dt):
+    """The library's loop of RK4 substeps (four stage launches each with the
+    stage state, the operator, the forcing and, in the fourth, the
+    combination folded in; states alternating between two work fields)
+    against the plain composition."""
+    w, c = _k2_inputs(n, batch, kind)
+    f = _noise_spectra(np.random.default_rng(5), batch, n, 0.05 * w.abs().max().item())
+    lin = -5e-3 * c.k2
+    out = torch.full_like(w, float("nan"))
+    scratch = torch.full((batch, k2.PACKED, n, n), float("nan"), dtype=torch.complex64)
+    work = torch.full((5, batch, n, n), float("nan"), dtype=torch.complex64)
+    launched = ctypes.c_int(0)
+    err = emulated_k2.ns_advection_rk4_launch(
+        w.data_ptr(), *c.pointers, scratch.data_ptr(), work.data_ptr(), out.data_ptr(),
+        lin.data_ptr(), f.data_ptr(), dt, substeps, batch, n, n.bit_length() - 1, 4, 2, 0, None,
+        ctypes.byref(launched))
+    assert err == 0 and launched.value == 3 * 4 * substeps  # four stages, each a chain of three
+    want = k2.ns_rk4_plain(w, c, lin, f, dt, substeps)
+    assert (want - w).abs().max() > 1e-4 * w.abs().max()  # the substeps moved the state
+    _assert_close(out, want)
+    assert k2.ns_rk4_substeps(w, c, lin, f, dt, substeps).equal(want)  # the CPU route
+    with pytest.raises(RuntimeError, match="CUDA"):
+        k2.NS_ADVECTION.rk4(w, c, lin, f, dt, substeps)
+
+
+def test_k2_stage_operands_are_checked():
+    c = k2.fftfreq_constants(16, device="cpu")
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.AdvectionConstants(n=16, kx=c.kx, ky=c.ky, k2=c.k2, inv_k2=c.inv_k2, mask23=c.mask23,
+                              kx_vec=c.kx_vec, ky_vec=c.ky_vec[:8], twiddle=c.twiddle)
+    with pytest.raises(ValueError, match="float32"):
+        k2.AdvectionConstants(n=16, kx=c.kx, ky=c.ky, k2=c.k2, inv_k2=c.inv_k2.double(),
+                              mask23=c.mask23, kx_vec=c.kx_vec, ky_vec=c.ky_vec, twiddle=c.twiddle)
+    assert len(c.pointers) == 5 and c.pointers[2] == c.inv_k2.data_ptr() and c.device.type == "cpu"
