@@ -1,0 +1,81 @@
+#!/usr/bin/env python3
+"""Benchmark of the PyTorch port: batched KS rollout+train throughput on one GPU.
+
+    python3 bench_torch.py
+
+The unit `bench.py` measures for the JAX package, in the port: per train step
+the KS22 physics on the reference's 192-point grid (ETDRK4 on the carried
+half-spectrum, featurize, reward and blow-up guard by Parseval on the carry),
+the shared-policy forward over all 16384*8 actuator columns, exploration
+noise, 131072 replay pushes and one DDPG update at batch 4096. Where the JAX
+bench configuration names bf16 matmul-DFT tiers, the port runs float32
+`torch.fft`. Initial fields come from `ks_random_init`, drawn on the card.
+
+One warm-up chunk of 50 steps, then the best of 3 rounds of 5 chunks queued
+back to back with one `synchronize` at the end of each round. Prints one JSON
+line: `metric`, `value`, `unit`, and the card's `device` and `power_limit` as
+nvidia-smi gives them. It needs a CUDA device and exits non-zero without one.
+"""
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+N_ENVS = 16384
+CHUNK = 50
+TIMED_ROUNDS = 5
+REPEATS = 3
+LEARNER_BATCH = 4096
+METRIC = "env steps/sec (batched KS rollout+train)"
+
+
+def run_once() -> float:
+    """Build, warm up and measure: env-steps/s, the best of REPEATS rounds of
+    TIMED_ROUNDS chunks each."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_torch needs a CUDA device")
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
+    from distributedconvrl_pde_control_torch.train.batched import BatchedTrainer, BatchedTrainerConfig
+
+    setup = build_ks(dataclasses.replace(KS22, stepper="etdrk4", spectral_carry=True,
+                                         spectral_featurize=True), device="cuda")
+    trainer = BatchedTrainer(setup.env, setup.agent,
+                             BatchedTrainerConfig(n_envs=N_ENVS, batch_size=LEARNER_BATCH, update_loops=1),
+                             random_init=setup.random_init)
+    ts = trainer.init(torch.Generator(device="cuda").manual_seed(0))
+    chunk_fn = trainer.make_chunk_fn(CHUNK)
+    ts, recs = chunk_fn(ts)  # warm-up: cuFFT plans, allocator, past the learn gate
+    torch.cuda.synchronize()
+    best_rate = 0.0
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        for _ in range(TIMED_ROUNDS):
+            ts, recs = chunk_fn(ts)
+        torch.cuda.synchronize()
+        best_rate = max(best_rate, TIMED_ROUNDS * CHUNK * N_ENVS / (time.perf_counter() - t0))
+    if not bool(torch.isfinite(recs).all()):
+        raise RuntimeError("bench_torch: the last chunk's records are not finite")
+    return best_rate
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_torch: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    name, power = (x.strip() for x in smi.stdout.strip().splitlines()[0].split(","))
+    rate = run_once()
+    print(json.dumps({"metric": METRIC, "value": round(rate, 1), "unit": "env_steps/s",
+                      "device": name, "power_limit": power}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

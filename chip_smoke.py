@@ -2,9 +2,11 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --train-only
     python3 chip_smoke.py --times-only [--tree DIR]
 
-With no argument it runs the phases below. `--times-only` prints the card and
+With no argument it runs the phases below. `--train-only` runs phases 1, 2 and
+14-18 (the training path) and prints no result line. `--times-only` prints the card and
 one JSON line of both kernels' times through their wrappers at the main
 paths' shapes and nothing else; `--tree DIR` imports the package from another
 checkout inside this one (an unpacked earlier commit under build/, say), so
@@ -58,14 +60,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the right-hand side (lin and f given) and of a stage inside the library's
      substep loop, in both forms;
  13. the device time of one fluid env step by kernel group (torch.profiler),
-     with the launches per env step and K2's launches per RK4 substep.
+     with the launches per env step and K2's launches per RK4 substep;
+ 14. the batched train step on the card against the port on the CPU: 4 envs,
+     20 steps (learning from step 3, an episode boundary at step 15), every
+     draw made once on the CPU and passed to both, on CNAB2 (K1 against its
+     plain twin inside a train step) and on the spectral-featurize tier;
+ 15. training to a controller: the KS22 long-horizon recipe (spectral-featurize
+     tier, 256 envs, 3000 steps, learner batch 256, noise x0.5 every 1000,
+     capacity 1,000,000, a 500-step deterministic eval every 500 steps picks the
+     best actor) through `train_batched`, saved and read back through the
+     checkpoint; then that actor on the te=200 protocol of phase 4 on the
+     standard CNAB2 env (K1): suppression must stay below 0.05;
+ 16. training with K1 at full width: KS22 CNAB2, 16384 envs, learner batch
+     4096, a warm-up chunk and 2 chunks of 50 steps, the timed chunks under
+     `torch.cuda.set_sync_debug_mode("error")` (no device-to-host read inside a
+     chunk): env-steps/s, peak memory, K1's launches equal the train steps, the
+     replay holds min(steps*131072, capacity) entries; the dense and sparse
+     record readers' times;
+ 17. the bench unit, `bench_torch.run_once`: env-steps/s at 16384 envs on the
+     spectral-featurize tier;
+ 18. the device time of 5 train steps on each stepper by kernel group (K1 /
+     cuFFT / matmul / optimizer / copies / elementwise), launches per train step
+     and the device's idle share.
 
 Times of the kernels' first designs (PERF.md, same card and power limit) are
 printed beside the new ones in the phases' text lines; the kernels JSON line
 holds only what this run measured.
 
-K1's launch count is set to 0 just before phases 4-5 (the KS path) and read
-just after them; K2's is set to 0 just before phases 9-10 (the fluid path) and
+K1's launch count is set to 0 just before phases 4-5 (the KS evaluation
+path) and read just after them, and again around phases 15-16 (the training
+path: the trained controller's protocol rollout and the full-width train
+steps); K2's is set to 0 just before phases 9-10 (the fluid path) and
 read just after them (a stage of an RK4 substep is one launch of K2, counted
 by the library where it launches). The
 second-to-last line is the kernels JSON line and the last line is
@@ -126,6 +151,10 @@ FIRST_DESIGN_MS = {"K1 16384x192": 3.7358, "K1 1x192": 0.3682, "K2 n256_b1": 0.0
                    "K2 n256_b16": 0.1393}
 FLUID_P_TE = 2.0  # 100 env steps of dt = 0.02
 FLUID_BATCH, FLUID_BATCH_STEPS = 16, 5
+SF_TIER = dict(stepper="etdrk4", spectral_carry=True, spectral_featurize=True)
+TRAIN_SEED = 609  # phase 15: the KS22 preset's seed, the CLI's default
+TRAIN_CHUNK = 50
+LEARNER_BATCH = 4096
 
 
 def check(cond: bool, msg: str):
@@ -187,10 +216,232 @@ def times_only(tree) -> int:
     return 0
 
 
+def profile_groups(prof):
+    """{group: [launches, device us]} of a torch.profiler run, by kernel name."""
+    import torch
+
+    groups = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith("Optimizer."):
+            continue  # host events, and the annotation around an optimizer step
+        low = e.key.lower()
+        group = ("K1" if "ks_cnab2" in low else
+                 "cuFFT" if "fft" in low else
+                 "optimizer" if "adam" in low or "multi_tensor" in low else
+                 "matmul" if "gemm" in low or "gemv" in low else
+                 "copies" if low.startswith("memcpy") or low.startswith("memset") else
+                 "elementwise and other")
+        g = groups.setdefault(group, [0, 0.0])
+        g[0] += e.count
+        g[1] += e.self_device_time_total
+    return groups
+
+
+def train_phases(card: str) -> dict:
+    """Phases 14-18: the batched training path. Returns K1's launches on it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import bench_torch
+    from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
+    from distributedconvrl_pde_control_torch.models.mlp import chain_to_numpy, copy_chain
+    from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
+    from distributedconvrl_pde_control_torch.train import checkpoint
+    from distributedconvrl_pde_control_torch.train.batched import (
+        BatchedTrainer,
+        BatchedTrainerConfig,
+        StepDraws,
+        train_batched,
+    )
+    from distributedconvrl_pde_control_torch.train.eval import actor_policy, rollout
+    from distributedconvrl_pde_control_torch.train.records import (
+        consume_record_read,
+        record_bytes,
+        start_record_read,
+    )
+
+    dev = "cuda"
+    print("== 14. the train step on the card against the CPU (4 envs, 20 steps)")
+    n_small, b_small, steps_small, n_pool = 4, 16, 20, 6
+    for tier, over in (("cnab2 (K1 vs its plain twin)", {}), ("spectral-featurize", SF_TIER)):
+        cfg = dataclasses.replace(KS22, te=1.5, **over)  # episodes end at step 15
+        gen = torch.Generator().manual_seed(14)
+        draws = [dict(noise=torch.randn((1, n_small * KS22.n_actuators), generator=gen),
+                      offs=torch.randint(0, (i + 1) * n_small * KS22.n_actuators, (1, b_small),
+                                         generator=gen),
+                      idx=torch.randint(0, n_pool, (n_small,), generator=gen))
+                 for i in range(steps_small)]
+        outs = []
+        for d in (dev, "cpu"):
+            s = build_ks(cfg, device=d)
+            pool = s.random_init(torch.Generator().manual_seed(15), n_pool)
+            tr = BatchedTrainer(s.env, s.agent, BatchedTrainerConfig(n_envs=n_small, batch_size=b_small,
+                                                                     min_best_episode=1), y0_pool=pool)
+            ts = tr.init(torch.Generator().manual_seed(16), idx=torch.arange(n_small))
+            seed_state = s.agent.init_state(torch.Generator().manual_seed(17), "cpu")  # same nets on both
+            ts.agent = s.agent.make_state(copy_chain(seed_state.actor).to(d),
+                                          copy_chain(seed_state.critic).to(d))
+            ts.best_actor = copy_chain(ts.agent.actor)
+            before = ks_kernel.KS_CNAB2.launches
+            ts, packed = tr.make_chunk_fn(steps_small)(
+                ts, [StepDraws(**{k: v.to(d) for k, v in dr.items()}) for dr in draws])
+            outs.append((ts, packed.cpu().numpy(), ks_kernel.KS_CNAB2.launches - before))
+        (ts_c, rec_c, k1_c), (ts_h, rec_h, k1_h) = outs
+        check(k1_h == 0 and k1_c == (0 if over else steps_small),
+              f"K1 launches in the small train chunk: card {k1_c}, CPU {k1_h}")
+        p_err = max(float(np.abs(a[k] - b[k]).max())
+                    for name in ("actor", "critic", "target_actor", "target_critic")
+                    for a, b in zip(chain_to_numpy(getattr(ts_c.agent, name)),
+                                    chain_to_numpy(getattr(ts_h.agent, name))) for k in ("w", "b"))
+        r_err = float(np.abs(rec_c[2] - rec_h[2]).max())
+        m_err = float(np.abs(rec_c[4] - rec_h[4]).max())
+        print(f"{tier}: parameters max abs difference {p_err:.2e} (atol 1e-4), ep_reward "
+              f"{r_err:.2e} (atol 1e-3 on sums up to {np.abs(rec_h[2]).max():.2f}), mean_reward "
+              f"{m_err:.2e} (atol 1e-4); finished steps {np.flatnonzero(rec_h[0].any(axis=1)).tolist()}, "
+              f"K1 launches {k1_c}")
+        check(bool((rec_c[0] == rec_h[0]).all() and (rec_c[1] == rec_h[1]).all()
+                   and rec_h[0, 14].all() and rec_h[0].sum() == n_small),
+              f"card and CPU train chunks finish episodes at different steps ({tier})")
+        check(np.isfinite(rec_c).all() and p_err <= 1e-4 and r_err <= 1e-3 and m_err <= 1e-4,
+              f"card and CPU train chunks disagree ({tier})")
+        check(int(ts_c.ep_count) == int(ts_h.ep_count) == n_small
+              and ts_c.replay.size == ts_h.replay.size == steps_small * n_small * KS22.n_actuators,
+              f"card and CPU train chunks count differently ({tier})")
+
+    ks_kernel.KS_CNAB2.launches = 0  # the training path starts here
+
+    print("== 15. training to a controller (sf tier, 256 envs, 3000 steps), then te=200 on CNAB2")
+    setup = build_ks(dataclasses.replace(KS22, **SF_TIER), device=dev)
+    agent = DDPGAgent(dataclasses.replace(setup.agent.cfg, capacity=1_000_000))
+    pool = setup.random_init(torch.Generator().manual_seed(setup.seed), 32)  # the CLI's pool
+    trainer = BatchedTrainer(setup.env, agent,
+                             BatchedTrainerConfig(n_envs=256, batch_size=256, update_loops=1,
+                                                  min_best_episode=setup.min_best_episode),
+                             y0_pool=pool)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, hook, means = train_batched(trainer, total_steps=3000,
+                                    generator=torch.Generator(device=dev).manual_seed(TRAIN_SEED),
+                                    noise_decay_every=1000, noise_decay=0.5, chunk_len=TRAIN_CHUNK,
+                                    eval_every=500, eval_steps=500)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    check(ks_kernel.KS_CNAB2.launches == 0, "the sf tier launched K1")
+    run_dir = str(ROOT / "build" / "smoke_KS22_sf_lh")
+    checkpoint.save(run_dir, hook, config_overrides=SF_TIER)
+    trained = checkpoint.actor_from_jax(checkpoint.load_best_actor(run_dir)).to(dev)
+    std = build_ks(KS22, device=dev)  # the standard fidelity env: CNAB2, K1
+    t0 = time.perf_counter()
+    yt = rollout(std.env, actor_policy(std.agent, trained), te=200.0, t_action=100.0)["y"]
+    torch.cuda.synchronize()
+    t_roll = time.perf_counter() - t0
+    pre, post = float(np.abs(yt[900:1000]).mean()), float(np.abs(yt[-len(yt) // 10:]).mean())
+    k1_rollout = ks_kernel.KS_CNAB2.launches
+    print(json.dumps({"row": "KS22 sf-tier-trained controller, te=200 on the CNAB2 env",
+                      "seed": TRAIN_SEED, "evals": [[s, r] for s, r in hook.evals],
+                      "best_eval_step": hook.best_eval_step, "best_eval": hook.bestreward,
+                      "episodes": hook.ep - 1, "train_seconds": t_train,
+                      "train_env_steps_per_s": ts.total_env_steps / t_train,
+                      "chunk_means_first_last": [float(means[0]), float(means[-1])],
+                      "pre": pre, "post": post, "suppression": post / pre,
+                      "rollout_seconds": t_roll, "K1_launches": k1_rollout, "card": card}))
+    check(np.isfinite(means).all() and len(hook.evals) == 6 and ts.total_env_steps == 3000 * 256
+          and ts.replay.size == min(3000 * 256 * 8, ts.replay.capacity),
+          "the training run is malformed")
+    check(np.isfinite(yt).all() and yt.shape == (2000, KS22.nx) and k1_rollout == 2000,
+          "the trained controller's rollout is malformed")
+    check(post / pre < 0.05, f"trained controller's suppression {post / pre} not below 0.05")
+
+    print(f"== 16. training with K1 at full width ({N_ENVS} envs, learner batch {LEARNER_BATCH})")
+    full = build_ks(KS22, device=dev)
+    full_pool = full.random_init(torch.Generator().manual_seed(full.seed), 32)
+    push = N_ENVS * KS22.n_actuators
+    tr = BatchedTrainer(full.env, full.agent,
+                        BatchedTrainerConfig(n_envs=N_ENVS, batch_size=LEARNER_BATCH), y0_pool=full_pool)
+    before = ks_kernel.KS_CNAB2.launches
+    torch.cuda.reset_peak_memory_stats()
+    ts = tr.init(torch.Generator(device=dev).manual_seed(1))
+    chunk_fn = tr.make_chunk_fn(TRAIN_CHUNK)
+    ts, packed = chunk_fn(ts)  # warm-up
+    torch.cuda.synchronize()
+    # the train step reads nothing back inside a chunk: any synchronizing call raises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            ts, packed = chunk_fn(ts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rate16 = 2 * TRAIN_CHUNK * N_ENVS / secs
+    steps = 3 * TRAIN_CHUNK
+    k1_steps = ks_kernel.KS_CNAB2.launches - before
+    print(json.dumps({"slice": "KS22 CNAB2 batched training", "n_envs": N_ENVS,
+                      "env_steps_per_s": rate16, "ms_per_train_step": 1e3 * secs / (2 * TRAIN_CHUNK),
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                      "K1_launches": k1_steps, "train_steps": steps,
+                      "replay_size": ts.replay.size, "replay_capacity": ts.replay.capacity,
+                      "episodes": int(ts.ep_count), "card": card}))
+    check(k1_steps == steps, f"K1 launched {k1_steps} times in {steps} train steps")
+    check(bool(torch.isfinite(packed).all()), "full-width training records are not finite")
+    check(ts.replay.size == min(steps * push, ts.replay.capacity) and ts.agent.update_step == steps
+          and int(ts.ep_count) >= 2 * N_ENVS, "full-width training state is malformed")
+    k1_train = ks_kernel.KS_CNAB2.launches  # the training path ends here
+    reads = {}
+    for kind, sparse in (("dense", False), ("sparse", True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            rec = consume_record_read(start_record_read(packed, sparse))
+        reads[kind] = 1e2 * (time.perf_counter() - t0)
+    print(f"record read of the {record_bytes(TRAIN_CHUNK, N_ENVS)} B plane, started and waited for at "
+          f"once: dense {reads['dense']:.3f} ms, sparse {reads['sparse']:.3f} ms "
+          f"({rec['finished'].shape[0]} finished step(s)); a chunk takes "
+          f"{1e3 * TRAIN_CHUNK * N_ENVS / rate16:.0f} ms; {card}")
+
+    print("== 17. the bench unit (bench_torch.run_once): sf tier, 16384 envs, random_init")
+    bench = bench_torch.run_once()
+    print(json.dumps({"metric": bench_torch.METRIC, "value": bench, "unit": "env_steps/s",
+                      "cnab2_value": rate16, "card": card}))
+    check(np.isfinite(bench) and bench > 0, "the bench unit is malformed")
+
+    print("== 18. device time of 5 train steps by kernel group (torch.profiler)")
+    for tier, s_ in (("cnab2", full), ("spectral-featurize", setup)):
+        tr = BatchedTrainer(s_.env, s_.agent,
+                            BatchedTrainerConfig(n_envs=N_ENVS, batch_size=LEARNER_BATCH),
+                            random_init=s_.random_init)
+        ts = tr.init(torch.Generator(device=dev).manual_seed(2))
+        ts, _ = tr.make_chunk_fn(10)(ts)  # past the warmup and the learn gate
+        five = tr.make_chunk_fn(5)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            five(ts)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        groups = profile_groups(prof)
+        busy_us = sum(g[1] for g in groups.values())
+        print(json.dumps({"profile": f"KS22 {tier} train step, {N_ENVS} envs, 5 steps, under the profiler",
+                          "wall_us": wall_us, "device_busy_us": busy_us if groups else "not measured",
+                          "idle_share": 1.0 - busy_us / wall_us if groups else "not measured",
+                          "launches_per_train_step": sum(g[0] for g in groups.values()) / 5,
+                          "groups": {k: {"launches": v[0], "device_us": v[1]} for k, v in groups.items()}}))
+        check(not groups or (groups.get("K1", [0])[0] == (5 if tier == "cnab2" else 0)),
+              f"the profiler saw {groups.get('K1', [0])[0]} launches of K1 in 5 {tier} train steps")
+    return {"rollout": k1_rollout, "train_steps": k1_train - k1_rollout}
+
+
 def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--train-only", action="store_true",
+                        help="run phases 1, 2 and 14-18 and print no result line")
     parser.add_argument("--times-only", action="store_true",
                         help="time both kernels through their wrappers and stop")
     parser.add_argument("--tree", default=None,
@@ -248,6 +499,10 @@ def main() -> int:
     print(f"K2 at 256^2: batch 1 column tile {k2.column_tile(256, 1)}, {k2.row_pairs(256, 1)} row "
           f"pair(s) per block; batch 16 column tile {k2.column_tile(256, 16)}, "
           f"{k2.row_pairs(256, 16)} row pairs per block")
+
+    if args.train_only:
+        print(json.dumps({"K1_launches_on_the_training_path": train_phases(card)}))
+        return 0
 
     print("== 3. K1 against its plain version")
     setup = build_ks(KS22, device=dev)
@@ -615,10 +870,15 @@ def main() -> int:
           f"the profiler saw {k2_group[0]} launches of K2 in one env step and its library counted "
           f"{counted}; expected 4 per substep")
 
+    k1_training = train_phases(card)
+
     print(json.dumps({"kernels": [{
         "name": "ks_cnab2", "route": "cuda",
         "source": "distributedconvrl_pde_control_torch/csrc/" + ks_kernel.SOURCE,
-        "replaces": ks_kernel.REPLACES, "launches": launches,
+        "replaces": ks_kernel.REPLACES, "launches": launches + sum(k1_training.values()),
+        "launches_by_path": {"evaluation (phases 4-5)": launches,
+                             "training: trained controller's rollout (phase 15)": k1_training["rollout"],
+                             "training: train steps (phase 16)": k1_training["train_steps"]},
         "max_abs_err": max(errs[k] for k in MAIN_PATH_SHAPES), "ms": k_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None, "status": "ok", "shape": "16384x192, 30 substeps",

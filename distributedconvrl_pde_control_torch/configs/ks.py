@@ -3,9 +3,10 @@
 Counterpart of ``distributedconvrl_pde_control_tpu/configs/ks.py``: the
 constants of `scripts/KS/setup/KSSetup.jl` and the per-experiment scripts
 KS22 / KS200 / KS500 / KS200_disturbed, and `build_ks` for the reference's
-CNAB2 stepper. The JAX package's throughput tiers (`stepper="etdrk4"`,
-`spectral_carry`, `spectral_featurize`) and reduced-precision transform
-tiers are not ported yet: `build_ks` refuses them.
+CNAB2 stepper and for the throughput tiers (`stepper="etdrk4"`,
+`spectral_carry`, `spectral_featurize`), all in float32. The JAX package's
+reduced-precision transform tiers are not ported yet: `build_ks` refuses
+them.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent, DDPGConfig
 from distributedconvrl_pde_control_torch.envs.features import Conv1DFeaturizer, gaussian_kernels_1d
 from distributedconvrl_pde_control_torch.envs.pde_env import PDEEnv
-from distributedconvrl_pde_control_torch.ops.ks import KSSolver
+from distributedconvrl_pde_control_torch.ops.ks import KSSolver, KSSolverETDRK4
 from distributedconvrl_pde_control_torch.train.drivers import Setup
 
 
@@ -46,10 +47,21 @@ class KSConfig:
     # in float32 ("auto", "native" and "matmul" all mean that here)
     fft_mode: str = "auto"
     # integrator: "cnab2" = the reference's do_step (30 substeps,
-    # KSSetup.jl:130-160); "etdrk4" and the carry tiers are JAX-only so far
+    # KSSetup.jl:130-160), kernel K1; "etdrk4" = exact linear part, one step
+    # per env step on torch.fft (ops/ks.py::KSSolverETDRK4)
     stepper: str = "cnab2"
     nl_fft_mode: str | None = None
+    # etdrk4-only: carry the field as its complex half-spectrum across env
+    # steps and feed the solver spectral forcing computed directly from the
+    # actions (exact: the forcing is a fixed-kernel linear combination,
+    # KSSetup.jl:231-245). Drops 2 of the 3 per-env-step boundary transforms.
     spectral_carry: bool = False
+    # etdrk4+carry-only trainer tier: featurize, reward and the blow-up guard
+    # consume the carried half-spectrum through Parseval dots against
+    # host-precomputed rfft'd kernels, deleting the last per-step synthesis
+    # transform. The max|y| guard becomes the sound rms(y) > max_value
+    # surrogate. Contract: EnvState.y then holds the episode's reset field,
+    # so this is for the batched trainer and the bench only.
     spectral_featurize: bool = False
     max_value: float = 30.0
     check_max_value: str = "y"
@@ -117,8 +129,8 @@ def ks_standard_y0(nx: int) -> np.ndarray:
 def ks_random_init(cfg: KSConfig, device: str = "cuda"):
     """`generate_random_init` (KSSetup.jl:288-298): 8 random sines with unit-
     normalized coefficients, rescaled to ||y0|| = 30. Returns
-    `init(generator, n) -> (n, nx)`; the coefficients are drawn on the CPU
-    from the given torch.Generator."""
+    `init(generator, n) -> (n, nx)`; the coefficients are drawn on the
+    generator's device (a CUDA generator draws on the card)."""
     dx = cfg.lx / cfg.nx
     x = torch.arange(1, cfg.nx + 1, dtype=torch.float32) * dx
     n_sin = 8
@@ -126,8 +138,9 @@ def ks_random_init(cfg: KSConfig, device: str = "cuda"):
     harmonics = harmonics.to(device)
 
     def init(generator: torch.Generator, n: int) -> torch.Tensor:
-        a = torch.rand((n, n_sin), generator=generator, dtype=torch.float32) * 2.0 - 1.0
-        a = (a / torch.linalg.norm(a, dim=-1, keepdim=True)).to(device)
+        a = torch.rand((n, n_sin), generator=generator, dtype=torch.float32,
+                       device=generator.device).to(device) * 2.0 - 1.0
+        a = a / torch.linalg.norm(a, dim=-1, keepdim=True)
         y0 = a @ harmonics
         return y0 * 30.0 / torch.linalg.norm(y0, dim=-1, keepdim=True)
 
@@ -140,15 +153,17 @@ def build_ks(cfg: KSConfig = KS22, device: str = "cuda") -> Setup:
         raise ValueError("spectral_featurize requires spectral_carry")
     if cfg.spectral_carry and cfg.stepper != "etdrk4":
         raise ValueError("spectral_carry requires stepper='etdrk4'")
-    if cfg.stepper != "cnab2" or cfg.spectral_carry or cfg.spectral_featurize:
-        raise NotImplementedError(
-            "the port runs stepper='cnab2' only; ETDRK4 and the spectral-carry/"
-            "featurize tiers are ROADMAP.md queue 1 item 3 (KS solvers) and item 6")
+    if cfg.stepper not in ("cnab2", "etdrk4"):
+        raise ValueError(f"unknown stepper {cfg.stepper!r}")
     if cfg.fft_mode not in ("auto", "native", "matmul") or cfg.nl_fft_mode is not None:
         raise NotImplementedError(
             "reduced-precision transform tiers are ROADMAP.md queue 1 item 16")
-    solver = KSSolver(nx=cfg.nx, lx=cfg.lx, dt=cfg.dt, oversampling=cfg.oversampling,
-                      mu=cfg.mu, device=device)
+    if cfg.stepper == "etdrk4":
+        solver = KSSolverETDRK4(nx=cfg.nx, lx=cfg.lx, dt=cfg.dt, oversampling=1, mu=cfg.mu,
+                                device=device)
+    else:
+        solver = KSSolver(nx=cfg.nx, lx=cfg.lx, dt=cfg.dt, oversampling=cfg.oversampling,
+                          mu=cfg.mu, device=device)
     sensors = gaussian_kernels_1d(cfg.sensor_positions, cfg.nx, cfg.lx, cfg.sigma_sensors,
                                   norm_mode=1)
     actuators = gaussian_kernels_1d(cfg.sensor_positions, cfg.nx, cfg.lx, cfg.sigma_actuators,
@@ -180,6 +195,68 @@ def build_ks(cfg: KSConfig = KS22, device: str = "cuda") -> Setup:
         """KSSetup.jl:231-245: forcing = sum_i agent_power * a_i * g_i."""
         return cfg.agent_power * (action[:, 0] @ actuator_matrix)
 
+    def interleaved(rows):
+        """Complex rows (m, nxh) as the real (m, 2*nxh) matrix that multiplies
+        `torch.view_as_real` of a half-spectrum flattened to (B, 2*nxh)."""
+        ri = np.stack([rows.real, rows.imag], axis=-1).reshape(rows.shape[0], -1)
+        return torch.as_tensor(ri.astype(np.float32), device=device)
+
+    init_carry = step_carry_fn = None
+    step_carry_only = featurize_carry = reward_carry_fn = carry_guard = None
+    if cfg.spectral_carry:
+        # pre-transform the actuator kernels (float64 host FFT, cast f32):
+        # F(forcing) = agent_power * sum_i a_i * F(g_i), exact, with no
+        # per-step forcing analysis transform
+        ghat = cfg.agent_power * np.fft.rfft(np.asarray(actuators, np.float64), axis=1)
+        g_ri = interleaved(ghat)  # (n_actuators, 2*nxh)
+
+        def forcing_hat(action):
+            return torch.view_as_complex((action[:, 0] @ g_ri).reshape(action.shape[0], -1, 2))
+
+        def step_carry_fn(carry, action):
+            return solver.step_spectral(carry, forcing_hat(action))
+
+        init_carry = solver.init_carry
+
+    if cfg.spectral_featurize:
+        # Parseval rows: sum_j g_j y_j = sum_k w_k (g_re_k y_re_k +
+        # g_im_k y_im_k) with w = [1, 2, ..., 2, 1]/nx on the rfft
+        # half-spectrum (the Nyquist weight 1 requires even nx, as every
+        # shipped grid has). Kernels rfft'd host-side in float64, weights
+        # folded in, cast f32: the sensor readout becomes one
+        # (B, 2*nxh) x (2*nxh, n_sensors) product on the carry.
+        nxh = cfg.nx // 2 + 1
+        w = np.full(nxh, 2.0 / cfg.nx)
+        w[0] = 1.0 / cfg.nx
+        if cfg.nx % 2 == 0:
+            w[-1] = 1.0 / cfg.nx
+        shat = np.fft.rfft(np.asarray(sensors, np.float64), axis=1) * w
+        s_ri_t = interleaved(shat).T.contiguous()  # (2*nxh, n_sensors)
+        # reward uses reward_sel @ (y * 6.0): fold the 6 into the rows
+        r_ri_t = (s_ri_t[:, a2s] * 6.0).contiguous()
+        # rms guard rows: w/nx on both components of every bin
+        w_ri = torch.as_tensor(np.repeat(w / cfg.nx, 2).astype(np.float32), device=device)
+
+        def carry_ri(carry):
+            return torch.view_as_real(carry).reshape(carry.shape[0], -1)
+
+        def step_carry_only(carry, action):
+            return solver.step_spectral_only(carry, forcing_hat(action))
+
+        def featurize_carry(carry, prev_obs=None, action=None):
+            return featurizer.from_dots(carry_ri(carry) @ s_ri_t, prev_obs, action)
+
+        def reward_carry_fn(carry, action, delta_action):
+            dots = (carry_ri(carry) @ r_ri_t).abs() ** 1.3 / (cfg.max_value * 3.0)
+            return (
+                -dots.abs()
+                - cfg.action_punish * action[:, 0] ** 2
+                - cfg.delta_action_punish * delta_action[:, 0] ** 2
+            )
+
+        def carry_guard(carry):
+            return (carry_ri(carry).square() @ w_ri).sqrt() > cfg.max_value
+
     env = PDEEnv(
         step_fn=solver.step,
         featurize=featurizer,
@@ -193,6 +270,12 @@ def build_ks(cfg: KSConfig = KS22, device: str = "cuda") -> Setup:
         dt=cfg.dt,
         max_value=cfg.max_value,
         check_max_value=cfg.check_max_value,
+        init_carry=init_carry,
+        step_carry_fn=step_carry_fn,
+        step_carry_only=step_carry_only,
+        featurize_carry=featurize_carry,
+        reward_carry_fn=reward_carry_fn,
+        carry_guard=carry_guard,
     )
 
     agent = DDPGAgent(DDPGConfig(

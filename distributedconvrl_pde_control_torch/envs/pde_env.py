@@ -1,16 +1,20 @@
 """Batched PDE-control environment.
 
-Counterpart of ``distributedconvrl_pde_control_tpu/envs/pde_env.py`` on the
-standard solver path (the JAX package's spectral-carry tiers are not ported
-yet). Where the JAX env is one env under `vmap`, here every EnvState field
-has the env batch as its leading dimension:
+Counterpart of ``distributedconvrl_pde_control_tpu/envs/pde_env.py``: the
+standard solver path and the two spectral-carry tiers. Where the JAX env is
+one env under `vmap`, here every EnvState field has the env batch as its
+leading dimension:
 
   * `PDEEnv.reset` reproduces RLBase.reset! (PDEenv.jl:183-193) for a batch
     of initial fields y0 (B, nx), or a batch of one from the default y0;
   * `PDEEnv.step` reproduces the step operator (PDEenv.jl:195-241):
     delta_action, prepare_action, solver step, reward, featurize, time
     advance, and termination at te, on blow-up (`check_max_value` in
-    {"y", "reward", "none"}) or on a non-finite field or reward.
+    {"y", "reward", "none"}) or on a non-finite field or reward. With
+    `step_carry_fn` the solver advances a carried half-spectrum instead of
+    re-analyzing `y`; with the four `*_carry*` callables of the
+    spectral-featurize tier, featurize, reward and the guards read the
+    carry and `EnvState.y` keeps the episode's reset field.
 """
 
 from __future__ import annotations
@@ -35,14 +39,26 @@ class EnvState:
     time: torch.Tensor  # (B,) float32
     reward: torch.Tensor  # (B, n_rewards)
     done: torch.Tensor  # (B,) bool
+    # solver carry of the spectral-state tiers (None on the standard path):
+    # the (B, nx//2+1) complex64 half-spectrum of the field
+    carry: Optional[torch.Tensor] = None
 
 
 def where_state(mask: torch.Tensor, new: EnvState, old: EnvState) -> EnvState:
     """Per env, `new` where mask (B,) is true and `old` elsewhere."""
     def pick(n, o):
+        if n is None:
+            return None
         return torch.where(mask.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
 
     return EnvState(**{f.name: pick(getattr(new, f.name), getattr(old, f.name))
+                       for f in dataclasses.fields(EnvState)})
+
+
+def index_state(state: EnvState, idx: torch.Tensor) -> EnvState:
+    """The envs `idx` (n,) of a batched state, as a new batch of n."""
+    return EnvState(**{f.name: None if getattr(state, f.name) is None
+                       else getattr(state, f.name).index_select(0, idx)
                        for f in dataclasses.fields(EnvState)})
 
 
@@ -69,6 +85,33 @@ class PDEEnv:
     dt: float = 0.005
     max_value: float = 20.0
     check_max_value: str = "y"  # "y" | "reward" | "none" (PDEenv.jl:226-240)
+    # Optional spectral-carry pair (throughput tier; both or neither):
+    #   init_carry(y) -> carry
+    #   step_carry_fn(carry, action) -> (carry', y')
+    # When set, the solver advances the carried spectrum instead of
+    # re-analyzing `y` each step; featurize, reward and termination still see
+    # the per-step real field y', so every downstream semantic is unchanged.
+    init_carry: Optional[Callable] = None
+    step_carry_fn: Optional[Callable] = None
+    # Spectral-featurize tier (on top of the carry; all four or none):
+    # featurize, reward and the blow-up guard consume the carry directly
+    # (sensor readouts are linear in y, so <y, g_i> is an exact Parseval dot
+    # on the half-spectrum), and the step skips the synthesis transform:
+    #   step_carry_only(carry, action) -> carry'
+    #   featurize_carry(carry, prev_obs, action) -> obs
+    #   reward_carry_fn(carry, action, delta_action) -> rewards
+    #   carry_guard(carry) -> (B,) bool   (check_max_value surrogate; for "y"
+    #       mode a sound under-trigger: rms(y) > max_value implies
+    #       max|y| > max_value, so it never fires spuriously but fires a
+    #       step or two later into an exponential blow-up than the exact
+    #       max; the non-finite guard still backstops)
+    # Contract: EnvState.y then holds the episode's reset field, not the
+    # per-step field. A trainer tier (the batched trainer never reads y);
+    # evaluation rollouts that record fields use the standard presets.
+    step_carry_only: Optional[Callable] = None
+    featurize_carry: Optional[Callable] = None
+    reward_carry_fn: Optional[Callable] = None
+    carry_guard: Optional[Callable] = None
 
     @property
     def max_steps(self) -> int:
@@ -81,9 +124,14 @@ class PDEEnv:
         y = (self.y0[None] if y0 is None else y0).to(torch.float32)
         b, dev = y.shape[0], y.device
         action0 = torch.zeros((b,) + tuple(self.action_shape), dtype=torch.float32, device=dev)
+        carry = self.init_carry(y) if self.init_carry is not None else None
+        if self.featurize_carry is not None:
+            obs = self.featurize_carry(carry, None, None)
+        else:
+            obs = self.featurize(y, None, None)
         return EnvState(
             y=y,
-            obs=self.featurize(y, None, None),
+            obs=obs,
             action=action0,
             delta_action=torch.zeros_like(action0),
             forcing=self.prepare_action(action0),
@@ -91,15 +139,27 @@ class PDEEnv:
             time=torch.full((b,), self.t0, dtype=torch.float32, device=dev),
             reward=torch.zeros((b, self.n_rewards), dtype=torch.float32, device=dev),
             done=torch.zeros(b, dtype=torch.bool, device=dev),
+            carry=carry,
         )
 
     def step(self, state: EnvState, action: torch.Tensor) -> EnvState:
         """Step operator (PDEenv.jl:195-241) on the whole batch."""
         delta_action = action - state.action
         forcing = self.prepare_action(action)
-        y = self.step_fn(state.y, forcing)
-        reward = self.reward_fn(y, action, delta_action)
-        obs = self.featurize(y, state.obs, action)
+        spectral_io = self.featurize_carry is not None
+        if spectral_io:
+            carry = self.step_carry_only(state.carry, action)
+            y = state.y  # stale: the episode's reset field (tier contract)
+            reward = self.reward_carry_fn(carry, action, delta_action)
+            obs = self.featurize_carry(carry, state.obs, action)
+        elif self.step_carry_fn is not None:
+            carry, y = self.step_carry_fn(state.carry, action)
+            reward = self.reward_fn(y, action, delta_action)
+            obs = self.featurize(y, state.obs, action)
+        else:
+            carry, y = None, self.step_fn(state.y, forcing)
+            reward = self.reward_fn(y, action, delta_action)
+            obs = self.featurize(y, state.obs, action)
         steps = state.steps + 1
         # time = t0 + steps*dt (not accumulated) so the te comparison is
         # exact under f32 - 50 additions of f32(0.1) drift below 5.0
@@ -107,12 +167,17 @@ class PDEEnv:
                 + steps.to(torch.float32) * torch.tensor(self.dt, dtype=torch.float32))
         done = time >= self.te * (1.0 - 1e-6)
         if self.check_max_value == "y":
-            done = done | (y.abs().amax(dim=-1) > self.max_value)
+            if spectral_io:
+                done = done | self.carry_guard(carry)
+            else:
+                done = done | (y.abs().amax(dim=-1) > self.max_value)
         elif self.check_max_value == "reward":
             done = done | (reward.abs().amax(dim=-1) > self.max_value)
         # non-finite fields always terminate (the reference reaches the same
-        # outcome through max() comparisons)
-        finite = torch.isfinite(y.abs()).all(dim=-1) & torch.isfinite(reward).all(dim=-1)
+        # outcome through max() comparisons); on the spectral-featurize tier
+        # the carry is read, since y is stale there
+        field = carry if spectral_io else y
+        finite = torch.isfinite(field).all(dim=-1) & torch.isfinite(reward).all(dim=-1)
         done = done | ~finite
         return EnvState(
             y=y,
@@ -124,4 +189,5 @@ class PDEEnv:
             time=time,
             reward=reward,
             done=done,
+            carry=carry,
         )

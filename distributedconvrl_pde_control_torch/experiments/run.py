@@ -1,7 +1,19 @@
-"""Command-line entry point: evaluate a trained controller.
+"""Command-line entry point: train a KS controller, evaluate a trained one.
 
-Counterpart of two `--eval` branches of
-``distributedconvrl_pde_control_tpu/experiments/run.py``.
+Counterpart of the single-device `--train --batched` branch and two `--eval`
+branches of ``distributedconvrl_pde_control_tpu/experiments/run.py``.
+
+KS presets, batched training (the throughput configuration):
+
+    python -m distributedconvrl_pde_control_torch.experiments.run KS22 --train --batched \
+        --n-envs 256 --total-steps 3000 --eval-every 500 --eval-steps 500 \
+        --config-overrides '{"stepper": "etdrk4", "spectral_carry": true}' \
+        --out runs/KS22 [--cpu]
+
+trains with `train_batched` from a 32-field pool of random initial
+conditions, prints the reward curve, the evals and a summary line, and
+writes `saves/hook.npz` (best actor, reward history) and
+`config_overrides.json` into --out, which `--eval --load-from` reads back.
 
 KS presets (the plot_heat protocol, without plots):
 
@@ -28,6 +40,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 
 import numpy as np
 
@@ -45,6 +58,11 @@ _FLUID_TIERS = {
     "_fixedstep": dict(adaptive=False),
     "_eval": dict(evaluation=True),
 }
+
+
+# the JAX CLI's KS throughput presets: ETDRK4 with its bf16 transform tiers (named here so
+# that the CLI can say they are not ported; it refuses them)
+KS_TP_PRESETS = ("KS22_tp", "KS200_tp", "KS500_tp", "KS22_64_tp")
 
 
 def fluid_config_for(name: str):
@@ -95,6 +113,67 @@ def run_sharded(args, cfg, device: str) -> None:
     print(json.dumps({"mesh": f"{dp}x{sp}", "grid": cfg.grid_nx, **energies}))
 
 
+def held_out_eval_pool(setup, n: int) -> "torch.Tensor":
+    """Held-out generator ICs for the delayed-actuation selection eval
+    (`--eval-warmup`): a stream disjoint from the 32-field training pool's,
+    so the selection metric never scores on training-seen fields. Widening
+    `--eval-pool N` extends the narrower pool and never reshuffles it: the
+    coefficients are drawn row by row from one CPU generator, so
+    pool(N)[:M] == pool(M)."""
+    import torch
+
+    return setup.random_init(torch.Generator().manual_seed(setup.seed + 7777), n)
+
+
+def run_ks_train_batched(args, cfg, overrides, device: str) -> None:
+    """`--train --batched` on a KS preset: `train_batched` from a 32-field
+    pool of random ICs, then the hook's checkpoint into --out."""
+    import torch
+
+    from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent
+    from distributedconvrl_pde_control_torch.configs.ks import build_ks
+    from distributedconvrl_pde_control_torch.train import checkpoint
+    from distributedconvrl_pde_control_torch.train.batched import (
+        BatchedTrainer,
+        BatchedTrainerConfig,
+        train_batched,
+    )
+
+    setup = build_ks(cfg, device=device)
+    if overrides:
+        print(f"applied config overrides: {sorted(overrides)}")
+    out_dir = args.out or os.path.join("runs", args.preset)
+    os.makedirs(out_dir, exist_ok=True)
+    if args.capacity:
+        setup = dataclasses.replace(
+            setup, agent=DDPGAgent(dataclasses.replace(setup.agent.cfg, capacity=args.capacity)))
+    # host-drawn pool of fresh ICs, and for --eval-warmup the held-out pool
+    pool = setup.random_init(torch.Generator().manual_seed(setup.seed), 32)
+    eval_pool = held_out_eval_pool(setup, args.eval_pool) if args.eval_warmup else None
+    trainer = BatchedTrainer(
+        setup.env, setup.agent,
+        BatchedTrainerConfig(n_envs=args.n_envs or 256, batch_size=args.learner_batch or 256,
+                             update_loops=args.update_loops,
+                             min_best_episode=setup.min_best_episode),
+        y0_pool=pool, eval_y0_pool=eval_pool)
+    seed = args.seed if args.seed is not None else setup.seed
+    ts, hook, means = train_batched(
+        trainer, total_steps=args.total_steps,
+        generator=torch.Generator(device=device).manual_seed(seed),
+        noise_decay_every=args.noise_every or max(1, args.total_steps // setup.loops),
+        noise_decay=args.noise_decay if args.noise_decay is not None else setup.noise_decay,
+        chunk_len=args.chunk_len or 50, verbose=True, eval_every=args.eval_every,
+        eval_steps=args.eval_steps, eval_warmup_steps=args.eval_warmup,
+        eval_score=args.eval_score)
+    checkpoint.save(out_dir, hook, config_overrides=overrides)
+    print(hook.ascii_curve())
+    if hook.evals:
+        print("evals:", [(s, round(r, 4)) for s, r in hook.evals])
+    print(f"saved to {out_dir}; best reward {hook.bestreward:.4f} @ ep "
+          f"{hook.bestepisode}; {ts.total_env_steps} env steps, "
+          f"final chunk mean {means[-1]:.4f}")
+
+
 def run_ks(args, cfg, device: str) -> None:
     from distributedconvrl_pde_control_torch.configs.ks import build_ks
     from distributedconvrl_pde_control_torch.train.checkpoint import actor_from_jax, load_best_actor
@@ -120,14 +199,23 @@ def main(argv=None):
 
     fluid_names = sorted(FLUID_PRESETS) + sorted(b + s for b in FLUID_PRESETS for s in _FLUID_TIERS)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("preset", choices=sorted(KS_PRESETS) + fluid_names, metavar="preset",
+    ap.add_argument("preset", choices=sorted(KS_PRESETS) + list(KS_TP_PRESETS) + fluid_names,
+                    metavar="preset",
                     help="a KS preset (%s) or a fluid preset (%s, each with an optional "
                          "_fast/_fixedstep/_eval tier)" % (", ".join(sorted(KS_PRESETS)),
                                                            ", ".join(sorted(FLUID_PRESETS))))
     mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("--eval", action="store_true", help="evaluate a trained actor")
-    mode.add_argument("--train", action="store_true", help="(training is not ported yet)")
-    ap.add_argument("--load-from", required=True, help="run directory holding saves/hook.npz")
+    mode.add_argument("--train", action="store_true",
+                      help="train (KS presets, with --batched)")
+    ap.add_argument("--load-from", default=None, help="run directory holding saves/hook.npz")
+    ap.add_argument("--out", default=None, help="run directory (default runs/<preset>)")
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--config-overrides", default=None, metavar="JSON",
+                    help="config-dataclass overrides applied to the preset before building: "
+                         "an inline JSON object or a path to a .json file. Saved checkpoints "
+                         "ship the deltas as config_overrides.json so --load-from rebuilds "
+                         "the matching env")
     ap.add_argument("--p-te", type=float, default=None,
                     help="eval horizon (default 200 for KS presets, the preset's te for fluid)")
     ap.add_argument("--p-t-action", type=float, default=None,
@@ -136,20 +224,85 @@ def main(argv=None):
                     help="evaluate a fluid preset on the 2/3-rule solver over a DPxSP mesh; "
                          "only 1x1 so far")
     ap.add_argument("--n-envs", type=int, default=None,
-                    help="env batch for --mesh runs (default: dp)")
+                    help="env batch for --batched (default 256) and --mesh runs (default: dp)")
     ap.add_argument("--nx", type=int, default=None,
                     help="override the fluid grid size for --mesh runs")
     ap.add_argument("--horizon", type=float, default=None,
                     help="override the episode horizon te for --mesh runs")
+    ap.add_argument("--batched", action="store_true",
+                    help="train with the throughput configuration (env batch, chunks of "
+                         "steps); saves saves/hook.npz")
+    ap.add_argument("--total-steps", type=int, default=2000,
+                    help="train steps for --batched training")
+    ap.add_argument("--chunk-len", type=int, default=None,
+                    help="--batched train steps per record read (default 50)")
+    ap.add_argument("--learner-batch", type=int, default=None,
+                    help="--batched DDPG learner batch (default 256)")
+    ap.add_argument("--update-loops", type=int, default=1,
+                    help="--batched gradient steps per train step")
+    ap.add_argument("--eval-steps", type=int, default=50,
+                    help="deterministic-eval rollout length (env steps) for --batched "
+                         "--eval-every runs; beyond te/dt the eval runs on a "
+                         "horizon-overridden clone of the env")
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help="deterministic eval cadence for --batched training (train steps); "
+                         "evals drive best-actor selection")
+    ap.add_argument("--eval-warmup", type=int, default=0, metavar="K",
+                    help="--batched: evolve the eval IC batch uncontrolled for K steps before "
+                         "the actor engages, scoring only the controlled segment, on "
+                         "held-out ICs")
+    ap.add_argument("--eval-pool", type=int, default=32, metavar="N",
+                    help="--eval-warmup: how many held-out generator ICs the eval pool draws")
+    ap.add_argument("--eval-score", choices=["mean", "min"], default="mean",
+                    help="--batched eval reduction: pooled mean step reward, or the min over "
+                         "per-env masked means")
+    ap.add_argument("--noise-every", type=int, default=None,
+                    help="--batched noise-decay cadence in steps (default total_steps/loops)")
+    ap.add_argument("--noise-decay", type=float, default=None,
+                    help="--batched noise-decay factor (default the preset's per-loop decay)")
+    ap.add_argument("--capacity", type=int, default=None,
+                    help="--batched replay capacity override (the preset's single-env size "
+                         "wraps quickly at batched push rates: n_envs*n_act per step)")
+    ap.add_argument("--population", type=int, default=None, metavar="P",
+                    help="(not ported: ROADMAP.md queue 1 item 14)")
+    ap.add_argument("--pop-search", type=int, default=None, metavar="N",
+                    help="(not ported: ROADMAP.md queue 1 item 14)")
+    ap.add_argument("--import-jld2", default=None, metavar="SAVES_DIR",
+                    help="(not ported: ROADMAP.md queue 1 item 17)")
+    ap.add_argument("--resume", action="store_true",
+                    help="(not ported: ROADMAP.md queue 1 item 10)")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
     args = ap.parse_args(argv)
     device = "cpu" if args.cpu else "cuda"
 
-    if args.train:
-        raise SystemExit("--train: training is not ported yet (ROADMAP.md queue 1 items 7-8; "
-                         "sharded fluid training is item 15); the port evaluates with --eval")
+    # what the port does not run yet, each with the queue item that holds it
+    if args.population or args.pop_search:
+        raise SystemExit("--population/--pop-search: population training is not ported yet "
+                         "(ROADMAP.md queue 1 item 14)")
+    if args.import_jld2:
+        raise SystemExit("--import-jld2: the reference JLD2 import is not ported yet "
+                         "(ROADMAP.md queue 1 item 17)")
+    if args.resume:
+        raise SystemExit("--resume needs the agent-state checkpoint, which is not ported yet "
+                         "(ROADMAP.md queue 1 item 10)")
+    if args.preset in KS_TP_PRESETS:
+        raise SystemExit(f"{args.preset}: the reduced-precision transform tiers are not ported "
+                         "yet (ROADMAP.md queue 1 item 16); the float32 ETDRK4 tiers run with "
+                         "--config-overrides '{\"stepper\": \"etdrk4\", \"spectral_carry\": true}'")
+    if args.train and args.mesh:
+        raise SystemExit("--train --mesh: sharded and data-parallel training is not ported "
+                         "yet (ROADMAP.md queue 1 item 15)")
+    if args.train and not args.batched:
+        raise SystemExit("--train without --batched needs the single-env fidelity loop, which "
+                         "is not ported yet (ROADMAP.md queue 1 item 10); pass --batched")
+    if args.eval and not args.load_from:
+        raise SystemExit("--eval needs --load-from")
     fluid_cfg = fluid_config_for(args.preset)
     if fluid_cfg is not None:
+        if args.train:
+            raise SystemExit(f"{args.preset} --train: fluid training is not ported yet "
+                             "(ROADMAP.md queue 1 items 13 and 15); --train --batched runs "
+                             "the KS presets")
         if fluid_cfg.fft_mode != "auto" or fluid_cfg.nl_fft_mode is not None:
             raise SystemExit(f"{args.preset}: the reduced-precision transform tiers are not "
                              "ported yet (ROADMAP.md queue 1 item 16); the port runs the "
@@ -162,7 +315,32 @@ def main(argv=None):
         return run_sharded(args, fluid_cfg, device)
     if args.mesh:
         raise SystemExit(f"--mesh supports fluid presets, not {args.preset}")
-    return run_ks(args, KS_PRESETS[args.preset], device)
+
+    # artifacts trained off-preset ship a config_overrides.json; honoring it
+    # makes them loadable through --load-from. --config-overrides (inline
+    # JSON or a file path) layers on top
+    from distributedconvrl_pde_control_torch.train import checkpoint
+
+    overrides = checkpoint.load_config_overrides(args.load_from) if args.load_from else None
+    if args.config_overrides:
+        raw = args.config_overrides
+        if raw.lstrip().startswith("{"):
+            explicit = json.loads(raw)
+        else:
+            with open(raw) as f:
+                explicit = json.load(f)
+        overrides = {**(overrides or {}), **explicit}
+    if overrides and overrides.get("spectral_featurize") and not args.train:
+        # trainer-only tier: it leaves EnvState.y at the reset field by
+        # design, so eval rollouts rebuild without it to record real fields;
+        # the policy itself sees the same observations either way
+        overrides = {k: v for k, v in overrides.items() if k != "spectral_featurize"}
+    cfg = KS_PRESETS[args.preset]
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    if args.train:
+        return run_ks_train_batched(args, cfg, overrides, device)
+    return run_ks(args, cfg, device)
 
 
 if __name__ == "__main__":

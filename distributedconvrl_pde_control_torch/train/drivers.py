@@ -1,9 +1,11 @@
 """Training drivers: the experiment-layer entry points.
 
-Counterpart of ``distributedconvrl_pde_control_tpu/train/drivers.py``; this
-slice of the port carries the `Setup` record only. The training loops, and
+Counterpart of ``distributedconvrl_pde_control_tpu/train/drivers.py``; the
+port carries the `Setup` record only. The batched trainer
+(`train/batched.py`) reads it as it is; the single-env fidelity loops, and
 the fields of `Setup` that only they read (`record`, `use_random_init`,
-`reward_clamp`, `error_detection`), come with the training slice.
+`reward_clamp`, `error_detection`), are not ported yet (ROADMAP.md queue 1
+item 10).
 """
 
 from __future__ import annotations

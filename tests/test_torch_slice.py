@@ -136,9 +136,13 @@ def test_random_init_law():
 
 
 def test_build_ks_refuses_unported_tiers():
-    for kw in ({"stepper": "etdrk4"}, {"fft_mode": "matmul_hi"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tks.build_ks(dataclasses.replace(tks.KS22, **kw), device="cpu")
+    """The float32 ETDRK4 stepper builds; the reduced-precision transform
+    tiers stay refused; a carry without ETDRK4 stays a ValueError."""
+    setup = tks.build_ks(dataclasses.replace(tks.KS22, stepper="etdrk4"), device="cpu")
+    assert type(setup.env.step_fn.__self__).__name__ == "KSSolverETDRK4"
+    assert setup.env.step_fn.__self__.oversampling == 1
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tks.build_ks(dataclasses.replace(tks.KS22, fft_mode="matmul_hi"), device="cpu")
     with pytest.raises(ValueError):
         tks.build_ks(dataclasses.replace(tks.KS22, spectral_carry=True), device="cpu")
 

@@ -1,0 +1,124 @@
+"""The port's training path on the card against the port on the CPU.
+
+Tests marked `gpu` need a CUDA device (K1 is built with nvcc at first use);
+they decide inside the test whether there is one and skip without it. They
+import nothing of JAX, so they run where JAX is not installed:
+
+    python -m pytest --noconftest tests/test_torch_train_gpu.py -m gpu
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
+from distributedconvrl_pde_control_torch.models.mlp import chain_to_numpy, copy_chain
+from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
+from distributedconvrl_pde_control_torch.train.batched import (
+    BatchedTrainer,
+    BatchedTrainerConfig,
+    StepDraws,
+)
+
+SF = dict(stepper="etdrk4", spectral_carry=True, spectral_featurize=True)
+TIERS = [pytest.param({}, id="cnab2"), pytest.param(dict(stepper="etdrk4"), id="etdrk4"),
+         pytest.param(dict(stepper="etdrk4", spectral_carry=True), id="carry"),
+         pytest.param(SF, id="sf")]
+N_ENVS, BATCH, POOL = 4, 16, 6
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def small_trainer(over, device, **cfg_kw):
+    setup = build_ks(dataclasses.replace(KS22, te=1.5, **over), device=device)
+    pool = setup.random_init(torch.Generator().manual_seed(15), POOL)
+    return BatchedTrainer(setup.env, setup.agent,
+                          BatchedTrainerConfig(n_envs=N_ENVS, batch_size=BATCH, min_best_episode=1,
+                                               **cfg_kw), y0_pool=pool)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("over", TIERS)
+def test_env_tier_on_gpu_matches_cpu(over):
+    """12 forced env steps of each tier: obs and reward atol 1e-5, the carry
+    1e-5 of its max (float32 cuFFT against the CPU's FFT; CNAB2 is K1
+    against its plain twin)."""
+    _need_cuda()
+    rng = np.random.default_rng(0)
+    states = []
+    for d in ("cuda", "cpu"):
+        setup = build_ks(dataclasses.replace(KS22, **over), device=d)
+        st = setup.env.reset(setup.random_init(torch.Generator().manual_seed(1), 3))
+        states.append((setup.env, st))
+    for _ in range(12):
+        a = torch.tensor(rng.uniform(-1, 1, (3, 1, 8)), dtype=torch.float32)
+        states = [(env, env.step(st, a.to(st.obs.device))) for env, st in states]
+    (_, g), (_, c) = states
+    np.testing.assert_allclose(g.obs.cpu().numpy(), c.obs.numpy(), atol=1e-5)
+    np.testing.assert_allclose(g.reward.cpu().numpy(), c.reward.numpy(), atol=1e-5)
+    assert g.done.cpu().tolist() == c.done.tolist()
+    if c.carry is not None:
+        diff = (g.carry.cpu() - c.carry).abs().max().item()
+        assert diff <= 1e-5 * c.carry.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("over", [pytest.param({}, id="cnab2"), pytest.param(SF, id="sf")])
+def test_train_chunk_on_gpu_matches_cpu(over):
+    """20 train steps (learning from step 3, the episode boundary at step
+    15) with every draw made once on the CPU: parameters atol 1e-4, records
+    atol 1e-3; on CNAB2 the card launches K1 once per train step."""
+    _need_cuda()
+    gen = torch.Generator().manual_seed(14)
+    draws = [dict(noise=torch.randn((1, N_ENVS * 8), generator=gen),
+                  offs=torch.randint(0, (i + 1) * N_ENVS * 8, (1, BATCH), generator=gen),
+                  idx=torch.randint(0, POOL, (N_ENVS,), generator=gen)) for i in range(20)]
+    outs = []
+    for d in ("cuda", "cpu"):
+        tr = small_trainer(over, d)
+        ts = tr.init(torch.Generator().manual_seed(16), idx=torch.arange(N_ENVS))
+        seed_state = tr.agent.init_state(torch.Generator().manual_seed(17), "cpu")
+        ts.agent = tr.agent.make_state(copy_chain(seed_state.actor).to(d),
+                                       copy_chain(seed_state.critic).to(d))
+        before = ks_kernel.KS_CNAB2.launches
+        ts, packed = tr.make_chunk_fn(20)(
+            ts, [StepDraws(**{k: v.to(d) for k, v in dr.items()}) for dr in draws])
+        outs.append((ts, packed.cpu().numpy(), ks_kernel.KS_CNAB2.launches - before))
+    (ts_g, rec_g, k1_g), (ts_c, rec_c, k1_c) = outs
+    assert k1_c == 0 and k1_g == (0 if over else 20)
+    np.testing.assert_array_equal(rec_g[:2], rec_c[:2])
+    assert rec_c[0, 14].all() and rec_c[0].sum() == N_ENVS
+    np.testing.assert_allclose(rec_g, rec_c, atol=1e-3)
+    for name in ("actor", "critic", "target_actor", "target_critic"):
+        for a, b in zip(chain_to_numpy(getattr(ts_g.agent, name)),
+                        chain_to_numpy(getattr(ts_c.agent, name))):
+            np.testing.assert_allclose(a["w"], b["w"], atol=1e-4)
+            np.testing.assert_allclose(a["b"], b["b"], atol=1e-4)
+    assert int(ts_g.ep_count) == int(ts_c.ep_count) == N_ENVS
+
+
+@pytest.mark.gpu
+def test_chunk_reads_nothing_back_and_cuda_draws_repeat():
+    """A chunk whose draws come from a CUDA generator runs under
+    `set_sync_debug_mode("error")`, and the same seed gives the same chunk."""
+    _need_cuda()
+    packs = []
+    for _ in range(2):
+        tr = small_trainer(SF, "cuda")
+        ts = tr.init(torch.Generator(device="cuda").manual_seed(3))
+        chunk = tr.make_chunk_fn(20)
+        ts, _ = chunk(ts)  # past the learn gate, cuFFT plans made
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ts, packed = chunk(ts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        packs.append(packed.cpu())
+        assert ts.generator.device.type == "cuda" and ts.agent.update_step == 40
+    assert torch.isfinite(packs[0]).all() and torch.equal(packs[0], packs[1])
