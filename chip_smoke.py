@@ -6,7 +6,7 @@
     python3 chip_smoke.py --times-only [--tree DIR]
 
 With no argument it runs the phases below. `--train-only` runs phases 1, 2 and
-14-18 (the training path) and prints no result line. `--times-only` prints the card and
+14-22 (the training paths) and prints no result line. `--times-only` prints the card and
 one JSON line of both kernels' times through their wrappers at the main
 paths' shapes and nothing else; `--tree DIR` imports the package from another
 checkout inside this one (an unpacked earlier commit under build/, say), so
@@ -81,7 +81,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      spectral-featurize tier;
  18. the device time of 5 train steps on each stepper by kernel group (K1 /
      cuFFT / matmul / optimizer / copies / elementwise), launches per train step
-     and the device's idle share.
+     and the device's idle share;
+ 19. the fluid train chunk on the card against the port on the CPU: 32x32
+     grid, 4x4 actuators, 2 envs, 20 steps (learning from step 3, episodes
+     ending at step 15), every draw made once on the CPU and passed to both:
+     K2 against its plain twin inside a train step, phase 14's limits;
+ 20. training a fluid controller at full width through the CLI's code path
+     (`run Fluid_16_256 --train --mesh 1x1`: 1 env, 10 loops x 580 steps in
+     chunks of 25 = 6000 train steps, learner batch 32, capacity 100,000,
+     seed 436, the recipe of artifacts/Fluid_16_256), read back through the
+     light checkpoint and hook.npz; its best actor on phase 9's te=2 protocol
+     must keep all 100 steps active with a mean energy below 0.7 of no action.
+     Its host times come after the profiles of phases 7, 13 and 18
+     in this process (PERF.md: slower than the CLI alone);
+ 21. fluid training throughput at 16 envs (learner batch 32): a warm-up chunk,
+     then 2 chunks of 25 steps under `torch.cuda.set_sync_debug_mode("error")`:
+     env-steps/s, peak memory, K2's launches equal 324 per train step, the
+     replay holds min(steps*4096, capacity) rows;
+ 22. the device time of one fluid train step at 1 and at 16 envs by kernel
+     group (K2 / cuFFT / matmul / optimizer / copies / elementwise), launches
+     per train step and the device's idle share.
 
 Times of the kernels' first designs (PERF.md, same card and power limit) are
 printed beside the new ones in the phases' text lines; the kernels JSON line
@@ -90,9 +109,11 @@ holds only what this run measured.
 K1's launch count is set to 0 just before phases 4-5 (the KS evaluation
 path) and read just after them, and again around phases 15-16 (the training
 path: the trained controller's protocol rollout and the full-width train
-steps); K2's is set to 0 just before phases 9-10 (the fluid path) and
-read just after them (a stage of an RK4 substep is one launch of K2, counted
-by the library where it launches). The
+steps); K2's is set to 0 just before phases 9-10 (the fluid evaluation
+path) and read just after them, and again around phases 20-21 (the fluid
+training path: the train steps and the trained controller's protocol
+rollout); a stage of an RK4 substep is one launch of K2, counted by the
+library where it launches. The
 second-to-last line is the kernels JSON line and the last line is
 {"ok": true, "device": {...}}.
 """
@@ -155,6 +176,9 @@ SF_TIER = dict(stepper="etdrk4", spectral_carry=True, spectral_featurize=True)
 TRAIN_SEED = 609  # phase 15: the KS22 preset's seed, the CLI's default
 TRAIN_CHUNK = 50
 LEARNER_BATCH = 4096
+FLUID_TRAIN_SEED = 436  # phase 20: the Fluid_16_256 preset's seed, the CLI's default
+FLUID_TRAIN_CHUNK = 25  # phase 20: the CLI's chunk length on --mesh
+FLUID_TRAIN_BATCH, FLUID_TRAIN_ENVS = 32, 16  # phases 20-22: the CLI's learner batch; phase 10's width
 
 
 def check(cond: bool, msg: str):
@@ -226,6 +250,7 @@ def profile_groups(prof):
             continue  # host events, and the annotation around an optimizer step
         low = e.key.lower()
         group = ("K1" if "ks_cnab2" in low else
+                 "K2" if "ns_adv" in low else
                  "cuFFT" if "fft" in low else
                  "optimizer" if "adam" in low or "multi_tensor" in low else
                  "matmul" if "gemm" in low or "gemv" in low else
@@ -436,12 +461,250 @@ def train_phases(card: str) -> dict:
     return {"rollout": k1_rollout, "train_steps": k1_train - k1_rollout}
 
 
+def fluid_energies(trainer, actor, n_steps: int) -> dict:
+    """Phase 9's protocol: mean energy over the active steps, trained and
+    with no action, from the preset's evaluation field; every step active."""
+    import numpy as np
+
+    energies = {}
+    for label, t_act in (("trained", 0), ("no action", n_steps)):
+        recs = trainer.make_eval_fn(n_steps, t_action_steps=t_act)(actor, trainer.eval_w0())
+        check(recs["energy"].shape == (n_steps, 1) and bool(recs["active"].all()),
+              f"fluid rollout ({label}) did not keep every step active")
+        check(bool(np.isfinite(recs["energy"]).all() and np.isfinite(recs["reward_mean"]).all()),
+              f"fluid rollout ({label}) is not finite")
+        energies[label] = float(recs["energy"][recs["active"]].mean())
+    return energies
+
+
+def fluid_train_phases(card: str) -> int:
+    """Phases 19-22: the fluid training path. Returns K2's launches on it
+    (phases 20-21)."""
+    from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
+
+    fluid_chunk_vs_cpu()
+    k2.NS_ADVECTION.launches = 0  # the fluid training path starts here
+    fluid_train_to_controller(card)
+    fluid_train_rate(card)
+    k2_train = k2.NS_ADVECTION.launches  # the fluid training path ends here
+    fluid_train_profile(card)
+    return k2_train
+
+
+def fluid_chunk_vs_cpu() -> None:
+    """Phase 19: a small fluid train chunk, the card against the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.fluid import FLUID_16_256
+    from distributedconvrl_pde_control_torch.models.mlp import chain_to_numpy
+    from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
+    from distributedconvrl_pde_control_torch.parallel.multichip import (
+        ShardedFluidTrainer,
+        ShardedTrainConfig,
+    )
+    from distributedconvrl_pde_control_torch.train.batched import StepDraws
+
+    dev = "cuda"
+    print("== 19. the fluid train chunk on the card against the CPU (32x32, 2 envs, 20 steps)")
+    small = dataclasses.replace(FLUID_16_256, nx=32, sensors_per_axis=4, te=0.3, start_steps=2,
+                                update_after=4)  # episodes end at step 15, learning from step 3
+    tcfg = ShardedTrainConfig(n_envs=2, batch_size=16, capacity_per_dp=4096)
+    gen = torch.Generator().manual_seed(19)
+    draws = [dict(noise=torch.randn((1, 32), generator=gen),
+                  offs=torch.randint(0, (i + 1) * 32, (1, 16), generator=gen),
+                  idx=torch.randint(0, tcfg.y0_pool_size, (2,), generator=gen)) for i in range(20)]
+    outs = []
+    for d in (dev, "cpu"):
+        tr = ShardedFluidTrainer(small, (1, 1), tcfg, device=d)
+        st = tr.init(torch.Generator().manual_seed(20), seed=21)  # same nets and pool on both
+        before = k2.NS_ADVECTION.launches
+        st, packed = tr.make_chunk_fn(20)(
+            st, [StepDraws(**{k: v.to(d) for k, v in dr.items()}) for dr in draws])
+        outs.append((st, packed.cpu().numpy(), k2.NS_ADVECTION.launches - before))
+    (st_c, rec_c, k2_c), (st_h, rec_h, k2_h) = outs
+    check(k2_h == 0 and k2_c == 20 * 4 * small.oversampling,
+          f"K2 launches in the small fluid train chunk: card {k2_c}, CPU {k2_h}")
+    p_err = max(float(np.abs(a[k] - b[k]).max() / max(np.abs(b[k]).max(), 1e-3))
+                for name in ("actor", "critic", "target_actor", "target_critic")
+                for a, b in zip(chain_to_numpy(getattr(st_c.agent, name)),
+                                chain_to_numpy(getattr(st_h.agent, name))) for k in ("w", "b"))
+    r_err = float(np.abs(rec_c[2] - rec_h[2]).max())
+    m_err = float(np.abs(rec_c[4] - rec_h[4]).max())
+    print(f"parameters max rel difference {p_err:.2e} (rtol 1e-4 of each tensor's max), ep_reward "
+          f"{r_err:.2e} (atol 1e-3 on sums up to {np.abs(rec_h[2]).max():.3f}), mean_reward {m_err:.2e} "
+          f"(atol 1e-4); finished steps {np.flatnonzero(rec_h[0].any(axis=1)).tolist()}, K2 launches "
+          f"{k2_c}; optimizer steps {st_h.agent.opt_actor.state[st_h.agent.actor.w[0]]['step']:.0f}")
+    check(bool((rec_c[0] == rec_h[0]).all() and (rec_c[1] == rec_h[1]).all() and rec_h[0, 14].all()
+               and rec_h[0].sum() == 2), "card and CPU fluid train chunks finish at different steps")
+    check(np.isfinite(rec_c).all() and p_err <= 1e-4 and r_err <= 1e-3 and m_err <= 1e-4,
+          "card and CPU fluid train chunks disagree")
+    check(int(st_c.ep_count) == int(st_h.ep_count) == 2 and st_c.replay.size == st_h.replay.size == 640,
+          "card and CPU fluid train chunks count differently")
+
+
+def fluid_train_to_controller(card: str) -> None:
+    """Phase 20: the Fluid_16_256 recipe through the CLI, then its controller
+    on phase 9's protocol."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.fluid import FLUID_16_256
+    from distributedconvrl_pde_control_torch.experiments import run
+    from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
+    from distributedconvrl_pde_control_torch.parallel.multichip import (
+        ShardedFluidTrainer,
+        ShardedTrainConfig,
+        load_actor_for_eval,
+        load_sharded,
+    )
+
+    dev = "cuda"
+    loops, no_steps, chunk = FLUID_16_256.loops, FLUID_16_256.no_steps, FLUID_TRAIN_CHUNK
+    # a loop runs whole chunks: 580 steps are 24 chunks of 25, 600 steps, as in the JAX package
+    train_steps = loops * chunk * -(-no_steps // chunk)
+    print(f"== 20. training a fluid controller: Fluid_16_256, 1 env, {loops} loops x {no_steps} steps "
+          f"in chunks of {chunk} through the CLI, then te=2 on the protocol of phase 9")
+    run_dir = str(ROOT / "build" / "smoke_Fluid_16_256")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.main(["Fluid_16_256", "--train", "--mesh", "1x1", "--seed", str(FLUID_TRAIN_SEED),
+              "--out", run_dir])
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    ftr = ShardedFluidTrainer(FLUID_16_256, (1, 1), ShardedTrainConfig(n_envs=1), device=dev)
+    agent_state, hook = load_sharded(run_dir, ftr)
+    actor = load_actor_for_eval(run_dir, ftr)
+    n_steps = int(round(FLUID_P_TE / FLUID_16_256.dt))
+    t0 = time.perf_counter()
+    energies = fluid_energies(ftr, actor, n_steps)
+    t_eval = time.perf_counter() - t0
+    k2_train_run = k2.NS_ADVECTION.launches
+    print(json.dumps({"row": f"Fluid_16_256 controller trained by the port (1 env, {train_steps} "
+                      "steps), te=2 on the 2/3-rule solver", "seed": FLUID_TRAIN_SEED,
+                      "train_seconds": t_train,
+                      "train_env_steps_per_s": train_steps / t_train,
+                      "ms_per_train_step": 1e3 * t_train / train_steps, "episodes": hook.ep - 1,
+                      "best_episode": hook.bestepisode, "best_reward": hook.bestreward,
+                      "evals": getattr(hook, "evals", []), **energies,
+                      "ratio": energies["trained"] / energies["no action"],
+                      "eval_seconds": t_eval, "K2_launches": k2_train_run, "card": card}))
+    check(agent_state.update_step == train_steps and hook.ep - 1 >= train_steps // 300 > 0
+          and np.isfinite(hook.bestreward), "the fluid training run is malformed")
+    check(k2_train_run == 4 * FLUID_16_256.oversampling * (train_steps + 2 * n_steps),
+          f"K2 launched {k2_train_run} times in {train_steps} train steps and two rollouts")
+    check(energies["trained"] < 0.7 * energies["no action"],
+          f"the port-trained controller's energy {energies['trained']} is not below 0.7 of no "
+          f"action {energies['no action']}")
+
+
+def fluid_train_rate(card: str) -> None:
+    """Phase 21: fluid training throughput at 16 envs, nothing read back
+    inside a chunk."""
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.fluid import FLUID_16_256
+    from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
+    from distributedconvrl_pde_control_torch.parallel.multichip import (
+        ShardedFluidTrainer,
+        ShardedTrainConfig,
+    )
+
+    dev = "cuda"
+    print(f"== 21. fluid training at {FLUID_TRAIN_ENVS} envs, learner batch {FLUID_TRAIN_BATCH}")
+    btr = ShardedFluidTrainer(FLUID_16_256, (1, 1), ShardedTrainConfig(
+        n_envs=FLUID_TRAIN_ENVS, batch_size=FLUID_TRAIN_BATCH), device=dev)
+    chunk_len = btr.tcfg.chunk_len
+    before = k2.NS_ADVECTION.launches
+    torch.cuda.reset_peak_memory_stats()
+    st = btr.init(torch.Generator(device=dev).manual_seed(1), seed=FLUID_16_256.seed)
+    chunk_fn = btr.make_chunk_fn(chunk_len)
+    st, packed = chunk_fn(st)  # warm-up
+    torch.cuda.synchronize()
+    # the train step reads nothing back inside a chunk: any synchronizing call raises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            st, packed = chunk_fn(st)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rate = 2 * chunk_len * FLUID_TRAIN_ENVS / secs
+    steps = 3 * chunk_len
+    k2_steps = k2.NS_ADVECTION.launches - before
+    push = FLUID_TRAIN_ENVS * btr.n_act
+    print(json.dumps({"slice": "Fluid_16_256 training", "n_envs": FLUID_TRAIN_ENVS,
+                      "env_steps_per_s": rate, "ms_per_train_step": 1e3 * secs / (2 * chunk_len),
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated(), "K2_launches": k2_steps,
+                      "train_steps": steps, "replay_size": st.replay.size,
+                      "replay_capacity": st.replay.capacity, "episodes": int(st.ep_count),
+                      "card": card}))
+    check(k2_steps == 4 * FLUID_16_256.oversampling * steps,
+          f"K2 launched {k2_steps} times in {steps} train steps")
+    check(bool(torch.isfinite(packed).all()), "fluid training records are not finite")
+    check(st.replay.size == min(steps * push, st.replay.capacity) and st.agent.update_step == steps
+          and st.global_step == steps, "fluid training state is malformed")
+
+
+def fluid_train_profile(card: str) -> None:
+    """Phase 22: the device time of one fluid train step by kernel group."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedconvrl_pde_control_torch.configs.fluid import FLUID_16_256
+    from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
+    from distributedconvrl_pde_control_torch.parallel.multichip import (
+        ShardedFluidTrainer,
+        ShardedTrainConfig,
+    )
+
+    dev = "cuda"
+    print("== 22. device time of one fluid train step by kernel group (torch.profiler)")
+    for n_envs in (1, FLUID_TRAIN_ENVS):
+        tr = ShardedFluidTrainer(FLUID_16_256, (1, 1), ShardedTrainConfig(
+            n_envs=n_envs, batch_size=FLUID_TRAIN_BATCH), device=dev)
+        st = tr.init(torch.Generator(device=dev).manual_seed(2), seed=FLUID_16_256.seed)
+        st, _ = tr.make_chunk_fn(12)(st)  # past the start policy and the learn gate
+        three = tr.make_chunk_fn(3)
+        counted = k2.NS_ADVECTION.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            three(st)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        counted = k2.NS_ADVECTION.launches - counted
+        groups = profile_groups(prof)
+        busy_us = sum(g[1] for g in groups.values())
+        print(json.dumps({"profile": f"Fluid_16_256 train step, {n_envs} env(s), 3 steps under the "
+                          "profiler, per step", "wall_us": wall_us / 3,
+                          "device_busy_us": busy_us / 3 if groups else "not measured",
+                          "idle_share": 1.0 - busy_us / wall_us if groups else "not measured",
+                          "launches_per_train_step": sum(g[0] for g in groups.values()) / 3,
+                          "groups": {k: {"launches": v[0] / 3, "device_us": v[1] / 3}
+                                     for k, v in groups.items()}, "card": card}))
+        # the library counts every launch it makes; the profiler may drop activity
+        # records at K2's launch rate (24 of 972 in one run), so its count is bounded
+        seen = groups.get("K2", [0])[0]
+        profiled = not groups or 0.9 * counted <= seen <= counted
+        check(counted == 3 * 4 * FLUID_16_256.oversampling and profiled,
+              f"the library counted {counted} launches of K2 in 3 train steps and the profiler saw "
+              f"{seen}")
+
+
 def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--train-only", action="store_true",
-                        help="run phases 1, 2 and 14-18 and print no result line")
+                        help="run phases 1, 2 and 14-22 and print no result line")
     parser.add_argument("--times-only", action="store_true",
                         help="time both kernels through their wrappers and stop")
     parser.add_argument("--tree", default=None,
@@ -501,7 +764,9 @@ def main() -> int:
           f"{k2.row_pairs(256, 16)} row pairs per block")
 
     if args.train_only:
-        print(json.dumps({"K1_launches_on_the_training_path": train_phases(card)}))
+        k1_training = train_phases(card)
+        print(json.dumps({"K1_launches_on_the_training_path": k1_training,
+                          "K2_launches_on_the_training_path": fluid_train_phases(card)}))
         return 0
 
     print("== 3. K1 against its plain version")
@@ -871,6 +1136,7 @@ def main() -> int:
           f"{counted}; expected 4 per substep")
 
     k1_training = train_phases(card)
+    k2_training = fluid_train_phases(card)
 
     print(json.dumps({"kernels": [{
         "name": "ks_cnab2", "route": "cuda",
@@ -885,7 +1151,9 @@ def main() -> int:
         "at_1x192": k1_one}, {
         "name": "ns_advection", "route": "cuda",
         "source": "distributedconvrl_pde_control_torch/csrc/" + k2.SOURCE,
-        "replaces": k2.REPLACES, "launches": k2_launches,
+        "replaces": k2.REPLACES, "launches": k2_launches + k2_training,
+        "launches_by_path": {"evaluation (phases 9-10)": k2_launches,
+                             "training (phases 20-21)": k2_training},
         "max_abs_err": max(k2_errs[k] for k in K2_MAIN_PATH_SHAPES),
         "max_err_of_scale": max(k2_rel_errs[k] for k in K2_MAIN_PATH_SHAPES),
         "max_fused_err_of_scale": max(k2_fused_errs.values()),

@@ -119,8 +119,10 @@ class DDPGAgent:
         self.cfg = cfg
         self.hidden_act = hidden_act
         self.hidden_act_critic = hidden_act_critic or hidden_act
-        self._asizes = actor_sizes(cfg.ns, cfg.na_rows, cfg.nna_scale, cfg.drop_middle_layer)
-        self._csizes = critic_sizes(cfg.ns, cfg.na_rows, cfg.scale_critic, cfg.drop_mid_critic)
+        self.actor_layer_sizes = actor_sizes(cfg.ns, cfg.na_rows, cfg.nna_scale,
+                                             cfg.drop_middle_layer)
+        self.critic_layer_sizes = critic_sizes(cfg.ns, cfg.na_rows, cfg.scale_critic,
+                                               cfg.drop_mid_critic)
 
     # ------------------------------------------------------------- networks
     def actor_apply(self, params: Chain, s: torch.Tensor) -> torch.Tensor:
@@ -160,8 +162,8 @@ class DDPGAgent:
     def init_state(self, generator: torch.Generator, device="cuda") -> DDPGState:
         """Fresh networks on `device` drawn from `generator`; the targets are
         force-synced copies of the behaviour networks (PDEagent.jl:76-77)."""
-        actor = init_chain(generator, self._asizes, device)
-        critic = init_chain(generator, self._csizes, device)
+        actor = init_chain(generator, self.actor_layer_sizes, device)
+        critic = init_chain(generator, self.critic_layer_sizes, device)
         return self.make_state(actor, critic)
 
     # ------------------------------------------------------------------- act

@@ -1,19 +1,21 @@
-"""Command-line entry point: train a KS controller, evaluate a trained one.
+"""Command-line entry point: train and evaluate KS and fluid controllers.
 
-Counterpart of the single-device `--train --batched` branch and two `--eval`
-branches of ``distributedconvrl_pde_control_tpu/experiments/run.py``.
+Counterpart of the single-device `--train --batched` branch, the `--mesh`
+branch at a 1x1 mesh and two `--eval` branches of
+``distributedconvrl_pde_control_tpu/experiments/run.py``.
 
 KS presets, batched training (the throughput configuration):
 
-    python -m distributedconvrl_pde_control_torch.experiments.run KS22 --train --batched \
-        --n-envs 256 --total-steps 3000 --eval-every 500 --eval-steps 500 \
-        --config-overrides '{"stepper": "etdrk4", "spectral_carry": true}' \
+    python -m distributedconvrl_pde_control_torch.experiments.run KS22 --train --batched \\
+        --n-envs 256 --total-steps 3000 --eval-every 500 --eval-steps 500 \\
+        --config-overrides '{"stepper": "etdrk4", "spectral_carry": true}' \\
         --out runs/KS22 [--cpu]
 
 trains with `train_batched` from a 32-field pool of random initial
 conditions, prints the reward curve, the evals and a summary line, and
-writes `saves/hook.npz` (best actor, reward history) and
-`config_overrides.json` into --out, which `--eval --load-from` reads back.
+writes `saves/hook.npz` (best actor, reward history), the light agent
+checkpoint `saves/agent_light.msgpack` and `config_overrides.json` into
+--out, which `--eval --load-from` reads back.
 
 KS presets (the plot_heat protocol, without plots):
 
@@ -25,14 +27,25 @@ from the standard initial field, and prints one JSON line with the mean |y|
 over the last 100 uncontrolled steps, over the last tenth of the run, and
 their ratio.
 
-Fluid presets on the 2/3-rule solver (`run_sharded`, the sharded testrun):
+Fluid presets on the 2/3-rule solver (`run_sharded`, `--mesh 1x1`):
+
+    python -m distributedconvrl_pde_control_torch.experiments.run Fluid_16_256 --train \\
+        --mesh 1x1 [--loops 10 --no-steps 580 --n-envs 1 --resume] [--cpu]
+
+trains the preset's recipe with `train_sharded` (learner batch 32, one
+update per step, capacity 100,000, chunks of 25), prints the per-loop lines,
+the reward curve and a summary line, and writes `saves/hook.npz` and
+`saves/agent_light.msgpack` (the JAX package's light checkpoint) into --out;
+`--resume` continues from the checkpoint in --load-from (or --out).
+`--train-multi` runs the restart protocol with numbered saves.
 
     python -m distributedconvrl_pde_control_torch.experiments.run Fluid_16_256 --eval \\
         --mesh 1x1 --load-from artifacts/Fluid_16_256 [--p-te 2] [--n-envs 1] [--cpu]
 
-rolls the best actor and a no-action baseline from the preset's evaluation
-field and prints one JSON line with the mesh, the grid and the two mean
-energies sum|omega|/n^2 over the active steps.
+rolls the best actor (the current one when the run kept no best) and a
+no-action baseline from the preset's evaluation field and prints one JSON
+line with the mesh, the grid and the two mean energies sum|omega|/n^2 over
+the active steps.
 """
 
 from __future__ import annotations
@@ -79,14 +92,22 @@ def fluid_config_for(name: str):
 
 
 def run_sharded(args, cfg, device: str) -> None:
-    """`--mesh DPxSP` path: the fluid preset evaluates on the 2/3-rule
-    solver (parallel.multichip) - trained policy vs no action, mean energies
-    over the active steps."""
+    """`--mesh DPxSP` path (parallel.multichip, 1x1 only): the fluid preset
+    trains (`--train`, `--train-multi`, `--resume`) or evaluates on the
+    2/3-rule solver, checkpointing in the standard light format so that both
+    packages' eval and resume paths read the runs."""
+    import torch
+
     from distributedconvrl_pde_control_torch.parallel.multichip import (
         ShardedFluidTrainer,
         ShardedTrainConfig,
         load_actor_for_eval,
+        load_sharded,
+        save_sharded,
+        train_multi_sharded,
+        train_sharded,
     )
+    from distributedconvrl_pde_control_torch.train.checkpoint import actor_from_jax
 
     if args.nx:
         cfg = dataclasses.replace(cfg, nx=args.nx)
@@ -99,8 +120,50 @@ def run_sharded(args, cfg, device: str) -> None:
     if (dp, sp) != (1, 1):
         raise SystemExit(f"--mesh {dp}x{sp}: the port runs --mesh 1x1 only; meshes of several "
                          "devices are not ported yet (ROADMAP.md queue 1 item 15)")
-    trainer = ShardedFluidTrainer(cfg, (dp, sp), ShardedTrainConfig(n_envs=args.n_envs or dp),
-                                  device=device)
+    tcfg = ShardedTrainConfig(n_envs=args.n_envs or dp, batch_size=args.learner_batch or 32,
+                              update_loops=1, capacity_per_dp=args.capacity_per_dp or 100_000,
+                              chunk_len=args.chunk_len or 25)
+    trainer = ShardedFluidTrainer(cfg, (dp, sp), tcfg, device=device)
+    out_dir = args.out or os.path.join("runs", args.preset)
+    seed = args.seed if args.seed is not None else cfg.seed
+
+    if args.train_multi:
+        # the restart protocol (FluidSetup.jl:559-601), numbered saves per experiment
+        os.makedirs(out_dir, exist_ok=True)
+        best = train_multi_sharded(
+            trainer, no_episodes=args.no_episodes or 17, n_experiments=args.n_experiments,
+            seed=seed, save_fn=lambda n, state, hook: save_sharded(out_dir, trainer, state, hook,
+                                                                   number=n))
+        print("best rewards per experiment:", best)
+        return
+
+    if args.train:
+        os.makedirs(out_dir, exist_ok=True)
+        state = hook = None
+        if args.resume:
+            # the light checkpoint's networks, Adam states and counters, the
+            # hook's accounting and best actor; fields, pool and replay start afresh
+            agent_state, hook = load_sharded(args.load_from or out_dir, trainer)
+            state = trainer.init(torch.Generator(device=device).manual_seed(seed), seed=seed)
+            state.agent = agent_state
+            state.ep_count.fill_(hook.ep - 1)
+            state.best_reward.fill_(hook.bestreward)
+            state.best_episode.fill_(hook.bestepisode)
+            if hook.best_actor is not None:
+                state.best_actor = actor_from_jax(hook.best_actor).to(device)
+            print(f"resuming from ep {hook.ep - 1}, best {hook.bestreward:.4f}")
+        state, hook = train_sharded(trainer, loops=args.loops, no_steps=args.no_steps, seed=seed,
+                                    state=state, hook=hook, eval_every=args.eval_every,
+                                    eval_steps=args.eval_steps)
+        save_sharded(out_dir, trainer, state, hook)
+        print(hook.ascii_curve())
+        if getattr(hook, "evals", None):
+            print("evals:", [(s, round(r, 4)) for s, r in hook.evals])
+        print(f"saved to {out_dir}; best reward {hook.bestreward:.4f} @ ep {hook.bestepisode} "
+              f"(mesh {dp}x{sp}, grid {cfg.grid_nx})")
+        return
+
+    # --eval: the sharded testrun, trained policy vs no action, masked energies
     actor = load_actor_for_eval(args.load_from, trainer)
     n_steps = int(round((args.p_te or cfg.te) / cfg.dt))
     t_act = int(round((args.p_t_action or 0.0) / cfg.dt))
@@ -165,7 +228,8 @@ def run_ks_train_batched(args, cfg, overrides, device: str) -> None:
         chunk_len=args.chunk_len or 50, verbose=True, eval_every=args.eval_every,
         eval_steps=args.eval_steps, eval_warmup_steps=args.eval_warmup,
         eval_score=args.eval_score)
-    checkpoint.save(out_dir, hook, config_overrides=overrides)
+    checkpoint.save(out_dir, hook, config_overrides=overrides, agent=ts.agent,
+                    seed=ts.generator.initial_seed())
     print(hook.ascii_curve())
     if hook.evals:
         print("evals:", [(s, round(r, 4)) for s, r in hook.evals])
@@ -207,8 +271,11 @@ def main(argv=None):
     mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("--eval", action="store_true", help="evaluate a trained actor")
     mode.add_argument("--train", action="store_true",
-                      help="train (KS presets, with --batched)")
-    ap.add_argument("--load-from", default=None, help="run directory holding saves/hook.npz")
+                      help="train (KS presets with --batched, fluid presets with --mesh 1x1)")
+    mode.add_argument("--train-multi", action="store_true",
+                      help="the restart protocol with numbered saves (fluid presets, --mesh 1x1)")
+    ap.add_argument("--load-from", default=None,
+                    help="run directory holding saves/hook.npz (and saves/agent_light.msgpack)")
     ap.add_argument("--out", default=None, help="run directory (default runs/<preset>)")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--config-overrides", default=None, metavar="JSON",
@@ -221,32 +288,42 @@ def main(argv=None):
     ap.add_argument("--p-t-action", type=float, default=None,
                     help="actuation start time (default p_te/2 for KS presets, 0 for fluid)")
     ap.add_argument("--mesh", default=None,
-                    help="evaluate a fluid preset on the 2/3-rule solver over a DPxSP mesh; "
-                         "only 1x1 so far")
+                    help="train or evaluate a fluid preset on the 2/3-rule solver over a DPxSP "
+                         "mesh; only 1x1 so far")
     ap.add_argument("--n-envs", type=int, default=None,
                     help="env batch for --batched (default 256) and --mesh runs (default: dp)")
+    ap.add_argument("--loops", type=int, default=None,
+                    help="--mesh training rounds (default the preset's loops)")
+    ap.add_argument("--no-steps", type=int, default=None,
+                    help="--mesh train steps per round (default the preset's no_steps)")
+    ap.add_argument("--capacity-per-dp", type=int, default=None,
+                    help="--mesh replay capacity per dp group (default 100,000)")
+    ap.add_argument("--no-episodes", type=int, default=None,
+                    help="--train-multi episodes per experiment (default 17, FluidSetup.jl:559)")
+    ap.add_argument("--n-experiments", type=int, default=2,
+                    help="--train-multi experiments; 0 restarts endlessly")
     ap.add_argument("--nx", type=int, default=None,
                     help="override the fluid grid size for --mesh runs")
     ap.add_argument("--horizon", type=float, default=None,
                     help="override the episode horizon te for --mesh runs")
     ap.add_argument("--batched", action="store_true",
                     help="train with the throughput configuration (env batch, chunks of "
-                         "steps); saves saves/hook.npz")
+                         "steps); saves saves/hook.npz and saves/agent_light.msgpack")
     ap.add_argument("--total-steps", type=int, default=2000,
                     help="train steps for --batched training")
     ap.add_argument("--chunk-len", type=int, default=None,
-                    help="--batched train steps per record read (default 50)")
+                    help="train steps per record read (default 50 --batched, 25 --mesh)")
     ap.add_argument("--learner-batch", type=int, default=None,
-                    help="--batched DDPG learner batch (default 256)")
+                    help="DDPG learner batch (default 256 --batched, 32 --mesh)")
     ap.add_argument("--update-loops", type=int, default=1,
                     help="--batched gradient steps per train step")
     ap.add_argument("--eval-steps", type=int, default=50,
-                    help="deterministic-eval rollout length (env steps) for --batched "
-                         "--eval-every runs; beyond te/dt the eval runs on a "
-                         "horizon-overridden clone of the env")
+                    help="deterministic-eval rollout length (env steps) for --eval-every "
+                         "runs; beyond te/dt a --batched eval runs on a horizon-overridden "
+                         "clone of the env, a --mesh eval has no te cap")
     ap.add_argument("--eval-every", type=int, default=0,
-                    help="deterministic eval cadence for --batched training (train steps); "
-                         "evals drive best-actor selection")
+                    help="deterministic eval cadence for training (train steps); evals "
+                         "drive best-actor selection")
     ap.add_argument("--eval-warmup", type=int, default=0, metavar="K",
                     help="--batched: evolve the eval IC batch uncontrolled for K steps before "
                          "the actor engages, scoring only the controlled segment, on "
@@ -270,7 +347,8 @@ def main(argv=None):
     ap.add_argument("--import-jld2", default=None, metavar="SAVES_DIR",
                     help="(not ported: ROADMAP.md queue 1 item 17)")
     ap.add_argument("--resume", action="store_true",
-                    help="(not ported: ROADMAP.md queue 1 item 10)")
+                    help="--train --mesh 1x1: continue from the light checkpoint in --load-from "
+                         "(default --out)")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
     args = ap.parse_args(argv)
     device = "cpu" if args.cpu else "cuda"
@@ -282,27 +360,26 @@ def main(argv=None):
     if args.import_jld2:
         raise SystemExit("--import-jld2: the reference JLD2 import is not ported yet "
                          "(ROADMAP.md queue 1 item 17)")
-    if args.resume:
-        raise SystemExit("--resume needs the agent-state checkpoint, which is not ported yet "
-                         "(ROADMAP.md queue 1 item 10)")
     if args.preset in KS_TP_PRESETS:
         raise SystemExit(f"{args.preset}: the reduced-precision transform tiers are not ported "
                          "yet (ROADMAP.md queue 1 item 16); the float32 ETDRK4 tiers run with "
                          "--config-overrides '{\"stepper\": \"etdrk4\", \"spectral_carry\": true}'")
-    if args.train and args.mesh:
-        raise SystemExit("--train --mesh: sharded and data-parallel training is not ported "
-                         "yet (ROADMAP.md queue 1 item 15)")
-    if args.train and not args.batched:
-        raise SystemExit("--train without --batched needs the single-env fidelity loop, which "
-                         "is not ported yet (ROADMAP.md queue 1 item 10); pass --batched")
+    fluid_cfg = fluid_config_for(args.preset)
+    if args.resume and not (fluid_cfg is not None and args.mesh and args.train):
+        raise SystemExit("--resume continues --train --mesh 1x1 runs of the fluid presets; "
+                         "resuming anything else needs the fidelity loop and the full "
+                         "checkpoint, which are not ported yet (ROADMAP.md queue 1 item 10)")
+    if args.batched and args.mesh:
+        raise SystemExit("--batched --mesh: data-parallel batched training over a device mesh "
+                         "is not ported yet (ROADMAP.md queue 1 item 15)")
     if args.eval and not args.load_from:
         raise SystemExit("--eval needs --load-from")
-    fluid_cfg = fluid_config_for(args.preset)
     if fluid_cfg is not None:
-        if args.train:
-            raise SystemExit(f"{args.preset} --train: fluid training is not ported yet "
-                             "(ROADMAP.md queue 1 items 13 and 15); --train --batched runs "
-                             "the KS presets")
+        if args.batched:
+            raise SystemExit(f"{args.preset} --batched: batched fluid training runs on the "
+                             "single-device fluid env or over a dp mesh, neither ported yet "
+                             "(ROADMAP.md queue 1 items 13 and 15); --train --mesh 1x1 trains "
+                             "on the 2/3-rule solver")
         if fluid_cfg.fft_mode != "auto" or fluid_cfg.nl_fft_mode is not None:
             raise SystemExit(f"{args.preset}: the reduced-precision transform tiers are not "
                              "ported yet (ROADMAP.md queue 1 item 16); the port runs the "
@@ -315,6 +392,13 @@ def main(argv=None):
         return run_sharded(args, fluid_cfg, device)
     if args.mesh:
         raise SystemExit(f"--mesh supports fluid presets, not {args.preset}")
+    if args.train_multi:
+        raise SystemExit(f"{args.preset} --train-multi: the KS restart protocol runs the "
+                         "single-env fidelity loop, which is not ported yet (ROADMAP.md queue 1 "
+                         "item 10)")
+    if args.train and not args.batched:
+        raise SystemExit("--train without --batched needs the single-env fidelity loop, which "
+                         "is not ported yet (ROADMAP.md queue 1 item 10); pass --batched")
 
     # artifacts trained off-preset ship a config_overrides.json; honoring it
     # makes them loadable through --load-from. --config-overrides (inline

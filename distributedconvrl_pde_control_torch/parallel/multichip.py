@@ -1,48 +1,105 @@
-"""Preset-driven fluid control on the 2/3-rule solver: the evaluation half.
+"""Preset-driven fluid control on the 2/3-rule solver: training and evaluation.
 
 Counterpart of ``distributedconvrl_pde_control_tpu/parallel/multichip.py``
 for a 1x1 mesh (one data-parallel group, one spatial shard): the reference
 trains and evaluates a fluid preset across a ('dp', 'sp') chip mesh; with one
 device the env batch and every field live whole on that device, and the
-mesh collectives (psum, pmax over 'sp') are identities. Ported here is what
-an evaluation runs: the trainer's arrays, the preset's stepper dispatch,
-forcing, sensor readout, featurization, reward, the evaluation rollout
-(`make_eval_fn`, the testrun protocol of FluidSetup.jl:400-537) and the
-best-actor reader. The training half (replay, `_local_step`,
-`make_chunk_fn`, `train_sharded`) and meshes of more than one device are not
-ported yet.
+mesh collectives (psum, pmax, pmean over 'dp' or 'sp') are identities.
+Ported here: the trainer's arrays, the preset's stepper dispatch, forcing,
+sensor readout, featurization, reward, the evaluation rollout (`make_eval_fn`,
+the testrun protocol of FluidSetup.jl:400-537), and the training half: the
+fresh-IC pool, `init`, the train step (`_local_step`), `make_chunk_fn`,
+`train_sharded`, the restart protocol `train_multi_sharded`, the device-side
+corrupted-field detector, and the light checkpoint (`save_sharded`,
+`load_sharded`, `load_actor_for_eval`). Meshes of more than one device are
+not ported yet.
+
+Where the JAX package compiles a chunk of steps into one program, here every
+operation is a launch the host makes, and the step is written so that the
+host never waits for the device inside a chunk: `global_step`, the replay's
+pointer and size, `update_step` and the learn gate follow from the step count
+and are host integers; termination, the episode accounting, the best-actor
+snapshot and the auto-reset stay on the device as `where`s; one packed record
+array leaves the device per chunk. The adaptive stepper is the exception: it
+reads each trial's error back (`parallel/ns_sharded.py`). Every draw of a run
+comes from one `torch.Generator` that the state carries; tests pass the JAX
+package's own draws in (`train.batched.StepDraws`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import time
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent
+from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent, DDPGState
+from distributedconvrl_pde_control_torch.agents.replay import Replay, replay_init, replay_push_flat
 from distributedconvrl_pde_control_torch.configs.fluid import (
     FluidConfig,
     fluid_agent_config,
     fluid_featurizer,
     fluid_kernels,
 )
-from distributedconvrl_pde_control_torch.models.mlp import Chain
+from distributedconvrl_pde_control_torch.models.mlp import Chain, chain_to_numpy, copy_chain
 from distributedconvrl_pde_control_torch.ops.navier_stokes import initial_condition
 from distributedconvrl_pde_control_torch.parallel.ns_sharded import (
     NSShardedSolverRI,
     make_sharded_ops,
 )
-from distributedconvrl_pde_control_torch.train.checkpoint import actor_from_jax, load_best_actor
+from distributedconvrl_pde_control_torch.train import checkpoint
+from distributedconvrl_pde_control_torch.train.batched import StepDraws
+from distributedconvrl_pde_control_torch.train.hooks import (
+    REC_COMPLETED,
+    REC_EP_REWARD,
+    REC_ERRORED,
+    REC_FINISHED,
+    REC_MEAN_REWARD,
+    PDEHook,
+)
+from distributedconvrl_pde_control_torch.train.records import (
+    consume_record_read,
+    start_record_read,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardedTrainConfig:
     """Scale-out knobs of the trainer (everything physics/agent comes from
-    the `FluidConfig` preset). The evaluation has one; the reference's
-    learner and replay knobs come with the training half."""
+    the `FluidConfig` preset), the JAX package's defaults."""
 
     n_envs: int = 8  # global env batch
+    batch_size: int = 32  # learner batch (scaled up from the reference's 3)
+    update_loops: int = 1  # gradient steps per env step
+    capacity_per_dp: int = 100_000  # rounded up to a multiple of the push width
+    y0_pool_size: int = 8  # fresh-IC pool for in-step episode resets
+    chunk_len: int = 25  # train steps per record read
+    # chunks in flight before their records are read (drained at loop ends)
+    pipeline_depth: int = 4
+
+
+@dataclasses.dataclass
+class MCState:
+    """Training state on one device (the JAX package's per-dp replay axis is
+    gone: one group, one replay). Updated in place by the train step."""
+
+    w: torch.Tensor  # (B, n, n) float32, the REAL vorticity
+    obs: torch.Tensor  # (B, obs_dim, n_act)
+    action: torch.Tensor  # (B, na_rows, n_act)
+    steps: torch.Tensor  # (B,) int32, per-env episode step counter
+    ep_reward: torch.Tensor  # (B,) f32, running sum of per-step mean rewards
+    agent: DDPGState
+    replay: Replay
+    generator: torch.Generator  # every draw of the run
+    global_step: int  # train steps taken
+    ep_count: torch.Tensor  # i32, episodes finished (all envs)
+    best_reward: torch.Tensor  # f32 (PDEhook bestreward)
+    best_episode: torch.Tensor  # i32
+    best_actor: Chain  # a copy of the actor (PDEhook bestNNA)
+    mean_reward: torch.Tensor  # f32 scalar diagnostic of the last step
 
 
 @dataclasses.dataclass
@@ -55,8 +112,8 @@ class EvalState:
 
 
 class ShardedFluidTrainer:
-    """Builds the device arrays and the evaluation rollout of a fluid
-    experiment preset on a dp x sp = 1 x 1 mesh.
+    """Builds the device arrays, the train step and the evaluation rollout
+    of a fluid experiment preset on a dp x sp = 1 x 1 mesh.
 
     Stepper dispatch: `adaptive=True` runs the step-doubling do_step2
     (`step_real_adaptive`), `stepper="ifrk4"` the integrating-factor tier,
@@ -85,7 +142,15 @@ class ShardedFluidTrainer:
         self.sensor_kernels = torch.as_tensor(sens, dtype=torch.float32, device=device)  # (n_act, n, n)
         self.actuator_kernels = torch.as_tensor(acts, dtype=torch.float32, device=device)
         self.featurizer = fluid_featurizer(cfg, self.sensor_kernels.reshape(n_act, -1))
-        self.agent = DDPGAgent(fluid_agent_config(cfg, self.featurizer.obs_dim))
+        # the capacity rounded up to a multiple of the push width, so pushes take
+        # the contiguous path (replay_push_flat); the agent's config carries it
+        push = tcfg.n_envs * n_act
+        self.capacity_per_dp = ((tcfg.capacity_per_dp + push - 1) // push) * push
+        self.agent = DDPGAgent(fluid_agent_config(cfg, self.featurizer.obs_dim,
+                                                  capacity=self.capacity_per_dp))
+        self.max_steps = int(math.ceil((cfg.te - cfg.t0) / cfg.dt - 1e-9))
+        self.pool = None  # (P, n, n) fresh initial fields, set by init
+        self.pool_obs = None  # (P, obs_dim, n_act) their reset observations
 
     # -------------------------------------------------------------- helpers
     def _solver_step(self, w, f):
@@ -134,6 +199,170 @@ class ShardedFluidTrainer:
             - cfg.delta_action_punish * delta[:, 0, :] ** 2
         )
 
+    def _blowup(self, reward, w_new):
+        """Per-env termination (PDEenv.jl:226-240): `check_max_value` on the
+        reward or the field, or a non-finite reward."""
+        cfg = self.cfg
+        if cfg.check_max_value == "reward":
+            blowup = reward.abs().amax(-1) > cfg.max_value
+        elif cfg.check_max_value == "y":
+            blowup = w_new.abs().flatten(1).amax(-1) > cfg.max_value
+        else:
+            blowup = torch.zeros(reward.shape[:1], dtype=torch.bool, device=reward.device)
+        return blowup | ~torch.isfinite(reward).all(-1)
+
+    def _error_flags(self, w):
+        """Per-env corrupted-field detector: real-space neighbour jumps > 10
+        (FluidSetup.jl:263-273; the reference runs it on `real(ifft(y))`, `w`
+        is already real). On one shard the previous shard's boundary row is
+        the field's own last row, so the y-neighbour is a roll. NaN fields do
+        not flag (NaN > 10 is false), matching Julia's `maximum`."""
+        jump_x = (torch.roll(w, 1, 2) - w).abs().flatten(1).amax(-1)
+        jump_y = (torch.roll(w, 1, 1) - w).abs().flatten(1).amax(-1)
+        return torch.maximum(jump_x, jump_y) > 10.0
+
+    # ------------------------------------------------------------------ init
+    def _make_pool(self, seed: int) -> np.ndarray:
+        """Fresh-IC pool for in-step resets: the host-side random-vortex
+        generator (generate_random_init, FluidSetup.jl:386-394; case 3 train
+        / 4 eval), drawn from `np.random.default_rng(seed)`."""
+        cfg = self.cfg
+        rng = np.random.default_rng(seed)
+        case = 4 if cfg.evaluation else 3
+        return np.stack([
+            np.fft.ifft2(initial_condition(case, self.n, self.n, cfg.lx, cfg.lx, rng)).real
+            for _ in range(self.tcfg.y0_pool_size)
+        ]).astype(np.float32)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator, seed: int = 0) -> MCState:
+        """A fresh state: the pool of `seed`, env i on pool row i mod P, fresh
+        networks and every later draw of the run from `generator`, which the
+        state keeps."""
+        tcfg, acfg, dev = self.tcfg, self.agent.cfg, self.device
+        self.pool = torch.as_tensor(self._make_pool(seed), device=dev)
+        # the JAX package featurizes `pool[idx]` at every step; a pool row gives
+        # the same reset observation every time, so the rows are featurized once
+        # here and the step gathers them
+        self.pool_obs = self._featurize_reset(self._sensor_dots(self.pool))
+        rows = torch.arange(tcfg.n_envs, device=dev) % self.pool.shape[0]
+        astate = self.agent.init_state(generator, dev)
+        return MCState(
+            w=self.pool[rows],
+            obs=self.pool_obs[rows],
+            action=torch.zeros((tcfg.n_envs, acfg.na_rows, self.n_act), dtype=torch.float32,
+                               device=dev),
+            steps=torch.zeros((tcfg.n_envs,), dtype=torch.int32, device=dev),
+            ep_reward=torch.zeros((tcfg.n_envs,), dtype=torch.float32, device=dev),
+            agent=astate,
+            replay=replay_init(self.capacity_per_dp, acfg.ns, acfg.na_rows, dev),
+            generator=generator,
+            global_step=0,
+            ep_count=torch.zeros((), dtype=torch.int32, device=dev),
+            best_reward=torch.full((), -torch.inf, dtype=torch.float32, device=dev),
+            best_episode=torch.zeros((), dtype=torch.int32, device=dev),
+            best_actor=copy_chain(astate.actor),
+            mean_reward=torch.zeros((), dtype=torch.float32, device=dev),
+        )
+
+    # ------------------------------------------------------------- the step
+    def _local_step(self, st: MCState, draws: Optional[StepDraws] = None):
+        """One train step, in place on `st`; returns (st, records). `draws`
+        (noise, start, offs, idx) replace the generator's draws."""
+        cfg, tcfg = self.cfg, self.tcfg
+        agent, acfg = self.agent, self.agent.cfg
+        n_act = self.n_act
+        draws = draws or StepDraws()
+        gen = st.generator
+        bl = st.obs.shape[0]
+        astate = st.agent
+        astate.update_step += 1
+        st.global_step += 1
+
+        # policy over all actuator columns of all envs (shared-MLP batching)
+        obs_flat = st.obs.movedim(0, 1).reshape(acfg.ns, bl * n_act)
+        actions_flat = agent.act(astate, obs_flat, gen, learning=True, noise=draws.noise,
+                                 start=draws.start)
+        with torch.no_grad():
+            actions = actions_flat.reshape(acfg.na_rows, bl, n_act).movedim(1, 0)
+            delta = actions - st.action
+            # forcing, then the preset's stepper (K2 on every Runge-Kutta stage)
+            w_new = self._solver_step(st.w, self._forcing(actions))
+            dots = self._sensor_dots(w_new)
+            obs_new = self._featurize(dots, st.obs, actions)
+            reward = self._reward(dots, actions, delta)
+            steps = st.steps + 1
+            blowup = self._blowup(reward, w_new)
+            horizon = steps >= self.max_steps
+            done = horizon | blowup
+            completed = horizon & ~blowup
+            # the push: `sn` is the post-step observation, the reward clamped
+            safe_r = torch.where(torch.isfinite(reward), reward, -cfg.max_value)
+            replay_push_flat(st.replay, obs_flat, actions_flat, safe_r.reshape(-1),
+                             done.to(torch.float32).repeat_interleave(n_act),
+                             obs_new.movedim(0, 1).reshape(acfg.ns, -1))
+
+        # learning: the gate is a function of the step count alone
+        if (st.replay.size > acfg.update_after * n_act
+                and astate.update_step % acfg.update_freq == 0):
+            for i in range(tcfg.update_loops):
+                offs = None if draws.offs is None else draws.offs[i]
+                batch = agent.sample(st.replay, tcfg.batch_size, gen, offs=offs)
+                agent.learn_batch(astate, batch)
+
+        with torch.no_grad():
+            # episode accounting + on-device best-actor tracking (PDEhook.jl:65-76)
+            step_mean_r = safe_r.mean(-1)
+            ep_r = st.ep_reward + step_mean_r
+            ep_count = st.ep_count + done.sum(dtype=torch.int32)
+            cand_max = torch.where(completed, ep_r, -torch.inf).max()
+            is_better = (cand_max > st.best_reward) & (ep_count >= cfg.min_best_episode)
+            for best, cur in zip(st.best_actor.parameters(), astate.actor.parameters()):
+                torch.where(is_better, cur, best, out=best)
+            st.best_reward = torch.where(is_better, cand_max, st.best_reward)
+            st.best_episode = torch.where(is_better, ep_count, st.best_episode)
+
+            # auto-reset finished envs from the pool: the select runs every step,
+            # so the host never reads `done`
+            idx = draws.idx
+            if idx is None:
+                idx = torch.randint(0, self.pool.shape[0], (bl,), generator=gen,
+                                    device=gen.device)
+            idx = idx.to(self.device)
+            donec = done.reshape(bl, 1, 1)
+            st.w = torch.where(donec, self.pool[idx], w_new)
+            st.obs = torch.where(donec, self.pool_obs[idx], obs_new)
+            st.action = torch.where(donec, 0.0, actions)
+            st.steps = torch.where(done, 0, steps)
+            st.ep_reward = torch.where(done, 0.0, ep_r)
+            st.ep_count = ep_count
+            st.mean_reward = step_mean_r.mean()
+            # a diverged episode whose final field trips the corruption test
+            errored = blowup & self._error_flags(w_new)
+        return st, {"finished": done, "completed": completed, "ep_reward": ep_r,
+                    "errored": errored, "mean_reward": st.mean_reward}
+
+    def make_chunk_fn(self, n_steps: int):
+        """`chunk(st, draws=None) -> (st, packed)`: `n_steps` train steps in
+        place on `st`, and the packed (5, n_steps, n_envs) f32 record array
+        on the device (train.hooks.unpack_records row order): one
+        device-to-host copy per chunk for the whole host accounting. `draws`
+        is a sequence of `n_steps` StepDraws."""
+        rows = ((REC_FINISHED, "finished"), (REC_COMPLETED, "completed"),
+                (REC_EP_REWARD, "ep_reward"), (REC_ERRORED, "errored"),
+                (REC_MEAN_REWARD, "mean_reward"))
+
+        def chunk(st: MCState, draws: Optional[Sequence[StepDraws]] = None):
+            packed = torch.zeros((5, n_steps, st.obs.shape[0]), dtype=torch.float32,
+                                 device=self.device)
+            for i in range(n_steps):
+                st, rec = self._local_step(st, None if draws is None else draws[i])
+                for row, name in rows:
+                    packed[row, i] = rec[name]
+            return st, packed
+
+        return chunk
+
     # --------------------------------------------------------------- eval
     def make_eval_fn(self, n_steps: int, t_action_steps: int = 0):
         """Evaluation rollout (the testrun protocol, FluidSetup.jl:400-537):
@@ -143,7 +372,6 @@ class ShardedFluidTrainer:
 
         Returns fn (actor: Chain, w0 (B, n, n)) ->
         {energy, reward_mean, active: (n_steps, B)} as numpy arrays."""
-        cfg = self.cfg
         agent, acfg = self.agent, self.agent.cfg
         n_act = self.n_act
 
@@ -170,14 +398,7 @@ class ShardedFluidTrainer:
                 dots = self._sensor_dots(w_new)
                 obs_new = self._featurize(dots, est.obs, actions)
                 reward = self._reward(dots, actions, delta)
-                finite = torch.isfinite(reward).all(-1)
-                if cfg.check_max_value == "reward":
-                    blowup = reward.abs().amax(-1) > cfg.max_value
-                elif cfg.check_max_value == "y":
-                    blowup = w_new.abs().flatten(1).amax(-1) > cfg.max_value
-                else:
-                    blowup = torch.zeros((bl,), dtype=torch.bool, device=self.device)
-                blowup = blowup | ~finite
+                blowup = self._blowup(reward, w_new)
                 active = ~est.done
                 keep = active & ~blowup
                 keepc = keep.reshape(bl, 1, 1)
@@ -209,16 +430,212 @@ class ShardedFluidTrainer:
         return torch.as_tensor(y0, device=self.device).expand(n_envs, -1, -1).contiguous()
 
 
+# ---------------------------------------------------------- training loops
+def train_sharded(trainer: ShardedFluidTrainer, loops: Optional[int] = None,
+                  no_steps: Optional[int] = None, seed: int = 0, state: Optional[MCState] = None,
+                  hook: Optional[PDEHook] = None, verbose: bool = True,
+                  noise_decay: Optional[float] = None, chunk_fn=None, eval_every: int = 0,
+                  eval_steps: int = 50):
+    """The preset training protocol: `loops` rounds of `no_steps` train
+    steps in chunks, act_noise decayed per round and rewards clamped
+    (FluidSetup.jl:541-556 in chunked form).
+
+    A fresh run (`state` None) draws everything from a generator on the
+    trainer's device seeded `seed`, its pool from `seed` too. `noise_decay`
+    overrides the preset's per-loop factor; `chunk_fn` reuses one chunk
+    function across calls (train_multi_sharded). Chunk n's records are read
+    after chunks n+1..n+pipeline_depth are queued, and drained at loop ends,
+    so the per-loop accounting is complete. Records are read dense: at
+    one device's env counts a chunk's plane is a few KB, far below the JAX
+    package's 1 MB switch to the sparse reader.
+
+    `eval_every > 0` runs a deterministic evaluation rollout (make_eval_fn
+    on the preset's canonical eval fields, `eval_steps` steps, no te cap)
+    every N train steps, and those evals drive the best-actor snapshot:
+    with many noisy episodes per chunk, the reference's best-noisy-episode
+    rule (PDEhook.jl:65-76) selects exploration luck.
+
+    Returns (MCState, PDEHook) in the format `checkpoint.save` ships."""
+    cfg, tcfg = trainer.cfg, trainer.tcfg
+    loops = loops if loops is not None else cfg.loops
+    no_steps = no_steps if no_steps is not None else cfg.no_steps
+    decay = noise_decay if noise_decay is not None else cfg.noise_decay
+    if state is None:
+        state = trainer.init(torch.Generator(device=trainer.device).manual_seed(seed), seed=seed)
+    if hook is None:
+        hook = PDEHook(min_best_episode=cfg.min_best_episode, collect_best_trace=False)
+    if chunk_fn is None:
+        chunk_fn = trainer.make_chunk_fn(tcfg.chunk_len)
+
+    eval_fn = eval_w0 = None
+    best_eval = None  # (mean step reward, step, episode, actor as numpy)
+    if eval_every and not hasattr(hook, "evals"):
+        hook.evals = []  # (total steps, deterministic mean step reward)
+    next_eval = eval_every if eval_every else None
+    total_steps = 0
+
+    def run_eval(actor):
+        rec = eval_fn(actor, eval_w0)
+        rs, active = rec["reward_mean"], rec["active"]
+        return float(rs[active].mean()) if active.any() else float("nan")
+
+    noise = float(state.agent.act_noise)
+    depth = max(1, tcfg.pipeline_depth)
+    pending: list = []
+    for i in range(loops):
+        state.agent.act_noise = noise
+        t0 = time.time()
+        steps = 0
+        while steps < no_steps:
+            state, packed = chunk_fn(state)
+            # the device-to-host copy starts at dispatch, overlapping the chunks
+            # queued after it
+            pending.append(start_record_read(packed))
+            if len(pending) > depth:
+                hook.feed_episode_records(consume_record_read(pending.pop(0)))
+            steps += tcfg.chunk_len
+            total_steps += tcfg.chunk_len
+            if next_eval is not None and total_steps >= next_eval:
+                if eval_fn is None:
+                    eval_fn = trainer.make_eval_fn(eval_steps)
+                    eval_w0 = trainer.eval_w0()
+                r_eval = run_eval(state.agent.actor)
+                hook.evals.append((total_steps, r_eval))
+                if best_eval is None or r_eval > best_eval[0]:
+                    # the eval synchronized the host, so reading the device's
+                    # episode counter costs nothing extra; the actor is copied:
+                    # the optimizer updates it in place
+                    best_eval = (r_eval, total_steps, int(state.ep_count),
+                                 chain_to_numpy(state.agent.actor))
+                next_eval += eval_every
+        for handle in pending:
+            hook.feed_episode_records(consume_record_read(handle))
+        pending.clear()
+        if verbose:
+            print(f"[{cfg.name} sharded {trainer.n_dp}x{trainer.n_sp}] "
+                  f"loop {i + 1}/{loops} noise={noise:.4f} "
+                  f"best={float(state.best_reward):.4f} eps={int(state.ep_count)} "
+                  f"({time.time() - t0:.1f}s)")
+        noise *= decay
+        hook.clamp_rewards(-3000.0, 0.0)
+
+    finalize_hook(hook, state)
+    if best_eval is not None:
+        # deterministic-eval-driven selection overrides the on-device
+        # best-noisy-episode snapshot (hook.bestreward: the best eval's mean
+        # step reward)
+        hook.best_actor = best_eval[3]
+        hook.bestreward = best_eval[0]
+        hook.bestepisode = best_eval[2]
+    return state, hook
+
+
+def train_multi_sharded(trainer: ShardedFluidTrainer, no_episodes: int = 17,
+                        n_experiments: int = 2, save_fn=None, seed: int = 0,
+                        restart_noise: float = 0.17, inner_decay: float = 0.7,
+                        inner_loops: int = 18, verbose: bool = True):
+    """The multi-experiment restart protocol (the reference's fluid
+    train_multi, FluidSetup.jl:559-601): experiment n re-seeds everything
+    with `seed + 7919 n`, then runs rounds of one episode's worth of train
+    steps with act_noise reset to `restart_noise` every `inner_loops` rounds
+    and decayed by `inner_decay` per round, until the hook has recorded
+    `no_episodes` finished episodes; the experiment is then saved by
+    `save_fn(n, state, hook)` (a numbered save_sharded) and its best reward
+    collected. `n_experiments <= 0` restarts endlessly. Episodes count per
+    env: n_envs envs finish n_envs episodes per round. Returns the best
+    rewards."""
+    cfg, tcfg = trainer.cfg, trainer.tcfg
+    episode_steps = int(round((cfg.te - cfg.t0) / cfg.dt))
+    chunk_fn = trainer.make_chunk_fn(tcfg.chunk_len)
+    best_rewards = []
+    n_exp = 0
+    while n_experiments <= 0 or n_exp < n_experiments:
+        n_exp += 1
+        exp_seed = seed + 7919 * n_exp  # a fresh stream per experiment
+        state = trainer.init(torch.Generator(device=trainer.device).manual_seed(exp_seed),
+                             seed=exp_seed)
+        hook = PDEHook(min_best_episode=cfg.min_best_episode, collect_best_trace=False)
+        if verbose:
+            print(f"--------- STARTING EXPERIMENT # {n_exp} ---------")
+        noise = restart_noise
+        rounds = 0
+        while hook.ep - 1 < no_episodes:
+            if rounds % inner_loops == 0:
+                noise = restart_noise
+            state.agent.act_noise = noise
+            state, hook = train_sharded(trainer, loops=1, no_steps=episode_steps, state=state,
+                                        hook=hook, verbose=False, noise_decay=1.0,
+                                        chunk_fn=chunk_fn)
+            noise *= inner_decay
+            rounds += 1
+        best_rewards.append(hook.bestreward)
+        if save_fn is not None:
+            save_fn(n_exp, state, hook)
+        if verbose:
+            print(f"--------- BEST REWARD: {hook.bestreward} ---------")
+    return best_rewards
+
+
+def finalize_hook(hook: PDEHook, state: MCState) -> None:
+    """Copy the on-device best tracking and the current actor into the host
+    hook (numpy copies)."""
+    hook.adopt_device_best(state.best_reward, state.best_episode, state.best_actor)
+    hook.current_actor = chain_to_numpy(state.agent.actor)
+
+
+def save_sharded(out_dir: str, trainer: ShardedFluidTrainer, state: MCState, hook: PDEHook,
+                 number: Optional[int] = None) -> None:
+    """Checkpoint a run in the standard light format (saves/hook{n}.npz and
+    saves/agent_light{n}.msgpack, train.checkpoint), so both packages' eval
+    and resume paths read it. The replay is not kept (light semantics); the
+    key is that of the run's seed."""
+    checkpoint.save(out_dir, hook, number=number, agent=state.agent,
+                    seed=state.generator.initial_seed())
+
+
+def load_sharded(load_dir: str, trainer: ShardedFluidTrainer, number: Optional[int] = None):
+    """(DDPGState, PDEHook) of a light checkpoint, on the trainer's device,
+    against this trainer's agent config."""
+    return checkpoint.load_light(load_dir, trainer.agent, number, trainer.device)
+
+
 def load_actor_for_eval(load_dir: str, trainer: ShardedFluidTrainer) -> Chain:
-    """The best actor of the run in `load_dir` (saves/hook.npz) on the
-    trainer's device - the plot_heat/testrun bestNNA swap-in
-    (plotting.jl:28-30). A run without a stored best actor raises: the
-    reference's fall-back to the current actor needs the msgpack agent
-    state, which the port does not read yet."""
-    actor = actor_from_jax(load_best_actor(load_dir))
+    """The best actor of the run in `load_dir` on the trainer's device - the
+    plot_heat/testrun bestNNA swap-in (plotting.jl:28-30) - or, when the
+    hook holds none, the current actor of its light checkpoint."""
+    hook = checkpoint.load_hook(load_dir)
+    if hook.best_actor is not None:
+        actor = checkpoint.actor_from_jax(hook.best_actor)
+    else:
+        actor = load_sharded(load_dir, trainer)[0].actor
     acfg = trainer.agent.cfg
     if actor.w[0].shape[1] != acfg.ns or actor.w[-1].shape[0] != acfg.na_rows:
         raise ValueError(
             f"the actor in {load_dir} maps {actor.w[0].shape[1]} -> {actor.w[-1].shape[0]}, "
             f"the preset needs {acfg.ns} -> {acfg.na_rows}")
     return actor.to(trainer.device)
+
+
+def mc_state_from_jax(trainer: ShardedFluidTrainer, jstate, seed: int = 0) -> MCState:
+    """The port's MCState from a numpy pytree of the JAX package's MCState
+    whose leading dp axis (size 1) is stripped from the replay: fields,
+    observations, actions and counters, the agent (`ddpg_state_from_jax`),
+    the replay (`replay_from_jax`), the episode accounting and the best
+    actor. The pool is that of `seed`, as the JAX trainer's `init(key,
+    seed)` makes it. Nothing of JAX is imported: fields are read by name."""
+    dev = trainer.device
+    st = trainer.init(torch.Generator(device=dev).manual_seed(seed), seed=seed)
+
+    def tensor(x, dtype=None):
+        return torch.as_tensor(np.array(x), dtype=dtype, device=dev)
+
+    st.w, st.obs, st.action = (tensor(jstate.w), tensor(jstate.obs), tensor(jstate.action))
+    st.steps, st.ep_reward = tensor(jstate.steps, torch.int32), tensor(jstate.ep_reward)
+    st.agent = checkpoint.ddpg_state_from_jax(trainer.agent, jstate.agent, dev)
+    st.replay = checkpoint.replay_from_jax(jstate.replay, dev)
+    st.global_step = int(np.asarray(jstate.global_step))
+    st.ep_count = tensor(jstate.ep_count, torch.int32)
+    st.best_reward, st.best_episode = tensor(jstate.best_reward), tensor(jstate.best_episode)
+    st.best_actor = checkpoint.actor_from_jax(jstate.best_actor).to(dev)
+    st.mean_reward = tensor(jstate.mean_reward)
+    return st

@@ -7,20 +7,32 @@ Counterpart of ``distributedconvrl_pde_control_tpu/train/checkpoint.py``:
   `best_actor_w{i}` / `best_actor_b{i}`, `best_trace_*`), so a run trained
   here is read by this package's `--eval --load-from` and by the JAX
   package's hook reader alike; `load_best_actor` / `load_hook` read it back;
+* given the agent state, `save` also writes the JAX package's light
+  checkpoint `saves/agent_light{number}.msgpack`: the bytes of
+  `flax.serialization.to_bytes({"agent": DDPGState, "key": key})`, networks,
+  both optax Adam states, counters and losses, no replay
+  (`utils/flax_msgpack.py`); `load_light` reads it, the port's or the JAX
+  package's, with the hook. The full checkpoint with its replay
+  (`agent.msgpack`) is ROADMAP.md queue 1 item 10;
 * `save_config_overrides` / `load_config_overrides` ship the off-preset
   config deltas next to a checkpoint;
 * `actor_from_jax`, `ddpg_state_from_jax` and `replay_from_jax` build the
   port's state from numpy pytrees of the JAX package's (a `DDPGState` with
   its optax Adam states, a `Replay`), for parity tests and warm starts.
 
-The flax msgpack agent state is neither written nor read yet (ROADMAP.md
-queue 1 items 10 and 17).
+The key. The port draws from a `torch.Generator`, which shares no stream
+with `jax.random`. `save` writes the key `jax.random.PRNGKey(seed)` gives
+for the run's seed, `[seed >> 32, seed & 0xffffffff]` as uint32, and
+`seed_of_key` gives the seed back. `load_light` does not read the key: a run
+resumed from either package's file draws a stream of its own, seeded by the
+caller.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -30,22 +42,34 @@ from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent, DDPGState
 from distributedconvrl_pde_control_torch.agents.replay import Replay, replay_init
 from distributedconvrl_pde_control_torch.models.mlp import Chain
 from distributedconvrl_pde_control_torch.train.hooks import PDEHook
+from distributedconvrl_pde_control_torch.utils import flax_msgpack
+
+
+def _saves_path(dirpath: str, name: str, number: Optional[int]) -> str:
+    suffix = "" if number is None else str(number)
+    return os.path.join(dirpath, "saves", name.format(suffix))
 
 
 def _hook_path(dirpath: str, number: Optional[int]) -> str:
-    suffix = "" if number is None else str(number)
-    return os.path.join(dirpath, "saves", f"hook{suffix}.npz")
+    return _saves_path(dirpath, "hook{}.npz", number)
 
 
 def save(dirpath: str, hook: PDEHook, number: Optional[int] = None,
-         config_overrides: Optional[dict] = None) -> None:
+         config_overrides: Optional[dict] = None, agent: Optional[DDPGState] = None,
+         seed: int = 0) -> None:
     """Write the hook (reward history, best actor, best trace, counters) as
-    `dirpath`/saves/hook{number}.npz, and `config_overrides` (the config
-    fields replaced on the preset, for artifacts trained off-preset) as
-    `dirpath`/config_overrides.json."""
+    `dirpath`/saves/hook{number}.npz, `config_overrides` (the config fields
+    replaced on the preset, for artifacts trained off-preset) as
+    `dirpath`/config_overrides.json, and, given the agent state, the light
+    checkpoint `dirpath`/saves/agent_light{number}.msgpack with the key of
+    `seed` (see the module docstring)."""
     if config_overrides:
         save_config_overrides(dirpath, config_overrides)
     os.makedirs(os.path.join(dirpath, "saves"), exist_ok=True)
+    if agent is not None:
+        blob = flax_msgpack.pack({"agent": agent_state_dict(agent), "key": jax_key(seed)})
+        with open(_saves_path(dirpath, "agent_light{}.msgpack", number), "wb") as f:
+            f.write(blob)
     payload = {
         "rewards": np.asarray(hook.rewards, np.float64),
         "rewards_compare": np.asarray(hook.rewards_compare, np.float64),
@@ -178,3 +202,105 @@ def replay_from_jax(jreplay, device="cuda") -> Replay:
     rb.buf.copy_(torch.as_tensor(rows))
     rb.ptr, rb.size = int(np.asarray(jreplay.ptr)), int(np.asarray(jreplay.size))
     return rb
+
+
+# ------------------------------------------------------------ agent state
+def jax_key(seed: int) -> np.ndarray:
+    """`jax.random.PRNGKey(seed)` for the default (threefry) PRNG: uint32[2],
+    `[0, seed]` below 2**32; above, the high word is `seed >> 32`, as JAX
+    makes it with 64-bit mode on, so that `seed_of_key` gives the seed back."""
+    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)
+
+
+def seed_of_key(key) -> int:
+    """A generator seed from a JAX key's uint32 words: the seed `jax_key`
+    was given for a key it made; the last two words of any other key."""
+    seed = 0
+    for word in np.asarray(key, np.uint32).ravel():
+        seed = ((seed << 32) | int(word)) & 0xFFFFFFFFFFFFFFFF
+    return seed
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _chain_state_dict(w_list, b_list) -> dict:
+    """A chain as flax writes the JAX package's [{"w", "b"}, ...] list (a map
+    keyed "0", "1", ... whose layers list "b" before "w", as `jax.tree.map`
+    rebuilds them)."""
+    return {str(i): {"b": b, "w": w} for i, (w, b) in enumerate(zip(w_list, b_list))}
+
+
+def _adam_state_dict(opt: torch.optim.Adam, chain: Chain) -> dict:
+    """torch Adam state over `chain` as optax's `adam` state (ScaleByAdamState
+    then the EmptyState of the learning-rate scale): count, mu, nu."""
+    def moment(p, key):
+        state = opt.state.get(p)
+        return _host(state[key]) if state else np.zeros(tuple(p.shape), np.float32)
+
+    first = opt.state.get(chain.w[0])
+    count = int(float(first["step"])) if first else 0
+    return {"0": {"count": np.array(count, np.int32),
+                  "mu": _chain_state_dict([moment(p, "exp_avg") for p in chain.w],
+                                          [moment(p, "exp_avg") for p in chain.b]),
+                  "nu": _chain_state_dict([moment(p, "exp_avg_sq") for p in chain.w],
+                                          [moment(p, "exp_avg_sq") for p in chain.b])},
+            "1": {}}
+
+
+def agent_state_dict(state: DDPGState) -> dict:
+    """The JAX package's `DDPGState` state dict (its field order) of numpy
+    arrays; scalars are 0-d arrays: float32 noise and losses, int32 counters."""
+    chains = {name: getattr(state, name) for name in ("actor", "critic", "target_actor",
+                                                       "target_critic")}
+    out = {name: _chain_state_dict([_host(w) for w in c.w], [_host(b) for b in c.b])
+           for name, c in chains.items()}
+    out["opt_actor"] = _adam_state_dict(state.opt_actor, state.actor)
+    out["opt_critic"] = _adam_state_dict(state.opt_critic, state.critic)
+    out["act_noise"] = np.array(state.act_noise, np.float32)
+    out["update_step"] = np.array(state.update_step, np.int32)
+    out["actor_loss"] = np.array(float(state.actor_loss), np.float32)
+    out["critic_loss"] = np.array(float(state.critic_loss), np.float32)
+    return out
+
+
+def _jax_like(agent: dict) -> SimpleNamespace:
+    """The attribute view of a `DDPGState` state dict that
+    `ddpg_state_from_jax` reads."""
+    def chain(d):
+        return [d[str(i)] for i in range(len(d))]
+
+    def adam(d):
+        s = d["0"]
+        return (SimpleNamespace(count=s["count"], mu=chain(s["mu"]), nu=chain(s["nu"])),)
+
+    return SimpleNamespace(
+        **{k: chain(agent[k]) for k in ("actor", "critic", "target_actor", "target_critic")},
+        opt_actor=adam(agent["opt_actor"]), opt_critic=adam(agent["opt_critic"]),
+        **{k: agent[k] for k in ("act_noise", "update_step", "actor_loss", "critic_loss")})
+
+
+def load_light(dirpath: str, agent: DDPGAgent, number: Optional[int] = None, device="cuda"):
+    """(DDPGState, PDEHook) of the light checkpoint in `dirpath`/saves
+    (`agent_light{number}.msgpack` and `hook{number}.npz`), written by `save`
+    or by the JAX package's `checkpoint.save(..., include_replay=False)`. The
+    networks must have the layer sizes of `agent`'s config."""
+    path = _saves_path(dirpath, "agent_light{}.msgpack", number)
+    if not os.path.exists(path):
+        full = _saves_path(dirpath, "agent{}.msgpack", number)
+        if os.path.exists(full):
+            raise NotImplementedError(
+                f"{full} is a full checkpoint (with its replay); the port reads the light one, "
+                "agent_light.msgpack; the full format is ROADMAP.md queue 1 item 10")
+        raise FileNotFoundError(f"no light checkpoint at {path}")
+    with open(path, "rb") as f:
+        tree = flax_msgpack.unpack(f.read())
+    jstate = _jax_like(tree["agent"])
+    for name, sizes in (("actor", agent.actor_layer_sizes), ("critic", agent.critic_layer_sizes)):
+        got = [np.shape(getattr(jstate, name)[0]["w"])[1]] + [
+            np.shape(layer["w"])[0] for layer in getattr(jstate, name)]
+        if got != list(sizes):
+            raise ValueError(f"the {name} in {path} has layer sizes {got}, the agent's config "
+                             f"{list(sizes)}")
+    return ddpg_state_from_jax(agent, jstate, device), load_hook(dirpath, number)

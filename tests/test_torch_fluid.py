@@ -419,10 +419,18 @@ def test_load_actor_for_eval_reads_the_fluid_actor(tmp_path):
             np.testing.assert_array_equal(actor.b[i].detach().numpy(), z[f"best_actor_b{i}"])
     with pytest.raises(ValueError, match="9 -> 1"):
         tmc.load_actor_for_eval("artifacts/KS22", ttr)  # a 1 -> 6 -> 1 actor
-    (tmp_path / "saves").mkdir()
-    np.savez(tmp_path / "saves" / "hook.npz", rewards=np.zeros(3))
-    with pytest.raises(ValueError, match="no best actor"):
+    # a run whose hook holds no best actor: the light checkpoint's current actor
+    from distributedconvrl_pde_control_torch.train import checkpoint
+    from distributedconvrl_pde_control_torch.train.hooks import PDEHook
+
+    checkpoint.save(str(tmp_path), PDEHook())
+    with pytest.raises(FileNotFoundError, match="no light checkpoint"):
         tmc.load_actor_for_eval(str(tmp_path), ttr)
+    state = ttr.agent.init_state(torch.Generator().manual_seed(0), "cpu")
+    checkpoint.save(str(tmp_path), PDEHook(), agent=state)
+    current = tmc.load_actor_for_eval(str(tmp_path), ttr)
+    for got, want in zip(current.parameters(), state.actor.parameters()):
+        assert torch.equal(got, want)
 
 
 # ------------------------------------------------------------------- CLI
@@ -457,7 +465,7 @@ def test_cli_runs_an_adaptive_preset(capsys):
 @pytest.mark.parametrize("argv,message", [
     (["Fluid_16_256", "--eval", "--mesh", "2x1"], "1x1 only"),
     (["Fluid_16_256", "--eval", "--mesh", "two"], "DPxSP"),
-    (["Fluid_16_256", "--train", "--mesh", "1x1"], "training is not ported"),
+    (["Fluid_16_256", "--train", "--mesh", "2x1"], "1x1 only"),
     (["Fluid_16_256", "--eval"], "item 13"),
     (["Fluid_8_tp", "--eval", "--mesh", "1x1", "--nx", "16"], "item 16"),
     (["KS22", "--eval", "--mesh", "1x1"], "fluid presets"),

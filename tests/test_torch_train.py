@@ -379,6 +379,7 @@ def test_held_out_eval_pool_extends_and_is_disjoint():
     (["KS22_tp", "--train", "--batched"], "item 16"),
     (["KS22", "--train"], "item 10"),
     (["Fluid_8", "--train", "--batched"], "items 13 and 15"),
+    (["KS22", "--train-multi"], "item 10"),
 ])
 def test_cli_refusals_name_their_queue_item(argv, item):
     with pytest.raises(SystemExit, match=item):
@@ -387,10 +388,11 @@ def test_cli_refusals_name_their_queue_item(argv, item):
 
 def test_port_imports_without_jax():
     """Every module of the port, chip_smoke.py and bench_torch.py import in a
-    process where `jax`, `flax`, `optax` and the JAX package cannot be."""
+    process where `jax`, `flax`, `optax`, `msgpack` and the JAX package cannot
+    be."""
     code = """
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "optax", "distributedconvrl_pde_control_tpu"):
+for name in ("jax", "flax", "optax", "msgpack", "distributedconvrl_pde_control_tpu"):
     sys.modules[name] = None
 import distributedconvrl_pde_control_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]

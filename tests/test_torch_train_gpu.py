@@ -1,4 +1,4 @@
-"""The port's training path on the card against the port on the CPU.
+"""The port's training paths on the card against the port on the CPU.
 
 Tests marked `gpu` need a CUDA device (K1 is built with nvcc at first use);
 they decide inside the test whether there is one and skip without it. They
@@ -13,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from distributedconvrl_pde_control_torch.configs.fluid import FLUID_16_256
 from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
 from distributedconvrl_pde_control_torch.models.mlp import chain_to_numpy, copy_chain
 from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
+from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
+from distributedconvrl_pde_control_torch.parallel import multichip
 from distributedconvrl_pde_control_torch.train.batched import (
     BatchedTrainer,
     BatchedTrainerConfig,
@@ -122,3 +125,40 @@ def test_chunk_reads_nothing_back_and_cuda_draws_repeat():
         packs.append(packed.cpu())
         assert ts.generator.device.type == "cuda" and ts.agent.update_step == 40
     assert torch.isfinite(packs[0]).all() and torch.equal(packs[0], packs[1])
+
+
+@pytest.mark.gpu
+def test_fluid_train_chunk_on_gpu_matches_cpu():
+    """20 fluid train steps at 32x32, 4x4 actuators, 2 envs (learning from
+    step 3, episodes ending at step 15), every draw made once on the CPU:
+    parameters rel 1e-4, ep_reward atol 1e-3, mean_reward atol 1e-4, the
+    same finished steps; the card launches K2 4 x 5 times per train step."""
+    _need_cuda()
+    cfg = dataclasses.replace(FLUID_16_256, nx=32, sensors_per_axis=4, te=0.3, start_steps=2,
+                              update_after=4)
+    tcfg = multichip.ShardedTrainConfig(n_envs=2, batch_size=16, capacity_per_dp=4096)
+    gen = torch.Generator().manual_seed(19)
+    draws = [StepDraws(noise=torch.randn((1, 32), generator=gen),
+                                 offs=torch.randint(0, (i + 1) * 32, (1, 16), generator=gen),
+                                 idx=torch.randint(0, tcfg.y0_pool_size, (2,), generator=gen))
+             for i in range(20)]
+    outs = []
+    for d in ("cuda", "cpu"):
+        tr = multichip.ShardedFluidTrainer(cfg, (1, 1), tcfg, device=d)
+        st = tr.init(torch.Generator().manual_seed(20), seed=21)  # same nets and pool on both
+        before = k2.NS_ADVECTION.launches
+        st, packed = tr.make_chunk_fn(20)(st, [StepDraws(
+            **{k: getattr(dr, k).to(d) for k in ("noise", "offs", "idx")}) for dr in draws])
+        outs.append((st, packed.cpu().numpy(), k2.NS_ADVECTION.launches - before))
+    (st_g, rec_g, k2_g), (st_c, rec_c, k2_c) = outs
+    assert k2_c == 0 and k2_g == 20 * 4 * cfg.oversampling
+    np.testing.assert_array_equal(rec_g[:2], rec_c[:2])
+    assert rec_c[0, 14].all() and rec_c[0].sum() == 2
+    np.testing.assert_allclose(rec_g[2], rec_c[2], atol=1e-3)
+    np.testing.assert_allclose(rec_g[4], rec_c[4], atol=1e-4)
+    for name in ("actor", "critic", "target_actor", "target_critic"):
+        for a, b in zip(chain_to_numpy(getattr(st_g.agent, name)),
+                        chain_to_numpy(getattr(st_c.agent, name))):
+            for k in ("w", "b"):
+                assert np.abs(a[k] - b[k]).max() <= 1e-4 * max(np.abs(b[k]).max(), 1e-3)
+    assert int(st_g.ep_count) == int(st_c.ep_count) == 2
