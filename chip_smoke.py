@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --train-only
+    python3 chip_smoke.py --fidelity-only
     python3 chip_smoke.py --times-only [--tree DIR]
 
 With no argument it runs the phases below. `--train-only` runs phases 1, 2 and
-14-22 (the training paths) and prints no result line. `--times-only` prints the card and
+14-22 (the training paths), `--fidelity-only` phases 1, 2 and 23-28 (the KS
+fidelity loop), and neither prints a result line. `--times-only` prints the card and
 one JSON line of both kernels' times through their wrappers at the main
 paths' shapes and nothing else; `--tree DIR` imports the package from another
 checkout inside this one (an unpacked earlier commit under build/, say), so
@@ -100,7 +102,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
      replay holds min(steps*4096, capacity) rows;
  22. the device time of one fluid train step at 1 and at 16 envs by kernel
      group (K2 / cuFFT / matmul / optimizer / copies / elementwise), launches
-     per train step and the device's idle share.
+     per train step and the device's idle share;
+ 23. one KS22 fidelity episode with learning (`train/loop.py::make_episode_fn`,
+     30 steps, learning from step 12, 20 learner updates per step) on the card
+     against the port on the CPU, every draw made once on the CPU and passed
+     to both: K1 against its plain twin inside the loop; parameters and
+     reward_sum within 1e-4, equal steps and replay size;
+ 24-27 run in a process of their own (no profiler session before them):
+ 24. the KS22 fidelity recipe through the CLI (`run KS22 --train`: seed 609,
+     800 steps per loop, cut from 8 loops to 2), read back through the full
+     checkpoint; its best actor on phase 4's te=200 protocol must reach
+     suppression < 0.25; env-steps/s, and K1's launches equal the env steps;
+ 25. `--resume` from phase 24's checkpoint for 1 loop x 100 steps (episodes,
+     replay and Adam steps go on from the saved ones), then `--train-multi`
+     (1 experiment, 50 episodes cut to te=1) with its numbered saves;
+ 26. the KS mono ablation: 1 loop x 400 steps of `KS22_global --train` at
+     full width, and `--hyperopt 2 --hyperopt-episodes 5`: every step and
+     cost finite;
+ 27. reproduce_torch.py on the card: every KS row of reproduce.py (the two
+     KS22_global rows included) beside the JAX package's value for it
+     (`JAX_KS_ROWS`, from reproduce.py on the CPU), each within
+     max(0.1 JAX, 0.0005);
+ 28. the device time of 5 fidelity env steps with learning by kernel group
+     (K1 / matmul / optimizer / copies / elementwise), launches per env step,
+     K1's share of device time and the device's idle share.
 
 Times of the kernels' first designs (PERF.md, same card and power limit) are
 printed beside the new ones in the phases' text lines; the kernels JSON line
@@ -113,7 +138,8 @@ steps); K2's is set to 0 just before phases 9-10 (the fluid evaluation
 path) and read just after them, and again around phases 20-21 (the fluid
 training path: the train steps and the trained controller's protocol
 rollout); a stage of an RK4 substep is one launch of K2, counted by the
-library where it launches. The
+library where it launches. Phases 24-27 count K1 in their own process, from 0
+before each CLI run, rollout and the rows, and report the counts by path. The
 second-to-last line is the kernels JSON line and the last line is
 {"ok": true, "device": {...}}.
 """
@@ -357,7 +383,7 @@ def train_phases(card: str) -> dict:
     t_train = time.perf_counter() - t0
     check(ks_kernel.KS_CNAB2.launches == 0, "the sf tier launched K1")
     run_dir = str(ROOT / "build" / "smoke_KS22_sf_lh")
-    checkpoint.save(run_dir, hook, config_overrides=SF_TIER)
+    checkpoint.save(run_dir, None, hook, config_overrides=SF_TIER)
     trained = checkpoint.actor_from_jax(checkpoint.load_best_actor(run_dir)).to(dev)
     std = build_ks(KS22, device=dev)  # the standard fidelity env: CNAB2, K1
     t0 = time.perf_counter()
@@ -699,6 +725,310 @@ def fluid_train_profile(card: str) -> None:
               f"{seen}")
 
 
+# ------------------------------------------------------------- the fidelity loop (23-28)
+FIDELITY_SEED = 609  # phase 24: the KS22 preset's seed, the CLI's default
+# The fidelity loop is host-bound at 51-103 ms per env step on the H100 machines
+# (PERF.md), so phases 24-26 are cut in depth only, never in width: phase 24's KS22 recipe
+# (RESULTS.md) from 8 loops to 2 (8 would take the smoke to ~950 s of its 1200 s on the
+# fastest host seen), phase 25's restart protocol to 10-step episodes (te=1), phase 26's
+# mono training from 8 x 8000 steps to 400
+FIDELITY_LOOPS, FIDELITY_STEPS = 2, 800
+FIDELITY_LIMIT = 0.25  # phase 24: RESULTS.md's band for the recipe: 1.6 %-19 % on CPU seeds
+RESUME_STEPS, MULTI_EPISODES, MULTI_TE = 100, 50, 1.0  # phase 25
+MONO_STEPS, HYPEROPT_TRIALS, HYPEROPT_EPISODES = 400, 2, 5  # phase 26
+# phase 27: the suppression of every KS row of reproduce.py as the JAX package gives it
+# (`python reproduce.py` on the CPU, rounded as it prints them); limit per row:
+# |port - JAX| <= max(0.1 JAX, 0.0005)
+JAX_KS_ROWS = {
+    "KS22 stabilization": 0.0158,
+    "KS22_tp (throughput-tier-trained) stabilization": 0.0058,
+    "KS22_tp_lh (spectral-carry-tier-trained) stabilization": 0.0024,
+    "KS22_sf_lh (spectral-featurize-tier-trained) stabilization": 0.0024,
+    "KS22_tp_pop8 member 0 (fused 8-member study) stabilization": 0.0024,
+    "KS22_popsearch winner (fused schedule search) stabilization": 0.0024,
+    "KS22_batched_lh stabilization": 0.0024,
+    "KS22_global (mono, hand-tuned) stabilization": 1.0435,
+    "KS22_global (mono, hyperopt winner) stabilization": 0.0967,
+    "KS22 (distributed, hyperopt winner) stabilization": 0.0217,
+    "KS200 -> KS500 transfer": 0.0777,
+    "KS200 -> mu=0.02 disturbed": 0.0484,
+    "KS200_batched -> KS500 transfer": 0.0083,
+    "KS200_batched_lh stabilization": 0.0034,
+    "KS200_batched_lh -> KS500 transfer": 0.0032,
+    "KS200_batched_lh -> mu=0.02 disturbed": 0.0035,
+    "KS200_pop8 member 0 stabilization": 0.0021,
+    "KS200_pop8 member 0 -> KS500 transfer": 0.0011,
+    "KS200_pop8 member 0 -> mu=0.02 disturbed": 0.0022,
+    "KS200 (hyperopt winner) stabilization": 0.0212,
+}
+
+
+def fidelity_vs_cpu(card: str) -> None:
+    """Phase 23: one KS22 fidelity episode with learning on the card against
+    the port on the CPU, every draw made once on the CPU and passed to both."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from distributedconvrl_pde_control_torch.agents.replay import replay_init
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
+    from distributedconvrl_pde_control_torch.models.mlp import chain_to_numpy, copy_chain
+    from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
+    from distributedconvrl_pde_control_torch.train.batched import StepDraws
+    from distributedconvrl_pde_control_torch.train.loop import TrainState, make_episode_fn
+
+    n_steps = 30  # te=3: the start policy to step 6, learning from step 12 (81 rows > 80)
+    print(f"== 23. one KS22 fidelity episode with learning ({n_steps} steps) on the card against "
+          "the CPU (K1 against its plain twin inside the loop)")
+    cfg = dataclasses.replace(KS22, te=0.1 * n_steps)
+    cpu_setup = build_ks(cfg, device="cpu")
+    acfg = cpu_setup.agent.cfg
+    gen = torch.Generator().manual_seed(23)
+    # step i learns from a replay of 8 i rows, excluding the newest 8
+    draws = [StepDraws(noise=torch.randn((1, cfg.n_actuators), generator=gen),
+                       offs=torch.randint(0, max(8 * i - 8, 1), (acfg.update_loops, acfg.batch_size),
+                                          generator=gen))
+             for i in range(n_steps)]
+    y0 = cpu_setup.random_init(torch.Generator().manual_seed(24), 1)[0]
+    seed_state = cpu_setup.agent.init_state(torch.Generator().manual_seed(25), "cpu")
+    outs = []
+    for d in ("cuda", "cpu"):
+        s = build_ks(cfg, device=d)
+        ts = TrainState(agent=s.agent.make_state(copy_chain(seed_state.actor).to(d),
+                                                 copy_chain(seed_state.critic).to(d)),
+                        replay=replay_init(acfg.capacity, acfg.ns, acfg.na_rows, d), generator=None)
+        before = ks_kernel.KS_CNAB2.launches
+        ts, res = make_episode_fn(s.env, s.agent, learning=True, record=True)(
+            ts, y0.to(d), [StepDraws(noise=x.noise.to(d), offs=x.offs.to(d)) for x in draws])
+        outs.append((ts, res, ks_kernel.KS_CNAB2.launches - before))
+    (ts_c, res_c, k1_c), (ts_h, res_h, k1_h) = outs
+    p_err = max(float(np.abs(a[k] - b[k]).max())
+                for name in ("actor", "critic", "target_actor", "target_critic")
+                for a, b in zip(chain_to_numpy(getattr(ts_c.agent, name)),
+                                chain_to_numpy(getattr(ts_h.agent, name))) for k in ("w", "b"))
+    r_c, r_h = float(res_c.reward_sum), float(res_h.reward_sum)
+    y_err = float((res_c.y_trace.cpu() - res_h.y_trace).abs().max())
+    print(json.dumps({"phase": 23, "steps": [res_c.steps, res_h.steps],
+                      "reward_sum": [r_c, r_h], "reward_sum_abs_diff": abs(r_c - r_h),
+                      "parameters_max_abs_diff": p_err, "y_trace_max_abs_diff": y_err,
+                      "replay_size": [ts_c.replay.size, ts_h.replay.size],
+                      "K1_launches": [k1_c, k1_h], "card": card}))
+    check(k1_c == res_c.steps == n_steps and k1_h == 0,
+          f"K1 launches in the fidelity episode: card {k1_c}, CPU {k1_h}")
+    check(res_c.steps == res_h.steps and ts_c.replay.size == ts_h.replay.size == 8 * n_steps,
+          "card and CPU fidelity episodes count differently")
+    check(p_err <= 1e-4 and abs(r_c - r_h) <= 1e-4 and np.isfinite(r_c),
+          "card and CPU fidelity episodes disagree")
+
+
+def fidelity_child(out_json: str) -> int:
+    """Phases 24-27 in a process of their own, which has run no profiler
+    session (PERF.md section 7): the KS22 fidelity recipe through the CLI, its
+    resume and restart protocols, the mono ablation with its search, and every
+    KS row of reproduce.py. Writes K1's launches by path and the results to
+    `out_json`."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import reproduce_torch
+    from distributedconvrl_pde_control_torch.configs.ks import (
+        KS22,
+        KS22_GLOBAL,
+        build_ks,
+        build_ks_global,
+    )
+    from distributedconvrl_pde_control_torch.experiments import run
+    from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
+    from distributedconvrl_pde_control_torch.train import checkpoint
+
+    def cli(argv):
+        """The CLI's output (also printed) and K1's launches in one run of it."""
+        ks_kernel.KS_CNAB2.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run.main(argv)
+        print(buf.getvalue(), end="", flush=True)
+        return buf.getvalue(), ks_kernel.KS_CNAB2.launches
+
+    card = card_line()
+    dev = "cuda"
+    setup = build_ks(KS22, device=dev)
+    out = {"K1_launches_by_path": {}}
+    k1 = out["K1_launches_by_path"]
+    run_dir = str(ROOT / "build" / "smoke_KS22_fidelity")
+    for d in (run_dir, run_dir + "_resumed", run_dir + "_multi", run_dir + "_mono"):
+        shutil.rmtree(d, ignore_errors=True)
+
+    print(f"== 24. the KS22 fidelity recipe through the CLI: seed {FIDELITY_SEED}, "
+          f"{FIDELITY_LOOPS} loops x {FIDELITY_STEPS} steps, 20 learner updates per env step")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, launches = cli(["KS22", "--train", "--seed", str(FIDELITY_SEED), "--loops",
+                       str(FIDELITY_LOOPS), "--no-steps", str(FIDELITY_STEPS), "--out", run_dir])
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    ts, hook = checkpoint.load(run_dir, setup.agent, device=dev)
+    env_steps = ts.replay.size // KS22.n_actuators
+    ks_kernel.KS_CNAB2.launches = 0
+    actor = checkpoint.actor_from_jax(hook.best_actor).to(dev)
+    supp = reproduce_torch.suppression(setup, actor, 200.0, 100.0, ndigits=None)
+    k1["fidelity training (phase 24)"] = launches
+    k1["fidelity-trained controller's rollout (phase 24)"] = ks_kernel.KS_CNAB2.launches
+    row = {"row": "KS22 controller trained by the port's fidelity loop, te=200",
+           "seed": FIDELITY_SEED, "loops": FIDELITY_LOOPS, "no_steps": FIDELITY_STEPS,
+           "train_seconds": t_train, "env_steps": env_steps,
+           "env_steps_per_s": env_steps / t_train, "ms_per_env_step": 1e3 * t_train / env_steps,
+           "episodes": hook.ep - 1, "best_episode": hook.bestepisode,
+           "best_reward": hook.bestreward, **supp, "K1_launches": launches, "card": card}
+    print(json.dumps(row))
+    out["fidelity"] = row
+    check(launches == env_steps >= FIDELITY_LOOPS * FIDELITY_STEPS and ts.replay.size < ts.replay.capacity,
+          f"K1 launched {launches} times in {env_steps} env steps of the fidelity loop")
+    check(np.isfinite(hook.rewards).all() and np.isfinite(hook.bestreward)
+          and ks_kernel.KS_CNAB2.launches == 2000, "the fidelity training run is malformed")
+    check(supp["suppression"] < FIDELITY_LIMIT,
+          f"the fidelity-trained controller's suppression {supp['suppression']} is not below "
+          f"{FIDELITY_LIMIT}")
+
+    print(f"== 25. --resume for 1 loop x {RESUME_STEPS} steps, then --train-multi "
+          f"(1 experiment, {MULTI_EPISODES} episodes of te={MULTI_TE})")
+    count0 = int(checkpoint.agent_state_dict(ts.agent)["opt_actor"]["0"]["count"])
+    _, launches = cli(["KS22", "--train", "--resume", "--load-from", run_dir, "--out",
+                       run_dir + "_resumed", "--loops", "1", "--no-steps", str(RESUME_STEPS)])
+    ts2, hook2 = checkpoint.load(run_dir + "_resumed", setup.agent, device=dev)
+    count2 = int(checkpoint.agent_state_dict(ts2.agent)["opt_actor"]["0"]["count"])
+    steps2 = (ts2.replay.size - ts.replay.size) // KS22.n_actuators
+    k1["resume (phase 25)"] = launches
+    _, launches_multi = cli(["KS22", "--train-multi", "--n-experiments", "1", "--no-episodes",
+                             str(MULTI_EPISODES), "--config-overrides",
+                             json.dumps({"te": MULTI_TE}), "--out", run_dir + "_multi"])
+    saves = sorted(p.name for p in (Path(run_dir + "_multi") / "saves").iterdir())
+    ts3, hook3 = checkpoint.load(run_dir + "_multi", setup.agent, number=1, device=dev)
+    k1["train-multi (phase 25)"] = launches_multi
+    res25 = {"resume": {"episodes": [hook.ep - 1, hook2.ep - 1],
+                        "replay_size": [ts.replay.size, ts2.replay.size],
+                        "adam_count": [count0, count2], "update_step": ts2.agent.update_step,
+                        "env_steps": steps2, "K1_launches": launches},
+             "train_multi": {"saves": saves, "episodes": hook3.ep - 1,
+                             "best_reward": hook3.bestreward, "replay_size": ts3.replay.size,
+                             "K1_launches": launches_multi}, "card": card}
+    print(json.dumps(res25))
+    # every resumed step learns (the replay is far past the gate): 20 Adam steps each
+    check(hook2.ep - 1 >= hook.ep - 1 + RESUME_STEPS // 50 and steps2 >= RESUME_STEPS
+          and launches == steps2 and count2 == count0 + 20 * steps2 and ts2.agent.update_step == 0
+          and hook2.rewards[:len(hook.rewards)] == hook.rewards,
+          "--resume did not continue the saved run")
+    check(saves == ["agent1.msgpack", "hook1.npz"] and hook3.ep - 1 == MULTI_EPISODES
+          and launches_multi == ts3.replay.size // KS22.n_actuators
+          and np.isfinite(hook3.rewards).all(), "--train-multi's numbered saves are malformed")
+
+    print(f"== 26. the KS mono ablation: 1 loop x {MONO_STEPS} steps of KS22_global --train, "
+          f"--hyperopt {HYPEROPT_TRIALS} (the shipped KS22_global actors: phase 27)")
+    res26 = {"card": card}
+    _, launches = cli(["KS22_global", "--train", "--loops", "1", "--no-steps", str(MONO_STEPS),
+                       "--out", run_dir + "_mono"])
+    mono = build_ks_global(KS22_GLOBAL, device=dev)
+    ts4, hook4 = checkpoint.load(run_dir + "_mono", mono.agent, device=dev)
+    k1["mono training (phase 26)"] = launches
+    res26["train"] = {"env_steps": ts4.replay.size, "episodes": hook4.ep - 1,
+                      "best_reward": hook4.bestreward, "K1_launches": launches}
+    check(launches == ts4.replay.size >= MONO_STEPS and np.isfinite(hook4.rewards).all()
+          and all(bool(torch.isfinite(p).all()) for p in ts4.agent.actor.parameters()),
+          "the mono training run is malformed")
+    text, launches = cli(["KS22_global", "--hyperopt", str(HYPEROPT_TRIALS), "--hyperopt-episodes",
+                          str(HYPEROPT_EPISODES)])
+    trials = [json.loads(line) for line in text.strip().splitlines() if line.startswith("{")]
+    k1["hyperopt (phase 26)"] = launches
+    res26["hyperopt"] = {"costs": [t["cost"] for t in trials[:HYPEROPT_TRIALS]],
+                         "best_trial": trials[-1]["best_trial"], "K1_launches": launches}
+    check(len(trials) == HYPEROPT_TRIALS + 1
+          and all(t["cost"] is not None and "error" not in t for t in trials[:HYPEROPT_TRIALS])
+          and 0 < launches <= HYPEROPT_TRIALS * HYPEROPT_EPISODES * 50,
+          "the hyperopt search is malformed")
+    print(json.dumps(res26))
+
+    print("== 27. reproduce_torch.py on the card: every KS row of reproduce.py beside the JAX "
+          "package's value")
+    ks_kernel.KS_CNAB2.launches = 0
+    rows, t0 = [], time.perf_counter()
+    for name, s, a in reproduce_torch.ks_rows(dev):
+        got = reproduce_torch.suppression(s, a, 200.0, 100.0, ndigits=None)
+        want = JAX_KS_ROWS[name]
+        limit = max(0.1 * want, 0.0005)
+        rows.append({"row": name, **got, "jax": want, "abs_diff": abs(got["suppression"] - want),
+                     "limit": limit})
+        print(json.dumps(rows[-1]))
+    t_rows = time.perf_counter() - t0
+    k1["reproduce rows (phase 27)"] = ks_kernel.KS_CNAB2.launches
+    print(json.dumps({"rows": len(rows), "seconds": t_rows,
+                      "K1_launches": ks_kernel.KS_CNAB2.launches, "card": card}))
+    out["rows"] = rows
+    check([r["row"] for r in rows] == list(JAX_KS_ROWS) and ks_kernel.KS_CNAB2.launches == 2000 * len(rows),
+          "reproduce_torch.py did not run every KS row once")
+    bad = [r["row"] for r in rows if not r["abs_diff"] <= r["limit"]]
+    check(not bad, f"rows off their JAX value: {bad}")
+    out.update(phase25=res25, phase26=res26)
+    Path(out_json).write_text(json.dumps(out))
+    return 0
+
+
+def fidelity_profile(card: str) -> None:
+    """Phase 28: the device time of 5 fidelity env steps with learning by
+    kernel group, launches per env step and the device's idle share."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
+    from distributedconvrl_pde_control_torch.train.loop import init_train_state, make_episode_fn
+
+    print("== 28. device time of 5 KS22 fidelity env steps with learning by kernel group "
+          "(torch.profiler)")
+    setup = build_ks(KS22, device="cuda")
+    ts = init_train_state(setup.env, setup.agent, torch.Generator(device="cuda").manual_seed(28))
+    ts, _ = make_episode_fn(setup.env, setup.agent, max_steps=15)(ts)  # past the learn gate
+    five = make_episode_fn(setup.env, setup.agent, max_steps=5)
+    ts, _ = five(ts)  # warm
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, res = five(ts)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    groups = profile_groups(prof)
+    busy_us = sum(g[1] for g in groups.values())
+    k1 = groups.get("K1", [0, 0.0])
+    print(json.dumps({"profile": "KS22 fidelity env step with 20 learner updates, 1 env, 5 steps "
+                      "under the profiler, per step", "wall_us": wall_us / 5,
+                      "device_busy_us": busy_us / 5 if groups else "not measured",
+                      "idle_share": 1.0 - busy_us / wall_us if groups else "not measured",
+                      "launches_per_env_step": sum(g[0] for g in groups.values()) / 5,
+                      "K1_share_of_device_time": k1[1] / busy_us if groups else "not measured",
+                      "groups": {k: {"launches": v[0] / 5, "device_us": v[1] / 5}
+                                 for k, v in groups.items()}, "card": card}))
+    check(res.steps == 5 and (not groups or k1[0] == 5),
+          f"the profiler saw {k1[0]} launches of K1 in 5 fidelity env steps")
+
+
+def fidelity_phases(card: str) -> dict:
+    """Phases 23-28. Returns K1's launches on the fidelity paths (phases 24-27)."""
+    fidelity_vs_cpu(card)
+    out_json = ROOT / "build" / "smoke_fidelity.json"
+    out_json.unlink(missing_ok=True)
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--fidelity-child",
+                           str(out_json)], cwd=str(ROOT), timeout=900)
+    check(proc.returncode == 0 and out_json.exists(),
+          f"phases 24-27 failed in their process (exit {proc.returncode})")
+    fidelity_profile(card)
+    return json.loads(out_json.read_text())["K1_launches_by_path"]
+
+
 def main() -> int:
     import torch
 
@@ -707,12 +1037,17 @@ def main() -> int:
                         help="run phases 1, 2 and 14-22 and print no result line")
     parser.add_argument("--times-only", action="store_true",
                         help="time both kernels through their wrappers and stop")
+    parser.add_argument("--fidelity-only", action="store_true",
+                        help="run phases 1, 2 and 23-28 and print no result line")
     parser.add_argument("--tree", default=None,
                         help="with --times-only: checkout to import the port from")
+    parser.add_argument("--fidelity-child", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.fidelity_child:
+        return fidelity_child(args.fidelity_child)
     if args.times_only:
         return times_only(args.tree)
     if args.tree:
@@ -763,6 +1098,9 @@ def main() -> int:
           f"pair(s) per block; batch 16 column tile {k2.column_tile(256, 16)}, "
           f"{k2.row_pairs(256, 16)} row pairs per block")
 
+    if args.fidelity_only:
+        print(json.dumps({"K1_launches_on_the_fidelity_paths": fidelity_phases(card)}))
+        return 0
     if args.train_only:
         k1_training = train_phases(card)
         print(json.dumps({"K1_launches_on_the_training_path": k1_training,
@@ -1137,14 +1475,17 @@ def main() -> int:
 
     k1_training = train_phases(card)
     k2_training = fluid_train_phases(card)
+    k1_fidelity = fidelity_phases(card)
 
     print(json.dumps({"kernels": [{
         "name": "ks_cnab2", "route": "cuda",
         "source": "distributedconvrl_pde_control_torch/csrc/" + ks_kernel.SOURCE,
-        "replaces": ks_kernel.REPLACES, "launches": launches + sum(k1_training.values()),
+        "replaces": ks_kernel.REPLACES,
+        "launches": launches + sum(k1_training.values()) + sum(k1_fidelity.values()),
         "launches_by_path": {"evaluation (phases 4-5)": launches,
                              "training: trained controller's rollout (phase 15)": k1_training["rollout"],
-                             "training: train steps (phase 16)": k1_training["train_steps"]},
+                             "training: train steps (phase 16)": k1_training["train_steps"],
+                             **k1_fidelity},
         "max_abs_err": max(errs[k] for k in MAIN_PATH_SHAPES), "ms": k_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None, "status": "ok", "shape": "16384x192, 30 substeps",

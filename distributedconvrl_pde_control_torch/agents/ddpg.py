@@ -259,10 +259,14 @@ class DDPGAgent:
         return astate
 
     def learn_many(self, astate: DDPGState, replay: Replay,
-                   generator: Optional[torch.Generator] = None) -> DDPGState:
-        """`update_loops` sampled SGD steps (PDEagent.jl:357-360)."""
+                   generator: Optional[torch.Generator] = None,
+                   offs: Optional[torch.Tensor] = None) -> DDPGState:
+        """`update_loops` sampled SGD steps (PDEagent.jl:357-360), each
+        excluding the newest `interleave` rows. `offs` (update_loops,
+        batch_size) replaces the replay offsets drawn from `generator`."""
         cfg = self.cfg
-        for _ in range(cfg.update_loops):
-            batch = replay_sample(replay, cfg.batch_size, cfg.interleave, generator=generator)
+        for i in range(cfg.update_loops):
+            batch = replay_sample(replay, cfg.batch_size, cfg.interleave, generator=generator,
+                                  offs=None if offs is None else offs[i])
             self.learn_batch(astate, batch)
         return astate

@@ -1,10 +1,12 @@
 """Kuramoto-Sivashinsky experiment presets.
 
 Counterpart of ``distributedconvrl_pde_control_tpu/configs/ks.py``: the
-constants of `scripts/KS/setup/KSSetup.jl` and the per-experiment scripts
-KS22 / KS200 / KS500 / KS200_disturbed, and `build_ks` for the reference's
-CNAB2 stepper and for the throughput tiers (`stepper="etdrk4"`,
-`spectral_carry`, `spectral_featurize`), all in float32. The JAX package's
+constants of `scripts/KS/setup/KSSetup.jl` (distributed agents) and
+`scripts/KS/setup/KSglobalSetup.jl` (the mono/global ablation) and the
+per-experiment scripts KS22 / KS200 / KS500 / KS200_disturbed /
+KS22_global-agent; `build_ks` for the reference's CNAB2 stepper and for the
+throughput tiers (`stepper="etdrk4"`, `spectral_carry`,
+`spectral_featurize`), `build_ks_global` for the mono agent, all in float32. The JAX package's
 reduced-precision transform tiers are not ported yet: `build_ks` refuses
 them.
 """
@@ -12,12 +14,17 @@ them.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent, DDPGConfig
-from distributedconvrl_pde_control_torch.envs.features import Conv1DFeaturizer, gaussian_kernels_1d
+from distributedconvrl_pde_control_torch.envs.features import (
+    Conv1DFeaturizer,
+    GlobalFeaturizer,
+    gaussian_kernels_1d,
+)
 from distributedconvrl_pde_control_torch.envs.pde_env import PDEEnv
 from distributedconvrl_pde_control_torch.ops.ks import KSSolver, KSSolverETDRK4
 from distributedconvrl_pde_control_torch.train.drivers import Setup
@@ -117,7 +124,11 @@ KS200_DISTURBED = dataclasses.replace(KS200, name="KS200_disturbed", seed=914, m
 # Coarse-grid training tier of the JAX package: Lx=22 on 64 points.
 KS22_64 = dataclasses.replace(KS22, name="KS22_64", nx=64, sensor_step=8)
 
-PRESETS = {c.name: c for c in (KS22, KS200, KS500, KS200_DISTURBED, KS22_64)}
+# The mono/global-agent ablation (KSglobalSetup.jl, KS22_global-agent.jl).
+KS22_GLOBAL = dataclasses.replace(KS22, name="KS22_global", seed=390, nna_scale=4.8,
+                                  nna_scale_critic=56.0, capacity=700_000, no_steps=8000)
+
+PRESETS = {c.name: c for c in (KS22, KS200, KS500, KS200_DISTURBED, KS22_64, KS22_GLOBAL)}
 
 
 def ks_standard_y0(nx: int) -> np.ndarray:
@@ -298,6 +309,107 @@ def build_ks(cfg: KSConfig = KS22, device: str = "cuda") -> Setup:
         learning_rate=cfg.learning_rate,
         learning_rate_critic=cfg.learning_rate_critic,
         capacity=cfg.capacity,
+    ))
+
+    return Setup(
+        name=cfg.name,
+        env=env,
+        agent=agent,
+        seed=cfg.seed,
+        random_init=ks_random_init(cfg, device),
+        loops=cfg.loops,
+        no_steps=cfg.no_steps,
+        noise_decay=cfg.noise_decay,
+        min_best_episode=cfg.min_best_episode,
+    )
+
+
+# --------------------------------------------------------- global (mono) KS
+def ks_global_fixed_y0() -> np.ndarray:
+    """The stored fixed random init the reference's mono setup uses as its
+    env default (KSglobalSetup.jl:62 loads y0.jld2: an 8-random-sine field
+    normalized to ||y0|| = 30, generate_random_init at :314-323), shipped as
+    data (data_ks_global_y0.npy, the JAX package's file byte for byte)."""
+    return np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "data_ks_global_y0.npy"))
+
+
+def build_ks_global(cfg: KSConfig = KS22_GLOBAL, device: str = "cuda") -> Setup:
+    """Mono/global-agent ablation (KSglobalSetup.jl) on `device`: one MLP
+    sees the whole sensor vector as one column and emits every actuator's
+    command (na_rows = n_actuators, one column), with a scalar reward, the
+    mean of the per-actuator terms, and replay interleave 1. The env steps
+    through `KSSolver.step` (K1).
+
+    Per-episode training inits stay random (the reference trains with
+    use_random_init=true, KSglobalSetup.jl:326,330); the fixed stored y0 is
+    the env's reset default, which evaluation protocols use."""
+    solver = KSSolver(nx=cfg.nx, lx=cfg.lx, dt=cfg.dt, oversampling=cfg.oversampling, mu=cfg.mu,
+                      device=device)
+    sensors = gaussian_kernels_1d(cfg.sensor_positions, cfg.nx, cfg.lx, cfg.sigma_sensors,
+                                  norm_mode=1)
+    actuators = gaussian_kernels_1d(cfg.sensor_positions, cfg.nx, cfg.lx, cfg.sigma_actuators,
+                                    norm_mode=2)
+    sensor_matrix = torch.as_tensor(sensors, dtype=torch.float32, device=device)
+    actuator_matrix = torch.as_tensor(actuators, dtype=torch.float32, device=device)
+    reward_sel = sensor_matrix[torch.as_tensor(cfg.actuators_to_sensors, device=device)]
+
+    featurizer = GlobalFeaturizer(sensor_matrix=sensor_matrix, scale=1.0 / cfg.max_value,
+                                  temporal_steps=cfg.temporal_steps, memory_size=cfg.memory_size)
+
+    def reward_fn(y, action, delta_action):
+        """KSglobalSetup.jl:174-205: the scalar mean of the per-actuator
+        terms, per env: (B, nx) -> (B, 1)."""
+        dots = ((y * 6.0) @ reward_sel.T).abs() ** 1.3 / (cfg.max_value * 3.0)
+        per = (
+            -dots.abs()
+            - cfg.action_punish * action[:, :, 0] ** 2
+            - cfg.delta_action_punish * delta_action[:, :, 0] ** 2
+        )
+        return per.mean(dim=1, keepdim=True)
+
+    def prepare_action(action):
+        """forcing = sum_i agent_power * a_i * g_i over the action column."""
+        return cfg.agent_power * (action[:, :, 0] @ actuator_matrix)
+
+    y0 = ks_global_fixed_y0() if cfg.nx == 192 else ks_standard_y0(cfg.nx)
+    env = PDEEnv(
+        step_fn=solver.step,
+        featurize=featurizer,
+        prepare_action=prepare_action,
+        reward_fn=reward_fn,
+        y0=torch.as_tensor(y0, dtype=torch.float32, device=device),
+        action_shape=(cfg.n_actuators, 1),  # the flat action vector as one column
+        n_rewards=1,
+        te=cfg.te,
+        t0=cfg.t0,
+        dt=cfg.dt,
+        max_value=cfg.max_value,
+        check_max_value=cfg.check_max_value,
+    )
+
+    agent = DDPGAgent(DDPGConfig(
+        ns=featurizer.obs_dim,
+        na_rows=cfg.n_actuators,
+        n_actuators=1,
+        gamma=cfg.gamma,
+        polyak=cfg.polyak,
+        batch_size=cfg.batch_size,
+        start_steps=cfg.start_steps,
+        update_after=cfg.update_after,
+        update_freq=cfg.update_freq,
+        update_loops=cfg.update_loops,
+        act_limit=cfg.act_limit,
+        act_noise=cfg.act_noise,
+        memory_size=cfg.memory_size,
+        nna_scale=cfg.nna_scale,
+        nna_scale_critic=cfg.nna_scale_critic,
+        drop_middle_layer=cfg.drop_middle_layer,
+        drop_middle_layer_critic=cfg.drop_middle_layer,
+        learning_rate=cfg.learning_rate,
+        learning_rate_critic=cfg.learning_rate_critic,
+        capacity=cfg.capacity,
+        mono=True,
     ))
 
     return Setup(

@@ -3,7 +3,7 @@
 Counterpart of ``distributedconvrl_pde_control_tpu/envs/features.py``
 (``gaussian_kernels_1d``, ``taylor_kernels_2d``, ``_window_stack_1d``,
 ``_window_stack_2d``, ``_temporal_and_memory``, ``Conv1DFeaturizer``,
-``Conv2DFeaturizer``). The env batch is an explicit leading dimension:
+``Conv2DFeaturizer``, ``GlobalFeaturizer``). The env batch is an explicit leading dimension:
 fields are (B, nx) or (B, ny, nx), sensor readouts (B, n_sensors),
 observations (B, obs_dim, n_actuators).
 """
@@ -208,3 +208,23 @@ class Conv2DFeaturizer:
 
     def __call__(self, y, prev_obs=None, action=None):
         return self.from_dots(y.flatten(-2) @ self.sensor_matrix.T, prev_obs, action)
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalFeaturizer:
+    """Mono/global-agent observations: the whole sensor vector as one column
+    (KSglobalSetup.jl:210-249), (B, n_sensors * temporal_steps + memory_size, 1)."""
+
+    sensor_matrix: torch.Tensor  # (n_sensors, nx)
+    scale: float
+    temporal_steps: int = 1
+    memory_size: int = 0
+
+    @property
+    def obs_dim(self) -> int:
+        return self.sensor_matrix.shape[0] * self.temporal_steps + self.memory_size
+
+    def __call__(self, y, prev_obs=None, action=None):
+        base = ((y @ self.sensor_matrix.T) * self.scale)[:, :, None]
+        return _temporal_and_memory(base, prev_obs, action, self.temporal_steps,
+                                    self.memory_size, 1)

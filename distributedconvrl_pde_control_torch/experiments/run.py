@@ -1,8 +1,21 @@
 """Command-line entry point: train and evaluate KS and fluid controllers.
 
-Counterpart of the single-device `--train --batched` branch, the `--mesh`
-branch at a 1x1 mesh and two `--eval` branches of
-``distributedconvrl_pde_control_tpu/experiments/run.py``.
+Counterpart of the single-device `--train`, `--train-multi`, `--hyperopt`
+and `--train --batched` branches, the `--mesh` branch at a 1x1 mesh and two
+`--eval` branches of ``distributedconvrl_pde_control_tpu/experiments/run.py``.
+
+KS presets, the fidelity loop (one env, 20 learner updates per env step):
+
+    python -m distributedconvrl_pde_control_torch.experiments.run KS22 --train \\
+        [--loops 8 --no-steps 800 --seed 609 --resume --load-from DIR] --out runs/KS22 [--cpu]
+
+trains with `drivers.train` (`KS22_global` is the mono-agent ablation) and
+writes the full checkpoint `saves/agent.msgpack` (agent, replay, key) and
+`saves/hook.npz`; `--resume` continues from the checkpoint in --load-from
+(or --out). `--train-multi [--no-episodes 2800 --n-experiments 2]` runs the
+restart protocol with numbered saves (`agent{n}.msgpack`, `hook{n}.npz`).
+`--hyperopt N [--hyperopt-episodes 30 --hyperopt-robust K]` runs N trials of
+the random search (KS22_global, KS22, KS200), one JSON line each.
 
 KS presets, batched training (the throughput configuration):
 
@@ -22,7 +35,8 @@ KS presets (the plot_heat protocol, without plots):
     python -m distributedconvrl_pde_control_torch.experiments.run KS22 --eval \\
         --load-from artifacts/KS22 --p-te 200 --p-t-action 100 [--cpu]
 
-loads the best actor of the run in --load-from, rolls it on the preset's env
+loads the checkpoint in --load-from (default --out), rolls its best actor
+(else its current one) on the preset's env
 from the standard initial field, and prints one JSON line with the mean |y|
 over the last 100 uncontrolled steps, over the last tenth of the run, and
 their ratio.
@@ -76,6 +90,30 @@ _FLUID_TIERS = {
 # the JAX CLI's KS throughput presets: ETDRK4 with its bf16 transform tiers (named here so
 # that the CLI can say they are not ported; it refuses them)
 KS_TP_PRESETS = ("KS22_tp", "KS200_tp", "KS500_tp", "KS22_64_tp")
+# the JAX CLI's Keller-Segel presets (named here so that the CLI can say they are not ported)
+KELLER_SEGEL_PRESETS = ("KellerSegel10_16", "KellerSegel10_16_fast")
+
+
+# the presets `--hyperopt` searches around
+HYPEROPT_PRESETS = ("KS200", "KS22", "KS22_global")
+
+
+def ks_presets() -> dict:
+    """name -> (KSConfig, setup builder) of every KS preset the port runs,
+    the JAX CLI's table (run.py:96-109): `build_ks_global` builds the mono
+    agent of KS22_global, `build_ks` the distributed agent of the others."""
+    from distributedconvrl_pde_control_torch.configs import ks as C
+
+    return {"KS22": (C.KS22, C.build_ks), "KS200": (C.KS200, C.build_ks),
+            "KS500": (C.KS500, C.build_ks), "KS200_disturbed": (C.KS200_DISTURBED, C.build_ks),
+            "KS22_64": (C.KS22_64, C.build_ks),
+            "KS22_global": (C.KS22_GLOBAL, C.build_ks_global)}
+
+
+def ks_setup(cfg, device: str = "cuda"):
+    """The setup of a KS config (a preset's, overrides applied) from its
+    preset's builder."""
+    return ks_presets()[cfg.name][1](cfg, device=device)
 
 
 def fluid_config_for(name: str):
@@ -144,7 +182,9 @@ def run_sharded(args, cfg, device: str) -> None:
             # the light checkpoint's networks, Adam states and counters, the
             # hook's accounting and best actor; fields, pool and replay start afresh
             agent_state, hook = load_sharded(args.load_from or out_dir, trainer)
-            state = trainer.init(torch.Generator(device=device).manual_seed(seed), seed=seed)
+            # as the JAX CLI: `init(PRNGKey(args.seed or cfg.seed))` with the
+            # pool of init's default seed 0 (`--seed 0` means the preset's seed)
+            state = trainer.init(torch.Generator(device=device).manual_seed(args.seed or cfg.seed))
             state.agent = agent_state
             state.ep_count.fill_(hook.ep - 1)
             state.best_reward.fill_(hook.bestreward)
@@ -164,7 +204,7 @@ def run_sharded(args, cfg, device: str) -> None:
         return
 
     # --eval: the sharded testrun, trained policy vs no action, masked energies
-    actor = load_actor_for_eval(args.load_from, trainer)
+    actor = load_actor_for_eval(args.load_from or out_dir, trainer)
     n_steps = int(round((args.p_te or cfg.te) / cfg.dt))
     t_act = int(round((args.p_t_action or 0.0) / cfg.dt))
     w0 = trainer.eval_w0()
@@ -194,15 +234,15 @@ def run_ks_train_batched(args, cfg, overrides, device: str) -> None:
     import torch
 
     from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent
-    from distributedconvrl_pde_control_torch.configs.ks import build_ks
     from distributedconvrl_pde_control_torch.train import checkpoint
     from distributedconvrl_pde_control_torch.train.batched import (
         BatchedTrainer,
         BatchedTrainerConfig,
         train_batched,
     )
+    from distributedconvrl_pde_control_torch.train.loop import TrainState
 
-    setup = build_ks(cfg, device=device)
+    setup = ks_setup(cfg, device=device)
     if overrides:
         print(f"applied config overrides: {sorted(overrides)}")
     out_dir = args.out or os.path.join("runs", args.preset)
@@ -228,8 +268,8 @@ def run_ks_train_batched(args, cfg, overrides, device: str) -> None:
         chunk_len=args.chunk_len or 50, verbose=True, eval_every=args.eval_every,
         eval_steps=args.eval_steps, eval_warmup_steps=args.eval_warmup,
         eval_score=args.eval_score)
-    checkpoint.save(out_dir, hook, config_overrides=overrides, agent=ts.agent,
-                    seed=ts.generator.initial_seed())
+    checkpoint.save(out_dir, TrainState(ts.agent, None, ts.generator), hook,
+                    include_replay=False, config_overrides=overrides)
     print(hook.ascii_curve())
     if hook.evals:
         print("evals:", [(s, round(r, 4)) for s, r in hook.evals])
@@ -238,44 +278,119 @@ def run_ks_train_batched(args, cfg, overrides, device: str) -> None:
           f"final chunk mean {means[-1]:.4f}")
 
 
+def run_ks_train(args, cfg, overrides, device: str) -> None:
+    """`--train` (the fidelity loop, `drivers.train`; `--resume` continues the
+    checkpoint in --load-from or --out) and `--train-multi` (the restart
+    protocol with numbered saves) on a KS preset; the full checkpoint with
+    its replay goes into --out."""
+    from distributedconvrl_pde_control_torch.train import checkpoint
+    from distributedconvrl_pde_control_torch.train.drivers import train, train_multi
+
+    setup = ks_setup(cfg, device=device)
+    if overrides:
+        print(f"applied config overrides: {sorted(overrides)}")
+    out_dir = args.out or os.path.join("runs", args.preset)
+    os.makedirs(out_dir, exist_ok=True)
+    if args.train_multi:
+        best = train_multi(setup, no_episodes=args.no_episodes or 2800,
+                           n_experiments=args.n_experiments,
+                           save_fn=lambda n, ts, hook: checkpoint.save(
+                               out_dir, ts, hook, n, config_overrides=overrides))
+        print("best rewards per experiment:", best)
+        return
+    ts = hook = None
+    if args.resume:
+        ts, hook = checkpoint.load(args.load_from or out_dir, setup.agent, device=device)
+        print(f"resuming from ep {hook.ep - 1}, best {hook.bestreward:.4f}")
+    ts, hook = train(setup, loops=args.loops, no_steps=args.no_steps, seed=args.seed, ts=ts,
+                     hook=hook)
+    checkpoint.save(out_dir, ts, hook, config_overrides=overrides)
+    print(hook.ascii_curve())
+    print(f"saved to {out_dir}; best reward {hook.bestreward:.4f} @ ep {hook.bestepisode}")
+
+
+def run_ks_hyperopt(args, device: str) -> None:
+    """`--hyperopt N`: random search over the preset's hyperparameters, each
+    trial a fresh setup scored by the reference's `test_setup` cost or, with
+    `--hyperopt-robust K`, by deterministic rollouts from K held-out fields."""
+    import functools
+
+    from distributedconvrl_pde_control_torch.train.drivers import hyperopt_objective_robust
+    from distributedconvrl_pde_control_torch.train.hyperopt import search
+
+    if args.preset not in HYPEROPT_PRESETS:
+        raise SystemExit(f"--hyperopt supports {list(HYPEROPT_PRESETS)}")
+    cfg, build_fn = ks_presets()[args.preset]
+    objective = None
+    if args.hyperopt_robust:
+        objective = functools.partial(hyperopt_objective_robust,
+                                      n_eval_inits=args.hyperopt_robust)
+    search(cfg, functools.partial(build_fn, device=device), n_trials=args.hyperopt,
+           seed=args.seed if args.seed is not None else 0, n_episodes=args.hyperopt_episodes,
+           objective=objective)
+
+
 def run_ks(args, cfg, device: str) -> None:
-    from distributedconvrl_pde_control_torch.configs.ks import build_ks
-    from distributedconvrl_pde_control_torch.train.checkpoint import actor_from_jax, load_best_actor
+    """`--eval` on a KS preset: the checkpoint in --load-from (default --out)
+    as `checkpoint.load` reads it, its best actor (else its current one) on
+    the plot_heat protocol."""
+    from distributedconvrl_pde_control_torch.train import checkpoint
     from distributedconvrl_pde_control_torch.train.eval import actor_policy, rollout
 
     p_te = 200.0 if args.p_te is None else args.p_te
     t_action = p_te / 2.0 if args.p_t_action is None else args.p_t_action
-    setup = build_ks(cfg, device=device)
-    actor = actor_from_jax(load_best_actor(args.load_from)).to(device)
+    setup = ks_setup(cfg, device=device)
+    load_dir = args.load_from or args.out or os.path.join("runs", args.preset)
+    ts, hook = checkpoint.load(load_dir, setup.agent, device=device)
+    actor = (checkpoint.actor_from_jax(hook.best_actor).to(device) if hook.best_actor is not None
+             else ts.agent.actor)
     traces = rollout(setup.env, actor_policy(setup.agent, actor), te=p_te, t_action=t_action)
-    y = traces["y"]
-    n_steps = y.shape[0]
-    act_start = int(round(t_action / setup.env.dt))
+    print(json.dumps(suppression_of(traces["y"], t_action, setup.env.dt)))
+
+
+def suppression_of(y: np.ndarray, t_action: float, dt: float) -> dict:
+    """The plot_heat protocol's numbers of a (steps, nx) trace: mean |y| over
+    the last 100 uncontrolled steps, over the last tenth of the run, and
+    their ratio."""
+    act_start = int(round(t_action / dt))
     pre = float(np.abs(y[max(0, act_start - 100):act_start]).mean())
-    post = float(np.abs(y[-max(1, n_steps // 10):]).mean())
-    print(json.dumps({"pre_control_mean_abs_dev": pre, "post_control_mean_abs_dev": post,
-                      "suppression": post / pre if pre else None}))
+    post = float(np.abs(y[-max(1, y.shape[0] // 10):]).mean())
+    return {"pre_control_mean_abs_dev": pre, "post_control_mean_abs_dev": post,
+            "suppression": post / pre if pre else None}
 
 
 def main(argv=None):
     from distributedconvrl_pde_control_torch.configs.fluid import PRESETS as FLUID_PRESETS
-    from distributedconvrl_pde_control_torch.configs.ks import PRESETS as KS_PRESETS
+
+    ks_table = ks_presets()
 
     fluid_names = sorted(FLUID_PRESETS) + sorted(b + s for b in FLUID_PRESETS for s in _FLUID_TIERS)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("preset", choices=sorted(KS_PRESETS) + list(KS_TP_PRESETS) + fluid_names,
+    ap.add_argument("preset", choices=sorted(ks_table) + list(KS_TP_PRESETS) + fluid_names
+                    + list(KELLER_SEGEL_PRESETS),
                     metavar="preset",
                     help="a KS preset (%s) or a fluid preset (%s, each with an optional "
-                         "_fast/_fixedstep/_eval tier)" % (", ".join(sorted(KS_PRESETS)),
+                         "_fast/_fixedstep/_eval tier)" % (", ".join(sorted(ks_table)),
                                                            ", ".join(sorted(FLUID_PRESETS))))
     mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("--eval", action="store_true", help="evaluate a trained actor")
     mode.add_argument("--train", action="store_true",
-                      help="train (KS presets with --batched, fluid presets with --mesh 1x1)")
+                      help="train (KS presets: the fidelity loop, or batched with --batched; "
+                           "fluid presets with --mesh 1x1)")
     mode.add_argument("--train-multi", action="store_true",
-                      help="the restart protocol with numbered saves (fluid presets, --mesh 1x1)")
+                      help="the restart protocol with numbered saves (KS presets; fluid presets "
+                           "with --mesh 1x1)")
+    mode.add_argument("--hyperopt", type=int, metavar="N_TRIALS", default=None,
+                      help="random hyperparameter search (KS22_global, KS22, KS200): N trials "
+                           "scored by the test_setup objective (KSglobalSetup.jl:405)")
+    ap.add_argument("--hyperopt-episodes", type=int, default=30,
+                    help="episodes per hyperopt trial (the reference uses 100)")
+    ap.add_argument("--hyperopt-robust", type=int, metavar="N_INITS", default=None,
+                    help="score trials by deterministic rollouts of the trained policy from "
+                         "N_INITS held-out random initial fields instead of test_setup's cost")
     ap.add_argument("--load-from", default=None,
-                    help="run directory holding saves/hook.npz (and saves/agent_light.msgpack)")
+                    help="run directory holding saves/hook.npz and saves/agent.msgpack or "
+                         "saves/agent_light.msgpack (default --out)")
     ap.add_argument("--out", default=None, help="run directory (default runs/<preset>)")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--config-overrides", default=None, metavar="JSON",
@@ -293,13 +408,14 @@ def main(argv=None):
     ap.add_argument("--n-envs", type=int, default=None,
                     help="env batch for --batched (default 256) and --mesh runs (default: dp)")
     ap.add_argument("--loops", type=int, default=None,
-                    help="--mesh training rounds (default the preset's loops)")
+                    help="training rounds of --train (default the preset's loops)")
     ap.add_argument("--no-steps", type=int, default=None,
-                    help="--mesh train steps per round (default the preset's no_steps)")
+                    help="env steps per round of --train (default the preset's no_steps)")
     ap.add_argument("--capacity-per-dp", type=int, default=None,
                     help="--mesh replay capacity per dp group (default 100,000)")
     ap.add_argument("--no-episodes", type=int, default=None,
-                    help="--train-multi episodes per experiment (default 17, FluidSetup.jl:559)")
+                    help="--train-multi episodes per experiment (default 2800 for KS presets, "
+                         "KSSetup.jl:325; 17 with --mesh, FluidSetup.jl:559)")
     ap.add_argument("--n-experiments", type=int, default=2,
                     help="--train-multi experiments; 0 restarts endlessly")
     ap.add_argument("--nx", type=int, default=None,
@@ -347,8 +463,8 @@ def main(argv=None):
     ap.add_argument("--import-jld2", default=None, metavar="SAVES_DIR",
                     help="(not ported: ROADMAP.md queue 1 item 17)")
     ap.add_argument("--resume", action="store_true",
-                    help="--train --mesh 1x1: continue from the light checkpoint in --load-from "
-                         "(default --out)")
+                    help="--train: continue from the checkpoint in --load-from (default --out); "
+                         "--batched ignores it, as the JAX CLI does")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
     args = ap.parse_args(argv)
     device = "cpu" if args.cpu else "cuda"
@@ -360,21 +476,20 @@ def main(argv=None):
     if args.import_jld2:
         raise SystemExit("--import-jld2: the reference JLD2 import is not ported yet "
                          "(ROADMAP.md queue 1 item 17)")
+    if args.preset in KELLER_SEGEL_PRESETS:
+        raise SystemExit(f"{args.preset}: Keller-Segel is not ported yet (ROADMAP.md queue 1 "
+                         "item 12)")
     if args.preset in KS_TP_PRESETS:
         raise SystemExit(f"{args.preset}: the reduced-precision transform tiers are not ported "
                          "yet (ROADMAP.md queue 1 item 16); the float32 ETDRK4 tiers run with "
                          "--config-overrides '{\"stepper\": \"etdrk4\", \"spectral_carry\": true}'")
     fluid_cfg = fluid_config_for(args.preset)
-    if args.resume and not (fluid_cfg is not None and args.mesh and args.train):
-        raise SystemExit("--resume continues --train --mesh 1x1 runs of the fluid presets; "
-                         "resuming anything else needs the fidelity loop and the full "
-                         "checkpoint, which are not ported yet (ROADMAP.md queue 1 item 10)")
     if args.batched and args.mesh:
         raise SystemExit("--batched --mesh: data-parallel batched training over a device mesh "
                          "is not ported yet (ROADMAP.md queue 1 item 15)")
-    if args.eval and not args.load_from:
-        raise SystemExit("--eval needs --load-from")
     if fluid_cfg is not None:
+        if args.hyperopt:
+            raise SystemExit(f"--hyperopt supports {list(HYPEROPT_PRESETS)}")
         if args.batched:
             raise SystemExit(f"{args.preset} --batched: batched fluid training runs on the "
                              "single-device fluid env or over a dp mesh, neither ported yet "
@@ -392,13 +507,8 @@ def main(argv=None):
         return run_sharded(args, fluid_cfg, device)
     if args.mesh:
         raise SystemExit(f"--mesh supports fluid presets, not {args.preset}")
-    if args.train_multi:
-        raise SystemExit(f"{args.preset} --train-multi: the KS restart protocol runs the "
-                         "single-env fidelity loop, which is not ported yet (ROADMAP.md queue 1 "
-                         "item 10)")
-    if args.train and not args.batched:
-        raise SystemExit("--train without --batched needs the single-env fidelity loop, which "
-                         "is not ported yet (ROADMAP.md queue 1 item 10); pass --batched")
+    if args.hyperopt:
+        return run_ks_hyperopt(args, device)
 
     # artifacts trained off-preset ship a config_overrides.json; honoring it
     # makes them loadable through --load-from. --config-overrides (inline
@@ -419,11 +529,16 @@ def main(argv=None):
         # design, so eval rollouts rebuild without it to record real fields;
         # the policy itself sees the same observations either way
         overrides = {k: v for k, v in overrides.items() if k != "spectral_featurize"}
-    cfg = KS_PRESETS[args.preset]
+    cfg = ks_table[args.preset][0]
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    if args.train:
+    if args.train and args.batched:
+        if args.resume:
+            print("--resume: --batched training starts afresh (the JAX CLI's batched branch "
+                  "does not read --resume either)")
         return run_ks_train_batched(args, cfg, overrides, device)
+    if args.train or args.train_multi:
+        return run_ks_train(args, cfg, overrides, device)
     return run_ks(args, cfg, device)
 
 

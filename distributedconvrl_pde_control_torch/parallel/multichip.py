@@ -60,6 +60,7 @@ from distributedconvrl_pde_control_torch.train.hooks import (
     REC_MEAN_REWARD,
     PDEHook,
 )
+from distributedconvrl_pde_control_torch.train.loop import TrainState
 from distributedconvrl_pde_control_torch.train.records import (
     consume_record_read,
     start_record_read,
@@ -589,20 +590,22 @@ def save_sharded(out_dir: str, trainer: ShardedFluidTrainer, state: MCState, hoo
     saves/agent_light{n}.msgpack, train.checkpoint), so both packages' eval
     and resume paths read it. The replay is not kept (light semantics); the
     key is that of the run's seed."""
-    checkpoint.save(out_dir, hook, number=number, agent=state.agent,
-                    seed=state.generator.initial_seed())
+    checkpoint.save(out_dir, TrainState(state.agent, None, state.generator), hook, number=number,
+                    include_replay=False)
 
 
 def load_sharded(load_dir: str, trainer: ShardedFluidTrainer, number: Optional[int] = None):
-    """(DDPGState, PDEHook) of a light checkpoint, on the trainer's device,
-    against this trainer's agent config."""
-    return checkpoint.load_light(load_dir, trainer.agent, number, trainer.device)
+    """(DDPGState, PDEHook) of a checkpoint, full or light as
+    `checkpoint.load` chooses, on the trainer's device, against this
+    trainer's agent config."""
+    ts, hook = checkpoint.load(load_dir, trainer.agent, number, trainer.device)
+    return ts.agent, hook
 
 
 def load_actor_for_eval(load_dir: str, trainer: ShardedFluidTrainer) -> Chain:
     """The best actor of the run in `load_dir` on the trainer's device - the
     plot_heat/testrun bestNNA swap-in (plotting.jl:28-30) - or, when the
-    hook holds none, the current actor of its light checkpoint."""
+    hook holds none, the current actor of its checkpoint."""
     hook = checkpoint.load_hook(load_dir)
     if hook.best_actor is not None:
         actor = checkpoint.actor_from_jax(hook.best_actor)

@@ -1,31 +1,41 @@
-"""Checkpoints: the hook's half, and state carried across from the JAX package.
+"""Checkpoints: agent state, replay and hook, and state carried across from
+the JAX package.
 
 Counterpart of ``distributedconvrl_pde_control_tpu/train/checkpoint.py``:
 
 * `save` writes the hook as `saves/hook{number}.npz` with the JAX package's
   keys (`rewards`, `rewards_compare`, `errored_episodes`, `meta`,
-  `best_actor_w{i}` / `best_actor_b{i}`, `best_trace_*`), so a run trained
-  here is read by this package's `--eval --load-from` and by the JAX
-  package's hook reader alike; `load_best_actor` / `load_hook` read it back;
-* given the agent state, `save` also writes the JAX package's light
-  checkpoint `saves/agent_light{number}.msgpack`: the bytes of
-  `flax.serialization.to_bytes({"agent": DDPGState, "key": key})`, networks,
-  both optax Adam states, counters and losses, no replay
-  (`utils/flax_msgpack.py`); `load_light` reads it, the port's or the JAX
-  package's, with the hook. The full checkpoint with its replay
-  (`agent.msgpack`) is ROADMAP.md queue 1 item 10;
+  `best_actor_w{i}` / `best_actor_b{i}`, `best_trace_*`), and, given a
+  `TrainState`, the agent checkpoint in flax's bytes (`utils/flax_msgpack.py`):
+  the full `saves/agent{number}.msgpack`, `to_bytes({"agent", "replay",
+  "key"})` with the replay in the JAX package's slot-minor layout (`s`, `a`,
+  `sn` as (dim, capacity), then `r`, `t`, `ptr`, `size`), or with
+  `include_replay=False` the light `saves/agent_light{number}.msgpack`,
+  `to_bytes({"agent", "key"})`: networks, both optax Adam states, counters
+  and losses;
+* `load` reads the full file when it exists and the light one otherwise, as
+  the JAX `checkpoint.load` does, and maps the replay onto the port's
+  `[s|a|r|t|sn]` row buffer; a replay stored row-major (capacity, dim), the
+  layout of the older shipped artifacts (`artifacts/KS22`, `artifacts/KS200`),
+  is transposed, and one that is neither layout of the agent's capacity is
+  refused. `load_hook` and `load_best_actor` read the hook alone;
 * `save_config_overrides` / `load_config_overrides` ship the off-preset
   config deltas next to a checkpoint;
 * `actor_from_jax`, `ddpg_state_from_jax` and `replay_from_jax` build the
   port's state from numpy pytrees of the JAX package's (a `DDPGState` with
   its optax Adam states, a `Replay`), for parity tests and warm starts.
 
-The key. The port draws from a `torch.Generator`, which shares no stream
-with `jax.random`. `save` writes the key `jax.random.PRNGKey(seed)` gives
-for the run's seed, `[seed >> 32, seed & 0xffffffff]` as uint32, and
-`seed_of_key` gives the seed back. `load_light` does not read the key: a run
-resumed from either package's file draws a stream of its own, seeded by the
-caller.
+The key, a deliberate deviation. The port draws from a `torch.Generator`,
+which shares no stream with `jax.random`. `save` writes the train state's
+`key`: the two uint32 words of the file it was loaded from, unchanged, or for
+a run of the port's own `jax.random.PRNGKey(seed)` of its generator's seed,
+`[seed >> 32, seed & 0xffffffff]` (`jax_key`; `seed_of_key` gives the seed
+back). The loop does not advance the key, as JAX's scan does, so the key of a
+port-written file is that of the run's first seed. `load` therefore seeds the
+resumed state's generator with `resume_seed(seed_of_key(key), hook.ep)`: the
+hook's episode counter moves with every run, so a resumed run, and a resume of
+it, draws a stream of its own (`drivers.train` re-seeds it from `--seed` when
+one is given).
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent, DDPGState
 from distributedconvrl_pde_control_torch.agents.replay import Replay, replay_init
 from distributedconvrl_pde_control_torch.models.mlp import Chain
 from distributedconvrl_pde_control_torch.train.hooks import PDEHook
+from distributedconvrl_pde_control_torch.train.loop import TrainState, resume_seed
 from distributedconvrl_pde_control_torch.utils import flax_msgpack
 
 
@@ -54,22 +65,26 @@ def _hook_path(dirpath: str, number: Optional[int]) -> str:
     return _saves_path(dirpath, "hook{}.npz", number)
 
 
-def save(dirpath: str, hook: PDEHook, number: Optional[int] = None,
-         config_overrides: Optional[dict] = None, agent: Optional[DDPGState] = None,
-         seed: int = 0) -> None:
+def save(dirpath: str, ts: Optional[TrainState], hook: PDEHook, number: Optional[int] = None,
+         include_replay: bool = True, config_overrides: Optional[dict] = None) -> None:
     """Write the hook (reward history, best actor, best trace, counters) as
-    `dirpath`/saves/hook{number}.npz, `config_overrides` (the config fields
-    replaced on the preset, for artifacts trained off-preset) as
-    `dirpath`/config_overrides.json, and, given the agent state, the light
-    checkpoint `dirpath`/saves/agent_light{number}.msgpack with the key of
-    `seed` (see the module docstring)."""
+    `dirpath`/saves/hook{number}.npz; given the train state `ts`, its agent,
+    replay and key as the full `dirpath`/saves/agent{number}.msgpack, or with
+    `include_replay=False` its agent and key as the light
+    `agent_light{number}.msgpack` (a light state needs no replay); and
+    `config_overrides` (the config fields replaced on the preset, for
+    artifacts trained off-preset) as `dirpath`/config_overrides.json."""
     if config_overrides:
         save_config_overrides(dirpath, config_overrides)
     os.makedirs(os.path.join(dirpath, "saves"), exist_ok=True)
-    if agent is not None:
-        blob = flax_msgpack.pack({"agent": agent_state_dict(agent), "key": jax_key(seed)})
-        with open(_saves_path(dirpath, "agent_light{}.msgpack", number), "wb") as f:
-            f.write(blob)
+    if ts is not None:
+        tree = {"agent": agent_state_dict(ts.agent)}
+        if include_replay:
+            tree["replay"] = replay_state_dict(ts.replay)
+        tree["key"] = _state_key(ts)
+        name = "agent{}.msgpack" if include_replay else "agent_light{}.msgpack"
+        with open(_saves_path(dirpath, name, number), "wb") as f:
+            f.write(flax_msgpack.pack(tree))
     payload = {
         "rewards": np.asarray(hook.rewards, np.float64),
         "rewards_compare": np.asarray(hook.rewards_compare, np.float64),
@@ -281,26 +296,76 @@ def _jax_like(agent: dict) -> SimpleNamespace:
         **{k: agent[k] for k in ("act_noise", "update_step", "actor_loss", "critic_loss")})
 
 
-def load_light(dirpath: str, agent: DDPGAgent, number: Optional[int] = None, device="cuda"):
-    """(DDPGState, PDEHook) of the light checkpoint in `dirpath`/saves
-    (`agent_light{number}.msgpack` and `hook{number}.npz`), written by `save`
-    or by the JAX package's `checkpoint.save(..., include_replay=False)`. The
+def _state_key(ts: TrainState) -> np.ndarray:
+    """The uint32 key words `save` writes for `ts` (see the module docstring)."""
+    if ts.key is not None:
+        return np.asarray(ts.key, np.uint32)
+    return jax_key(ts.generator.initial_seed() if ts.generator is not None else 0)
+
+
+def replay_state_dict(rb: Replay) -> dict:
+    """The JAX package's `Replay` state dict: `s`, `a`, `sn` slot-minor
+    (dim, capacity), `r`, `t` (capacity,), int32 `ptr` and `size`."""
+    return {"s": _host(rb.s), "a": _host(rb.a), "r": _host(rb.r), "t": _host(rb.t),
+            "sn": _host(rb.sn), "ptr": np.array(rb.ptr, np.int32),
+            "size": np.array(rb.size, np.int32)}
+
+
+def _agent_from_tree(tree: dict, agent: DDPGAgent, path: str, device) -> DDPGState:
+    """The port's DDPGState from a checkpoint's "agent" state dict; the
     networks must have the layer sizes of `agent`'s config."""
-    path = _saves_path(dirpath, "agent_light{}.msgpack", number)
-    if not os.path.exists(path):
-        full = _saves_path(dirpath, "agent{}.msgpack", number)
-        if os.path.exists(full):
-            raise NotImplementedError(
-                f"{full} is a full checkpoint (with its replay); the port reads the light one, "
-                "agent_light.msgpack; the full format is ROADMAP.md queue 1 item 10")
-        raise FileNotFoundError(f"no light checkpoint at {path}")
-    with open(path, "rb") as f:
-        tree = flax_msgpack.unpack(f.read())
-    jstate = _jax_like(tree["agent"])
+    jstate = _jax_like(tree)
     for name, sizes in (("actor", agent.actor_layer_sizes), ("critic", agent.critic_layer_sizes)):
         got = [np.shape(getattr(jstate, name)[0]["w"])[1]] + [
             np.shape(layer["w"])[0] for layer in getattr(jstate, name)]
         if got != list(sizes):
             raise ValueError(f"the {name} in {path} has layer sizes {got}, the agent's config "
                              f"{list(sizes)}")
-    return ddpg_state_from_jax(agent, jstate, device), load_hook(dirpath, number)
+    return ddpg_state_from_jax(agent, jstate, device)
+
+
+def _replay_from_tree(tree: dict, agent: DDPGAgent, path: str, device) -> Replay:
+    """The port's Replay from a full checkpoint's "replay" state dict, as the
+    JAX loader takes it against a template of the agent's capacity: the
+    slot-minor (dim, capacity) layout as it is, the older row-major
+    (capacity, dim) transposed (decided on `s`, as JAX does), anything else
+    refused."""
+    cfg = agent.cfg
+    want = (cfg.ns, cfg.capacity)
+    s, a, sn = (np.asarray(tree[k]) for k in ("s", "a", "sn"))
+    if s.shape != want:
+        if s.shape != want[::-1]:
+            raise ValueError(
+                f"checkpoint replay state shape {s.shape} in {path} matches neither the "
+                f"template's {want} nor its row-major transpose; rebuild the agent with the "
+                "checkpoint's capacity to resume from it")
+        s, a, sn = s.T, a.T, sn.T
+    return replay_from_jax(SimpleNamespace(s=s, a=a, r=tree["r"], t=tree["t"], sn=sn,
+                                           ptr=tree["ptr"], size=tree["size"]), device)
+
+
+def load(dirpath: str, agent: DDPGAgent, number: Optional[int] = None, device="cuda"):
+    """(TrainState, PDEHook) of the checkpoint in `dirpath`/saves: the full
+    `agent{number}.msgpack` when it exists, else the light
+    `agent_light{number}.msgpack` with an empty replay of the agent's
+    capacity, as the JAX `checkpoint.load` chooses; written by either
+    package. The networks must have the layer sizes of `agent`'s config. The
+    state's key is the file's; its generator (on `device`) is seeded with
+    `resume_seed` of the key's seed and the hook's episode counter."""
+    path = _saves_path(dirpath, "agent{}.msgpack", number)
+    full = os.path.exists(path)
+    if not full:
+        path = _saves_path(dirpath, "agent_light{}.msgpack", number)
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"no checkpoint at {_saves_path(dirpath, 'agent{}.msgpack', number)}"
+                                    f" or {path}")
+    with open(path, "rb") as f:
+        tree = flax_msgpack.unpack(f.read())
+    cfg = agent.cfg
+    state = _agent_from_tree(tree["agent"], agent, path, device)
+    replay = (_replay_from_tree(tree["replay"], agent, path, device) if full
+              else replay_init(cfg.capacity, cfg.ns, cfg.na_rows, device))
+    key = np.asarray(tree["key"], np.uint32)
+    hook = load_hook(dirpath, number)
+    generator = torch.Generator(device=device).manual_seed(resume_seed(seed_of_key(key), hook.ep))
+    return TrainState(agent=state, replay=replay, generator=generator, key=key), hook

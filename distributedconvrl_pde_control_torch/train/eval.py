@@ -1,9 +1,12 @@
-"""Evaluation rollouts: the plot_heat protocol.
+"""Evaluation rollouts: the plot_heat and testrun protocols.
 
-Counterpart of ``distributedconvrl_pde_control_tpu/train/eval.py``
-(``rollout``, ``actor_policy``): a policy rollout with horizon override and
-delayed actuation (plotting.jl:4-73: te/dt overridden, zero action until
-p_t_action, best-actor swap-in). Traces come back as host arrays.
+Counterpart of ``distributedconvrl_pde_control_tpu/train/eval.py``:
+  * `rollout`     - a policy rollout with horizon override and delayed
+                    actuation (plotting.jl:4-73: te/dt overridden, zero action
+                    until p_t_action, best-actor swap-in);
+  * `energy_eval` - the fluid testrun's per-step energy sum(|omega|)/(nx*ny)
+                    (FluidSetup.jl:497-500), averaged over the active steps.
+Traces come back as host arrays.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ def rollout(env: PDEEnv, policy_fn: Callable, y0: Optional[torch.Tensor] = None,
         env = dataclasses.replace(env, te=float(te))
     n_steps = env.max_steps
     t_action_steps = int(round(t_action / env.dt))
-    estate = env.reset(None if y0 is None else y0.reshape(1, -1))
+    estate = env.reset(None if y0 is None else y0[None])
     outs = {k: [] for k in ("y", "action", "forcing", "reward", "active")}
     for step_idx in range(n_steps):
         if step_idx < t_action_steps:
@@ -65,3 +68,33 @@ def actor_policy(agent, actor_params, act_limit: float = 1.0):
         return a.reshape(-1, b, n_act).permute(1, 0, 2)
 
     return policy_fn
+
+
+def energy_trace(y_trace: np.ndarray) -> np.ndarray:
+    """Fluid energy diagnostic sum(|omega|)/(nx*ny) per step
+    (FluidSetup.jl:497-500) of a (steps, ny, nx) trace, real or spectral."""
+    steps = y_trace.shape[0]
+    n = y_trace.shape[-2] * y_trace.shape[-1]
+    omg = np.fft.ifft2(y_trace, axes=(-2, -1)).real if np.iscomplexobj(y_trace) else y_trace
+    return np.abs(omg.reshape(steps, -1)).sum(axis=1) / n
+
+
+def mean_energy(traces: dict) -> float:
+    """Mean per-step energy over the active steps only: a rollout repeats
+    its frozen final state after early termination, and averaging those
+    frames would bias trained-vs-baseline comparisons."""
+    energy = traces["energy"] if "energy" in traces else energy_trace(traces["y"])
+    active = np.asarray(traces["active"], bool)
+    if not active.any():
+        return float("nan")
+    return float(np.asarray(energy)[active].mean())
+
+
+def energy_eval(env: PDEEnv, policy_fn: Callable, y0: Optional[torch.Tensor] = None,
+                te: Optional[float] = None, t_action: float = 0.0) -> dict:
+    """testrun-style evaluation: `rollout` plus the energy trace and its
+    masked mean (fluid envs)."""
+    traces = rollout(env, policy_fn, y0=y0, te=te, t_action=t_action)
+    traces["energy"] = energy_trace(traces["y"])
+    traces["mean_energy"] = mean_energy(traces)
+    return traces

@@ -1,10 +1,13 @@
-"""The port's light agent checkpoint against flax and the JAX package on the CPU.
+"""The port's agent checkpoints against flax and the JAX package on the CPU.
 
-The port writes `saves/agent_light.msgpack` with a MessagePack codec of its
-own (`utils/flax_msgpack.py`): flax and the JAX package's `checkpoint.load`
-must read what it writes, and it must read what they wrote, the shipped
-artifacts included. The CLI tests train a fluid controller at a toy size
-through the port's `--train --mesh 1x1`, evaluate it, and resume it.
+The port writes `saves/agent_light.msgpack` and the full
+`saves/agent.msgpack` (with the replay) with a MessagePack codec of its own
+(`utils/flax_msgpack.py`): flax and the JAX package's `checkpoint.load` must
+read what it writes, and it must read what they wrote, the shipped artifacts
+included (`artifacts/KS22` and `artifacts/KS200` store their replays in the
+older row-major layout). The CLI tests train a fluid controller at a toy
+size through the port's `--train --mesh 1x1`, evaluate it, and resume it,
+and do the same for a KS controller through the fidelity loop.
 """
 
 import dataclasses
@@ -31,6 +34,9 @@ from distributedconvrl_pde_control_torch.experiments import run as trun
 from distributedconvrl_pde_control_torch.models.mlp import chain_to_numpy
 from distributedconvrl_pde_control_torch.train import checkpoint
 from distributedconvrl_pde_control_torch.train.hooks import PDEHook
+from distributedconvrl_pde_control_torch.train import drivers as tdrivers
+from distributedconvrl_pde_control_torch.train.loop import TrainState as TorchTrainState
+from distributedconvrl_pde_control_torch.train.loop import resume_seed
 from distributedconvrl_pde_control_torch.utils import flax_msgpack
 
 FLUID_ART, KS_ART = "artifacts/Fluid_16_256", "artifacts/KS22_sf_lh"
@@ -38,7 +44,8 @@ FLUID_ART, KS_ART = "artifacts/Fluid_16_256", "artifacts/KS22_sf_lh"
 
 def fluid_agents(cfg=jfluid.FLUID_16_256):
     tcfg = tfluid.PRESETS[cfg.name] if cfg.name in tfluid.PRESETS else cfg
-    return DDPGAgent(tfluid.fluid_agent_config(tcfg, 9)), JAgent(jfluid.fluid_agent_config(cfg, 9))
+    return (DDPGAgent(tfluid.fluid_agent_config(tcfg, 9, capacity=2048)),
+            JAgent(jfluid.fluid_agent_config(cfg, 9)))
 
 
 def jax_template(jagent):
@@ -143,7 +150,8 @@ def test_port_reads_the_shipped_light_states(art):
         agent = tks.build_ks(tks.KS22, device="cpu").agent
         setup = build_setup("KS22")
         template = init_train_state(setup.env, setup.agent, jax.random.PRNGKey(0))
-    state, hook = checkpoint.load_light(art, agent, device="cpu")
+    state, hook = checkpoint.load(art, agent, device="cpu")
+    state = state.agent
     ts, jhook = jcheckpoint.load(art, template)
     assert_state_matches_jax(state, ts.agent)
     assert state.update_step > 0 and float(state.critic_loss) != 0.0
@@ -157,8 +165,10 @@ def test_flax_and_jax_read_the_ports_file(tmp_path):
     bytes are flax's `to_bytes` of the same state with the key of seed 436,
     and `checkpoint.load` gives back every leaf."""
     agent, jagent = fluid_agents()
-    state, hook = checkpoint.load_light(FLUID_ART, agent, device="cpu")
-    checkpoint.save(str(tmp_path), hook, agent=state, seed=436)
+    state, hook = checkpoint.load(FLUID_ART, agent, device="cpu")
+    state = state.agent
+    checkpoint.save(str(tmp_path), TorchTrainState(state, None, None, key=checkpoint.jax_key(436)), hook,
+                    include_replay=False)
     raw = (tmp_path / "saves" / "agent_light.msgpack").read_bytes()
     ts, _ = jcheckpoint.load(FLUID_ART, jax_template(jagent))
     want = {"agent": jax.tree.map(np.asarray, ts.agent), "key": np.asarray(jax.random.PRNGKey(436))}
@@ -175,7 +185,7 @@ def test_round_trip_through_the_port(tmp_path):
     """A state after real updates (Adam moments and counts set, numbered
     save) comes back equal; the key gives back the seed; an agent of
     other widths is refused."""
-    agent = DDPGAgent(tfluid.fluid_agent_config(tfluid.FLUID_16_256, 9))
+    agent = DDPGAgent(tfluid.fluid_agent_config(tfluid.FLUID_16_256, 9, capacity=2048))
     state = agent.init_state(torch.Generator().manual_seed(3), "cpu")
     g = torch.Generator().manual_seed(4)
     batch = (torch.randn((9, 16), generator=g), torch.rand((1, 16), generator=g),
@@ -183,8 +193,10 @@ def test_round_trip_through_the_port(tmp_path):
     for _ in range(3):
         agent.learn_batch(state, batch)
     state.update_step, state.act_noise = 17, 0.3
-    checkpoint.save(str(tmp_path), PDEHook(), number=2, agent=state, seed=2**40 + 5)
-    back, hook = checkpoint.load_light(str(tmp_path), agent, number=2, device="cpu")
+    checkpoint.save(str(tmp_path), TorchTrainState(state, None, None, key=checkpoint.jax_key(2**40 + 5)),
+                    PDEHook(), number=2, include_replay=False)
+    back, hook = checkpoint.load(str(tmp_path), agent, number=2, device="cpu")
+    back = back.agent
     with open(tmp_path / "saves" / "agent_light2.msgpack", "rb") as f:
         assert checkpoint.seed_of_key(flax_msgpack.unpack(f.read())["key"]) == 2**40 + 5
     assert hook.ep == 1
@@ -197,11 +209,12 @@ def test_round_trip_through_the_port(tmp_path):
     agent.learn_batch(state, batch)
     for a, b in zip(back.actor.parameters(), state.actor.parameters()):
         assert torch.equal(a, b)
-    wide = DDPGAgent(tfluid.fluid_agent_config(tfluid.FLUID_16_256, 19))
+    wide = DDPGAgent(tfluid.fluid_agent_config(tfluid.FLUID_16_256, 19, capacity=2048))
     with pytest.raises(ValueError, match="layer sizes"):
-        checkpoint.load_light(str(tmp_path), wide, number=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        checkpoint.load_light("artifacts/KS22", agent, device="cpu")  # the full format
+        checkpoint.load(str(tmp_path), wide, number=2, device="cpu")
+    ks_agent = tks.build_ks(tks.KS22, device="cpu").agent
+    ts, _ = checkpoint.load("artifacts/KS22", ks_agent, device="cpu")  # a full file only
+    assert ts.replay.size > 0
 
 
 # --------------------------------------------------------------------- CLI
@@ -234,8 +247,10 @@ def test_cli_fluid_train_eval_resume(tmp_path, capsys):
                "--out", out2, "--loops", "1"])
     text = capsys.readouterr().out
     assert f"resuming from ep 4, best {jhook.bestreward:.4f}" in text
-    agent = DDPGAgent(tfluid.fluid_agent_config(dataclasses.replace(tfluid.FLUID_16_256, nx=16), 9))
-    state, hook = checkpoint.load_light(out2, agent, device="cpu")
+    agent = DDPGAgent(tfluid.fluid_agent_config(dataclasses.replace(tfluid.FLUID_16_256, nx=16), 9,
+                                                capacity=2048))
+    state, hook = checkpoint.load(out2, agent, device="cpu")
+    state = state.agent
     assert state.update_step == 30 and hook.ep - 1 == 6 and len(hook.rewards) == 6
     assert hook.rewards[:4] == list(jhook.rewards)
     assert hook.bestreward >= jhook.bestreward
@@ -262,5 +277,223 @@ def test_cli_ks_batched_train_writes_the_agent_half(tmp_path, capsys):
     setup = build_setup("KS22")
     ts, hook = jcheckpoint.load(out, init_train_state(setup.env, setup.agent, jax.random.PRNGKey(0)))
     assert int(ts.agent.update_step) == 20 and np.asarray(ts.key).tolist() == [0, 9]
-    state, _ = checkpoint.load_light(out, tks.build_ks(tks.KS22, device="cpu").agent, device="cpu")
-    assert_state_matches_jax(state, ts.agent)
+    state, _ = checkpoint.load(out, tks.build_ks(tks.KS22, device="cpu").agent, device="cpu")
+    assert_state_matches_jax(state.agent, ts.agent)
+
+
+# ------------------------------------------------------- full checkpoint
+def ks_pair(name="KS22", **over):
+    """The JAX setup's TrainState template and the port's agent of a KS preset."""
+    setup = build_setup(name, over or None)
+    template = init_train_state(setup.env, setup.agent, jax.random.PRNGKey(0))
+    return template, trun.ks_setup(dataclasses.replace(tks.PRESETS[name], **over), device="cpu")
+
+
+def assert_replay_matches_jax(rb, jrb):
+    """The port's row buffer against a JAX Replay, on values."""
+    assert rb.ptr == int(jrb.ptr) and rb.size == int(jrb.size)
+    for got, want in ((rb.s, jrb.s), (rb.a, jrb.a), (rb.r, jrb.r), (rb.t, jrb.t), (rb.sn, jrb.sn)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("name", ["KS22", "KS200"])
+def test_port_reads_the_shipped_full_states(name):
+    """artifacts/KS22 and artifacts/KS200 through the full reader: every leaf
+    as the JAX `checkpoint.load` gives it, the row-major replay transposed
+    (checked on values: ns = na = 1, so the shapes alone would not show a
+    wrong layout), the key and the hook."""
+    art = f"artifacts/{name}"
+    template, setup = ks_pair(name)
+    with open(os.path.join(art, "saves", "agent.msgpack"), "rb") as f:
+        raw = flax_msgpack.unpack(f.read())
+    assert raw["replay"]["s"].shape == (150_000, 1)  # stored row-major
+    ts, hook = checkpoint.load(art, setup.agent, device="cpu")
+    jts, jhook = jcheckpoint.load(art, template)
+    assert_state_matches_jax(ts.agent, jts.agent)
+    assert_replay_matches_jax(ts.replay, jts.replay)
+    assert ts.replay.size > 1000 and np.abs(ts.replay.s.numpy()).max() > 0
+    np.testing.assert_array_equal(ts.replay.s.numpy()[0], raw["replay"]["s"][:, 0])
+    np.testing.assert_array_equal(ts.replay.buf.numpy()[:, 1], raw["replay"]["a"][:, 0])
+    assert ts.key.tolist() == np.asarray(jts.key).tolist() == raw["key"].tolist()
+    assert hook.rewards == list(jhook.rewards) and hook.bestepisode == jhook.bestepisode
+
+
+def test_jax_reads_the_ports_full_file(tmp_path):
+    """The shipped KS22 state written back by the port: the bytes are flax's
+    `to_bytes` of the state JAX loads (slot-minor replay, the file's key),
+    and the JAX `checkpoint.load` gives back every leaf."""
+    template, setup = ks_pair()
+    ts, hook = checkpoint.load("artifacts/KS22", setup.agent, device="cpu")
+    checkpoint.save(str(tmp_path), ts, hook)
+    raw = (tmp_path / "saves" / "agent.msgpack").read_bytes()
+    jts, _ = jcheckpoint.load("artifacts/KS22", template)
+    assert raw == serialization.to_bytes(jax.tree.map(np.asarray, jts))
+    jts2, jhook2 = jcheckpoint.load(str(tmp_path), template)
+    assert_state_matches_jax(ts.agent, jts2.agent)
+    assert_replay_matches_jax(ts.replay, jts2.replay)
+    assert jhook2.rewards == hook.rewards
+    back, _ = checkpoint.load(str(tmp_path), setup.agent, device="cpu")
+    assert back.key.tolist() == ts.key.tolist() and back.generator.initial_seed() == \
+        resume_seed(checkpoint.seed_of_key(ts.key), hook.ep)
+
+
+def test_a_replay_of_another_capacity_is_refused():
+    """Neither the template's layout nor its transpose: JAX and the port refuse."""
+    template, setup = ks_pair(capacity=1000)
+    with pytest.raises(ValueError, match="row-major transpose"):
+        jcheckpoint.load("artifacts/KS22", template)
+    with pytest.raises(ValueError, match="row-major transpose"):
+        checkpoint.load("artifacts/KS22", setup.agent, device="cpu")
+
+
+def test_the_full_file_wins(tmp_path):
+    """A directory with both files: the full one is read, as in JAX; with
+    the light one alone, an empty replay of the agent's capacity."""
+    template, setup = ks_pair()
+    full, hook = checkpoint.load("artifacts/KS22", setup.agent, device="cpu")
+    light, _ = checkpoint.load("artifacts/KS22_sf_lh", setup.agent, device="cpu")
+    assert light.replay.size == 0 and light.replay.capacity == 150_000
+    out = str(tmp_path)
+    checkpoint.save(out, light, hook, include_replay=False)
+    checkpoint.save(out, full, hook)
+    ts, _ = checkpoint.load(out, setup.agent, device="cpu")
+    jts, _ = jcheckpoint.load(out, template)
+    assert ts.replay.size == int(jts.replay.size) == full.replay.size > 0
+    assert_state_matches_jax(ts.agent, jts.agent)
+    assert_state_matches_jax(full.agent, jts.agent)
+    os.remove(os.path.join(out, "saves", "agent.msgpack"))
+    ts, _ = checkpoint.load(out, setup.agent, device="cpu")
+    assert ts.replay.size == 0
+    assert_state_matches_jax(ts.agent, jcheckpoint.load(out, template)[0].agent)
+
+
+# ---------------------------------------------------------------- KS CLI
+KS_TOY = ["--cpu", "--config-overrides", '{"te": 0.5, "update_loops": 2}']
+
+
+def test_cli_ks_train_eval_resume(tmp_path, capsys):
+    """`KS22 --train` (the fidelity loop) writes the full checkpoint, which
+    the JAX `checkpoint.load` reads; `--eval` reads it from --out without
+    --load-from; `--resume` continues the episodes, the replay and the hook."""
+    out, out2 = str(tmp_path / "run"), str(tmp_path / "resumed")
+    trun.main(["KS22", "--train", *KS_TOY, "--loops", "2", "--no-steps", "15", "--seed", "4",
+               "--out", out])
+    text = capsys.readouterr().out
+    assert "loop 2/2" in text and f"saved to {out}; best reward" in text
+    assert sorted(os.listdir(os.path.join(out, "saves"))) == ["agent.msgpack", "hook.npz"]
+    template, _ = ks_pair(te=0.5, update_loops=2)
+    jts, jhook = jcheckpoint.load(out, template)
+    assert jhook.ep - 1 == 6 and int(jts.replay.size) == 6 * 5 * 8 and int(jts.agent.update_step) == 0
+    assert np.asarray(jts.key).tolist() == [0, 4]
+    assert int(jts.agent.opt_actor[0].count) > 0  # learning ran
+
+    trun.main(["KS22", "--eval", *KS_TOY, "--out", out, "--p-te", "2", "--p-t-action", "1"])
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(res) == {"pre_control_mean_abs_dev", "post_control_mean_abs_dev", "suppression"}
+
+    trun.main(["KS22", "--train", *KS_TOY, "--resume", "--load-from", out, "--out", out2,
+               "--loops", "1", "--no-steps", "5"])
+    text = capsys.readouterr().out
+    assert f"resuming from ep 6, best {jhook.bestreward:.4f}" in text
+    ts, hook = checkpoint.load(out2, tks.build_ks(tks.KS22, device="cpu").agent, device="cpu")
+    assert hook.ep - 1 == 7 and ts.replay.size == 7 * 5 * 8 and hook.rewards[:6] == list(jhook.rewards)
+    assert ts.key.tolist() == [0, 4]  # the file's key goes on
+
+
+def test_a_resumed_run_draws_a_stream_of_its_own(tmp_path, capsys):
+    """The key of a port-written file stays that of the first seed, so the
+    resumed generator is seeded from it and the hook's episode count: a
+    resume draws neither the original run's stream nor that of the resume
+    before it; `--seed` on a resume re-seeds it."""
+    def first_draws(gen):
+        return torch.rand(8, generator=gen).tolist()
+
+    out, out2 = str(tmp_path / "run"), str(tmp_path / "resumed")
+    trun.main(["KS22", "--train", *KS_TOY, "--loops", "1", "--no-steps", "5", "--seed", "4",
+               "--out", out])
+    trun.main(["KS22", "--train", *KS_TOY, "--resume", "--load-from", out, "--out", out2,
+               "--loops", "1", "--no-steps", "5"])
+    capsys.readouterr()
+    _, setup = ks_pair(te=0.5, update_loops=2)
+    ts1, hook1 = checkpoint.load(out, setup.agent, device="cpu")
+    ts2, hook2 = checkpoint.load(out2, setup.agent, device="cpu")
+    assert ts1.key.tolist() == ts2.key.tolist() == [0, 4] and hook2.ep == hook1.ep + 1
+    original = first_draws(torch.Generator().manual_seed(4))
+    resumed, resumed_again = first_draws(ts1.generator), first_draws(ts2.generator)
+    assert len({tuple(original), tuple(resumed), tuple(resumed_again)}) == 3
+    ts1, hook1 = checkpoint.load(out, setup.agent, device="cpu")
+    ts1, _ = tdrivers.train(setup, loops=0, seed=7, ts=ts1, hook=hook1, verbose=False)
+    assert ts1.generator.initial_seed() == resume_seed(7, hook1.ep)
+    assert first_draws(ts1.generator) not in (original, resumed)
+
+
+def test_cli_ks_train_multi(tmp_path, capsys):
+    """`KS22 --train-multi` writes numbered full saves per experiment."""
+    out = str(tmp_path / "multi")
+    trun.main(["KS22", "--train-multi", *KS_TOY, "--no-episodes", "1", "--n-experiments", "1",
+               "--out", out])
+    text = capsys.readouterr().out
+    assert "STARTING EXPERIMENT # 1" in text and "best rewards per experiment: [" in text
+    assert sorted(os.listdir(os.path.join(out, "saves"))) == ["agent1.msgpack", "hook1.npz"]
+    template, _ = ks_pair(te=0.5, update_loops=2)
+    jts, jhook = jcheckpoint.load(out, template, number=1)
+    assert jhook.ep - 1 == 50 and np.asarray(jts.key).tolist() == [0, 609 + 7919]
+
+
+def test_cli_ks_eval_takes_the_current_actor_without_a_best_one(tmp_path, capsys):
+    """A checkpoint whose hook holds no best actor: `--eval` rolls the
+    checkpoint's current actor (JAX run.py:1080-1082)."""
+    _, setup = ks_pair()
+    ts, _ = checkpoint.load("artifacts/KS22", setup.agent, device="cpu")
+    checkpoint.save(str(tmp_path), ts, PDEHook(), include_replay=False)
+    trun.main(["KS22", "--eval", "--cpu", "--load-from", str(tmp_path), "--p-te", "3",
+               "--p-t-action", "1"])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    from distributedconvrl_pde_control_torch.train.eval import actor_policy, rollout
+
+    y = rollout(setup.env, actor_policy(setup.agent, ts.agent.actor), te=3.0, t_action=1.0)["y"]
+    assert got == trun.suppression_of(y, 1.0, setup.env.dt)
+    best = checkpoint.actor_from_jax(checkpoint.load_best_actor("artifacts/KS22"))
+    assert not torch.equal(best.w[0], ts.agent.actor.w[0])  # a different actor
+
+
+def test_cli_fluid_eval_defaults_to_the_run_directory(capsys):
+    """`--eval` without --load-from reads --out, as JAX's `args.load_from or
+    out_dir` does."""
+    argv = ["Fluid_16_256", "--eval", *TOY, "--p-te", "0.04"]
+    trun.main(argv + ["--load-from", FLUID_ART])
+    want = capsys.readouterr().out.strip().splitlines()[-1]
+    trun.main(argv + ["--out", FLUID_ART])
+    assert capsys.readouterr().out.strip().splitlines()[-1] == want
+
+
+def test_cli_fluid_resume_pool_matches_jax(tmp_path, monkeypatch, capsys):
+    """`--train --mesh 1x1 --resume`: the resumed state's fields and reset
+    pool are those of JAX's `trainer.init(PRNGKey(args.seed or cfg.seed))`,
+    whose pool comes from init's default seed 0; `--seed 0` means the
+    preset's seed."""
+    from distributedconvrl_pde_control_tpu.parallel import multichip as jmc
+    from distributedconvrl_pde_control_torch.parallel import multichip as tmc
+    from jax.sharding import Mesh
+
+    agent, _ = fluid_agents(dataclasses.replace(jfluid.FLUID_16_256, nx=16))
+    state = agent.init_state(torch.Generator().manual_seed(0), "cpu")
+    checkpoint.save(str(tmp_path), TorchTrainState(state, None, None), PDEHook(),
+                    include_replay=False)
+    seen = {}
+
+    def stop(trainer, **kw):
+        seen.update(state=kw["state"], pool=trainer.pool.clone(), seed=kw["seed"])
+        return kw["state"], kw["hook"]
+
+    monkeypatch.setattr(tmc, "train_sharded", stop)
+    trun.main(["Fluid_16_256", "--train", *TOY, "--n-envs", "2", "--resume", "--seed", "0",
+               "--load-from", str(tmp_path), "--out", str(tmp_path / "out")])
+    capsys.readouterr()
+    cfg = dataclasses.replace(jfluid.FLUID_16_256, nx=16, te=0.2)
+    mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("dp", "sp"))
+    jtr = jmc.ShardedFluidTrainer(cfg, mesh, jmc.ShardedTrainConfig(n_envs=2))
+    jstate = jtr.init(jax.random.PRNGKey(0 or cfg.seed))
+    np.testing.assert_array_equal(seen["pool"].numpy(), np.asarray(jtr.pool))
+    np.testing.assert_array_equal(seen["state"].w.numpy(), np.asarray(jstate.w))
+    assert seen["state"].generator.initial_seed() == cfg.seed == 436 and seen["seed"] == 0

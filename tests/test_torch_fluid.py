@@ -419,15 +419,16 @@ def test_load_actor_for_eval_reads_the_fluid_actor(tmp_path):
             np.testing.assert_array_equal(actor.b[i].detach().numpy(), z[f"best_actor_b{i}"])
     with pytest.raises(ValueError, match="9 -> 1"):
         tmc.load_actor_for_eval("artifacts/KS22", ttr)  # a 1 -> 6 -> 1 actor
-    # a run whose hook holds no best actor: the light checkpoint's current actor
+    # a run whose hook holds no best actor: the checkpoint's current actor
     from distributedconvrl_pde_control_torch.train import checkpoint
     from distributedconvrl_pde_control_torch.train.hooks import PDEHook
+    from distributedconvrl_pde_control_torch.train.loop import TrainState
 
-    checkpoint.save(str(tmp_path), PDEHook())
-    with pytest.raises(FileNotFoundError, match="no light checkpoint"):
+    checkpoint.save(str(tmp_path), None, PDEHook())
+    with pytest.raises(FileNotFoundError, match="no checkpoint at .*agent_light.msgpack"):
         tmc.load_actor_for_eval(str(tmp_path), ttr)
     state = ttr.agent.init_state(torch.Generator().manual_seed(0), "cpu")
-    checkpoint.save(str(tmp_path), PDEHook(), agent=state)
+    checkpoint.save(str(tmp_path), TrainState(state, None, None), PDEHook(), include_replay=False)
     current = tmc.load_actor_for_eval(str(tmp_path), ttr)
     for got, want in zip(current.parameters(), state.actor.parameters()):
         assert torch.equal(got, want)

@@ -327,7 +327,8 @@ def test_train_multi_sharded_numbered_saves(tmp_path):
     assert sorted(os.listdir(tmp_path / "saves")) == [
         "agent_light1.msgpack", "agent_light2.msgpack", "hook1.npz", "hook2.npz"]
     for n in (1, 2):
-        agent_state, hook = checkpoint.load_light(str(tmp_path), ttr.agent, n, "cpu")
+        ts, hook = checkpoint.load(str(tmp_path), ttr.agent, n, "cpu")
+        agent_state = ts.agent
         with open(tmp_path / "saves" / f"agent_light{n}.msgpack", "rb") as f:
             assert checkpoint.seed_of_key(flax_msgpack.unpack(f.read())["key"]) == 4 + 7919 * n
         assert hook.ep - 1 == 4 and hook.bestreward == best[n - 1]

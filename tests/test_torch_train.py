@@ -374,29 +374,71 @@ def test_held_out_eval_pool_extends_and_is_disjoint():
     (["KS22", "--train", "--batched", "--population", "4"], "item 14"),
     (["KS22", "--train", "--batched", "--pop-search", "4"], "item 14"),
     (["KS22", "--train", "--batched", "--import-jld2", "x"], "item 17"),
-    (["KS22", "--train", "--batched", "--resume"], "item 10"),
     (["KS22", "--train", "--batched", "--mesh", "2"], "item 15"),
     (["KS22_tp", "--train", "--batched"], "item 16"),
-    (["KS22", "--train"], "item 10"),
     (["Fluid_8", "--train", "--batched"], "items 13 and 15"),
-    (["KS22", "--train-multi"], "item 10"),
+    (["KellerSegel10_16", "--hyperopt", "2"], "item 12"),
+    (["KellerSegel10_16_fast", "--train"], "item 12"),
 ])
 def test_cli_refusals_name_their_queue_item(argv, item):
     with pytest.raises(SystemExit, match=item):
         trun.main(argv + ["--cpu"])
 
 
+def test_cli_batched_train_ignores_resume(tmp_path, capsys):
+    """`--train --batched --resume` trains afresh, as the JAX CLI's batched
+    branch does (it never reads --resume), and says so."""
+    out = str(tmp_path / "run")
+    argv = ["KS22", "--train", "--batched", "--cpu", "--n-envs", "2", "--total-steps", "10",
+            "--chunk-len", "5", "--learner-batch", "8", "--capacity", "2048", "--seed", "5",
+            "--out", out]
+    trun.main(argv + ["--resume"])
+    text = capsys.readouterr().out
+    assert "starts afresh" in text and "20 env steps" in text
+    first = checkpoint.load_hook(out).rewards
+    trun.main(argv)
+    assert checkpoint.load_hook(out).rewards == first
+
+
+def test_cli_ks22_global_hyperopt(capsys):
+    """`KS22_global --hyperopt 2` at a toy size: one JSON line per trial and
+    the winner, the trials those of numpy's seed."""
+    from distributedconvrl_pde_control_tpu.train.hyperopt import sample_trial as jax_sample_trial
+
+    trun.main(["KS22_global", "--hyperopt", "2", "--hyperopt-episodes", "2", "--cpu",
+               "--seed", "3"])
+    lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    rng = np.random.default_rng(3)
+    for row in lines[:2]:
+        want = jax_sample_trial(rng)
+        assert {k: row[k] for k in want} == want
+        assert row["cost"] is not None and np.isfinite(row["cost"])
+    assert lines[2]["best_trial"] in (0, 1) and set(lines[2]) == {"best_trial", "best_cost",
+                                                                   "best_params"}
+
+
+def test_cli_ks22_global_train(tmp_path, capsys):
+    """`KS22_global --train` runs the mono agent through the fidelity loop."""
+    out = str(tmp_path / "mono")
+    trun.main(["KS22_global", "--train", "--cpu", "--loops", "1", "--no-steps", "6",
+               "--config-overrides", '{"te": 0.3, "capacity": 1000}', "--out", out])
+    assert "loop 1/1" in capsys.readouterr().out
+    ts, hook = checkpoint.load(out, tks.build_ks_global(
+        dataclasses.replace(tks.KS22_GLOBAL, capacity=1000), device="cpu").agent, device="cpu")
+    assert hook.ep - 1 == 2 and ts.replay.size == 6 and ts.replay.s.shape == (8, 1000)
+
+
 def test_port_imports_without_jax():
-    """Every module of the port, chip_smoke.py and bench_torch.py import in a
-    process where `jax`, `flax`, `optax`, `msgpack` and the JAX package cannot
-    be."""
+    """Every module of the port, chip_smoke.py, bench_torch.py and
+    reproduce_torch.py import in a process where `jax`, `flax`, `optax`,
+    `msgpack` and the JAX package cannot be."""
     code = """
 import importlib, pkgutil, sys
 for name in ("jax", "flax", "optax", "msgpack", "distributedconvrl_pde_control_tpu"):
     sys.modules[name] = None
 import distributedconvrl_pde_control_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-for name in names + ["chip_smoke", "bench_torch"]:
+for name in names + ["chip_smoke", "bench_torch", "reproduce_torch"]:
     importlib.import_module(name)
 assert len(names) > 25, names
 print("imported", len(names))

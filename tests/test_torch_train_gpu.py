@@ -162,3 +162,49 @@ def test_fluid_train_chunk_on_gpu_matches_cpu():
             for k in ("w", "b"):
                 assert np.abs(a[k] - b[k]).max() <= 1e-4 * max(np.abs(b[k]).max(), 1e-3)
     assert int(st_g.ep_count) == int(st_c.ep_count) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mono", [pytest.param(False, id="ks22"), pytest.param(True, id="mono")])
+def test_fidelity_episode_on_gpu_matches_cpu(mono):
+    """One fidelity episode with learning (20 steps, learning from step 12)
+    on the card against the CPU on the same draws: K1 against its plain
+    twin inside the loop, parameters atol 1e-4, reward_sum atol 1e-4, the
+    same steps and replay rows; K1 launched once per env step."""
+    _need_cuda()
+    from distributedconvrl_pde_control_torch.agents.replay import replay_init
+    from distributedconvrl_pde_control_torch.configs.ks import KS22_GLOBAL, build_ks_global
+    from distributedconvrl_pde_control_torch.train.loop import TrainState, make_episode_fn
+
+    build, base = (build_ks_global, KS22_GLOBAL) if mono else (build_ks, KS22)
+    cfg = dataclasses.replace(base, te=2.0, capacity=4000)
+    acfg = build(cfg, device="cpu").agent.cfg
+    gen = torch.Generator().manual_seed(5)
+    n_cols = 1 if mono else KS22.n_actuators
+    draws = [StepDraws(noise=torch.randn((acfg.na_rows, n_cols), generator=gen),
+                       offs=torch.randint(0, max(acfg.interleave * (i - 1), 1),
+                                          (acfg.update_loops, acfg.batch_size), generator=gen))
+             for i in range(20)]
+    seed = build(cfg, device="cpu").agent.init_state(torch.Generator().manual_seed(6), "cpu")
+    y0 = build(cfg, device="cpu").random_init(torch.Generator().manual_seed(7), 1)[0]
+    outs = []
+    for d in ("cuda", "cpu"):
+        s = build(cfg, device=d)
+        ts = TrainState(agent=s.agent.make_state(copy_chain(seed.actor).to(d),
+                                                 copy_chain(seed.critic).to(d)),
+                        replay=replay_init(acfg.capacity, acfg.ns, acfg.na_rows, d), generator=None)
+        before = ks_kernel.KS_CNAB2.launches
+        ts, res = make_episode_fn(s.env, s.agent, learning=True)(
+            ts, y0.to(d), [StepDraws(noise=x.noise.to(d), offs=x.offs.to(d)) for x in draws])
+        outs.append((ts, res, ks_kernel.KS_CNAB2.launches - before))
+    (ts_c, res_c, k1_c), (ts_h, res_h, k1_h) = outs
+    assert res_c.steps == res_h.steps == 20 == k1_c and k1_h == 0
+    assert ts_c.replay.size == ts_h.replay.size == 20 * acfg.interleave
+    np.testing.assert_allclose(ts_c.replay.buf[:ts_c.replay.size].cpu().numpy(),
+                               ts_h.replay.buf[:ts_h.replay.size].numpy(), atol=1e-4, rtol=0)
+    assert abs(float(res_c.reward_sum) - float(res_h.reward_sum)) <= 1e-4
+    for name in ("actor", "critic", "target_actor", "target_critic"):
+        for a, b in zip(chain_to_numpy(getattr(ts_c.agent, name)),
+                        chain_to_numpy(getattr(ts_h.agent, name))):
+            np.testing.assert_allclose(a["w"], b["w"], atol=1e-4, rtol=0)
+            np.testing.assert_allclose(a["b"], b["b"], atol=1e-4, rtol=0)
