@@ -121,7 +121,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      cost finite;
  27. reproduce_torch.py on the card: every KS row of reproduce.py (the two
      KS22_global rows included) beside the JAX package's value for it
-     (`JAX_KS_ROWS`, from reproduce.py on the CPU), each within
+     (`reproduce_torch.JAX_KS_ROWS`, from reproduce.py on the CPU), each within
      max(0.1 JAX, 0.0005);
  28. the device time of 5 fidelity env steps with learning by kernel group
      (K1 / matmul / optimizer / copies / elementwise), launches per env step,
@@ -736,31 +736,8 @@ FIDELITY_LOOPS, FIDELITY_STEPS = 2, 800
 FIDELITY_LIMIT = 0.25  # phase 24: RESULTS.md's band for the recipe: 1.6 %-19 % on CPU seeds
 RESUME_STEPS, MULTI_EPISODES, MULTI_TE = 100, 50, 1.0  # phase 25
 MONO_STEPS, HYPEROPT_TRIALS, HYPEROPT_EPISODES = 400, 2, 5  # phase 26
-# phase 27: the suppression of every KS row of reproduce.py as the JAX package gives it
-# (`python reproduce.py` on the CPU, rounded as it prints them); limit per row:
-# |port - JAX| <= max(0.1 JAX, 0.0005)
-JAX_KS_ROWS = {
-    "KS22 stabilization": 0.0158,
-    "KS22_tp (throughput-tier-trained) stabilization": 0.0058,
-    "KS22_tp_lh (spectral-carry-tier-trained) stabilization": 0.0024,
-    "KS22_sf_lh (spectral-featurize-tier-trained) stabilization": 0.0024,
-    "KS22_tp_pop8 member 0 (fused 8-member study) stabilization": 0.0024,
-    "KS22_popsearch winner (fused schedule search) stabilization": 0.0024,
-    "KS22_batched_lh stabilization": 0.0024,
-    "KS22_global (mono, hand-tuned) stabilization": 1.0435,
-    "KS22_global (mono, hyperopt winner) stabilization": 0.0967,
-    "KS22 (distributed, hyperopt winner) stabilization": 0.0217,
-    "KS200 -> KS500 transfer": 0.0777,
-    "KS200 -> mu=0.02 disturbed": 0.0484,
-    "KS200_batched -> KS500 transfer": 0.0083,
-    "KS200_batched_lh stabilization": 0.0034,
-    "KS200_batched_lh -> KS500 transfer": 0.0032,
-    "KS200_batched_lh -> mu=0.02 disturbed": 0.0035,
-    "KS200_pop8 member 0 stabilization": 0.0021,
-    "KS200_pop8 member 0 -> KS500 transfer": 0.0011,
-    "KS200_pop8 member 0 -> mu=0.02 disturbed": 0.0022,
-    "KS200 (hyperopt winner) stabilization": 0.0212,
-}
+# phase 27: reproduce_torch.JAX_KS_ROWS holds the suppression of every KS row of reproduce.py
+# as the JAX package gives it; limit per row: |port - JAX| <= max(0.1 JAX, 0.0005)
 
 
 def fidelity_vs_cpu(card: str) -> None:
@@ -958,7 +935,7 @@ def fidelity_child(out_json: str) -> int:
     rows, t0 = [], time.perf_counter()
     for name, s, a in reproduce_torch.ks_rows(dev):
         got = reproduce_torch.suppression(s, a, 200.0, 100.0, ndigits=None)
-        want = JAX_KS_ROWS[name]
+        want = reproduce_torch.JAX_KS_ROWS[name]
         limit = max(0.1 * want, 0.0005)
         rows.append({"row": name, **got, "jax": want, "abs_diff": abs(got["suppression"] - want),
                      "limit": limit})
@@ -968,7 +945,7 @@ def fidelity_child(out_json: str) -> int:
     print(json.dumps({"rows": len(rows), "seconds": t_rows,
                       "K1_launches": ks_kernel.KS_CNAB2.launches, "card": card}))
     out["rows"] = rows
-    check([r["row"] for r in rows] == list(JAX_KS_ROWS) and ks_kernel.KS_CNAB2.launches == 2000 * len(rows),
+    check([r["row"] for r in rows] == list(reproduce_torch.JAX_KS_ROWS) and ks_kernel.KS_CNAB2.launches == 2000 * len(rows),
           "reproduce_torch.py did not run every KS row once")
     bad = [r["row"] for r in rows if not r["abs_diff"] <= r["limit"]]
     check(not bad, f"rows off their JAX value: {bad}")
@@ -1029,6 +1006,346 @@ def fidelity_phases(card: str) -> dict:
     return json.loads(out_json.read_text())["K1_launches_by_path"]
 
 
+# ------------------------------------------ the fluid env and Keller-Segel (29-33)
+FAMILY_TOY = dict(nx=32, sensors_per_axis=4)  # phase 29: card against the CPU
+FLUID_STEPPERS = {  # phase 29: (label, FluidConfig overrides)
+    "adaptive": dict(adaptive=True),
+    "rk4": dict(adaptive=False, stepper="rk4"),
+    "ifrk4": dict(adaptive=False, stepper="ifrk4"),
+    "adaptive, |omega| channel and energy term": dict(adaptive=True, abs_sensor_channel=True,
+                                                      energy_reward_weight=0.05),
+}
+# phase 32: the CLI's training paths at full width, cut in depth only (te shortened so that
+# one episode is the loop's step budget; the searches' episodes likewise)
+FLUID_TRAIN_TE, FLUID_TRAIN_STEPS = 1.0, 50  # Fluid_8 --train: 1 loop, one 50-step episode
+# Fluid_8 --train --batched: 3 chunks of 20, 20-step episodes (te 0.4), so that episodes end
+FLUID_BATCHED_ENVS, FLUID_BATCHED_STEPS, FLUID_BATCHED_TE = 16, 60, 0.4
+KSS_TRAIN_TE, KSS_TRAIN_STEPS = 3.0, 500  # KellerSegel10_16_fast --train: one 500-step episode
+# --train --batched: 4 chunks of 50, 100-step episodes (te 0.6)
+KSS_BATCHED_ENVS, KSS_BATCHED_STEPS, KSS_BATCHED_TE = 64, 200, 0.6
+KSS_HYPEROPT_TE = 0.6  # --hyperopt 2 --hyperopt-episodes 3: 100-step episodes
+
+
+def _rel(got, want) -> float:
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def fluid_env_vs_cpu(card: str) -> None:
+    """Phase 29: the 3/2-rule fluid env on the card against the port on the
+    CPU on each stepper; per-env trial counts of the adaptive one."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.fluid import FLUID_8, build_fluid
+    from distributedconvrl_pde_control_torch.ops.navier_stokes import initial_condition
+
+    print("== 29. the 3/2-rule fluid env (32x32, 4x4 actuators, 2 envs from different fields, "
+          "6 steps, actuation from step 2) on the card against the CPU")
+    rng = np.random.default_rng(29)
+    y0 = torch.tensor(np.stack([np.fft.ifft2(initial_condition(4, 32, 32, 1.0, 1.0, rng)).real
+                                for _ in range(2)]).astype(np.float32))
+    actions = torch.rand((6, 2, 1, 16), generator=torch.Generator().manual_seed(29)) * 2 - 1
+    actions[:2] = 0.0
+    for label, over in FLUID_STEPPERS.items():
+        cfg = dataclasses.replace(FLUID_8, **FAMILY_TOY, **over)
+        setups = {d: build_fluid(cfg, device=d) for d in ("cuda", "cpu")}
+        states = {d: s.env.reset(y0.to(d)) for d, s in setups.items()}
+        errs, trials = {"y": 0.0, "obs": 0.0, "reward": 0.0}, {"cuda": [], "cpu": []}
+        for i in range(6):
+            for d, s in setups.items():
+                states[d] = s.env.step(states[d], actions[i].to(d))
+                if cfg.adaptive:
+                    trials[d].append(s.env.step_fn.last_trials.tolist())
+            for k in errs:
+                errs[k] = max(errs[k], _rel(getattr(states["cuda"], k), getattr(states["cpu"], k)))
+        row = {"phase": 29, "stepper": label, "max_rel_diff": errs, "card": card}
+        if cfg.adaptive:
+            row["trials_per_env_step"] = trials["cuda"]
+        print(json.dumps(row))
+        check(all(v <= 1e-4 for v in errs.values())
+              and bool(torch.isfinite(states["cuda"].y).all()) and not states["cuda"].done.any(),
+              f"the fluid env on the card disagrees with the CPU ({label}): {errs}")
+        check(trials["cuda"] == trials["cpu"],
+              f"the adaptive stepper's trial counts differ between card and CPU ({label})")
+
+
+def keller_segel_vs_cpu(card: str) -> None:
+    """Phase 30: the Keller-Segel env on the card against the CPU, and the
+    step's CUDA graph against its eager launches on the card."""
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.keller_segel import (
+        KELLER_SEGEL_10_16_FAST as cfg,
+        build_keller_segel,
+    )
+    from distributedconvrl_pde_control_torch.ops.keller_segel import KellerSegelSolver
+
+    print("== 30. the Keller-Segel env (4 envs, 20 steps) on the card against the CPU; the step's "
+          "CUDA graph against its eager launches")
+    setups = {d: build_keller_segel(cfg, device=d) for d in ("cuda", "cpu")}
+    y0 = setups["cpu"].random_init(torch.Generator().manual_seed(30), 4)
+    actions = torch.rand((20, 4, 1, 16), generator=torch.Generator().manual_seed(31)) * 2 - 1
+    states = {d: s.env.reset(y0.to(d)) for d, s in setups.items()}
+    solver = KellerSegelSolver(nx=cfg.nx, lx=cfg.lx)
+    graph_err, errs = 0.0, {"y": 0.0, "obs": 0.0, "reward": 0.0}
+    for i in range(20):
+        y, forcing = states["cuda"].y, setups["cuda"].env.prepare_action(actions[i].cuda())
+        graph_err = max(graph_err, _rel(solver.step(y, forcing, cfg.dt, cfg.oversampling),
+                                        solver.step_eager(y, forcing, cfg.dt, cfg.oversampling)))
+        for d, s in setups.items():
+            states[d] = s.env.step(states[d], actions[i].to(d))
+        for k in errs:
+            errs[k] = max(errs[k], _rel(getattr(states["cuda"], k), getattr(states["cpu"], k)))
+    moved = float((states["cpu"].y - y0).abs().max())
+    print(json.dumps({"phase": 30, "graph_vs_eager_max_rel": graph_err,
+                      "card_vs_cpu_max_rel": errs, "field_moved_by": moved,
+                      "graphs": len(solver.graphs), "card": card}))
+    check(graph_err <= 1e-6, f"the Keller-Segel graph disagrees with the eager step: {graph_err}")
+    check(all(v <= 1e-4 for v in errs.values()) and moved > 1e-2 and len(solver.graphs) == 1,
+          f"the Keller-Segel env on the card disagrees with the CPU: {errs}")
+
+
+def families_child(out_json: str) -> int:
+    """Phases 31-32 in a process of their own, which has run no profiler
+    session: the Keller-Segel and fluid rows of reproduce.py, and the new
+    training entry points through the CLI."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import reproduce_torch
+    from distributedconvrl_pde_control_torch.configs import fluid as F
+    from distributedconvrl_pde_control_torch.configs import keller_segel as K
+    from distributedconvrl_pde_control_torch.experiments import run
+    from distributedconvrl_pde_control_torch.train import checkpoint
+
+    card = card_line()
+    out = {}
+
+    print("== 31. reproduce_torch.py on the card: the five Keller-Segel DDPG rows, then the "
+          "fluid energy rows, each beside the JAX package's value")
+    rows = []
+    for name, setup, actor in reproduce_torch.keller_segel_rows("cuda"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = reproduce_torch.regulation(setup, actor, ndigits=None)
+        secs = time.perf_counter() - t0
+        want = reproduce_torch.JAX_KELLER_SEGEL_ROWS[name]
+        steps = int(round(reproduce_torch.KELLER_SEGEL_TE / setup.env.dt))
+        rows.append({"row": name, **got, "jax": want,
+                     "ok": reproduce_torch.keller_segel_ok(got, want), "seconds": secs,
+                     "ms_per_env_step": 1e3 * secs / steps})
+        print(json.dumps(rows[-1]), flush=True)
+    for name, setup, actor in reproduce_torch.fluid_rows("cuda"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = reproduce_torch.fluid_energies(setup, actor, ndigits=None)
+        secs = time.perf_counter() - t0
+        want = reproduce_torch.JAX_FLUID_ROWS[name]
+        steps = 3 * int(round(reproduce_torch.FLUID_TE / setup.env.dt))
+        rows.append({"row": name, **got, "jax": want, "ok": reproduce_torch.fluid_ok(got, want),
+                     "seconds": secs, "ms_per_env_step": 1e3 * secs / steps})
+        print(json.dumps(rows[-1]), flush=True)
+    out["rows"] = rows
+    check([r["row"] for r in rows] == list(reproduce_torch.JAX_KELLER_SEGEL_ROWS)
+          + list(reproduce_torch.JAX_FLUID_ROWS), "reproduce_torch.py did not run every row")
+    bad = [r["row"] for r in rows if not r["ok"]]
+    check(not bad, f"rows off their JAX value: {bad}")
+
+    def cli(argv):
+        """The CLI's output (also printed), its seconds and the peak memory of one run."""
+        buf = io.StringIO()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            run.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(buf.getvalue(), end="", flush=True)
+        return buf.getvalue(), secs, torch.cuda.max_memory_allocated()
+
+    print("== 32. the new training entry points through the CLI at full width, cut in depth: "
+          f"Fluid_8 --train ({FLUID_TRAIN_STEPS} steps) and --batched ({FLUID_BATCHED_ENVS} "
+          f"envs), KellerSegel10_16_fast --train ({KSS_TRAIN_STEPS} steps), --batched "
+          f"({KSS_BATCHED_ENVS} envs) and --hyperopt 2")
+    base = str(ROOT / "build" / "smoke_families")
+    shutil.rmtree(base, ignore_errors=True)
+    res32 = {}
+    fluid_over = {"te": FLUID_TRAIN_TE}
+    _, secs, mem = cli(["Fluid_8", "--train", "--loops", "1", "--no-steps", str(FLUID_TRAIN_STEPS),
+                        "--config-overrides", json.dumps(fluid_over), "--out", base + "/fluid"])
+    fsetup = F.build_fluid(dataclasses.replace(F.FLUID_8, **fluid_over), device="cuda")
+    ts, hook = checkpoint.load(base + "/fluid", fsetup.agent, device="cuda")
+    steps = ts.replay.size // fsetup.agent.cfg.n_actuators
+    res32["Fluid_8 --train"] = {"env_steps": steps, "seconds": secs, "env_steps_per_s": steps / secs,
+                                "peak_mem_bytes": mem, "episodes": hook.ep - 1,
+                                "best_reward": hook.bestreward}
+    check(steps == FLUID_TRAIN_STEPS and np.isfinite(hook.rewards).all()
+          and all(bool(torch.isfinite(p).all()) for p in ts.agent.actor.parameters()),
+          "Fluid_8 --train is malformed")
+    text, secs, mem = cli(["Fluid_8", "--train", "--batched", "--n-envs", str(FLUID_BATCHED_ENVS),
+                           "--total-steps", str(FLUID_BATCHED_STEPS), "--chunk-len", "20",
+                           "--capacity", "200000", "--config-overrides",
+                           json.dumps({"te": FLUID_BATCHED_TE}), "--out", base + "/fluid_batched"])
+    n = FLUID_BATCHED_ENVS * FLUID_BATCHED_STEPS
+    res32["Fluid_8 --train --batched"] = batched_result(text, base + "/fluid_batched",
+                                                        fsetup.agent, n, secs, mem)
+    kss_over = {"te": KSS_TRAIN_TE}
+    _, secs, mem = cli(["KellerSegel10_16_fast", "--train", "--loops", "1", "--no-steps",
+                        str(KSS_TRAIN_STEPS), "--config-overrides", json.dumps(kss_over),
+                        "--out", base + "/kss"])
+    ksetup = K.build_keller_segel(K.KELLER_SEGEL_10_16_FAST, device="cuda")
+    ts, hook = checkpoint.load(base + "/kss", ksetup.agent, device="cuda")
+    steps = ts.replay.size // 16
+    res32["KellerSegel10_16_fast --train"] = {
+        "env_steps": steps, "seconds": secs, "env_steps_per_s": steps / secs,
+        "ms_per_env_step": 1e3 * secs / steps, "peak_mem_bytes": mem, "episodes": hook.ep - 1,
+        "best_reward": hook.bestreward}
+    check(steps == KSS_TRAIN_STEPS and np.isfinite(hook.rewards).all()
+          and all(bool(torch.isfinite(p).all()) for p in ts.agent.actor.parameters()),
+          "KellerSegel10_16_fast --train is malformed")
+    text, secs, mem = cli(["KellerSegel10_16_fast", "--train", "--batched", "--n-envs",
+                           str(KSS_BATCHED_ENVS), "--total-steps", str(KSS_BATCHED_STEPS),
+                           "--capacity", "200000", "--config-overrides",
+                           json.dumps({"te": KSS_BATCHED_TE}), "--out", base + "/kss_batched"])
+    n = KSS_BATCHED_ENVS * KSS_BATCHED_STEPS
+    res32["KellerSegel10_16_fast --train --batched"] = batched_result(
+        text, base + "/kss_batched", ksetup.agent, n, secs, mem)
+    text, secs, mem = cli(["KellerSegel10_16_fast", "--hyperopt", "2", "--hyperopt-episodes", "3",
+                           "--config-overrides", json.dumps({"te": KSS_HYPEROPT_TE})])
+    trials = [json.loads(line) for line in text.strip().splitlines() if line.startswith("{")]
+    res32["KellerSegel10_16_fast --hyperopt 2"] = {
+        "costs": [t["cost"] for t in trials[:2]], "seconds": secs, "peak_mem_bytes": mem}
+    check(len(trials) == 3 and all(t["cost"] is not None and np.isfinite(t["cost"])
+                                   and "error" not in t for t in trials[:2]),
+          "the Keller-Segel hyperopt search is malformed")
+    res32["card"] = card
+    print(json.dumps({"phase": 32, **res32}))
+    out["phase32"] = res32
+    Path(out_json).write_text(json.dumps(out))
+    return 0
+
+
+def batched_result(text: str, run_dir: str, agent, n: int, secs: float, mem: int) -> dict:
+    """Phase 32's numbers of a `--train --batched` run, read back through its
+    light checkpoint; fails unless it took `n` env steps, finished episodes
+    and kept every reward and parameter finite."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from distributedconvrl_pde_control_torch.train import checkpoint
+
+    ts, hook = checkpoint.load(run_dir, agent, device="cuda")
+    final = re.search(r"final chunk mean (\S+)$", text.strip())
+    check(f"{n} env steps" in text and final is not None and np.isfinite(float(final.group(1)))
+          and hook.ep > 1 and np.isfinite(hook.rewards).all()
+          and all(bool(torch.isfinite(p).all()) for p in ts.agent.actor.parameters()),
+          f"the batched run in {run_dir} is malformed")
+    return {"env_steps": n, "seconds": secs, "env_steps_per_s": n / secs, "peak_mem_bytes": mem,
+            "episodes": hook.ep - 1, "best_reward": hook.bestreward,
+            "final_chunk_mean": float(final.group(1))}
+
+
+def host_launches(prof) -> dict:
+    """Launch calls the host made under a profiler, by runtime function."""
+    counts = {}
+    for e in prof.key_averages():
+        if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync"):
+            counts[e.key] = counts.get(e.key, 0) + e.count
+    return counts
+
+
+def family_groups(prof) -> dict:
+    """{group: [kernels, device us]} of the families' env steps, by kernel name."""
+    import torch
+
+    groups = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        low = e.key.lower()
+        group = ("cuFFT" if "fft" in low or "regular_fft" in low or "vector_fft" in low else
+                 "gather/scatter" if "index" in low or "gather" in low or "scatter" in low else
+                 "matmul" if "gemm" in low or "gemv" in low else
+                 "copies" if low.startswith("memcpy") or low.startswith("memset") else
+                 "elementwise and other")
+        g = groups.setdefault(group, [0, 0.0])
+        g[0] += e.count
+        g[1] += e.self_device_time_total
+    return groups
+
+
+def families_profile(card: str) -> None:
+    """Phase 33: the device time of one adaptive Fluid_8 env step (128x128,
+    1 env) and one Keller-Segel env step (1 env) by kernel group, the host's
+    launches per env step, trials per env step and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedconvrl_pde_control_torch.configs.fluid import FLUID_8, build_fluid
+    from distributedconvrl_pde_control_torch.configs.keller_segel import (
+        KELLER_SEGEL_10_16_FAST,
+        build_keller_segel,
+    )
+
+    print("== 33. device time of one adaptive Fluid_8 env step and one Keller-Segel env step by "
+          "kernel group (torch.profiler)")
+    for label, setup in (("Fluid_8 (128x128, adaptive RK4, 1 env)", build_fluid(FLUID_8, "cuda")),
+                         ("KellerSegel10_16_fast (1 env, 10 RK4 substeps in one graph)",
+                          build_keller_segel(KELLER_SEGEL_10_16_FAST, "cuda"))):
+        env = setup.env
+        action = torch.rand((1,) + tuple(env.action_shape), generator=torch.Generator()
+                            .manual_seed(33)).cuda() * 2 - 1
+        state = env.reset()
+        for _ in range(3):  # warm: plans, the graph's capture
+            state = env.step(state, action)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = env.step(state, action)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        groups = family_groups(prof)
+        busy_us = sum(g[1] for g in groups.values())
+        launches = host_launches(prof)
+        row = {"profile": label, "wall_us": wall_us,
+               "device_busy_us": busy_us if groups else "not measured",
+               "idle_share": 1.0 - busy_us / wall_us if groups else "not measured",
+               "host_launches_per_env_step": sum(launches.values()), "host_launches": launches,
+               "device_kernels_per_env_step": sum(g[0] for g in groups.values()),
+               "groups": {k: {"kernels": v[0], "device_us": v[1]} for k, v in groups.items()},
+               "card": card}
+        trials = getattr(env.step_fn, "last_trials", None)
+        if trials is not None:
+            row["trials_per_env_step"] = int(trials[0])
+        print(json.dumps(row))
+        check(bool(torch.isfinite(state.y).all()), f"the profiled env step is not finite ({label})")
+
+
+def families_phases(card: str) -> None:
+    """Phases 29-33."""
+    fluid_env_vs_cpu(card)
+    keller_segel_vs_cpu(card)
+    out_json = ROOT / "build" / "smoke_families.json"
+    out_json.unlink(missing_ok=True)
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--families-child",
+                           str(out_json)], cwd=str(ROOT), timeout=900)
+    check(proc.returncode == 0 and out_json.exists(),
+          f"phases 31-32 failed in their process (exit {proc.returncode})")
+    families_profile(card)
+
+
 def main() -> int:
     import torch
 
@@ -1041,13 +1358,18 @@ def main() -> int:
                         help="run phases 1, 2 and 23-28 and print no result line")
     parser.add_argument("--tree", default=None,
                         help="with --times-only: checkout to import the port from")
+    parser.add_argument("--families-only", action="store_true",
+                        help="run phases 1, 2 and 29-33 and print no result line")
     parser.add_argument("--fidelity-child", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--families-child", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if args.fidelity_child:
         return fidelity_child(args.fidelity_child)
+    if args.families_child:
+        return families_child(args.families_child)
     if args.times_only:
         return times_only(args.tree)
     if args.tree:
@@ -1100,6 +1422,9 @@ def main() -> int:
 
     if args.fidelity_only:
         print(json.dumps({"K1_launches_on_the_fidelity_paths": fidelity_phases(card)}))
+        return 0
+    if args.families_only:
+        families_phases(card)
         return 0
     if args.train_only:
         k1_training = train_phases(card)
@@ -1476,6 +1801,7 @@ def main() -> int:
     k1_training = train_phases(card)
     k2_training = fluid_train_phases(card)
     k1_fidelity = fidelity_phases(card)
+    families_phases(card)
 
     print(json.dumps({"kernels": [{
         "name": "ks_cnab2", "route": "cuda",

@@ -2,10 +2,12 @@
 
 Counterpart of ``distributedconvrl_pde_control_tpu/configs/fluid.py``: the
 constants of the Fluid_8/16/32 scripts and FluidSetup.jl, the sensor and
-actuator kernels, the featurizer and the agent configuration of a preset.
-The env state is the REAL vorticity field, as in the reference package. The
-presets run on the 2/3-rule solver (``parallel/multichip.py``); the
-single-device env constructor `build_fluid` is not ported yet.
+actuator kernels, the featurizer and the agent configuration of a preset,
+and `build_fluid`, the single-device env on the 3/2-rule `NSSolver` with
+its three steppers (adaptive RK4, the default of the single-grid presets;
+fixed RK4; integrating-factor RK4). The env state is the REAL vorticity
+field, as in the reference package. The `--mesh` paths run the same presets
+on the 2/3-rule solver (``parallel/multichip.py``).
 """
 
 from __future__ import annotations
@@ -15,8 +17,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from distributedconvrl_pde_control_torch.agents.ddpg import DDPGConfig
-from distributedconvrl_pde_control_torch.envs.features import Conv2DFeaturizer, taylor_kernels_2d
+from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent, DDPGConfig
+from distributedconvrl_pde_control_torch.envs.features import (
+    AbsConv2DFeaturizer,
+    Conv2DFeaturizer,
+    taylor_kernels_2d,
+)
+from distributedconvrl_pde_control_torch.envs.pde_env import PDEEnv
+from distributedconvrl_pde_control_torch.ops.integrators import rk4_adaptive
+from distributedconvrl_pde_control_torch.ops.navier_stokes import NSSolver, initial_condition
+from distributedconvrl_pde_control_torch.train.drivers import Setup
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +72,10 @@ class FluidConfig:
     sensor_scale: float = 1.0 / 70.0
     reward_norm: float = 320.0
     reward_pow: float = 1.1
-    # extensions of the JAX package's single-device env (not read by the
-    # 2/3-rule path; kept so config overrides carry over)
+    # extensions of the JAX package's single-device env (`build_fluid`; the
+    # 2/3-rule --mesh path does not read them): a local-enstrophy penalty
+    # -w <|omega|, g_i> in the reward, and an |omega| observation channel
+    # (envs/features.py::AbsConv2DFeaturizer)
     energy_reward_weight: float = 0.0
     abs_sensor_channel: bool = False
     # agent (FluidSetup.jl:79-95)
@@ -191,9 +203,126 @@ def fluid_agent_config(cfg: FluidConfig, obs_dim: int, capacity: int | None = No
     )
 
 
-def build_fluid(cfg: FluidConfig = FLUID_8, device: str = "cuda"):
-    """The single-device fluid env (3/2-rule `NSSolver`) is not ported."""
-    raise NotImplementedError(
-        "the single-device fluid env needs NSSolver (3/2-rule padding), ROADMAP.md queue 1 "
-        "item 13; the port runs fluid presets on the 2/3-rule solver: "
-        "parallel.multichip.ShardedFluidTrainer, or `experiments.run <preset> --mesh 1x1`")
+class AdaptiveFluidStep:
+    """The reference's do_step2 (FluidSetup.jl:181-186): adaptive RK4 at the
+    loose tolerance `tol` over one env step, through
+    `ops/integrators.py::rk4_adaptive` on the full complex spectra, each env
+    with its own step control. `last_trials` holds each env's trial count of
+    the last call (host integers)."""
+
+    def __init__(self, solver: NSSolver, dt: float, tol: float, max_steps: int = 256):
+        self.solver, self.dt, self.tol, self.max_steps = solver, dt, tol, max_steps
+        self.last_trials = None
+
+    def __call__(self, y, forcing):
+        s = self.solver
+        f = torch.fft.fft2(forcing.to(torch.float32))
+        info = {}
+        w = rk4_adaptive(lambda z, f_: s.rhs_real_layout(z, f_), torch.fft.fft2(y.to(torch.float32)),
+                         f, self.dt, rtol=self.tol, atol=self.tol, max_steps=self.max_steps,
+                         info=info)
+        self.last_trials = info["trials"]
+        return torch.fft.ifft2(w).real
+
+
+def fluid_random_field(cfg: FluidConfig, seed: int) -> np.ndarray:
+    """The random-vortex field of generate_random_init (FluidSetup.jl:386-394)
+    for an integer seed, float32 (ny, nx): case 3 in training, case 4 in
+    evaluation. The JAX package draws `seed` from its key; the port's
+    `random_init` draws it from a torch generator."""
+    n = cfg.grid_nx
+    w = initial_condition(4 if cfg.evaluation else 3, n, n, cfg.lx, cfg.lx,
+                          np.random.default_rng(seed))
+    return np.fft.ifft2(w).real.astype(np.float32)
+
+
+def build_fluid(cfg: FluidConfig = FLUID_8, device: str = "cuda") -> Setup:
+    """Assemble the single-device fluid setup (FluidSetup.jl:188-394) on
+    `device`: the 3/2-rule `NSSolver`, the preset's stepper, featurizer,
+    reward and prepared forcing, its case-4 initial field and its agent."""
+    n = cfg.grid_nx
+    solver = NSSolver(nx=n, ny=n, lx=cfg.lx, ly=cfg.lx, nu=cfg.nu, dealias=cfg.dealias,
+                      fft_mode=cfg.fft_mode, nl_fft_mode=cfg.nl_fft_mode, device=device)
+    n_act = cfg.sensors_per_axis**2
+    sensors, actuators = fluid_kernels(cfg)
+    sensor_matrix = torch.as_tensor(sensors.reshape(n_act, -1), dtype=torch.float32, device=device)
+    actuator_stack = torch.as_tensor(actuators.reshape(n_act, -1), dtype=torch.float32,
+                                     device=device)
+    if cfg.abs_sensor_channel:
+        featurizer = AbsConv2DFeaturizer(
+            sensor_matrix=sensor_matrix,
+            actuators_to_sensors=torch.arange(n_act, device=device),
+            sensors_per_axis=cfg.sensors_per_axis,
+            scale=cfg.sensor_scale,
+            window_size=cfg.window_size,
+        )
+    else:
+        featurizer = fluid_featurizer(cfg, sensor_matrix)
+
+    def reward_fn(y, action, delta_action):
+        """FluidSetup.jl:188-202 on real fields: (B, n, n) -> (B, n_act)."""
+        flat = y.flatten(1)
+        dots = (flat @ sensor_matrix.T).abs() ** cfg.reward_pow / cfg.reward_norm
+        r = (
+            -dots.abs()
+            - cfg.action_punish * action[:, 0] ** 2
+            - cfg.delta_action_punish * delta_action[:, 0] ** 2
+        )
+        if cfg.energy_reward_weight > 0.0:
+            r = r - cfg.energy_reward_weight * (flat.abs() @ sensor_matrix.T)
+        return r
+
+    def prepare_action(action):
+        """FluidSetup.jl:247-261: the real forcing field; the solver
+        transforms it once per env step."""
+        return (cfg.agent_power * (action[:, 0] @ actuator_stack)).reshape(-1, n, n)
+
+    if cfg.adaptive:
+        step_fn = AdaptiveFluidStep(solver, cfg.dt, cfg.adaptive_tol)
+    elif cfg.stepper == "ifrk4":
+        def step_fn(y, forcing):
+            return solver.step_real_if(y, forcing, cfg.dt, cfg.fast_oversampling_eff)
+    else:
+        def step_fn(y, forcing):
+            return solver.step_real(y, forcing, cfg.dt, cfg.oversampling)
+
+    rng0 = np.random.default_rng(cfg.grid_seed)
+    y0 = np.fft.ifft2(initial_condition(4, n, n, cfg.lx, cfg.lx, rng0)).real.astype(np.float32)
+    env = PDEEnv(
+        step_fn=step_fn,
+        featurize=featurizer,
+        prepare_action=prepare_action,
+        reward_fn=reward_fn,
+        y0=torch.as_tensor(y0, device=device),
+        action_shape=(1 + cfg.memory_size, n_act),
+        n_rewards=n_act,
+        te=cfg.te,
+        t0=cfg.t0,
+        dt=cfg.dt,
+        max_value=cfg.max_value,
+        check_max_value=cfg.check_max_value,
+    )
+
+    def random_init(generator: torch.Generator, count: int) -> torch.Tensor:
+        """generate_random_init (FluidSetup.jl:386-394): `count` random-vortex
+        fields (count, n, n), each from an integer seed in [0, 2^31 - 1)
+        drawn from `generator`."""
+        seeds = torch.randint(0, 2**31 - 1, (count,), generator=generator,
+                              device=generator.device).tolist()
+        return torch.as_tensor(np.stack([fluid_random_field(cfg, s) for s in seeds]),
+                               device=device)
+
+    return Setup(
+        name=cfg.name,
+        env=env,
+        agent=DDPGAgent(fluid_agent_config(cfg, featurizer.obs_dim)),
+        seed=cfg.seed,
+        random_init=random_init,
+        loops=cfg.loops,
+        no_steps=cfg.no_steps,
+        noise_decay=cfg.noise_decay,
+        min_best_episode=cfg.min_best_episode,
+        record=False,  # collect_bestDF=false for fluid (FluidSetup.jl:373-377)
+        error_detection=fluid_error_detection,
+        reward_clamp=-3000.0,
+    )

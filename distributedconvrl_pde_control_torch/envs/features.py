@@ -1,11 +1,13 @@
 """Sensor/actuator kernels and the KS and fluid featurizers.
 
 Counterpart of ``distributedconvrl_pde_control_tpu/envs/features.py``
-(``gaussian_kernels_1d``, ``taylor_kernels_2d``, ``_window_stack_1d``,
-``_window_stack_2d``, ``_temporal_and_memory``, ``Conv1DFeaturizer``,
-``Conv2DFeaturizer``, ``GlobalFeaturizer``). The env batch is an explicit leading dimension:
-fields are (B, nx) or (B, ny, nx), sensor readouts (B, n_sensors),
-observations (B, obs_dim, n_actuators).
+(``gaussian_kernels_1d``, ``rectangle_kernels_1d``, ``taylor_kernels_2d``,
+``_window_stack_1d``, ``_window_stack_2d``, ``_temporal_and_memory``,
+``Conv1DFeaturizer``, ``Conv2DFeaturizer``, ``GlobalFeaturizer``,
+``TwoFieldFeaturizer``, ``AbsConv2DFeaturizer``). The env batch is an
+explicit leading dimension: fields are (B, nx), (B, 2, nx) (Keller-Segel) or
+(B, ny, nx), sensor readouts (B, n_sensors), observations (B, obs_dim,
+n_actuators).
 """
 
 from __future__ import annotations
@@ -53,6 +55,18 @@ def gaussian_kernels_1d(
         core[nx - extra :] += left
         core[: len(right)] += right
         kernels[i] = core
+    return kernels
+
+
+def rectangle_kernels_1d(positions: Sequence[int], nx: int, half_window: int = 2) -> np.ndarray:
+    """Top-hat kernels of width 2*half_window+1 (KellerSegelSetup.jl:112-126).
+
+    Positions are 1-based grid indices as in the reference; no periodic wrap
+    (the reference indexes directly, valid because positions stay interior).
+    """
+    kernels = np.zeros((len(positions), nx))
+    for i, pos in enumerate(positions):
+        kernels[i, pos - 1 - half_window : pos + half_window] = 1.0
     return kernels
 
 
@@ -228,3 +242,76 @@ class GlobalFeaturizer:
         base = ((y @ self.sensor_matrix.T) * self.scale)[:, :, None]
         return _temporal_and_memory(base, prev_obs, action, self.temporal_steps,
                                     self.memory_size, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoFieldFeaturizer:
+    """Keller-Segel observations (KellerSegelSetup.jl:265-316): both fields'
+    rectangle dots scaled by `scale`, a window per field, optionally the
+    last action rows, temporal stacking and memory rows."""
+
+    sensor_matrix: torch.Tensor  # (n_sensors, nx)
+    actuators_to_sensors: torch.Tensor  # (n_actuators,) int indices (0-based), on the device
+    scale: float = 0.25
+    window_size: int = 3
+    temporal_steps: int = 2
+    memory_size: int = 0
+    sees_action: bool = False
+    action_rows: int = 1
+
+    @property
+    def n_actuators(self) -> int:
+        return len(self.actuators_to_sensors)
+
+    @property
+    def obs_dim(self) -> int:
+        base = 2 * self.window_size + (self.action_rows if self.sees_action else 0)
+        return base * self.temporal_steps + self.memory_size
+
+    def from_dots(self, dots, prev_obs=None, action=None):
+        """Featurize from raw per-field sensor dots <y_f, rect_i> of shape
+        (B, 2, n_sensors)."""
+        blocks = [_window_stack_1d(dots[:, f] * self.scale, self.window_size)
+                  [:, :, self.actuators_to_sensors] for f in range(2)]
+        if self.sees_action:
+            blocks.append(dots.new_zeros((dots.shape[0], self.action_rows, self.n_actuators))
+                          if action is None else action)
+        base = torch.cat(blocks, dim=1)
+        return _temporal_and_memory(
+            base, prev_obs, action, self.temporal_steps, self.memory_size, self.n_actuators
+        )
+
+    def __call__(self, y, prev_obs=None, action=None):
+        return self.from_dots(y @ self.sensor_matrix.T, prev_obs, action)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbsConv2DFeaturizer:
+    """Fluid observations with a second channel of |field| sensor readings,
+    an extension of the JAX package (not in the reference): windowed
+    <|omega|, g_i> rows under the windowed <omega, g_i> rows, so that
+    zero-circulation structures, which the signed readings miss, are
+    observable."""
+
+    sensor_matrix: torch.Tensor  # (n_sensors, ny*nx)
+    actuators_to_sensors: torch.Tensor  # (n_actuators,) int indices (0-based), on the device
+    sensors_per_axis: int
+    scale: float
+    window_size: int = 3
+
+    @property
+    def n_actuators(self) -> int:
+        return len(self.actuators_to_sensors)
+
+    @property
+    def obs_dim(self) -> int:
+        return 2 * self.window_size**2
+
+    def __call__(self, y, prev_obs=None, action=None):
+        flat = y.flatten(-2)
+        spa = self.sensors_per_axis
+        vals = ((flat @ self.sensor_matrix.T) * self.scale).reshape(-1, spa, spa)
+        avals = ((flat.abs() @ self.sensor_matrix.T) * self.scale).reshape(-1, spa, spa)
+        base = torch.cat([_window_stack_2d(vals, self.window_size),
+                          _window_stack_2d(avals, self.window_size)], dim=1)
+        return base[:, :, self.actuators_to_sensors]

@@ -30,11 +30,11 @@ import torch
 class EnvState:
     """Batched snapshot of the environment (PDEenv.jl:26-62)."""
 
-    y: torch.Tensor  # (B, nx) PDE field
+    y: torch.Tensor  # (B, nx), (B, 2, nx) or (B, ny, nx) PDE field
     obs: torch.Tensor  # (B, obs_dim, n_actuators)
     action: torch.Tensor  # (B, action_rows, n_actuators) last action
     delta_action: torch.Tensor
-    forcing: torch.Tensor  # (B, nx) env.p, the prepared forcing
+    forcing: torch.Tensor  # (B, ...) env.p, the prepared forcing
     steps: torch.Tensor  # (B,) int32
     time: torch.Tensor  # (B,) float32
     reward: torch.Tensor  # (B, n_rewards)
@@ -67,7 +67,7 @@ class PDEEnv:
     """A batch of PDE control environments: dynamics + featurization + reward.
 
     All callables act on the whole batch:
-      step_fn(y, forcing) -> y'                (the solver step, kernel K1)
+      step_fn(y, forcing) -> y'                (the solver step)
       featurize(y, prev_obs, action) -> obs    (None args at reset)
       prepare_action(action) -> forcing        (action smearing)
       reward_fn(y, action, delta_action) -> rewards (B, n_rewards)
@@ -77,7 +77,7 @@ class PDEEnv:
     featurize: Callable[..., torch.Tensor]
     prepare_action: Callable[[torch.Tensor], torch.Tensor]
     reward_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
-    y0: torch.Tensor  # (nx,) default initial field
+    y0: torch.Tensor  # (nx,), (2, nx) or (ny, nx) default initial field
     action_shape: tuple  # (action_rows, n_actuators)
     n_rewards: int
     te: float = 2.0
@@ -119,7 +119,7 @@ class PDEEnv:
         return int(math.ceil((self.te - self.t0) / self.dt - 1e-9))
 
     def reset(self, y0: Optional[torch.Tensor] = None) -> EnvState:
-        """Reset a batch from initial fields y0 (B, nx), or a batch of one
+        """Reset a batch from initial fields y0 (B, ...), or a batch of one
         from the env's default y0."""
         y = (self.y0[None] if y0 is None else y0).to(torch.float32)
         b, dev = y.shape[0], y.device
@@ -170,14 +170,14 @@ class PDEEnv:
             if spectral_io:
                 done = done | self.carry_guard(carry)
             else:
-                done = done | (y.abs().amax(dim=-1) > self.max_value)
+                done = done | (y.flatten(1).abs().amax(dim=-1) > self.max_value)
         elif self.check_max_value == "reward":
             done = done | (reward.abs().amax(dim=-1) > self.max_value)
         # non-finite fields always terminate (the reference reaches the same
         # outcome through max() comparisons); on the spectral-featurize tier
         # the carry is read, since y is stale there
         field = carry if spectral_io else y
-        finite = torch.isfinite(field).all(dim=-1) & torch.isfinite(reward).all(dim=-1)
+        finite = torch.isfinite(field.flatten(1)).all(dim=-1) & torch.isfinite(reward).all(dim=-1)
         done = done | ~finite
         return EnvState(
             y=y,

@@ -1,8 +1,9 @@
 """Command-line entry point: train and evaluate KS and fluid controllers.
 
-Counterpart of the single-device `--train`, `--train-multi`, `--hyperopt`
-and `--train --batched` branches, the `--mesh` branch at a 1x1 mesh and two
-`--eval` branches of ``distributedconvrl_pde_control_tpu/experiments/run.py``.
+Counterpart of the single-device `--train`, `--train-multi`, `--hyperopt`,
+`--train --batched` and `--eval` branches and of the `--mesh` branch at a 1x1
+mesh of ``distributedconvrl_pde_control_tpu/experiments/run.py``, for the KS,
+Keller-Segel (`KellerSegel10_16[_fast]`) and fluid families.
 
 KS presets, the fidelity loop (one env, 20 learner updates per env step):
 
@@ -15,22 +16,25 @@ writes the full checkpoint `saves/agent.msgpack` (agent, replay, key) and
 (or --out). `--train-multi [--no-episodes 2800 --n-experiments 2]` runs the
 restart protocol with numbered saves (`agent{n}.msgpack`, `hook{n}.npz`).
 `--hyperopt N [--hyperopt-episodes 30 --hyperopt-robust K]` runs N trials of
-the random search (KS22_global, KS22, KS200), one JSON line each.
+the random search (KS22_global, KS22, KS200 and both Keller-Segel presets),
+one JSON line each. The Keller-Segel presets and the fluid presets without
+`--mesh` (the single-device env on the 3/2-rule solver, adaptive RK4 by
+default) train the same ways, `--train --batched` included.
 
-KS presets, batched training (the throughput configuration):
+Batched training (the throughput configuration), any family:
 
     python -m distributedconvrl_pde_control_torch.experiments.run KS22 --train --batched \\
         --n-envs 256 --total-steps 3000 --eval-every 500 --eval-steps 500 \\
         --config-overrides '{"stepper": "etdrk4", "spectral_carry": true}' \\
         --out runs/KS22 [--cpu]
 
-trains with `train_batched` from a 32-field pool of random initial
-conditions, prints the reward curve, the evals and a summary line, and
+trains with `train_batched` from a pool of 32 `random_init` fields drawn
+from the preset's seed, prints the reward curve, the evals and a summary line, and
 writes `saves/hook.npz` (best actor, reward history), the light agent
 checkpoint `saves/agent_light.msgpack` and `config_overrides.json` into
 --out, which `--eval --load-from` reads back.
 
-KS presets (the plot_heat protocol, without plots):
+KS and Keller-Segel presets (the plot_heat protocol, without plots):
 
     python -m distributedconvrl_pde_control_torch.experiments.run KS22 --eval \\
         --load-from artifacts/KS22 --p-te 200 --p-t-action 100 [--cpu]
@@ -39,7 +43,17 @@ loads the checkpoint in --load-from (default --out), rolls its best actor
 (else its current one) on the preset's env
 from the standard initial field, and prints one JSON line with the mean |y|
 over the last 100 uncontrolled steps, over the last tenth of the run, and
-their ratio.
+their ratio; for Keller-Segel the deviation |u - 1| from the controlled
+state (default te 12, actuation from te/2).
+
+Fluid presets on the single-device env (the testrun protocol, without plots):
+
+    python -m distributedconvrl_pde_control_torch.experiments.run Fluid_8 --eval \\
+        --load-from artifacts/Fluid_8 [--p-te 6] [--cpu]
+
+rolls the best actor, corrected opposition control and no action from the
+preset's initial field and prints one JSON line with their mean energies
+sum|omega|/n^2 over the active steps (keys trained, negate, no action).
 
 Fluid presets on the 2/3-rule solver (`run_sharded`, `--mesh 1x1`):
 
@@ -90,12 +104,8 @@ _FLUID_TIERS = {
 # the JAX CLI's KS throughput presets: ETDRK4 with its bf16 transform tiers (named here so
 # that the CLI can say they are not ported; it refuses them)
 KS_TP_PRESETS = ("KS22_tp", "KS200_tp", "KS500_tp", "KS22_64_tp")
-# the JAX CLI's Keller-Segel presets (named here so that the CLI can say they are not ported)
-KELLER_SEGEL_PRESETS = ("KellerSegel10_16", "KellerSegel10_16_fast")
-
-
-# the presets `--hyperopt` searches around
-HYPEROPT_PRESETS = ("KS200", "KS22", "KS22_global")
+# the presets `--hyperopt` searches around (JAX run.py:615-633)
+HYPEROPT_PRESETS = ("KS200", "KS22", "KS22_global", "KellerSegel10_16", "KellerSegel10_16_fast")
 
 
 def ks_presets() -> dict:
@@ -110,10 +120,36 @@ def ks_presets() -> dict:
             "KS22_global": (C.KS22_GLOBAL, C.build_ks_global)}
 
 
+def presets() -> dict:
+    """name -> (config, setup builder) of every KS and Keller-Segel preset;
+    the fluid presets and their tiers come from `fluid_config_for`."""
+    from distributedconvrl_pde_control_torch.configs import keller_segel as K
+
+    return {**ks_presets(),
+            **{name: (cfg, K.build_keller_segel) for name, cfg in K.PRESETS.items()}}
+
+
 def ks_setup(cfg, device: str = "cuda"):
     """The setup of a KS config (a preset's, overrides applied) from its
     preset's builder."""
     return ks_presets()[cfg.name][1](cfg, device=device)
+
+
+def build_setup(cfg, device: str = "cuda"):
+    """The setup of any preset's config (overrides applied): `build_fluid`
+    for a FluidConfig, `build_keller_segel` for a KellerSegelConfig, the KS
+    preset's builder otherwise."""
+    from distributedconvrl_pde_control_torch.configs.fluid import FluidConfig, build_fluid
+    from distributedconvrl_pde_control_torch.configs.keller_segel import (
+        KellerSegelConfig,
+        build_keller_segel,
+    )
+
+    if isinstance(cfg, FluidConfig):
+        return build_fluid(cfg, device=device)
+    if isinstance(cfg, KellerSegelConfig):
+        return build_keller_segel(cfg, device=device)
+    return ks_setup(cfg, device)
 
 
 def fluid_config_for(name: str):
@@ -228,9 +264,10 @@ def held_out_eval_pool(setup, n: int) -> "torch.Tensor":
     return setup.random_init(torch.Generator().manual_seed(setup.seed + 7777), n)
 
 
-def run_ks_train_batched(args, cfg, overrides, device: str) -> None:
-    """`--train --batched` on a KS preset: `train_batched` from a 32-field
-    pool of random ICs, then the hook's checkpoint into --out."""
+def run_train_batched(args, cfg, overrides, device: str) -> None:
+    """`--train --batched`: `train_batched` from a pool of 32 `random_init`
+    fields drawn from the preset's seed (JAX run.py:808-813, every family),
+    then the hook's checkpoint into --out."""
     import torch
 
     from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent
@@ -242,7 +279,7 @@ def run_ks_train_batched(args, cfg, overrides, device: str) -> None:
     )
     from distributedconvrl_pde_control_torch.train.loop import TrainState
 
-    setup = ks_setup(cfg, device=device)
+    setup = build_setup(cfg, device=device)
     if overrides:
         print(f"applied config overrides: {sorted(overrides)}")
     out_dir = args.out or os.path.join("runs", args.preset)
@@ -278,15 +315,15 @@ def run_ks_train_batched(args, cfg, overrides, device: str) -> None:
           f"final chunk mean {means[-1]:.4f}")
 
 
-def run_ks_train(args, cfg, overrides, device: str) -> None:
-    """`--train` (the fidelity loop, `drivers.train`; `--resume` continues the
-    checkpoint in --load-from or --out) and `--train-multi` (the restart
-    protocol with numbered saves) on a KS preset; the full checkpoint with
-    its replay goes into --out."""
+def run_train(args, cfg, overrides, device: str) -> None:
+    """`--train` (the single-env loop, `drivers.train`; `--resume` continues
+    the checkpoint in --load-from or --out) and `--train-multi` (the restart
+    protocol with numbered saves); the full checkpoint with its replay goes
+    into --out."""
     from distributedconvrl_pde_control_torch.train import checkpoint
     from distributedconvrl_pde_control_torch.train.drivers import train, train_multi
 
-    setup = ks_setup(cfg, device=device)
+    setup = build_setup(cfg, device=device)
     if overrides:
         print(f"applied config overrides: {sorted(overrides)}")
     out_dir = args.out or os.path.join("runs", args.preset)
@@ -309,7 +346,7 @@ def run_ks_train(args, cfg, overrides, device: str) -> None:
     print(f"saved to {out_dir}; best reward {hook.bestreward:.4f} @ ep {hook.bestepisode}")
 
 
-def run_ks_hyperopt(args, device: str) -> None:
+def run_hyperopt(args, device: str) -> None:
     """`--hyperopt N`: random search over the preset's hyperparameters, each
     trial a fresh setup scored by the reference's `test_setup` cost or, with
     `--hyperopt-robust K`, by deterministic rollouts from K held-out fields."""
@@ -320,7 +357,12 @@ def run_ks_hyperopt(args, device: str) -> None:
 
     if args.preset not in HYPEROPT_PRESETS:
         raise SystemExit(f"--hyperopt supports {list(HYPEROPT_PRESETS)}")
-    cfg, build_fn = ks_presets()[args.preset]
+    cfg, build_fn = presets()[args.preset]
+    if args.config_overrides:
+        # an extension of the JAX CLI, whose search ignores --config-overrides:
+        # the base configuration the trials vary (say a shorter te, which cuts
+        # a search in depth)
+        cfg = dataclasses.replace(cfg, **_read_overrides(args.config_overrides))
     objective = None
     if args.hyperopt_robust:
         objective = functools.partial(hyperopt_objective_robust,
@@ -330,26 +372,48 @@ def run_ks_hyperopt(args, device: str) -> None:
            objective=objective)
 
 
-def run_ks(args, cfg, device: str) -> None:
-    """`--eval` on a KS preset: the checkpoint in --load-from (default --out)
-    as `checkpoint.load` reads it, its best actor (else its current one) on
-    the plot_heat protocol."""
+def run_eval(args, cfg, device: str) -> None:
+    """`--eval`: the checkpoint in --load-from (default --out) as
+    `checkpoint.load` reads it, its best actor (else its current one). KS and
+    Keller-Segel presets: the plot_heat protocol's suppression (of |u - 1|
+    for Keller-Segel); fluid presets: the testrun's masked mean energies of
+    the actor, corrected opposition control and no action (JAX run.py:
+    1098-1140)."""
+    from distributedconvrl_pde_control_torch.configs.fluid import FluidConfig
+    from distributedconvrl_pde_control_torch.configs.keller_segel import KellerSegelConfig
     from distributedconvrl_pde_control_torch.train import checkpoint
-    from distributedconvrl_pde_control_torch.train.eval import actor_policy, rollout
+    from distributedconvrl_pde_control_torch.train.eval import actor_policy, energy_eval, rollout
 
-    p_te = 200.0 if args.p_te is None else args.p_te
-    t_action = p_te / 2.0 if args.p_t_action is None else args.p_t_action
-    setup = ks_setup(cfg, device=device)
+    fluid, chemo = isinstance(cfg, FluidConfig), isinstance(cfg, KellerSegelConfig)
+    p_te = args.p_te if args.p_te is not None else (6.0 if fluid else 12.0 if chemo else 200.0)
+    t_action = args.p_t_action if args.p_t_action is not None else (0.0 if fluid else p_te / 2.0)
+    setup = build_setup(cfg, device=device)
     load_dir = args.load_from or args.out or os.path.join("runs", args.preset)
     ts, hook = checkpoint.load(load_dir, setup.agent, device=device)
     actor = (checkpoint.actor_from_jax(hook.best_actor).to(device) if hook.best_actor is not None
              else ts.agent.actor)
-    traces = rollout(setup.env, actor_policy(setup.agent, actor), te=p_te, t_action=t_action)
-    print(json.dumps(suppression_of(traces["y"], t_action, setup.env.dt)))
+    policy = actor_policy(setup.agent, actor)
+    if fluid:
+        from distributedconvrl_pde_control_torch.agents.policies import (
+            NegatePolicy,
+            ZeroPolicy,
+            negate_center_row,
+        )
+
+        env = setup.env
+        negate = NegatePolicy(env.action_shape, center_row=negate_center_row(env.featurize))
+        runs = {"trained": (policy, t_action), "negate": (negate, t_action),
+                "no action": (ZeroPolicy(env.action_shape), 0.0)}
+        print(json.dumps({k: energy_eval(env, pol, te=p_te, t_action=ta)["mean_energy"]
+                          for k, (pol, ta) in runs.items()}))
+        return
+    traces = rollout(setup.env, policy, te=p_te, t_action=t_action)
+    y = traces["y"][:, 0] - 1.0 if chemo else traces["y"]
+    print(json.dumps(suppression_of(y, t_action, setup.env.dt)))
 
 
 def suppression_of(y: np.ndarray, t_action: float, dt: float) -> dict:
-    """The plot_heat protocol's numbers of a (steps, nx) trace: mean |y| over
+    """The plot_heat protocol's numbers of a (steps, ...) trace: mean |y| over
     the last 100 uncontrolled steps, over the last tenth of the run, and
     their ratio."""
     act_start = int(round(t_action / dt))
@@ -359,30 +423,37 @@ def suppression_of(y: np.ndarray, t_action: float, dt: float) -> dict:
             "suppression": post / pre if pre else None}
 
 
+def _read_overrides(raw: str) -> dict:
+    """--config-overrides: an inline JSON object or the path of a .json file."""
+    if raw.lstrip().startswith("{"):
+        return json.loads(raw)
+    with open(raw) as f:
+        return json.load(f)
+
+
 def main(argv=None):
     from distributedconvrl_pde_control_torch.configs.fluid import PRESETS as FLUID_PRESETS
 
-    ks_table = ks_presets()
+    table = presets()
 
     fluid_names = sorted(FLUID_PRESETS) + sorted(b + s for b in FLUID_PRESETS for s in _FLUID_TIERS)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("preset", choices=sorted(ks_table) + list(KS_TP_PRESETS) + fluid_names
-                    + list(KELLER_SEGEL_PRESETS),
+    ap.add_argument("preset", choices=sorted(table) + list(KS_TP_PRESETS) + fluid_names,
                     metavar="preset",
-                    help="a KS preset (%s) or a fluid preset (%s, each with an optional "
-                         "_fast/_fixedstep/_eval tier)" % (", ".join(sorted(ks_table)),
-                                                           ", ".join(sorted(FLUID_PRESETS))))
+                    help="a KS or Keller-Segel preset (%s) or a fluid preset (%s, each with an "
+                         "optional _fast/_fixedstep/_eval tier)" % (
+                             ", ".join(sorted(table)), ", ".join(sorted(FLUID_PRESETS))))
     mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("--eval", action="store_true", help="evaluate a trained actor")
     mode.add_argument("--train", action="store_true",
-                      help="train (KS presets: the fidelity loop, or batched with --batched; "
-                           "fluid presets with --mesh 1x1)")
+                      help="train: the single-env loop, or batched with --batched; fluid presets "
+                           "with --mesh 1x1 on the 2/3-rule solver")
     mode.add_argument("--train-multi", action="store_true",
-                      help="the restart protocol with numbered saves (KS presets; fluid presets "
-                           "with --mesh 1x1)")
+                      help="the restart protocol with numbered saves")
     mode.add_argument("--hyperopt", type=int, metavar="N_TRIALS", default=None,
-                      help="random hyperparameter search (KS22_global, KS22, KS200): N trials "
-                           "scored by the test_setup objective (KSglobalSetup.jl:405)")
+                      help="random hyperparameter search (%s): N trials scored by the "
+                           "test_setup objective (KSglobalSetup.jl:405)" % ", ".join(
+                               HYPEROPT_PRESETS))
     ap.add_argument("--hyperopt-episodes", type=int, default=30,
                     help="episodes per hyperopt trial (the reference uses 100)")
     ap.add_argument("--hyperopt-robust", type=int, metavar="N_INITS", default=None,
@@ -397,11 +468,13 @@ def main(argv=None):
                     help="config-dataclass overrides applied to the preset before building: "
                          "an inline JSON object or a path to a .json file. Saved checkpoints "
                          "ship the deltas as config_overrides.json so --load-from rebuilds "
-                         "the matching env")
+                         "the matching env; with --hyperopt they change the searched base")
     ap.add_argument("--p-te", type=float, default=None,
-                    help="eval horizon (default 200 for KS presets, the preset's te for fluid)")
+                    help="eval horizon (default 200 for KS presets, 12 for Keller-Segel, 6 for "
+                         "fluid without --mesh, the preset's te with --mesh)")
     ap.add_argument("--p-t-action", type=float, default=None,
-                    help="actuation start time (default p_te/2 for KS presets, 0 for fluid)")
+                    help="actuation start time (default p_te/2 for KS and Keller-Segel presets, "
+                         "0 for fluid)")
     ap.add_argument("--mesh", default=None,
                     help="train or evaluate a fluid preset on the 2/3-rule solver over a DPxSP "
                          "mesh; only 1x1 so far")
@@ -424,7 +497,8 @@ def main(argv=None):
                     help="override the episode horizon te for --mesh runs")
     ap.add_argument("--batched", action="store_true",
                     help="train with the throughput configuration (env batch, chunks of "
-                         "steps); saves saves/hook.npz and saves/agent_light.msgpack")
+                         "steps), any family without --mesh; saves saves/hook.npz and "
+                         "saves/agent_light.msgpack")
     ap.add_argument("--total-steps", type=int, default=2000,
                     help="train steps for --batched training")
     ap.add_argument("--chunk-len", type=int, default=None,
@@ -456,6 +530,8 @@ def main(argv=None):
     ap.add_argument("--capacity", type=int, default=None,
                     help="--batched replay capacity override (the preset's single-env size "
                          "wraps quickly at batched push rates: n_envs*n_act per step)")
+    ap.add_argument("--ppo", action="store_true",
+                    help="(not ported: ROADMAP.md queue 1 item 14)")
     ap.add_argument("--population", type=int, default=None, metavar="P",
                     help="(not ported: ROADMAP.md queue 1 item 14)")
     ap.add_argument("--pop-search", type=int, default=None, metavar="N",
@@ -470,15 +546,14 @@ def main(argv=None):
     device = "cpu" if args.cpu else "cuda"
 
     # what the port does not run yet, each with the queue item that holds it
+    if args.ppo:
+        raise SystemExit("--ppo: PPO is not ported yet (ROADMAP.md queue 1 item 14)")
     if args.population or args.pop_search:
         raise SystemExit("--population/--pop-search: population training is not ported yet "
                          "(ROADMAP.md queue 1 item 14)")
     if args.import_jld2:
         raise SystemExit("--import-jld2: the reference JLD2 import is not ported yet "
                          "(ROADMAP.md queue 1 item 17)")
-    if args.preset in KELLER_SEGEL_PRESETS:
-        raise SystemExit(f"{args.preset}: Keller-Segel is not ported yet (ROADMAP.md queue 1 "
-                         "item 12)")
     if args.preset in KS_TP_PRESETS:
         raise SystemExit(f"{args.preset}: the reduced-precision transform tiers are not ported "
                          "yet (ROADMAP.md queue 1 item 16); the float32 ETDRK4 tiers run with "
@@ -488,27 +563,18 @@ def main(argv=None):
         raise SystemExit("--batched --mesh: data-parallel batched training over a device mesh "
                          "is not ported yet (ROADMAP.md queue 1 item 15)")
     if fluid_cfg is not None:
-        if args.hyperopt:
-            raise SystemExit(f"--hyperopt supports {list(HYPEROPT_PRESETS)}")
-        if args.batched:
-            raise SystemExit(f"{args.preset} --batched: batched fluid training runs on the "
-                             "single-device fluid env or over a dp mesh, neither ported yet "
-                             "(ROADMAP.md queue 1 items 13 and 15); --train --mesh 1x1 trains "
-                             "on the 2/3-rule solver")
         if fluid_cfg.fft_mode != "auto" or fluid_cfg.nl_fft_mode is not None:
             raise SystemExit(f"{args.preset}: the reduced-precision transform tiers are not "
                              "ported yet (ROADMAP.md queue 1 item 16); the port runs the "
                              "float32 tiers (the base presets, _fast, _fixedstep, _eval)")
-        if not args.mesh:
-            raise SystemExit(
-                f"{args.preset} without --mesh needs the single-device fluid env (NSSolver, "
-                "ROADMAP.md queue 1 item 13), which is not ported yet; pass --mesh 1x1 for "
-                "the 2/3-rule solver")
-        return run_sharded(args, fluid_cfg, device)
+        if args.hyperopt:
+            raise SystemExit(f"--hyperopt supports {list(HYPEROPT_PRESETS)}")
+        if args.mesh:
+            return run_sharded(args, fluid_cfg, device)
     if args.mesh:
         raise SystemExit(f"--mesh supports fluid presets, not {args.preset}")
     if args.hyperopt:
-        return run_ks_hyperopt(args, device)
+        return run_hyperopt(args, device)
 
     # artifacts trained off-preset ship a config_overrides.json; honoring it
     # makes them loadable through --load-from. --config-overrides (inline
@@ -517,29 +583,23 @@ def main(argv=None):
 
     overrides = checkpoint.load_config_overrides(args.load_from) if args.load_from else None
     if args.config_overrides:
-        raw = args.config_overrides
-        if raw.lstrip().startswith("{"):
-            explicit = json.loads(raw)
-        else:
-            with open(raw) as f:
-                explicit = json.load(f)
-        overrides = {**(overrides or {}), **explicit}
+        overrides = {**(overrides or {}), **_read_overrides(args.config_overrides)}
     if overrides and overrides.get("spectral_featurize") and not args.train:
         # trainer-only tier: it leaves EnvState.y at the reset field by
         # design, so eval rollouts rebuild without it to record real fields;
         # the policy itself sees the same observations either way
         overrides = {k: v for k, v in overrides.items() if k != "spectral_featurize"}
-    cfg = ks_table[args.preset][0]
+    cfg = fluid_cfg if fluid_cfg is not None else table[args.preset][0]
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     if args.train and args.batched:
         if args.resume:
             print("--resume: --batched training starts afresh (the JAX CLI's batched branch "
                   "does not read --resume either)")
-        return run_ks_train_batched(args, cfg, overrides, device)
+        return run_train_batched(args, cfg, overrides, device)
     if args.train or args.train_multi:
-        return run_ks_train(args, cfg, overrides, device)
-    return run_ks(args, cfg, device)
+        return run_train(args, cfg, overrides, device)
+    return run_eval(args, cfg, device)
 
 
 if __name__ == "__main__":

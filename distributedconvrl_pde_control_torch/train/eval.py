@@ -5,7 +5,9 @@ Counterpart of ``distributedconvrl_pde_control_tpu/train/eval.py``:
                     actuation (plotting.jl:4-73: te/dt overridden, zero action
                     until p_t_action, best-actor swap-in);
   * `energy_eval` - the fluid testrun's per-step energy sum(|omega|)/(nx*ny)
-                    (FluidSetup.jl:497-500), averaged over the active steps.
+                    (FluidSetup.jl:497-500), averaged over the active steps;
+  * `regulation_of` - the Keller-Segel score of reproduce.py (:181-184):
+                    the mean |u - 1| before actuation and over the last tenth.
 Traces come back as host arrays.
 """
 
@@ -98,3 +100,15 @@ def energy_eval(env: PDEEnv, policy_fn: Callable, y0: Optional[torch.Tensor] = N
     traces["energy"] = energy_trace(traces["y"])
     traces["mean_energy"] = mean_energy(traces)
     return traces
+
+
+def regulation_of(y_trace: np.ndarray, t_action: float, dt: float) -> dict:
+    """Keller-Segel regulation of a (steps, 2, nx) trace as reproduce.py
+    computes it inline (:181-184): the deviation |u - 1| from the
+    homogeneous state u = 1 (KellerSegelSetup.jl:241-263), averaged over the
+    100 steps before actuation ("pre") and over the last tenth of the run
+    ("post", the steps from -len // 10 on)."""
+    dev = np.abs(np.asarray(y_trace)[:, 0] - 1.0)
+    a0 = int(round(t_action / dt))
+    return {"pre": float(dev[max(0, a0 - 100):a0].mean()),
+            "post": float(dev[-len(dev) // 10:].mean())}

@@ -1,8 +1,10 @@
-"""Hyperparameter search driver over the mono/global KS setup.
+"""Hyperparameter search driver over a preset's setup.
 
 Counterpart of ``distributedconvrl_pde_control_tpu/train/hyperopt.py``; the
 draws come from numpy's `Generator`, so a seed gives the trials the JAX
-package gives.
+package gives. The CLI searches around the mono KS22_global setup, KS22,
+KS200 and both Keller-Segel presets (`experiments/run.py::HYPEROPT_PRESETS`,
+the JAX CLI's bases).
 
 The reference exposes `test_setup` as a hyperopt objective
 (KSglobalSetup.jl:405-426) whose candidate hyperparameters are the

@@ -112,7 +112,8 @@ def make_episode_fn(env: PDEEnv, agent: DDPGAgent, learning: bool = True, record
     replay or learning: the `plot_heat` path, src/plotting.jl:7-31).
     `t_action_steps` forces zero actions for the first N steps. record=True
     returns the y / action / forcing / reward traces that the hook keeps as
-    the best trace (PDEhook.jl:54-62). `y0` (nx,) defaults to the env's y0.
+    the best trace (PDEhook.jl:54-62). `y0`, of the env's field shape,
+    defaults to the env's y0.
     `draws`, one `StepDraws` per step (noise, start, offs), replaces the
     draws from `ts.generator`; the parity tests pass the JAX package's.
     The state is updated in place and returned.
@@ -123,7 +124,7 @@ def make_episode_fn(env: PDEEnv, agent: DDPGAgent, learning: bool = True, record
     def episode(ts: TrainState, y0: Optional[torch.Tensor] = None,
                 draws: Optional[Sequence[StepDraws]] = None):
         with torch.no_grad():
-            estate = env.reset(None if y0 is None else y0.reshape(1, -1))
+            estate = env.reset(None if y0 is None else y0.reshape((1,) + tuple(env.y0.shape)))
         astate, replay, gen = ts.agent, ts.replay, ts.generator
         rewards, outs = [], {k: [] for k in ("y", "action", "forcing", "reward")}
         for step_idx in range(n_steps):

@@ -108,8 +108,14 @@ def test_fluid_error_detection_matches():
 
 
 def test_build_fluid_names_its_queue():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tfluid.build_fluid(tfluid.FLUID_8, device="cpu")
+    """`build_fluid` builds the float32 tiers and refuses the reduced-precision
+    transform tiers, naming their queue item."""
+    with pytest.raises(NotImplementedError, match="item 16"):
+        tfluid.build_fluid(dataclasses.replace(tfluid.FLUID_8, nx=16, fft_mode="matmul_hi"),
+                           device="cpu")
+    setup = tfluid.build_fluid(dataclasses.replace(tfluid.FLUID_8, nx=16, sensors_per_axis=4),
+                               device="cpu")
+    assert setup.env.y0.shape == (16, 16) and setup.agent.cfg.ns == 9
 
 
 def test_fluid_config_for_matches():
@@ -467,7 +473,7 @@ def test_cli_runs_an_adaptive_preset(capsys):
     (["Fluid_16_256", "--eval", "--mesh", "2x1"], "1x1 only"),
     (["Fluid_16_256", "--eval", "--mesh", "two"], "DPxSP"),
     (["Fluid_16_256", "--train", "--mesh", "2x1"], "1x1 only"),
-    (["Fluid_16_256", "--eval"], "item 13"),
+    (["Fluid_16_256", "--eval", "--ppo"], "item 14"),
     (["Fluid_8_tp", "--eval", "--mesh", "1x1", "--nx", "16"], "item 16"),
     (["KS22", "--eval", "--mesh", "1x1"], "fluid presets"),
 ])
@@ -475,3 +481,65 @@ def test_cli_refusals_name_what_is_missing(argv, message):
     with pytest.raises(SystemExit) as exc:
         trun.main(argv + ["--cpu", "--load-from", ARTIFACT])
     assert message in str(exc.value)
+
+
+# --------------------------------------------- single-device fluid env (CLI)
+TOY = {"nx": 32, "sensors_per_axis": 4}
+
+
+def test_cli_fluid_eval_without_mesh_matches_jax(capsys):
+    """`Fluid_8 --eval` on the single-device env prints the JAX CLI's three
+    masked mean energies (trained, negate, no action) at a toy grid; the JAX
+    numbers come from its own pieces on the same protocol."""
+    import reproduce
+    from distributedconvrl_pde_control_tpu.agents.policies import (
+        NegatePolicy,
+        ZeroPolicy,
+        negate_center_row,
+    )
+    from distributedconvrl_pde_control_tpu.train.eval import actor_policy, energy_eval
+
+    trun.main(["Fluid_8", "--eval", "--cpu", "--p-te", "0.1", "--load-from", "artifacts/Fluid_8",
+               "--config-overrides", json.dumps(TOY)])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(out) == ["trained", "negate", "no action"]
+    jsetup, actor = reproduce.load_actor(lambda: jfluid.build_fluid(dataclasses.replace(
+        jfluid.FLUID_8, capacity=64, **TOY)), "artifacts/Fluid_8")
+    env = jsetup.env
+    pols = {"trained": actor_policy(jsetup.agent, actor),
+            "negate": NegatePolicy(env.action_shape, center_row=negate_center_row(env.featurize)),
+            "no action": ZeroPolicy(env.action_shape)}
+    for label, pol in pols.items():
+        want = energy_eval(env, pol, te=0.1)["mean_energy"]
+        np.testing.assert_allclose(out[label], want, rtol=SLICE_RTOL)
+    assert out["trained"] != out["no action"]
+
+
+def test_cli_fluid_train_without_mesh_at_a_toy_size(tmp_path, capsys):
+    """`--train` (the single-env loop, full checkpoint), `--resume`,
+    `--eval` of the run and `--train --batched` on the single-device env."""
+    from distributedconvrl_pde_control_torch.train import checkpoint
+
+    out = str(tmp_path / "run")
+    over = json.dumps({**TOY, "te": 0.06, "capacity": 2048})
+    trun.main(["Fluid_8", "--train", "--cpu", "--loops", "1", "--no-steps", "6",
+               "--config-overrides", over, "--out", out])
+    setup = tfluid.build_fluid(dataclasses.replace(tfluid.FLUID_8, **json.loads(over)),
+                               device="cpu")
+    ts, hook = checkpoint.load(out, setup.agent, device="cpu")
+    assert hook.ep - 1 == 2 and ts.replay.size == 6 * 16
+    assert np.isfinite(hook.rewards).all()
+    trun.main(["Fluid_8", "--train", "--resume", "--cpu", "--loops", "1", "--no-steps", "3",
+               "--config-overrides", over, "--out", out])
+    ts2, hook2 = checkpoint.load(out, setup.agent, device="cpu")
+    assert hook2.ep - 1 == 3 and ts2.replay.size == 9 * 16
+    capsys.readouterr()
+    trun.main(["Fluid_8", "--eval", "--cpu", "--p-te", "0.04", "--load-from", out])
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(res) == ["trained", "negate", "no action"] and np.isfinite(list(res.values())).all()
+    bout = str(tmp_path / "batched")
+    trun.main(["Fluid_8", "--train", "--batched", "--cpu", "--n-envs", "2", "--total-steps", "6",
+               "--chunk-len", "3", "--learner-batch", "8", "--capacity", "2048",
+               "--config-overrides", json.dumps({**TOY, "te": 0.06}), "--out", bout])
+    assert "12 env steps" in capsys.readouterr().out
+    assert np.isfinite(checkpoint.load_hook(bout).rewards).all()

@@ -1,11 +1,14 @@
 """reproduce_torch.py against reproduce.py on the CPU.
 
-Three of its rows, one per loader kind: KS22 (the full checkpoint with a
+Three KS rows, one per loader kind: KS22 (the full checkpoint with a
 row-major replay), KS22_global (the mono agent's light checkpoint on its
 fixed y0) and KS200 -> KS500 (a transfer to another grid), each at te=20
 with actuation from t=10. The port's y trace is held to the JAX rollout of
 the same row at 1e-4 of the trace's largest value, and the printed numbers
 to reproduce.py's `suppression`. On the CPU the port runs K1's plain version.
+The KellerSegel10_16_fast row runs at its full te=12 against the JAX
+package's printed value, and the Fluid_8 energy row, cut to 3 env steps,
+against the JAX package's rollout of it.
 """
 
 import json
@@ -56,14 +59,48 @@ def test_row_matches_reproduce(row, port_rows):
 
 
 def test_cli_prints_every_ks_row(capsys, monkeypatch):
-    """`main` prints one JSON line per KS row of reproduce.py, with its keys,
-    in its order (the rollouts stubbed out)."""
+    """`main` prints one JSON line per KS row of reproduce.py, then one per
+    Keller-Segel DDPG row, with its keys, in its order, each beside the JAX
+    package's value (the rollouts stubbed out)."""
     monkeypatch.setattr(reproduce_torch, "suppression",
                         lambda setup, actor, te, t_action: {"pre": te, "post": t_action,
                                                             "suppression": 0.5})
+    monkeypatch.setattr(reproduce_torch, "regulation",
+                        lambda setup, actor: {"pre": 0.4964, "post": 0.007})
     assert reproduce_torch.main(["--cpu", "--te", "3", "--t-action", "1"]) == 0
     lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
-    assert len(lines) == 20 and lines[0]["row"] == "KS22 stabilization"
-    assert lines[-1] == {"row": "KS200 (hyperopt winner) stabilization", "pre": 3.0, "post": 1.0,
-                         "suppression": 0.5}
+    assert len(lines) == 25 and lines[0]["row"] == "KS22 stabilization"
+    assert lines[19] == {"row": "KS200 (hyperopt winner) stabilization", "pre": 3.0, "post": 1.0,
+                         "suppression": 0.5, "jax": 0.0212, "ok": False}
     assert sum("KS22_global" in line["row"] for line in lines) == 2
+    assert [line["row"] for line in lines[20:]] == list(reproduce_torch.JAX_KELLER_SEGEL_ROWS)
+    assert [line["ok"] for line in lines[20:]] == [False, True, True, True, True]
+
+
+def test_keller_segel_row_matches_jax():
+    """The KellerSegel10_16_fast row at its full te=12 (2000 steps, actuation
+    from t=4) from the JAX package's key-8 field, within the row's limits of
+    JAX's printed value: pre within 1e-3, post within max(0.1 JAX, 0.0005)."""
+    row, setup, actor = next(reproduce_torch.keller_segel_rows("cpu"))
+    assert row == "KellerSegel10_16_fast regulation"
+    got = reproduce_torch.regulation(setup, actor, ndigits=None)
+    want = reproduce_torch.JAX_KELLER_SEGEL_ROWS[row]
+    assert reproduce_torch.keller_segel_ok(got, want), (got, want)
+
+
+def test_fluid_8_energy_row_matches_jax():
+    """The Fluid_8 row's trained-actor energy, cut to 3 env steps (te=0.06)
+    at the preset's 128^2 grid with the adaptive stepper, against the JAX
+    package's `energy_eval` of the same actor in this test: the energy trace
+    within 1e-4 of its value."""
+    from distributedconvrl_pde_control_tpu.train.eval import energy_eval as jax_energy_eval
+    from distributedconvrl_pde_control_torch.train.eval import energy_eval
+
+    row, setup, actor = next(reproduce_torch.fluid_rows("cpu"))
+    assert row == "Fluid_8 energy"
+    got = energy_eval(setup.env, actor_policy(setup.agent, actor), te=0.06)
+    jsetup, jactor = reproduce.load_actor(lambda: C.build_fluid(C.FLUID_8), "artifacts/Fluid_8")
+    want = jax_energy_eval(jsetup.env, jax_policy(jsetup.agent, jactor), te=0.06)
+    assert got["energy"].shape == (3,) and bool(np.asarray(got["active"]).all())
+    np.testing.assert_allclose(got["energy"], np.asarray(want["energy"]), rtol=1e-4)
+    np.testing.assert_allclose(got["mean_energy"], want["mean_energy"], rtol=1e-4)

@@ -376,9 +376,9 @@ def test_held_out_eval_pool_extends_and_is_disjoint():
     (["KS22", "--train", "--batched", "--import-jld2", "x"], "item 17"),
     (["KS22", "--train", "--batched", "--mesh", "2"], "item 15"),
     (["KS22_tp", "--train", "--batched"], "item 16"),
-    (["Fluid_8", "--train", "--batched"], "items 13 and 15"),
-    (["KellerSegel10_16", "--hyperopt", "2"], "item 12"),
-    (["KellerSegel10_16_fast", "--train"], "item 12"),
+    (["Fluid_8", "--train", "--batched", "--mesh", "1x1"], "item 15"),
+    (["KellerSegel10_16", "--train", "--ppo"], "item 14"),
+    (["KellerSegel10_16_fast", "--train", "--batched", "--population", "4"], "item 14"),
 ])
 def test_cli_refusals_name_their_queue_item(argv, item):
     with pytest.raises(SystemExit, match=item):
@@ -441,6 +441,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names + ["chip_smoke", "bench_torch", "reproduce_torch"]:
     importlib.import_module(name)
 assert len(names) > 25, names
+new = {"agents.policies", "configs.keller_segel", "ops.fourier", "ops.integrators",
+       "ops.keller_segel"}
+assert {pkg.__name__ + "." + n for n in new} <= set(names), names
 print("imported", len(names))
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
