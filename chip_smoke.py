@@ -4,11 +4,15 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --train-only
     python3 chip_smoke.py --fidelity-only
+    python3 chip_smoke.py --families-only
+    python3 chip_smoke.py --agents-only
     python3 chip_smoke.py --times-only [--tree DIR]
 
 With no argument it runs the phases below. `--train-only` runs phases 1, 2 and
 14-22 (the training paths), `--fidelity-only` phases 1, 2 and 23-28 (the KS
-fidelity loop), and neither prints a result line. `--times-only` prints the card and
+fidelity loop), `--families-only` phases 1, 2 and 29-33 (the single-device
+fluid env and Keller-Segel), `--agents-only` phases 1, 2 and 34-39 (PPO and
+populations), and none of them prints a result line. `--times-only` prints the card and
 one JSON line of both kernels' times through their wrappers at the main
 paths' shapes and nothing else; `--tree DIR` imports the package from another
 checkout inside this one (an unpacked earlier commit under build/, say), so
@@ -126,6 +130,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
  28. the device time of 5 fidelity env steps with learning by kernel group
      (K1 / matmul / optimizer / copies / elementwise), launches per env step,
      K1's share of device time and the device's idle share.
+ 29-33: the single-device fluid env and Keller-Segel (see `families_phases`);
+ 34. one PPO `collect_and_update` iteration on KS22 (2 envs, rollout 8, 2
+     epochs x 4 microbatches) on the card against the CPU, every draw made once
+     on the CPU: K1 against its plain twin inside it; parameters within 1e-4 of
+     each tensor's largest value, the mean reward within 1e-4, K1's launches
+     equal to the env steps;
+ 35. the shipped PPO controllers on the card: KS22_ppo, _ref, _lh and _ref_lh
+     at te=200 from actuation at t=100 (K1 at 1 row), each within
+     max(0.1 JAX, 0.0005) of the JAX package's suppression (`JAX_PPO_KS_ROWS`);
+     the Keller-Segel PPO row of reproduce.py (pre within 1e-3, post within
+     max(0.1 JAX, 0.0005)); Fluid_8_ppo and _lh on the te=3 protocol, each mean
+     energy within 2 % of JAX's (`JAX_PPO_FLUID_ROWS`);
+ 37. one P=2 population chunk (4 envs per member, per-member learning rates
+     and act_noise, 20 steps) on the card against the CPU on CNAB2 (K1 against
+     its plain twin) and on the sf tier: phase 14's limits;
+ 36, 38 and 39's rates run in a process of their own (no profiler session):
+ 36. PPO through the CLI: the KS22_ppo_lh recipe in full (tuned config, 8
+     envs, 60 iterations, a 500-step eval every 5), then `--eval --ppo` at
+     te=200: suppression < 0.05; the iteration's time alone; KellerSegel10_16_
+     fast and Fluid_8 `--train --ppo` cut in depth, read back through
+     `load_ppo`, every reward and parameter finite;
+ 38. `KS22 --train --batched --population 8` on phase 15's recipe (sf tier,
+     256 envs per member, 3000 steps, noise x0.5 per 1000, a 500-step eval
+     every 500), then every member at te=200 on the CNAB2 env: the median
+     member's suppression < 0.05, every member finite, population.json ranks
+     8; a CNAB2 population of 8 x 256 at full width for 2 chunks (K1 at 2048
+     rows, once per train step); `--pop-search 4 --population 2` and
+     `KellerSegel10_16_fast --population 4`, cut in depth;
+ 39. the population's cost: env-steps/s of 8 x 256 fused against a solo run at
+     256 (sf tier) and their ratio, the study speedup; then, under the
+     profiler, launches per train step of each and the idle share.
 
 Times of the kernels' first designs (PERF.md, same card and power limit) are
 printed beside the new ones in the phases' text lines; the kernels JSON line
@@ -139,7 +174,10 @@ path) and read just after them, and again around phases 20-21 (the fluid
 training path: the train steps and the trained controller's protocol
 rollout); a stage of an RK4 substep is one launch of K2, counted by the
 library where it launches. Phases 24-27 count K1 in their own process, from 0
-before each CLI run, rollout and the rows, and report the counts by path. The
+before each CLI run, rollout and the rows, and report the counts by path; so
+do phases 35 (the shipped PPO controllers' rollouts), 36 (PPO training and the
+trained controller's rollout) and 38 (the members' rollouts and the CNAB2
+population at full width). K2 lies on none of the PPO and population paths. The
 second-to-last line is the kernels JSON line and the last line is
 {"ok": true, "device": {...}}.
 """
@@ -469,21 +507,34 @@ def train_phases(card: str) -> dict:
         ts = tr.init(torch.Generator(device=dev).manual_seed(2))
         ts, _ = tr.make_chunk_fn(10)(ts)  # past the warmup and the learn gate
         five = tr.make_chunk_fn(5)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            five(ts)
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        groups = profile_groups(prof)
+        for attempt in range(3):
+            before = ks_kernel.KS_CNAB2.launches
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                five(ts)
+                torch.cuda.synchronize()
+                wall_us = 1e6 * (time.perf_counter() - t0)
+            groups = profile_groups(prof)
+            counted = ks_kernel.KS_CNAB2.launches - before
+            seen = groups.get("K1", [0])[0]
+            # a session can lose records (one K1 launch of five, once in PR 8's runs): the
+            # library counts every launch, so a session that saw fewer is measured again
+            if not groups or seen == counted:
+                break
+            print(f"the profiler saw {seen} of the {counted} launches of K1 the library counted; "
+                  "profiling again")
         busy_us = sum(g[1] for g in groups.values())
         print(json.dumps({"profile": f"KS22 {tier} train step, {N_ENVS} envs, 5 steps, under the profiler",
                           "wall_us": wall_us, "device_busy_us": busy_us if groups else "not measured",
                           "idle_share": 1.0 - busy_us / wall_us if groups else "not measured",
                           "launches_per_train_step": sum(g[0] for g in groups.values()) / 5,
+                          "sessions": attempt + 1,
                           "groups": {k: {"launches": v[0], "device_us": v[1]} for k, v in groups.items()}}))
-        check(not groups or (groups.get("K1", [0])[0] == (5 if tier == "cnab2" else 0)),
-              f"the profiler saw {groups.get('K1', [0])[0]} launches of K1 in 5 {tier} train steps")
+        want = 5 if tier == "cnab2" else 0
+        check(counted == want and (not groups or seen == want),
+              f"the profiler saw {seen} and the library counted {counted} launches of K1 in 5 "
+              f"{tier} train steps")
     return {"rollout": k1_rollout, "train_steps": k1_train - k1_rollout}
 
 
@@ -1346,6 +1397,499 @@ def families_phases(card: str) -> None:
     families_profile(card)
 
 
+# ------------------------------------------------------ PPO and populations (34-39)
+PPO_TOY = dict(rollout_len=8, n_microbatches=4, n_epochs=2, learning_rate=3e-4)  # phase 34
+# phase 35: the JAX package's values of the shipped PPO controllers: its `rollout` of each
+# checkpoint's best params (the clipped mean action), as its CLI's `--eval --ppo` runs them, on
+# the CPU (JAX 0.9.0, threefry keys). KS22: suppression at te=200 from actuation at t=100;
+# Fluid_8: the mean energies at te=3 from t=0 (the protocol of RESULTS.md:436,439). Limits: KS
+# within max(0.1 JAX, 0.0005), fluid within 2 %.
+JAX_PPO_KS_ROWS = {"KS22_ppo": 0.009633589, "KS22_ppo_ref": 0.002444129,
+                   "KS22_ppo_lh": 0.003433320, "KS22_ppo_ref_lh": 0.002444111}
+JAX_PPO_FLUID_ROWS = {"Fluid_8_ppo": {"mean_energy": 7.433293, "no_action": 7.772954},
+                      "Fluid_8_ppo_lh": {"mean_energy": 7.319664, "no_action": 7.772954}}
+PPO_FLUID_TE = 3.0
+# phase 36: the KS22_ppo_lh recipe (RESULTS.md: tuned config, 60 iterations, 8 envs, a 500-step
+# eval every 5 iterations picks the best params), in full; the other families cut in depth
+PPO_ITERS, PPO_EVAL_EVERY, PPO_EVAL_STEPS = 60, 5, 500
+PPO_CUT = {"KellerSegel10_16_fast": ({"te": 0.6}, 3), "Fluid_8": ({"te": 1.0}, 2)}
+PPO_LIMIT = 0.05  # phase 36: RESULTS.md gives 0.34 % for the artifact
+POP_TOY_LRS, POP_TOY_NOISE = ([5e-4, 2e-3], [1e-3, 4e-3]), [0.4, 1.5]  # phase 37
+POP_MEMBERS, POP_ENVS = 8, 256  # phases 38-39: the KS22_tp_pop8 study's width (RESULTS.md:32)
+POP_LIMIT = 0.05  # phase 38: the median member; the JAX study gave 0.24-0.85 %
+POP_SEARCH_STEPS, KSS_POP_ENVS, KSS_POP_STEPS, KSS_POP_TE = 200, 64, 200, 0.6  # phase 38, cut
+
+
+def ppo_pair(devices=("cuda", "cpu")) -> dict:
+    """Phase 34: one `collect_and_update` iteration of PPO on KS22 (2 envs,
+    episodes of 5 steps inside the rollout of 8, 2 epochs x 4 microbatches)
+    on each device from the same networks and the same draws, made once on
+    the CPU. Returns the largest parameter difference of each tensor relative
+    to its largest value, the mean rewards' difference, and K1's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from distributedconvrl_pde_control_torch.agents.ppo import (
+        PPOAgent,
+        PPOConfig,
+        PPODraws,
+        PPOTrainer,
+        params_from_numpy,
+        params_to_numpy,
+    )
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
+    from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
+
+    cfg = dataclasses.replace(KS22, te=0.5)
+    n_envs, b, t = 2, 2 * KS22.n_actuators, PPO_TOY["rollout_len"]
+    cpu = build_ks(cfg, device="cpu")
+    agent = PPOAgent(PPOConfig(ns=cpu.agent.cfg.ns, na=1, **PPO_TOY))
+    gen = torch.Generator().manual_seed(34)
+    draws = PPODraws(y0s=cpu.random_init(gen, n_envs), eps=torch.randn((t, 1, b), generator=gen),
+                     fresh=torch.stack([cpu.random_init(gen, n_envs) for _ in range(t)]),
+                     perms=torch.argsort(torch.rand((PPO_TOY["n_epochs"], t * b), generator=gen)))
+    params0 = params_to_numpy(agent._params(agent.init_state(torch.Generator().manual_seed(35),
+                                                             "cpu")))
+    outs = []
+    for d in devices:
+        setup = build_ks(cfg, device=d)
+        trainer = PPOTrainer(setup.env, agent, n_envs=n_envs, random_init=setup.random_init)
+        state = agent.make_state(params_from_numpy(params0, d))
+        before = ks_kernel.KS_CNAB2.launches
+        state, mean_r = trainer.make_train_iter()(
+            state, torch.Generator().manual_seed(0),
+            PPODraws(**{k: getattr(draws, k).to(d) for k in ("y0s", "eps", "fresh", "perms")}))
+        outs.append((params_to_numpy(agent._params(state)), float(mean_r),
+                     ks_kernel.KS_CNAB2.launches - before))
+    (pa, ra, ka), (pb, rb, kb) = outs
+    p_err = max(float(np.abs(x[k] - y[k]).max() / max(np.abs(y[k]).max(), 1e-30))
+                for name in pa for x, y in zip(pa[name], pb[name]) for k in ("w", "b"))
+    moved = max(float(np.abs(x["w"] - y["w"]).max()) for x, y in zip(pb["trunk"], params0["trunk"]))
+    return {"params_max_err_of_scale": p_err, "mean_reward": [ra, rb],
+            "mean_reward_err": abs(ra - rb), "K1_launches": [ka, kb], "env_steps": t,
+            "trunk_moved": moved}
+
+
+def population_pair(over: dict, devices=("cuda", "cpu")) -> dict:
+    """Phase 37: one P=2 chunk of the fused population train step (4 envs per
+    member, per-member learning rates and act_noise, 20 steps, learning from
+    step 3, episodes ending at step 15) on each device from the same networks
+    and the same draws, made once on the CPU; phase 14's measures."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
+    from distributedconvrl_pde_control_torch.models.mlp import chain_to_numpy, copy_chain
+    from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
+    from distributedconvrl_pde_control_torch.train.batched import BatchedTrainerConfig, StepDraws
+    from distributedconvrl_pde_control_torch.train.population import (
+        PopulationTrainer,
+        member_slot_indices,
+    )
+
+    p, n_envs, batch, n_pool, steps = 2, 4, 16, 6, 20
+    block = n_envs * KS22.n_actuators
+    gen = torch.Generator().manual_seed(37)
+    draws = [dict(noise=torch.randn((1, p * block), generator=gen),
+                  offs=member_slot_indices(gen, i + 1, p, block, batch)[None],
+                  idx=torch.randint(0, n_pool, (p * n_envs,), generator=gen))
+             for i in range(steps)]
+    outs = []
+    for d in devices:
+        s = build_ks(dataclasses.replace(KS22, te=1.5, **over), device=d)
+        pool = s.random_init(torch.Generator().manual_seed(15), n_pool)
+        pop = PopulationTrainer(s.env, s.agent, BatchedTrainerConfig(n_envs=n_envs, batch_size=batch,
+                                                                     min_best_episode=1),
+                                p, y0_pool=pool, lr_actor=POP_TOY_LRS[0], lr_critic=POP_TOY_LRS[1])
+        ts = pop.init(torch.Generator().manual_seed(16), idx=torch.arange(p * n_envs) % n_pool)
+        seed_state = pop.agent.init_state(torch.Generator().manual_seed(17), "cpu")
+        ts.agent = pop.agent.make_state(copy_chain(seed_state.actor).to(d),
+                                        copy_chain(seed_state.critic).to(d))
+        ts.agent.act_noise = torch.tensor(POP_TOY_NOISE, device=d)
+        ts.best_actor = copy_chain(ts.agent.actor)
+        before = ks_kernel.KS_CNAB2.launches
+        ts, packed = pop.make_chunk_fn(steps)(
+            ts, [StepDraws(**{k: v.to(d) for k, v in dr.items()}) for dr in draws])
+        outs.append((ts, packed.cpu().numpy(), ks_kernel.KS_CNAB2.launches - before))
+    (ts_a, rec_a, k_a), (ts_b, rec_b, k_b) = outs
+    p_err = max(float(np.abs(x[k] - y[k]).max())
+                for name in ("actor", "critic", "target_actor", "target_critic")
+                for x, y in zip(chain_to_numpy(getattr(ts_a.agent, name)),
+                                chain_to_numpy(getattr(ts_b.agent, name))) for k in ("w", "b"))
+    return {"params_max_abs_err": p_err, "ep_reward_err": float(np.abs(rec_a[2] - rec_b[2]).max()),
+            "mean_reward_err": float(np.abs(rec_a[4] - rec_b[4]).max()),
+            "same_finishes": bool((rec_a[:2] == rec_b[:2]).all()),
+            "finished": int(rec_b[0].sum()), "episodes": [int(ts_a.ep_count), int(ts_b.ep_count)],
+            "adam_steps": [ts_a.agent.opt_actor.count, ts_b.agent.opt_actor.count],
+            "finite": bool(np.isfinite(rec_a).all()), "K1_launches": [k_a, k_b], "steps": steps}
+
+
+def ppo_controllers(card: str) -> int:
+    """Phase 35: every shipped PPO controller on the card against the JAX
+    package's value. Returns K1's launches on the KS rollouts."""
+    import numpy as np
+    import torch
+
+    import reproduce_torch
+    from distributedconvrl_pde_control_torch.agents.policies import ZeroPolicy
+    from distributedconvrl_pde_control_torch.configs.fluid import FLUID_8, build_fluid
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
+    from distributedconvrl_pde_control_torch.experiments.run import suppression_of
+    from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
+    from distributedconvrl_pde_control_torch.train.eval import energy_eval, rollout
+
+    print("== 35. the shipped PPO controllers on the card: four KS22 (te=200, actuation from "
+          "t=100), the Keller-Segel row of reproduce.py, two Fluid_8 (te=3)")
+    setup = build_ks(KS22, device="cuda")
+    bad = []
+    ks_kernel.KS_CNAB2.launches = 0  # the PPO evaluation path starts here
+    for name, want in JAX_PPO_KS_ROWS.items():
+        policy = reproduce_torch.load_ppo_policy(setup, ROOT / "artifacts" / name, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = rollout(setup.env, policy, te=200.0, t_action=100.0)["y"]
+        secs = time.perf_counter() - t0
+        got = suppression_of(y, 100.0, setup.env.dt)["suppression"]
+        ok = bool(np.isfinite(y).all()) and abs(got - want) <= max(0.1 * want, 0.0005)
+        bad += [] if ok else [name]
+        print(json.dumps({"row": f"{name} te=200", "suppression": got, "jax": want, "ok": ok,
+                          "seconds": secs, "card": card}))
+    k1 = ks_kernel.KS_CNAB2.launches  # the PPO evaluation path ends here
+    check(k1 == 2000 * len(JAX_PPO_KS_ROWS), f"K1 launched {k1} times in the PPO rollouts")
+    for row, kss, policy in reproduce_torch.ppo_rows("cuda"):
+        got, want = reproduce_torch.ppo_regulation(kss, policy, ndigits=None), \
+            reproduce_torch.JAX_PPO_ROWS[row]
+        ok = reproduce_torch.keller_segel_ok(got, want)
+        bad += [] if ok else [row]
+        print(json.dumps({"row": row, **got, "jax": want, "ok": ok, "card": card}))
+    fluid = build_fluid(FLUID_8, device="cuda")
+    zero = energy_eval(fluid.env, ZeroPolicy(fluid.env.action_shape), te=PPO_FLUID_TE)
+    for name, want in JAX_PPO_FLUID_ROWS.items():
+        policy = reproduce_torch.load_ppo_policy(fluid, ROOT / "artifacts" / name, "cuda")
+        tr = energy_eval(fluid.env, policy, te=PPO_FLUID_TE)
+        got = {"mean_energy": tr["mean_energy"], "no_action": zero["mean_energy"]}
+        ok = all(abs(got[k] - want[k]) <= 0.02 * want[k] for k in want)
+        bad += [] if ok else [name]
+        print(json.dumps({"row": f"{name} te={PPO_FLUID_TE:g}", **got,
+                          "mean_step_reward": float(np.asarray(tr["reward"]).mean()), "jax": want,
+                          "ok": ok, "card": card}))
+    check(not bad, f"PPO controllers off their JAX value: {bad}")
+    return k1
+
+
+def agents_child(out_json: str) -> int:
+    """Phases 36, 38 and 39's rates in a process of their own, which has run
+    no profiler session: PPO and population training through the CLI, and
+    the population's throughput against a solo run. Writes K1's launches by
+    path and the results to `out_json`."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from distributedconvrl_pde_control_torch.agents.ppo import (
+        PPOAgent,
+        PPOTrainer,
+        param_tensors,
+        tuned_config,
+    )
+    from distributedconvrl_pde_control_torch.configs import keller_segel as K
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
+    from distributedconvrl_pde_control_torch.experiments import run
+    from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
+    from distributedconvrl_pde_control_torch.train import checkpoint
+    from distributedconvrl_pde_control_torch.train.batched import (
+        BatchedTrainer,
+        BatchedTrainerConfig,
+    )
+    from distributedconvrl_pde_control_torch.train.eval import actor_policy, rollout
+    from distributedconvrl_pde_control_torch.train.population import PopulationTrainer
+
+    card = card_line()
+    out = {"K1_launches_by_path": {}}
+    k1 = out["K1_launches_by_path"]
+    base = str(ROOT / "build" / "smoke_agents")
+    shutil.rmtree(base, ignore_errors=True)
+
+    def cli(argv):
+        """The CLI's output (also printed), its seconds, and K1's launches in it."""
+        ks_kernel.KS_CNAB2.launches = 0
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            run.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(buf.getvalue(), end="", flush=True)
+        return buf.getvalue(), secs, ks_kernel.KS_CNAB2.launches
+
+    def last_json(text):
+        return json.loads(text.strip().splitlines()[-1])
+
+    def finite_ppo(run_dir, setup):
+        acfg = setup.agent.cfg
+        state, info = checkpoint.load_ppo(run_dir, PPOAgent(tuned_config(acfg.ns, acfg.na_rows)),
+                                          device="cuda")
+        return (bool(np.isfinite(info["rewards"]).all())
+                and all(bool(torch.isfinite(t).all()) for t in param_tensors(
+                    PPOAgent._params(state))), state, info)
+
+    print(f"== 36. PPO training through the CLI: the KS22_ppo_lh recipe ({PPO_ITERS} iterations, "
+          f"8 envs, a {PPO_EVAL_STEPS}-step eval every {PPO_EVAL_EVERY}), then --eval at te=200; "
+          "KellerSegel10_16_fast and Fluid_8 cut in depth")
+    res36 = {}
+    ks_dir = base + "/KS22_ppo_lh"
+    _, secs, launches = cli(["KS22", "--train", "--ppo", "--iters", str(PPO_ITERS), "--eval-every",
+                             str(PPO_EVAL_EVERY), "--eval-steps", str(PPO_EVAL_STEPS), "--out",
+                             ks_dir])
+    k1["PPO training (phase 36)"] = launches
+    ks = build_ks(KS22, device="cuda")
+    ok, _, info = finite_ppo(ks_dir, ks)
+    text, _, launches = cli(["KS22", "--eval", "--ppo", "--load-from", ks_dir])
+    k1["PPO-trained controller's rollout (phase 36)"] = launches
+    supp = last_json(text)["suppression"]
+    rollout_len, n_envs = tuned_config(1, 1).rollout_len, 8
+    env_steps = PPO_ITERS * rollout_len * n_envs
+    res36["KS22 --train --ppo"] = {
+        "iters": PPO_ITERS, "seconds": secs, "ms_per_iteration_with_evals": 1e3 * secs / PPO_ITERS,
+        "train_env_steps_per_s_with_evals": env_steps / secs, "best_iter": info["best_iter"],
+        "evals": info["evals"], "suppression": supp, "K1_launches": k1["PPO training (phase 36)"]}
+    check(ok and len(info["evals"]) == PPO_ITERS // PPO_EVAL_EVERY, "KS22 PPO training is malformed")
+    check(k1["PPO-trained controller's rollout (phase 36)"] == 2000,
+          "the PPO controller's rollout did not launch K1 once per step")
+    # the iteration alone: the tuned config at 8 envs, no evals
+    trainer = PPOTrainer(ks.env, PPOAgent(tuned_config(ks.agent.cfg.ns, 1)), n_envs=n_envs,
+                         random_init=ks.random_init)
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    state = trainer.agent.init_state(gen, "cuda")
+    it = trainer.make_train_iter()
+    state, r = it(state, gen)  # warm
+    float(r)
+    ks_kernel.KS_CNAB2.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        state, r = it(state, gen)
+        float(r)
+    secs = time.perf_counter() - t0
+    res36["KS22 PPO iteration (tuned, 8 envs)"] = {
+        "ms_per_iteration": 1e3 * secs / 5, "env_steps_per_s": 5 * rollout_len * n_envs / secs,
+        "K1_launches_per_iteration": ks_kernel.KS_CNAB2.launches / 5}
+    for preset, (over, iters) in PPO_CUT.items():
+        run_dir = f"{base}/{preset}_ppo"
+        _, secs, _ = cli([preset, "--train", "--ppo", "--iters", str(iters), "--config-overrides",
+                          json.dumps(over), "--out", run_dir])
+        cfg = run.fluid_config_for(preset) or K.PRESETS[preset]
+        setup = run.build_setup(dataclasses.replace(cfg, **over), device="cuda")
+        ok, _, info = finite_ppo(run_dir, setup)
+        steps = iters * rollout_len * n_envs
+        res36[f"{preset} --train --ppo"] = {"iters": iters, "seconds": secs,
+                                            "ms_per_iteration": 1e3 * secs / iters,
+                                            "env_steps_per_s": steps / secs,
+                                            "rewards": info["rewards"].tolist()}
+        check(ok and len(info["rewards"]) == iters, f"{preset} PPO training is malformed")
+    res36["card"] = card
+    print(json.dumps({"phase": 36, **res36}))
+    check(supp < PPO_LIMIT, f"the PPO-trained KS22 controller's suppression {supp} is not below "
+          f"{PPO_LIMIT}")
+    out["phase36"] = res36
+
+    print(f"== 38. populations: KS22 --population {POP_MEMBERS} on phase 15's recipe, every member "
+          f"te=200 on CNAB2; a CNAB2 population at full width ({POP_MEMBERS} x {POP_ENVS}); "
+          "--pop-search 4 --population 2 and KellerSegel10_16_fast --population 4, cut in depth")
+    res38 = {}
+    pop_dir = base + "/KS22_pop8"
+    text, secs, launches = cli([
+        "KS22", "--train", "--batched", "--population", str(POP_MEMBERS), "--n-envs",
+        str(POP_ENVS), "--total-steps", "3000", "--noise-every", "1000", "--noise-decay", "0.5",
+        "--eval-every", "500", "--eval-steps", "500", "--capacity", "1000000", "--seed",
+        str(TRAIN_SEED), "--config-overrides", json.dumps(SF_TIER), "--out", pop_dir])
+    check(launches == 0, "the sf-tier population launched K1")
+    ranking = json.load(open(pop_dir + "/population.json"))["ranking"]
+    ks_kernel.KS_CNAB2.launches = 0
+    members = []
+    for i in range(POP_MEMBERS):
+        mdir = f"{pop_dir}/member_{i:02d}"
+        ts, hook = checkpoint.load(mdir, ks.agent, device="cuda")
+        actor = checkpoint.actor_from_jax(hook.best_actor).to("cuda")
+        y = rollout(ks.env, actor_policy(ks.agent, actor), te=200.0, t_action=100.0)["y"]
+        members.append(run.suppression_of(y, 100.0, ks.env.dt)["suppression"]
+                       if np.isfinite(y).all() else float("nan"))
+    k1["population members' rollouts (phase 38)"] = ks_kernel.KS_CNAB2.launches
+    steps = 3000 * POP_MEMBERS * POP_ENVS
+    res38["KS22 --population 8"] = {
+        "seconds": secs, "env_steps_per_s": steps / secs, "suppression_by_member": members,
+        "median": float(np.median(members)),
+        "ranking": [(r["dir"], r["best_reward"]) for r in ranking]}
+    print(json.dumps({"row": "KS22 --population 8, every member te=200 on CNAB2",
+                      **res38["KS22 --population 8"], "card": card}))
+    check(len(ranking) == POP_MEMBERS and np.isfinite(members).all()
+          and k1["population members' rollouts (phase 38)"] == 2000 * POP_MEMBERS,
+          "the population study is malformed")
+    check(float(np.median(members)) < POP_LIMIT,
+          f"the median member's suppression {np.median(members)} is not below {POP_LIMIT}")
+
+    full = build_ks(KS22, device="cuda")
+    pop = PopulationTrainer(full.env, full.agent,
+                            BatchedTrainerConfig(n_envs=POP_ENVS, batch_size=256), POP_MEMBERS,
+                            y0_pool=full.random_init(torch.Generator().manual_seed(full.seed), 32))
+    ts = pop.init(torch.Generator(device="cuda").manual_seed(38))
+    chunk = pop.make_chunk_fn(TRAIN_CHUNK)
+    ks_kernel.KS_CNAB2.launches = 0  # the full-width population path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        ts, packed = chunk(ts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k1["population at full width, CNAB2 (phase 38)"] = ks_kernel.KS_CNAB2.launches
+    res38["CNAB2 population 8 x 256"] = {
+        "train_steps": 2 * TRAIN_CHUNK, "env_steps_per_s": 2 * TRAIN_CHUNK * POP_MEMBERS * POP_ENVS / secs,
+        "K1_launches": ks_kernel.KS_CNAB2.launches, "K1_rows": POP_MEMBERS * POP_ENVS}
+    check(ks_kernel.KS_CNAB2.launches == 2 * TRAIN_CHUNK and bool(torch.isfinite(packed).all()),
+          "the full-width CNAB2 population is malformed")
+
+    search_dir = base + "/KS22_popsearch"
+    text, secs, _ = cli(["KS22", "--train", "--batched", "--pop-search", "4", "--population", "2",
+                         "--total-steps", str(POP_SEARCH_STEPS), "--eval-every", "100",
+                         "--eval-steps", "100", "--capacity", "200000", "--config-overrides",
+                         json.dumps(SF_TIER), "--out", search_dir])
+    search = json.load(open(search_dir + "/search.json"))
+    ts, hook = checkpoint.load(search_dir, ks.agent, device="cuda")
+    res38["--pop-search 4 --population 2"] = {
+        "seconds": secs, "trials": [t["eval_reward"] for t in search["trials"]],
+        "best_trial": search["best"]["trial"]}
+    check(len(search["trials"]) == 4 and np.isfinite(hook.bestreward)
+          and all(bool(torch.isfinite(p).all()) for p in ts.agent.actor.parameters()),
+          "the population search is malformed")
+    kss_dir = base + "/KellerSegel_pop4"
+    text, secs, _ = cli(["KellerSegel10_16_fast", "--train", "--batched", "--population", "4",
+                         "--n-envs", str(KSS_POP_ENVS), "--total-steps", str(KSS_POP_STEPS),
+                         "--capacity", "200000", "--config-overrides",
+                         json.dumps({"te": KSS_POP_TE}), "--out", kss_dir])
+    kss = K.build_keller_segel(K.KELLER_SEGEL_10_16_FAST, device="cuda")
+    hooks = [checkpoint.load(f"{kss_dir}/member_{i:02d}", kss.agent, device="cuda") for i in range(4)]
+    res38["KellerSegel10_16_fast --population 4"] = {
+        "seconds": secs, "env_steps_per_s": KSS_POP_STEPS * 4 * KSS_POP_ENVS / secs,
+        "episodes": [h.ep - 1 for _, h in hooks]}
+    check(all(h.ep > 1 and np.isfinite(h.rewards).all()
+              and all(bool(torch.isfinite(p).all()) for p in t.agent.actor.parameters())
+              for t, h in hooks), "the Keller-Segel population is malformed")
+    res38["card"] = card
+    print(json.dumps({"phase": 38, **res38}))
+    out["phase38"] = res38
+
+    print(f"== 39. the population's cost: {POP_MEMBERS} x {POP_ENVS} fused against a solo run at "
+          f"{POP_ENVS} (sf tier, learner batch 256, chunks of {TRAIN_CHUNK})")
+    sf = build_ks(dataclasses.replace(KS22, **SF_TIER), device="cuda")
+    sf_pool = sf.random_init(torch.Generator().manual_seed(sf.seed), 32)
+    tcfg = BatchedTrainerConfig(n_envs=POP_ENVS, batch_size=256)
+    rates = {}
+    for label, tr in (("solo", BatchedTrainer(sf.env, sf.agent, tcfg, y0_pool=sf_pool)),
+                      ("population", PopulationTrainer(sf.env, sf.agent, tcfg, POP_MEMBERS,
+                                                       y0_pool=sf_pool))):
+        ts = tr.init(torch.Generator(device="cuda").manual_seed(39))
+        chunk = tr.make_chunk_fn(TRAIN_CHUNK)
+        ts, _ = chunk(ts)  # warm-up, past the learn gate
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ts, packed = chunk(ts)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        width = POP_ENVS * (POP_MEMBERS if label == "population" else 1)
+        rates[label] = {"env_steps_per_s": 3 * TRAIN_CHUNK * width / secs,
+                        "ms_per_train_step": 1e3 * secs / (3 * TRAIN_CHUNK)}
+    rates["study_speedup"] = rates["population"]["env_steps_per_s"] / rates["solo"]["env_steps_per_s"]
+    rates["card"] = card
+    print(json.dumps({"phase": 39, "rates": rates}))
+    out["phase39"] = rates
+    Path(out_json).write_text(json.dumps(out))
+    return 0
+
+
+def population_profile(card: str) -> None:
+    """Phase 39's profile: launches per train step of the fused population
+    (8 x 256) and of the solo run (256), sf tier, and the idle share."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
+    from distributedconvrl_pde_control_torch.train.batched import (
+        BatchedTrainer,
+        BatchedTrainerConfig,
+    )
+    from distributedconvrl_pde_control_torch.train.population import PopulationTrainer
+
+    sf = build_ks(dataclasses.replace(KS22, **SF_TIER), device="cuda")
+    pool = sf.random_init(torch.Generator().manual_seed(sf.seed), 32)
+    tcfg = BatchedTrainerConfig(n_envs=POP_ENVS, batch_size=256)
+    rows = {}
+    for label, tr in (("solo", BatchedTrainer(sf.env, sf.agent, tcfg, y0_pool=pool)),
+                      ("population", PopulationTrainer(sf.env, sf.agent, tcfg, POP_MEMBERS,
+                                                       y0_pool=pool))):
+        ts = tr.init(torch.Generator(device="cuda").manual_seed(2))
+        ts, _ = tr.make_chunk_fn(10)(ts)  # past the warmup and the learn gate
+        five = tr.make_chunk_fn(5)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            five(ts)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        groups = profile_groups(prof)
+        busy_us = sum(g[1] for g in groups.values())
+        rows[label] = {"wall_us": wall_us, "device_busy_us": busy_us if groups else "not measured",
+                       "idle_share": 1.0 - busy_us / wall_us if groups else "not measured",
+                       "host_launches_per_train_step": sum(host_launches(prof).values()) / 5,
+                       "device_kernels_per_train_step": sum(g[0] for g in groups.values()) / 5,
+                       "groups": {k: {"kernels": v[0], "device_us": v[1]} for k, v in groups.items()}}
+    print(json.dumps({"profile": f"KS22 sf train step, {POP_MEMBERS} x {POP_ENVS} fused against "
+                                 f"{POP_ENVS} solo, 5 steps each, under the profiler",
+                      **rows, "card": card}))
+
+
+def agents_phases(card: str) -> dict:
+    """Phases 34-39. Returns K1's launches on the PPO and population paths."""
+    print("== 34. PPO on the card against the CPU: one collect_and_update iteration on KS22 "
+          "(2 envs, rollout 8, 2 epochs x 4 microbatches), every draw made once on the CPU")
+    res = ppo_pair()
+    print(json.dumps({"phase": 34, **res, "card": card}))
+    check(res["params_max_err_of_scale"] <= 1e-4 and res["mean_reward_err"] <= 1e-4
+          and res["trunk_moved"] > 1e-5 and res["K1_launches"] == [res["env_steps"], 0],
+          f"PPO on the card disagrees with the CPU: {res}")
+    k1 = {"PPO evaluation: shipped controllers (phase 35)": ppo_controllers(card)}
+    print("== 37. the population chunk on the card against the CPU: P=2 x 4 envs, per-member "
+          "learning rates and act_noise, 20 steps, on CNAB2 (K1 vs its plain twin) and the sf tier")
+    for tier, over in (("cnab2", {}), ("spectral-featurize", SF_TIER)):
+        res = population_pair(over)
+        print(json.dumps({"phase": 37, "tier": tier, **res, "card": card}))
+        check(res["params_max_abs_err"] <= 1e-4 and res["ep_reward_err"] <= 1e-3
+              and res["mean_reward_err"] <= 1e-4 and res["same_finishes"] and res["finite"]
+              and res["finished"] == 8 and res["episodes"] == [8, 8]
+              and res["K1_launches"] == [0 if over else res["steps"], 0],
+              f"the population chunk on the card disagrees with the CPU ({tier}): {res}")
+    out_json = ROOT / "build" / "smoke_agents.json"
+    out_json.unlink(missing_ok=True)
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--agents-child",
+                           str(out_json)], cwd=str(ROOT), timeout=900)
+    check(proc.returncode == 0 and out_json.exists(),
+          f"phases 36, 38 and 39 failed in their process (exit {proc.returncode})")
+    population_profile(card)
+    k1.update(json.loads(out_json.read_text())["K1_launches_by_path"])
+    return k1
+
+
 def main() -> int:
     import torch
 
@@ -1360,7 +1904,10 @@ def main() -> int:
                         help="with --times-only: checkout to import the port from")
     parser.add_argument("--families-only", action="store_true",
                         help="run phases 1, 2 and 29-33 and print no result line")
+    parser.add_argument("--agents-only", action="store_true",
+                        help="run phases 1, 2 and 34-39 and print no result line")
     parser.add_argument("--fidelity-child", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--agents-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--families-child", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1370,6 +1917,8 @@ def main() -> int:
         return fidelity_child(args.fidelity_child)
     if args.families_child:
         return families_child(args.families_child)
+    if args.agents_child:
+        return agents_child(args.agents_child)
     if args.times_only:
         return times_only(args.tree)
     if args.tree:
@@ -1425,6 +1974,9 @@ def main() -> int:
         return 0
     if args.families_only:
         families_phases(card)
+        return 0
+    if args.agents_only:
+        print(json.dumps({"K1_launches_on_the_agent_paths": agents_phases(card)}))
         return 0
     if args.train_only:
         k1_training = train_phases(card)
@@ -1802,16 +2354,18 @@ def main() -> int:
     k2_training = fluid_train_phases(card)
     k1_fidelity = fidelity_phases(card)
     families_phases(card)
+    k1_agents = agents_phases(card)
 
     print(json.dumps({"kernels": [{
         "name": "ks_cnab2", "route": "cuda",
         "source": "distributedconvrl_pde_control_torch/csrc/" + ks_kernel.SOURCE,
         "replaces": ks_kernel.REPLACES,
-        "launches": launches + sum(k1_training.values()) + sum(k1_fidelity.values()),
+        "launches": (launches + sum(k1_training.values()) + sum(k1_fidelity.values())
+                     + sum(k1_agents.values())),
         "launches_by_path": {"evaluation (phases 4-5)": launches,
                              "training: trained controller's rollout (phase 15)": k1_training["rollout"],
                              "training: train steps (phase 16)": k1_training["train_steps"],
-                             **k1_fidelity},
+                             **k1_fidelity, **k1_agents},
         "max_abs_err": max(errs[k] for k in MAIN_PATH_SHAPES), "ms": k_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None, "status": "ok", "shape": "16384x192, 30 substeps",

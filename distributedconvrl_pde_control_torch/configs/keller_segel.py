@@ -94,6 +94,7 @@ KELLER_SEGEL_10_16_FAST = dataclasses.replace(
 PRESETS = {c.name: c for c in (KELLER_SEGEL_10_16, KELLER_SEGEL_10_16_FAST)}
 
 _Y0_KEY8 = os.path.join(os.path.dirname(__file__), "data_keller_segel_y0_key8.npy")
+_Y0_KEY7 = os.path.join(os.path.dirname(__file__), "data_keller_segel_y0_key7.npy")
 
 
 def keller_segel_y0_key8() -> np.ndarray:
@@ -103,6 +104,14 @@ def keller_segel_y0_key8() -> np.ndarray:
     cannot draw that stream, so the field ships as data, written once by the
     JAX package on the CPU."""
     return np.load(_Y0_KEY8)
+
+
+def keller_segel_y0_key7() -> np.ndarray:
+    """The JAX package's `random_init(jax.random.PRNGKey(7))` of the
+    KellerSegel10_16 presets (threefry keys), (2, 100) float32: the initial
+    field of reproduce.py's Keller-Segel PPO row, shipped as data like the
+    key-8 field."""
+    return np.load(_Y0_KEY7)
 
 
 def keller_segel_random_init(cfg: KellerSegelConfig, device: str = "cuda"):

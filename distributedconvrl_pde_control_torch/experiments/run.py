@@ -1,8 +1,9 @@
 """Command-line entry point: train and evaluate KS and fluid controllers.
 
 Counterpart of the single-device `--train`, `--train-multi`, `--hyperopt`,
-`--train --batched` and `--eval` branches and of the `--mesh` branch at a 1x1
-mesh of ``distributedconvrl_pde_control_tpu/experiments/run.py``, for the KS,
+`--train --batched` (with `--population` and `--pop-search`), `--ppo` and
+`--eval` branches and of the `--mesh` branch at a 1x1 mesh of
+``distributedconvrl_pde_control_tpu/experiments/run.py``, for the KS,
 Keller-Segel (`KellerSegel10_16[_fast]`) and fluid families.
 
 KS presets, the fidelity loop (one env, 20 learner updates per env step):
@@ -33,6 +34,29 @@ from the preset's seed, prints the reward curve, the evals and a summary line, a
 writes `saves/hook.npz` (best actor, reward history), the light agent
 checkpoint `saves/agent_light.msgpack` and `config_overrides.json` into
 --out, which `--eval --load-from` reads back.
+
+Populations and their schedule search, any family:
+
+    python -m distributedconvrl_pde_control_torch.experiments.run KS22 --train --batched \\
+        --population 8 [--pop-overrides '{"act_noise": [...8 values]}'] --out runs/KS22_pop8
+    python -m distributedconvrl_pde_control_torch.experiments.run KS22 --train --batched \\
+        --pop-search 16 --population 8 --eval-every 500 --eval-steps 500 --out runs/KS22_search
+
+train P members as one fused program (`train/population.py`) and write each
+member's light checkpoint under OUT/member_XX beside population.json, or run
+a schedule search in fused rounds and write search.json and the winner's
+checkpoint.
+
+PPO, any family (`agents/ppo.py`; the tuned light config, `--ppo-ref` the
+reference's):
+
+    python -m distributedconvrl_pde_control_torch.experiments.run KS22 --train --ppo \\
+        [--iters 60 --eval-every 5 --eval-steps 500 --n-envs 8] --out runs/KS22_ppo
+    python -m distributedconvrl_pde_control_torch.experiments.run KS22 --eval --ppo \\
+        --load-from artifacts/KS22_ppo_lh
+
+write saves/ppo.msgpack and saves/ppo_info.npz, and roll the best params as
+the DDPG eval does, printing the JAX CLI's keys ("agent": "ppo" first).
 
 KS and Keller-Segel presets (the plot_heat protocol, without plots):
 
@@ -315,6 +339,104 @@ def run_train_batched(args, cfg, overrides, device: str) -> None:
           f"final chunk mean {means[-1]:.4f}")
 
 
+POP_OVERRIDE_KEYS = ("act_noise", "noise_decay", "learning_rate", "learning_rate_critic")
+SEARCH_NOTES = {
+    "seed_discipline_note": (
+        "trials within one fused round share per-step key draws across the member axis "
+        "(train/population.py ARCHITECTURE note), so a trial's score can depend on which "
+        "round-mates it was batched with in a way serial trials don't; winners should be "
+        "independently re-validated (the KS22 winner was, at 0.24% - RESULTS.md)"),
+    "search_space_note": (
+        "SCHEDULE_SPACE covers per-member state axes only (act_noise/decay/lrs); structural "
+        "axes (network scale, batch size) stay with the serial --hyperopt search"),
+}
+
+
+def pop_overrides(raw: str, n_members: int) -> dict:
+    """--pop-overrides: an inline JSON object or a .json path of P-length
+    lists for any of POP_OVERRIDE_KEYS; refused otherwise with the JAX CLI's
+    messages."""
+    pov = _read_overrides(raw)
+    bad = set(pov) - set(POP_OVERRIDE_KEYS)
+    if bad:
+        raise SystemExit(f"--pop-overrides supports {sorted(POP_OVERRIDE_KEYS)}, got {sorted(bad)}")
+    for k, v in pov.items():
+        if len(v) != n_members:
+            raise SystemExit(f"--pop-overrides[{k}] needs {n_members} values, got {len(v)}")
+    return pov
+
+
+def run_population(args, cfg, overrides, device: str) -> None:
+    """`--train --batched --population P` (JAX run.py:893-946): P members as
+    one fused program from the batched branch's pools, members varied by
+    --pop-overrides; each member saved as a light checkpoint under
+    OUT/member_XX beside population.json. With `--pop-search N`: N schedule
+    trials in fused rounds of --population (default 8) members, search.json
+    and the winner's light checkpoint in OUT (JAX run.py:840-891)."""
+    import torch
+
+    from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent
+    from distributedconvrl_pde_control_torch.train import checkpoint
+    from distributedconvrl_pde_control_torch.train.batched import BatchedTrainerConfig
+    from distributedconvrl_pde_control_torch.train.loop import TrainState
+    from distributedconvrl_pde_control_torch.train.population import (
+        PopulationTrainer,
+        population_search,
+        save_population,
+        train_population,
+    )
+
+    setup = build_setup(cfg, device=device)
+    if overrides:
+        print(f"applied config overrides: {sorted(overrides)}")
+    out_dir = args.out or os.path.join("runs", args.preset)
+    os.makedirs(out_dir, exist_ok=True)
+    if args.capacity:
+        setup = dataclasses.replace(
+            setup, agent=DDPGAgent(dataclasses.replace(setup.agent.cfg, capacity=args.capacity)))
+    pool = setup.random_init(torch.Generator().manual_seed(setup.seed), 32)
+    eval_pool = held_out_eval_pool(setup, args.eval_pool) if args.eval_warmup else None
+    tcfg = BatchedTrainerConfig(n_envs=args.n_envs or 256, batch_size=args.learner_batch or 256,
+                                update_loops=args.update_loops,
+                                min_best_episode=setup.min_best_episode)
+    seed = args.seed if args.seed is not None else setup.seed
+    if args.pop_search:
+        best, trials, best_hook, best_state = population_search(
+            setup.env, setup.agent, tcfg, args.pop_search, total_steps=args.total_steps,
+            members_per_round=args.population or 8, seed=seed,
+            noise_decay_every=args.noise_every or 0, eval_every=args.eval_every or 50,
+            eval_steps=args.eval_steps, eval_warmup_steps=args.eval_warmup,
+            eval_score=args.eval_score, chunk_len=args.chunk_len or 50, y0_pool=pool,
+            eval_y0_pool=eval_pool)
+        with open(os.path.join(out_dir, "search.json"), "w") as f:
+            json.dump({"best": best, "trials": trials, **SEARCH_NOTES}, f, indent=1)
+        if best_state is not None:
+            checkpoint.save(out_dir, TrainState(best_state, None, None, checkpoint.jax_key(seed)),
+                            best_hook, include_replay=False, config_overrides=overrides)
+        print(f"saved search.json + winner checkpoint to {out_dir}")
+        return
+    p = args.population
+    pov = pop_overrides(args.pop_overrides, p) if args.pop_overrides else {}
+    pop = PopulationTrainer(setup.env, setup.agent, tcfg, p, y0_pool=pool,
+                            eval_y0_pool=eval_pool, lr_actor=pov.get("learning_rate"),
+                            lr_critic=pov.get("learning_rate_critic"))
+    decay = pov.get("noise_decay",
+                    args.noise_decay if args.noise_decay is not None else setup.noise_decay)
+    ts, hooks, _ = train_population(
+        pop, total_steps=args.total_steps,
+        generator=torch.Generator(device=device).manual_seed(seed),
+        act_noise=pov.get("act_noise"),
+        noise_decay_every=args.noise_every or max(1, args.total_steps // setup.loops),
+        noise_decay=decay, chunk_len=args.chunk_len or 50, verbose=True,
+        eval_every=args.eval_every, eval_steps=args.eval_steps,
+        eval_warmup_steps=args.eval_warmup, eval_score=args.eval_score)
+    summary = save_population(out_dir, pop, ts, hooks, overrides=overrides)
+    for row in summary["ranking"]:
+        print(f"  {row['dir']}: best {row['best_reward']:.4f} @ ep {row['best_episode']} "
+              f"({row['episodes']} eps)")
+    print(f"saved {p} members + population.json to {out_dir}")
+
+
 def run_train(args, cfg, overrides, device: str) -> None:
     """`--train` (the single-env loop, `drivers.train`; `--resume` continues
     the checkpoint in --load-from or --out) and `--train-multi` (the restart
@@ -385,14 +507,14 @@ def run_eval(args, cfg, device: str) -> None:
     from distributedconvrl_pde_control_torch.train.eval import actor_policy, energy_eval, rollout
 
     fluid, chemo = isinstance(cfg, FluidConfig), isinstance(cfg, KellerSegelConfig)
-    p_te = args.p_te if args.p_te is not None else (6.0 if fluid else 12.0 if chemo else 200.0)
-    t_action = args.p_t_action if args.p_t_action is not None else (0.0 if fluid else p_te / 2.0)
+    p_te, t_action = eval_times(args, cfg)
     setup = build_setup(cfg, device=device)
     load_dir = args.load_from or args.out or os.path.join("runs", args.preset)
     ts, hook = checkpoint.load(load_dir, setup.agent, device=device)
     actor = (checkpoint.actor_from_jax(hook.best_actor).to(device) if hook.best_actor is not None
              else ts.agent.actor)
     policy = actor_policy(setup.agent, actor)
+    y0 = random_init_field(args, setup)
     if fluid:
         from distributedconvrl_pde_control_torch.agents.policies import (
             NegatePolicy,
@@ -404,12 +526,117 @@ def run_eval(args, cfg, device: str) -> None:
         negate = NegatePolicy(env.action_shape, center_row=negate_center_row(env.featurize))
         runs = {"trained": (policy, t_action), "negate": (negate, t_action),
                 "no action": (ZeroPolicy(env.action_shape), 0.0)}
-        print(json.dumps({k: energy_eval(env, pol, te=p_te, t_action=ta)["mean_energy"]
+        # as the JAX CLI: the --random-init field starts the trained rollout only
+        print(json.dumps({k: energy_eval(env, pol, y0=y0 if k == "trained" else None, te=p_te,
+                                         t_action=ta)["mean_energy"]
                           for k, (pol, ta) in runs.items()}))
         return
-    traces = rollout(setup.env, policy, te=p_te, t_action=t_action)
+    traces = rollout(setup.env, policy, y0=y0, te=p_te, t_action=t_action)
     y = traces["y"][:, 0] - 1.0 if chemo else traces["y"]
     print(json.dumps(suppression_of(y, t_action, setup.env.dt)))
+
+
+def eval_times(args, cfg) -> tuple:
+    """(te, actuation start) of an --eval: --p-te / --p-t-action, by default
+    200 and te/2 for KS presets, 12 and te/2 for Keller-Segel, 6 and 0 for
+    fluid (JAX run.py:664-669)."""
+    from distributedconvrl_pde_control_torch.configs.fluid import FluidConfig
+    from distributedconvrl_pde_control_torch.configs.keller_segel import KellerSegelConfig
+
+    fluid, chemo = isinstance(cfg, FluidConfig), isinstance(cfg, KellerSegelConfig)
+    p_te = args.p_te if args.p_te is not None else (6.0 if fluid else 12.0 if chemo else 200.0)
+    t_action = args.p_t_action if args.p_t_action is not None else (0.0 if fluid else p_te / 2.0)
+    return p_te, t_action
+
+
+def random_init_field(args, setup):
+    """--random-init: the eval's initial field, one draw of the preset's
+    `random_init` from a CPU generator seeded --seed (default the preset's
+    seed); None without the flag. The port's generator shares no stream with
+    `jax.random`, so the field differs from the JAX CLI's for the same seed."""
+    import torch
+
+    if not args.random_init or setup.random_init is None:
+        return None
+    seed = args.seed if args.seed is not None else setup.seed
+    return setup.random_init(torch.Generator().manual_seed(seed), 1)[0]
+
+
+def run_ppo(args, cfg, overrides, device: str) -> None:
+    """`--ppo` (JAX run.py:682-785): `--train` runs `train_ppo` (the tuned
+    light config, or with --ppo-ref the factory-default `PPOConfig`) from the
+    preset's `random_init` fields, for fluid presets from a pool of 16 fields
+    of the preset's seed (and under --eval-warmup a held-out eval pool), and
+    writes saves/ppo.msgpack and saves/ppo_info.npz; `--eval` rolls the best
+    params (else the current ones) as the DDPG eval does: the suppression of
+    |y| (|u - 1| for Keller-Segel), or for fluid presets the mean energies of
+    the PPO policy and of no action."""
+    import torch
+
+    from distributedconvrl_pde_control_torch.agents.ppo import (
+        PPOAgent,
+        PPOConfig,
+        PPOTrainer,
+        params_from_numpy,
+        ppo_policy,
+        train_ppo,
+        tuned_config,
+    )
+    from distributedconvrl_pde_control_torch.configs.fluid import FluidConfig
+    from distributedconvrl_pde_control_torch.configs.keller_segel import KellerSegelConfig
+    from distributedconvrl_pde_control_torch.train import checkpoint
+
+    setup = build_setup(cfg, device=device)
+    if overrides:
+        print(f"applied config overrides: {sorted(overrides)}")
+    out_dir = args.out or os.path.join("runs", args.preset)
+    os.makedirs(out_dir, exist_ok=True)
+    fluid, chemo = isinstance(cfg, FluidConfig), isinstance(cfg, KellerSegelConfig)
+    acfg = setup.agent.cfg
+    pcfg = (PPOConfig(ns=acfg.ns, na=acfg.na_rows) if args.ppo_ref
+            else tuned_config(acfg.ns, acfg.na_rows))
+    pagent = PPOAgent(pcfg)
+    if args.train:
+        pool = eval_pool = None
+        if fluid:  # fluid fields are made on the host: a pool, as the JAX CLI does
+            pool = setup.random_init(torch.Generator().manual_seed(setup.seed), 16)
+            if args.eval_warmup:
+                eval_pool = held_out_eval_pool(setup, args.eval_pool)
+        trainer = PPOTrainer(setup.env, pagent, n_envs=args.n_envs or 8,
+                             random_init=None if fluid else setup.random_init, y0_pool=pool,
+                             eval_y0_pool=eval_pool)
+        seed = args.seed if args.seed is not None else setup.seed
+        pstate, info = train_ppo(trainer, iters=args.iters,
+                                 generator=torch.Generator(device=device).manual_seed(seed),
+                                 eval_every=args.eval_every, eval_steps=args.eval_steps,
+                                 eval_warmup_steps=args.eval_warmup)
+        checkpoint.save_ppo(out_dir, pstate, info)
+        if overrides:
+            checkpoint.save_config_overrides(out_dir, overrides)
+        metric = "deterministic eval" if info["selection"] == "eval" else "mean step"
+        print(f"saved PPO to {out_dir}; best {metric} reward {info['best_reward']:.4f} @ iter "
+              f"{info['best_iter']}")
+        return
+    from distributedconvrl_pde_control_torch.train.eval import energy_eval, rollout
+
+    pstate, info = checkpoint.load_ppo(args.load_from or out_dir, pagent, device=device)
+    params = (params_from_numpy(info["best_params"], device) if info.get("best_params")
+              else pagent._params(pstate))
+    policy = ppo_policy(pagent, params)
+    y0 = random_init_field(args, setup)
+    p_te, t_action = eval_times(args, cfg)
+    if fluid:
+        from distributedconvrl_pde_control_torch.agents.policies import ZeroPolicy
+
+        tr = energy_eval(setup.env, policy, y0=y0, te=p_te, t_action=t_action)
+        zero = energy_eval(setup.env, ZeroPolicy(setup.env.action_shape), te=p_te)
+        print(json.dumps({"agent": "ppo", "mean_energy": tr["mean_energy"],
+                          "no_action": zero["mean_energy"],
+                          "mean_step_reward": float(np.asarray(tr["reward"]).mean())}))
+        return
+    traces = rollout(setup.env, policy, y0=y0, te=p_te, t_action=t_action)
+    y = traces["y"][:, 0] - 1.0 if chemo else traces["y"]
+    print(json.dumps({"agent": "ppo", **suppression_of(y, t_action, setup.env.dt)}))
 
 
 def suppression_of(y: np.ndarray, t_action: float, dt: float) -> dict:
@@ -531,11 +758,29 @@ def main(argv=None):
                     help="--batched replay capacity override (the preset's single-env size "
                          "wraps quickly at batched push rates: n_envs*n_act per step)")
     ap.add_argument("--ppo", action="store_true",
-                    help="(not ported: ROADMAP.md queue 1 item 14)")
+                    help="the PPO agent instead of DDPG: --train writes saves/ppo.msgpack and "
+                         "saves/ppo_info.npz, --eval rolls the deterministic mean policy")
+    ap.add_argument("--iters", type=int, default=60,
+                    help="PPO collect-and-update iterations of --ppo --train")
+    ap.add_argument("--ppo-ref", action="store_true",
+                    help="with --ppo: the reference protocol (PPOConfig's defaults, "
+                         "PDEagent.jl:462-512: 10 epochs x 32 microbatches, lr 1e-3, rollout 64) "
+                         "instead of the tuned light config")
     ap.add_argument("--population", type=int, default=None, metavar="P",
-                    help="(not ported: ROADMAP.md queue 1 item 14)")
+                    help="--train --batched: P members as one fused program (members flattened "
+                         "member-major into the env axis); each saves a light checkpoint under "
+                         "OUT/member_XX beside population.json")
+    ap.add_argument("--pop-overrides", default=None, metavar="JSON",
+                    help="per-member variation for --population: a JSON object (inline or a "
+                         "file path) of P-length lists for any of %s" % ", ".join(POP_OVERRIDE_KEYS))
     ap.add_argument("--pop-search", type=int, default=None, metavar="N",
-                    help="(not ported: ROADMAP.md queue 1 item 14)")
+                    help="--train --batched: random search over act_noise, noise_decay and the "
+                         "actor and critic learning rates, N trials in fused rounds of "
+                         "--population (default 8) members, each scored by its eval-driven best; "
+                         "writes search.json and the winner's checkpoint into --out")
+    ap.add_argument("--random-init", action="store_true",
+                    help="--eval from one field of the preset's random_init (the port's "
+                         "generator, seeded --seed) instead of the standard y0")
     ap.add_argument("--import-jld2", default=None, metavar="SAVES_DIR",
                     help="(not ported: ROADMAP.md queue 1 item 17)")
     ap.add_argument("--resume", action="store_true",
@@ -546,11 +791,6 @@ def main(argv=None):
     device = "cpu" if args.cpu else "cuda"
 
     # what the port does not run yet, each with the queue item that holds it
-    if args.ppo:
-        raise SystemExit("--ppo: PPO is not ported yet (ROADMAP.md queue 1 item 14)")
-    if args.population or args.pop_search:
-        raise SystemExit("--population/--pop-search: population training is not ported yet "
-                         "(ROADMAP.md queue 1 item 14)")
     if args.import_jld2:
         raise SystemExit("--import-jld2: the reference JLD2 import is not ported yet "
                          "(ROADMAP.md queue 1 item 17)")
@@ -559,6 +799,9 @@ def main(argv=None):
                          "yet (ROADMAP.md queue 1 item 16); the float32 ETDRK4 tiers run with "
                          "--config-overrides '{\"stepper\": \"etdrk4\", \"spectral_carry\": true}'")
     fluid_cfg = fluid_config_for(args.preset)
+    if args.batched and args.mesh and (args.population or args.pop_search):
+        raise SystemExit("--population/--pop-search --mesh: a population over a device mesh is "
+                         "not ported yet (ROADMAP.md queue 1 item 15)")
     if args.batched and args.mesh:
         raise SystemExit("--batched --mesh: data-parallel batched training over a device mesh "
                          "is not ported yet (ROADMAP.md queue 1 item 15)")
@@ -592,7 +835,11 @@ def main(argv=None):
     cfg = fluid_cfg if fluid_cfg is not None else table[args.preset][0]
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
+    if args.ppo:
+        return run_ppo(args, cfg, overrides, device)
     if args.train and args.batched:
+        if args.population or args.pop_search:
+            return run_population(args, cfg, overrides, device)
         if args.resume:
             print("--resume: --batched training starts afresh (the JAX CLI's batched branch "
                   "does not read --resume either)")

@@ -291,69 +291,77 @@ class BatchedTrainer:
         return chunk
 
     # ------------------------------------------------------------------ eval
-    @staticmethod
-    def _env_scores(rs: np.ndarray, actives: np.ndarray) -> np.ndarray:
-        """Per-env masked mean step reward: (n_steps, B) traces -> (B,)
-        scores, NaN for envs with zero active steps."""
-        n = actives.sum(axis=0)
-        tot = (rs * actives).sum(axis=0)
-        return np.where(n > 0, tot / np.maximum(n, 1), np.nan)
-
-    @torch.no_grad()
     def eval_mean_reward(self, actor_params, n_steps: int,
                          generator: Optional[torch.Generator] = None,
                          warmup_steps: int = 0, score: str = "mean",
                          y0s: Optional[torch.Tensor] = None) -> float:
         """Deterministic-policy evaluation over one episode batch (no noise,
-        no learning): mean per-step reward over active steps.
-
-        When `n_steps + warmup_steps` exceeds the episode cap te/dt, the
-        rollout runs on a te-overridden clone of the env (te = t0 +
-        (n_steps + warmup_steps)*dt + dt) so every requested step is a real
-        step; blow-up termination stays active and masks post-termination
-        steps. `warmup_steps > 0` first evolves the ICs uncontrolled (zero
-        actions) for that many steps and scores only the controlled segment.
-        `score="min"` reduces the per-env masked means by min instead of the
-        batch mean. `y0s` (n_envs, nx) replaces the drawn ICs.
-        """
-        env, agent = self.env, self.agent
-        acfg = agent.cfg
-        b = self.cfg.n_envs
+        no learning): mean per-step reward over active steps (`eval_rollout`,
+        scored by `score_rollout`). `score="min"` reduces the per-env masked
+        means by min instead of the batch mean. `y0s` (n_envs, nx) replaces
+        the drawn ICs."""
+        acfg = self.agent.cfg
         if y0s is None:
             if generator is None:
                 generator = torch.Generator().manual_seed(0)
-            y0s = self._fresh_eval_y0s(generator, b)
-        needed_te = env.t0 + (n_steps + warmup_steps) * env.dt
-        if needed_te > env.te:
-            env = dataclasses.replace(env, te=float(needed_te) + env.dt)
+            y0s = self._fresh_eval_y0s(generator, self.cfg.n_envs)
 
-        estates = env.reset(y0s)
-        if warmup_steps:
-            # uncontrolled development phase: zero actions (forcing = 0),
-            # blow-up masking identical to the scored phase
-            zeros = torch.zeros_like(estates.action)
-            for _ in range(warmup_steps):
-                estates = where_state(~estates.done, env.step(estates, zeros), estates)
+        def act_cols(obs):
+            return torch.clamp(self.agent.actor_apply(actor_params, obs), -acfg.act_limit,
+                               acfg.act_limit)
 
-        rs, actives = [], []
-        for _ in range(n_steps):
-            a_flat = torch.clamp(agent.actor_apply(actor_params, self._obs_cols(estates.obs)),
-                                 -acfg.act_limit, acfg.act_limit)
-            active = ~estates.done
-            new_estates = env.step(estates, self._actions_env(a_flat, b))
-            estates = where_state(active, new_estates, estates)
-            # the blow-up step itself can carry a non-finite reward; exclude
-            # it from the mean instead of letting one diverged env NaN it all
-            step_r = new_estates.reward.mean(dim=-1)
-            ok = active & torch.isfinite(step_r)
-            rs.append(torch.where(ok, step_r, torch.zeros_like(step_r)))
-            actives.append(ok)
-        rs = torch.stack(rs).cpu().numpy()
-        actives = torch.stack(actives).cpu().numpy()
-        if score == "min":
-            per_env = self._env_scores(rs, actives)
-            return float(np.nanmin(per_env)) if np.isfinite(per_env).any() else float("nan")
-        return float(rs[actives].mean()) if actives.any() else float("nan")
+        rs, actives = eval_rollout(self.env, act_cols, y0s, n_steps, warmup_steps)
+        return score_rollout(rs, actives, score)
+
+
+def score_rollout(rs: np.ndarray, actives: np.ndarray, score: str = "mean") -> float:
+    """The eval score of `eval_rollout`'s traces: the mean step reward over
+    active steps, or with `score="min"` the min over the per-env masked
+    means (NaN for an env with no active step); NaN when nothing is
+    active."""
+    if score == "min":
+        n = actives.sum(axis=0)
+        per_env = np.where(n > 0, (rs * actives).sum(axis=0) / np.maximum(n, 1), np.nan)
+        return float(np.nanmin(per_env)) if np.isfinite(per_env).any() else float("nan")
+    return float(rs[actives].mean()) if actives.any() else float("nan")
+
+
+@torch.no_grad()
+def eval_rollout(env: PDEEnv, act_cols: Callable, y0s: torch.Tensor, n_steps: int,
+                 warmup_steps: int = 0):
+    """The deterministic evaluation rollout of every trainer: (rs, actives),
+    host (n_steps, B) arrays of the per-env mean step reward and whether the
+    step counted. `act_cols(obs (ns, B*n_act)) -> actions (na, B*n_act)` is
+    the policy over every actuator column.
+
+    When `n_steps + warmup_steps` exceeds the episode cap te/dt, the rollout
+    runs on a te-overridden clone of the env (te = t0 + (n_steps +
+    warmup_steps)*dt + dt) so every requested step is a real step; blow-up
+    termination stays active and masks post-termination steps, and the
+    blow-up step's own non-finite reward is left out. `warmup_steps > 0`
+    first evolves the ICs uncontrolled (zero actions) for that many steps,
+    and only the controlled segment is scored."""
+    b = y0s.shape[0]
+    needed_te = env.t0 + (n_steps + warmup_steps) * env.dt
+    if needed_te > env.te:
+        env = dataclasses.replace(env, te=float(needed_te) + env.dt)
+    estates = env.reset(y0s)
+    if warmup_steps:
+        zeros = torch.zeros_like(estates.action)
+        for _ in range(warmup_steps):
+            estates = where_state(~estates.done, env.step(estates, zeros), estates)
+    ns, n_act = estates.obs.shape[1], estates.obs.shape[2]
+    rs, actives = [], []
+    for _ in range(n_steps):
+        a_cols = act_cols(estates.obs.permute(1, 0, 2).reshape(ns, b * n_act))
+        active = ~estates.done
+        new_estates = env.step(estates, a_cols.reshape(-1, b, n_act).permute(1, 0, 2))
+        estates = where_state(active, new_estates, estates)
+        step_r = new_estates.reward.mean(dim=-1)
+        ok = active & torch.isfinite(step_r)
+        rs.append(torch.where(ok, step_r, torch.zeros_like(step_r)))
+        actives.append(ok)
+    return torch.stack(rs).cpu().numpy(), torch.stack(actives).cpu().numpy()
 
 
 def train_batched(trainer: BatchedTrainer, total_steps: int,

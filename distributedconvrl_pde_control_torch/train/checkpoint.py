@@ -21,6 +21,12 @@ Counterpart of ``distributedconvrl_pde_control_tpu/train/checkpoint.py``:
   refused. `load_hook` and `load_best_actor` read the hook alone;
 * `save_config_overrides` / `load_config_overrides` ship the off-preset
   config deltas next to a checkpoint;
+* `save_ppo` / `load_ppo` write and read a PPO run as the JAX package does:
+  `saves/ppo.msgpack`, the `PPOState` in flax's bytes (`trunk`, `mu`,
+  `logsig`, `critic`, the optax chain state `(EmptyState(),
+  (ScaleByAdamState(count, mu, nu), EmptyState()))` and `update_count`), and
+  `saves/ppo_info.npz` (`rewards`, the JSON `meta`, and the best params under
+  `best_` + the `jax.tree_util.keystr` of their path);
 * `actor_from_jax`, `ddpg_state_from_jax` and `replay_from_jax` build the
   port's state from numpy pytrees of the JAX package's (a `DDPGState` with
   its optax Adam states, a `Replay`), for parity tests and warm starts.
@@ -342,6 +348,113 @@ def _replay_from_tree(tree: dict, agent: DDPGAgent, path: str, device) -> Replay
         s, a, sn = s.T, a.T, sn.T
     return replay_from_jax(SimpleNamespace(s=s, a=a, r=tree["r"], t=tree["t"], sn=sn,
                                            ptr=tree["ptr"], size=tree["size"]), device)
+
+
+# -------------------------------------------------------------------- PPO
+def _ppo_moments(tensors: list, names: list, n_layers: dict) -> dict:
+    """Adam moments (one per tensor of `param_tensors`) as optax writes them:
+    a dict keyed by the param names in sorted order (`jax.tree.map` rebuilds
+    dicts sorted), each a chain state dict."""
+    it = iter(_host(t) for t in tensors)
+    by_name = {}
+    for name in names:
+        pairs = [(next(it), next(it)) for _ in range(n_layers[name])]
+        by_name[name] = _chain_state_dict([w for w, _ in pairs], [b for _, b in pairs])
+    return {name: by_name[name] for name in sorted(names)}
+
+
+def ppo_state_dict(state) -> dict:
+    """The JAX package's `PPOState` state dict of numpy arrays (see the
+    module docstring)."""
+    from distributedconvrl_pde_control_torch.agents.ppo import PARAM_NAMES
+
+    names = list(PARAM_NAMES)
+    chains = {name: getattr(state, name) for name in names}
+    out = {name: _chain_state_dict([_host(w) for w in c.w], [_host(b) for b in c.b])
+           for name, c in chains.items()}
+    n_layers = {name: len(c.w) for name, c in chains.items()}
+    adam = {"count": np.array(state.adam_count, np.int32),
+            "mu": _ppo_moments(state.adam_mu, names, n_layers),
+            "nu": _ppo_moments(state.adam_nu, names, n_layers)}
+    out["opt_state"] = {"0": {}, "1": {"0": adam, "1": {}}}
+    out["update_count"] = np.array(state.update_count, np.int32)
+    return out
+
+
+def _ppo_best_key(name: str, layer: int, leaf: str) -> str:
+    """The npz key of a best-params leaf: "best_" + `jax.tree_util.keystr`
+    of its path, as in "best_['critic'][0]['b']"."""
+    return f"best_['{name}'][{layer}]['{leaf}']"
+
+
+def save_ppo(dirpath: str, pstate, info: dict) -> None:
+    """Checkpoint a PPO run: the `PPOState` as `saves/ppo.msgpack` and the
+    reward history, selection trail and best params (a numpy pytree
+    {name: [{"w", "b"}, ...]}, as `train_ppo` gives them) as
+    `saves/ppo_info.npz`."""
+    os.makedirs(os.path.join(dirpath, "saves"), exist_ok=True)
+    with open(os.path.join(dirpath, "saves", "ppo.msgpack"), "wb") as f:
+        f.write(flax_msgpack.pack(ppo_state_dict(pstate)))
+    payload = {
+        "rewards": np.asarray(info["rewards"], np.float64),
+        "meta": np.frombuffer(json.dumps({
+            "best_reward": float(info["best_reward"]),
+            "best_iter": int(info["best_iter"]),
+            "selection": info.get("selection", "rollout"),
+            "evals": [[int(i), float(r)] for i, r in info.get("evals", [])],
+        }).encode(), dtype=np.uint8),
+    }
+    best = info.get("best_params")
+    if best is not None:
+        for name in sorted(best):
+            for i, layer in enumerate(best[name]):
+                for leaf in ("b", "w"):
+                    payload[_ppo_best_key(name, i, leaf)] = np.asarray(layer[leaf])
+    np.savez_compressed(os.path.join(dirpath, "saves", "ppo_info.npz"), **payload)
+
+
+def load_ppo(dirpath: str, agent, device="cuda"):
+    """(PPOState on `device`, info) of the PPO checkpoint in `dirpath`/saves,
+    written by either package; info holds `rewards`, the meta keys and, when
+    stored, `best_params` as a numpy pytree {name: [{"w", "b"}, ...]}. The
+    networks must have the layer sizes of `agent`'s config."""
+    from distributedconvrl_pde_control_torch.agents.ppo import PARAM_NAMES, params_from_numpy
+
+    path = os.path.join(dirpath, "saves", "ppo.msgpack")
+    with open(path, "rb") as f:
+        tree = flax_msgpack.unpack(f.read())
+    cfg = agent.cfg
+    want = {"trunk": [cfg.ns, cfg.hidden, cfg.hidden], "mu": [cfg.hidden, cfg.na],
+            "logsig": [cfg.hidden, cfg.na], "critic": [cfg.ns, cfg.hidden, cfg.hidden, 1]}
+
+    def chain_tree(d):
+        return [d[str(i)] for i in range(len(d))]
+
+    params_np = {name: chain_tree(tree[name]) for name in PARAM_NAMES}
+    for name, layers in params_np.items():
+        got = [np.shape(layers[0]["w"])[1]] + [np.shape(l["w"])[0] for l in layers]
+        if got != want[name]:
+            raise ValueError(f"the {name} chain in {path} has layer sizes {got}, the agent's "
+                             f"config {want[name]}")
+    params = params_from_numpy(params_np, device)
+    adam = tree["opt_state"]["1"]["0"]
+
+    def moments(d):
+        return [torch.as_tensor(np.asarray(l[leaf], np.float32), device=device).clone()
+                for name in PARAM_NAMES for l in chain_tree(d[name]) for leaf in ("w", "b")]
+
+    state = agent.make_state(params, adam_count=int(np.asarray(adam["count"])),
+                             adam_mu=moments(adam["mu"]), adam_nu=moments(adam["nu"]),
+                             update_count=int(np.asarray(tree["update_count"])))
+    with np.load(os.path.join(dirpath, "saves", "ppo_info.npz"), allow_pickle=False) as data:
+        info = {"rewards": np.asarray(data["rewards"]),
+                **json.loads(bytes(data["meta"]).decode())}
+        if any(k.startswith("best_") for k in data.files):
+            info["best_params"] = {
+                name: [{leaf: np.asarray(data[_ppo_best_key(name, i, leaf)], np.float32)
+                        for leaf in ("w", "b")} for i in range(len(params_np[name]))]
+                for name in PARAM_NAMES}
+    return state, info
 
 
 def load(dirpath: str, agent: DDPGAgent, number: Optional[int] = None, device="cuda"):

@@ -15,7 +15,10 @@ package's value ("jax") and whether the row keeps its limit ("ok"):
   * the 5 Keller-Segel DDPG rows: te=12, actuation from t=4, from the JAX
     package's `random_init(PRNGKey(8))` field (shipped as data); |u - 1|
     before actuation within 1e-3 and over the last tenth within
-    max(0.1 JAX, 0.0005). The PPO row waits for ROADMAP.md queue 1 item 14;
+    max(0.1 JAX, 0.0005);
+  * the Keller-Segel PPO row: the shipped PPO controller's best params (the
+    clipped mean action), te=12, actuation from t=6, from the JAX package's
+    `random_init(PRNGKey(7))` field (shipped as data); the same limits;
   * with `--full`, the 5 fluid energy rows: te=2, the trained actor,
     corrected opposition control and no action, each mean energy within 2 %.
 
@@ -68,7 +71,11 @@ JAX_FLUID_ROWS = {  # mean energies over te=2
     "Fluid_16 energy": {"trained": 3.976, "corrected_negate": 5.357, "no_action": 7.84},
     "Fluid_32 energy": {"trained": 1.921, "corrected_negate": 4.577, "no_action": 8.843},
 }
+JAX_PPO_ROWS = {  # the same numbers of the PPO controller (reproduce.py:240-261)
+    "KellerSegel10_16_ppo regulation": {"pre": 0.4903, "post": 0.2693},
+}
 KELLER_SEGEL_TE, KELLER_SEGEL_T_ACTION = 12.0, 4.0
+PPO_T_ACTION = 6.0
 FLUID_TE = 2.0
 
 
@@ -209,6 +216,54 @@ def regulation(setup, actor, te: float = KELLER_SEGEL_TE, t_action: float = KELL
     return out if ndigits is None else {k: round(v, ndigits) for k, v in out.items()}
 
 
+def load_ppo_policy(setup, path, device: str = "cuda"):
+    """The deterministic policy of the PPO checkpoint in `path` as the CLI's
+    `--eval --ppo` builds it: its best params, else its current ones."""
+    from distributedconvrl_pde_control_torch.agents.ppo import (
+        PPOAgent,
+        params_from_numpy,
+        ppo_policy,
+        tuned_config,
+    )
+    from distributedconvrl_pde_control_torch.train import checkpoint
+
+    acfg = setup.agent.cfg
+    agent = PPOAgent(tuned_config(acfg.ns, acfg.na_rows))
+    pstate, info = checkpoint.load_ppo(str(path), agent, device=device)
+    params = (params_from_numpy(info["best_params"], device) if info.get("best_params")
+              else agent._params(pstate))
+    return ppo_policy(agent, params)
+
+
+def ppo_rows(device: str = "cuda"):
+    """(row, setup, policy) of reproduce.py's PPO row: the KellerSegel10_16_ppo
+    controller on the KellerSegel10_16_fast env."""
+    from distributedconvrl_pde_control_torch.configs.keller_segel import (
+        KELLER_SEGEL_10_16_FAST,
+        build_keller_segel,
+    )
+
+    setup = build_keller_segel(KELLER_SEGEL_10_16_FAST, device=device)
+    yield ("KellerSegel10_16_ppo regulation", setup,
+           load_ppo_policy(setup, ARTIFACTS / "KellerSegel10_16_ppo", device))
+
+
+def ppo_regulation(setup, policy, te: float = KELLER_SEGEL_TE, t_action: float = PPO_T_ACTION,
+                   ndigits=4) -> dict:
+    """reproduce.py's PPO row: the policy rolled from the JAX package's
+    `random_init(PRNGKey(7))` field, mean |u - 1| over the 100 steps before
+    actuation and over the last tenth."""
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.keller_segel import keller_segel_y0_key7
+    from distributedconvrl_pde_control_torch.train.eval import regulation_of, rollout
+
+    y0 = torch.as_tensor(keller_segel_y0_key7(), device=setup.env.y0.device)
+    traces = rollout(setup.env, policy, y0=y0, te=te, t_action=t_action)
+    out = regulation_of(traces["y"], t_action, setup.env.dt)
+    return out if ndigits is None else {k: round(v, ndigits) for k, v in out.items()}
+
+
 def fluid_rows(device: str = "cuda"):
     """(row, setup, actor) of the fluid energy rows of reproduce.py --full:
     every artifact on its preset's single-device env (128^2, adaptive RK4)."""
@@ -256,6 +311,10 @@ def main(argv=None) -> int:
               flush=True)
     for row, setup, actor in keller_segel_rows(device):
         got, want = regulation(setup, actor), JAX_KELLER_SEGEL_ROWS[row]
+        print(json.dumps({"row": row, **got, "jax": want, "ok": keller_segel_ok(got, want)}),
+              flush=True)
+    for row, setup, policy in ppo_rows(device):
+        got, want = ppo_regulation(setup, policy), JAX_PPO_ROWS[row]
         print(json.dumps({"row": row, **got, "jax": want, "ok": keller_segel_ok(got, want)}),
               flush=True)
     if args.full:

@@ -473,7 +473,7 @@ def test_cli_runs_an_adaptive_preset(capsys):
     (["Fluid_16_256", "--eval", "--mesh", "2x1"], "1x1 only"),
     (["Fluid_16_256", "--eval", "--mesh", "two"], "DPxSP"),
     (["Fluid_16_256", "--train", "--mesh", "2x1"], "1x1 only"),
-    (["Fluid_16_256", "--eval", "--ppo"], "item 14"),
+    (["Fluid_8_tp", "--eval", "--ppo"], "item 16"),
     (["Fluid_8_tp", "--eval", "--mesh", "1x1", "--nx", "16"], "item 16"),
     (["KS22", "--eval", "--mesh", "1x1"], "fluid presets"),
 ])

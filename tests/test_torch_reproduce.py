@@ -6,12 +6,14 @@ fixed y0) and KS200 -> KS500 (a transfer to another grid), each at te=20
 with actuation from t=10. The port's y trace is held to the JAX rollout of
 the same row at 1e-4 of the trace's largest value, and the printed numbers
 to reproduce.py's `suppression`. On the CPU the port runs K1's plain version.
-The KellerSegel10_16_fast row runs at its full te=12 against the JAX
-package's printed value, and the Fluid_8 energy row, cut to 3 env steps,
-against the JAX package's rollout of it.
+The KellerSegel10_16_fast row and the KellerSegel10_16_ppo row run at their
+full te=12 against the JAX package's printed values, and the Fluid_8 energy
+row, cut to 3 env steps, against the JAX package's rollout of it.
 """
 
 import json
+
+import jax
 
 import numpy as np
 import pytest
@@ -60,21 +62,26 @@ def test_row_matches_reproduce(row, port_rows):
 
 def test_cli_prints_every_ks_row(capsys, monkeypatch):
     """`main` prints one JSON line per KS row of reproduce.py, then one per
-    Keller-Segel DDPG row, with its keys, in its order, each beside the JAX
-    package's value (the rollouts stubbed out)."""
+    Keller-Segel DDPG row, then the Keller-Segel PPO row, with its keys, in
+    its order, each beside the JAX package's value (the rollouts stubbed
+    out)."""
     monkeypatch.setattr(reproduce_torch, "suppression",
                         lambda setup, actor, te, t_action: {"pre": te, "post": t_action,
                                                             "suppression": 0.5})
     monkeypatch.setattr(reproduce_torch, "regulation",
                         lambda setup, actor: {"pre": 0.4964, "post": 0.007})
+    monkeypatch.setattr(reproduce_torch, "ppo_regulation",
+                        lambda setup, policy: {"pre": 0.4903, "post": 0.2693})
     assert reproduce_torch.main(["--cpu", "--te", "3", "--t-action", "1"]) == 0
     lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
-    assert len(lines) == 25 and lines[0]["row"] == "KS22 stabilization"
+    assert len(lines) == 26 and lines[0]["row"] == "KS22 stabilization"
     assert lines[19] == {"row": "KS200 (hyperopt winner) stabilization", "pre": 3.0, "post": 1.0,
                          "suppression": 0.5, "jax": 0.0212, "ok": False}
     assert sum("KS22_global" in line["row"] for line in lines) == 2
-    assert [line["row"] for line in lines[20:]] == list(reproduce_torch.JAX_KELLER_SEGEL_ROWS)
-    assert [line["ok"] for line in lines[20:]] == [False, True, True, True, True]
+    assert [line["row"] for line in lines[20:25]] == list(reproduce_torch.JAX_KELLER_SEGEL_ROWS)
+    assert [line["ok"] for line in lines[20:25]] == [False, True, True, True, True]
+    assert lines[25] == {"row": "KellerSegel10_16_ppo regulation", "pre": 0.4903, "post": 0.2693,
+                         "jax": {"pre": 0.4903, "post": 0.2693}, "ok": True}
 
 
 def test_keller_segel_row_matches_jax():
@@ -85,6 +92,23 @@ def test_keller_segel_row_matches_jax():
     assert row == "KellerSegel10_16_fast regulation"
     got = reproduce_torch.regulation(setup, actor, ndigits=None)
     want = reproduce_torch.JAX_KELLER_SEGEL_ROWS[row]
+    assert reproduce_torch.keller_segel_ok(got, want), (got, want)
+
+
+def test_keller_segel_ppo_row_matches_jax():
+    """The KellerSegel10_16_ppo row at its full te=12 (actuation from t=6)
+    from the JAX package's key-7 field, which ships as data and is
+    `random_init(PRNGKey(7))` of the JAX package, within the row's limits of
+    JAX's printed value."""
+    from distributedconvrl_pde_control_torch.configs.keller_segel import keller_segel_y0_key7
+
+    jsetup = C.build_keller_segel(C.KELLER_SEGEL_10_16_FAST)
+    want_y0 = np.asarray(jsetup.random_init(jax.random.PRNGKey(7, impl="threefry2x32")))
+    np.testing.assert_array_equal(keller_segel_y0_key7(), want_y0)
+    row, setup, policy = next(reproduce_torch.ppo_rows("cpu"))
+    assert row == "KellerSegel10_16_ppo regulation"
+    got = reproduce_torch.ppo_regulation(setup, policy, ndigits=None)
+    want = reproduce_torch.JAX_PPO_ROWS[row]
     assert reproduce_torch.keller_segel_ok(got, want), (got, want)
 
 

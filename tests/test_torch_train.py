@@ -371,14 +371,16 @@ def test_held_out_eval_pool_extends_and_is_disjoint():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["KS22", "--train", "--batched", "--population", "4"], "item 14"),
-    (["KS22", "--train", "--batched", "--pop-search", "4"], "item 14"),
+    (["KS22", "--train", "--batched", "--population", "4", "--mesh", "2"], "item 15"),
+    (["KS22", "--train", "--batched", "--pop-search", "4", "--mesh", "2"], "item 15"),
     (["KS22", "--train", "--batched", "--import-jld2", "x"], "item 17"),
     (["KS22", "--train", "--batched", "--mesh", "2"], "item 15"),
     (["KS22_tp", "--train", "--batched"], "item 16"),
     (["Fluid_8", "--train", "--batched", "--mesh", "1x1"], "item 15"),
-    (["KellerSegel10_16", "--train", "--ppo"], "item 14"),
-    (["KellerSegel10_16_fast", "--train", "--batched", "--population", "4"], "item 14"),
+    (["KellerSegel10_16", "--train", "--batched", "--population", "2", "--pop-overrides",
+      '{"gamma": [0.9, 0.99]}'], r"--pop-overrides supports \['act_noise'"),
+    (["KellerSegel10_16_fast", "--train", "--batched", "--population", "4", "--pop-overrides",
+      '{"act_noise": [1.0, 0.5]}'], r"--pop-overrides\[act_noise\] needs 4 values, got 2"),
 ])
 def test_cli_refusals_name_their_queue_item(argv, item):
     with pytest.raises(SystemExit, match=item):

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from distributedconvrl_pde_control_torch.configs.fluid import FLUID_16_256
 from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
 from distributedconvrl_pde_control_torch.models.mlp import chain_to_numpy, copy_chain
@@ -208,3 +210,50 @@ def test_fidelity_episode_on_gpu_matches_cpu(mono):
                         chain_to_numpy(getattr(ts_h.agent, name))):
             np.testing.assert_allclose(a["w"], b["w"], atol=1e-4, rtol=0)
             np.testing.assert_allclose(a["b"], b["b"], atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_ppo_iteration_on_gpu_matches_cpu():
+    """One PPO iteration on KS22 (chip_smoke.py phase 34): parameters within
+    1e-4 of each tensor's largest value, the mean reward within 1e-4, and K1
+    launched once per env step on the card."""
+    _need_cuda()
+    res = chip_smoke.ppo_pair()
+    assert res["params_max_err_of_scale"] <= 1e-4 and res["mean_reward_err"] <= 1e-4, res
+    assert res["K1_launches"] == [res["env_steps"], 0] and res["trunk_moved"] > 1e-5
+
+
+@pytest.mark.gpu
+def test_ppo_iteration_reads_nothing_back():
+    """A PPO iteration (tuned config, 8 envs) whose draws come from a CUDA
+    generator runs under `set_sync_debug_mode("error")`."""
+    _need_cuda()
+    from distributedconvrl_pde_control_torch.agents.ppo import PPOAgent, PPOTrainer, tuned_config
+
+    setup = build_ks(KS22, device="cuda")
+    trainer = PPOTrainer(setup.env, PPOAgent(tuned_config(setup.agent.cfg.ns, 1)), n_envs=8,
+                         random_init=setup.random_init)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    state = trainer.agent.init_state(gen, "cuda")
+    it = trainer.make_train_iter()
+    state, r0 = it(state, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, r1 = it(state, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.isfinite(float(r0)) and np.isfinite(float(r1)) and state.update_count == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("over", [pytest.param({}, id="cnab2"), pytest.param(SF, id="sf")])
+def test_population_chunk_on_gpu_matches_cpu(over):
+    """A P=2 population chunk (chip_smoke.py phase 37) with per-member
+    learning rates and act_noise: phase 14's limits; on CNAB2 the card
+    launches K1 once per train step."""
+    _need_cuda()
+    res = chip_smoke.population_pair(over)
+    assert res["params_max_abs_err"] <= 1e-4 and res["ep_reward_err"] <= 1e-3, res
+    assert res["mean_reward_err"] <= 1e-4 and res["same_finishes"] and res["finite"]
+    assert res["K1_launches"] == [0 if over else res["steps"], 0]
