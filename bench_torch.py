@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
 """Benchmark of the PyTorch port: batched KS rollout+train throughput on one GPU.
 
-    python3 bench_torch.py
+    python3 bench_torch.py [--tier sf|tp]
 
 The unit `bench.py` measures for the JAX package, in the port: per train step
 the KS22 physics on the reference's 192-point grid (ETDRK4 on the carried
 half-spectrum, featurize, reward and blow-up guard by Parseval on the carry),
 the shared-policy forward over all 16384*8 actuator columns, exploration
-noise, 131072 replay pushes and one DDPG update at batch 4096. Where the JAX
-bench configuration names bf16 matmul-DFT tiers, the port runs float32
-`torch.fft`. Initial fields come from `ks_random_init`, drawn on the card.
+noise, 131072 replay pushes and one DDPG update at batch 4096. `--tier tp`
+runs `bench.py`'s exact configuration: the transforms at its bf16 tiers
+(`matmul_hi`, and `matmul_fast` in the nonlinear term; with the spectral
+carry and featurize, all eight transforms of a step are nonlinear ones).
+The default, `--tier sf`, runs the same with float32 `torch.fft`, so that
+the two can be compared. Initial fields come from `ks_random_init`, drawn on
+the card.
 
 One warm-up chunk of 50 steps, then the best of 3 rounds of 5 chunks queued
 back to back with one `synchronize` at the end of each round. Prints one JSON
-line: `metric`, `value`, `unit`, and the card's `device` and `power_limit` as
-nvidia-smi gives them. It needs a CUDA device and exits non-zero without one.
+line: `metric`, `value`, `unit`, `tier`, and the card's `device` and
+`power_limit` as nvidia-smi gives them. It needs a CUDA device and exits
+non-zero without one.
 """
 
+import argparse
 import dataclasses
 import json
 import subprocess
@@ -29,11 +35,13 @@ TIMED_ROUNDS = 5
 REPEATS = 3
 LEARNER_BATCH = 4096
 METRIC = "env steps/sec (batched KS rollout+train)"
+SF = dict(stepper="etdrk4", spectral_carry=True, spectral_featurize=True)
+TIERS = {"sf": SF, "tp": dict(SF, fft_mode="matmul_hi", nl_fft_mode="matmul_fast")}
 
 
-def run_once() -> float:
+def run_once(tier: str = "sf") -> float:
     """Build, warm up and measure: env-steps/s, the best of REPEATS rounds of
-    TIMED_ROUNDS chunks each."""
+    TIMED_ROUNDS chunks each, at the transform tier `tier` (a key of TIERS)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -41,8 +49,7 @@ def run_once() -> float:
     from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
     from distributedconvrl_pde_control_torch.train.batched import BatchedTrainer, BatchedTrainerConfig
 
-    setup = build_ks(dataclasses.replace(KS22, stepper="etdrk4", spectral_carry=True,
-                                         spectral_featurize=True), device="cuda")
+    setup = build_ks(dataclasses.replace(KS22, **TIERS[tier]), device="cuda")
     trainer = BatchedTrainer(setup.env, setup.agent,
                              BatchedTrainerConfig(n_envs=N_ENVS, batch_size=LEARNER_BATCH, update_loops=1),
                              random_init=setup.random_init)
@@ -65,15 +72,19 @@ def run_once() -> float:
 def main() -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tier", choices=sorted(TIERS), default="sf",
+                        help="sf: float32 torch.fft; tp: bench.py's bf16 transform tiers")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("bench_torch: no CUDA device", file=sys.stderr)
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     name, power = (x.strip() for x in smi.stdout.strip().splitlines()[0].split(","))
-    rate = run_once()
+    rate = run_once(args.tier)
     print(json.dumps({"metric": METRIC, "value": round(rate, 1), "unit": "env_steps/s",
-                      "device": name, "power_limit": power}))
+                      "tier": args.tier, "device": name, "power_limit": power}))
     return 0
 
 

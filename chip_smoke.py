@@ -6,13 +6,16 @@
     python3 chip_smoke.py --fidelity-only
     python3 chip_smoke.py --families-only
     python3 chip_smoke.py --agents-only
+    python3 chip_smoke.py --tiers-only
     python3 chip_smoke.py --times-only [--tree DIR]
 
 With no argument it runs the phases below. `--train-only` runs phases 1, 2 and
 14-22 (the training paths), `--fidelity-only` phases 1, 2 and 23-28 (the KS
 fidelity loop), `--families-only` phases 1, 2 and 29-33 (the single-device
 fluid env and Keller-Segel), `--agents-only` phases 1, 2 and 34-39 (PPO and
-populations), and none of them prints a result line. `--times-only` prints the card and
+populations), and none of them prints a result line; `--tiers-only` runs
+phases 1, 2 and 40-44 (the reduced-precision transform tiers and the `_tp`
+presets) and ends with the ok line. `--times-only` prints the card and
 one JSON line of both kernels' times through their wrappers at the main
 paths' shapes and nothing else; `--tree DIR` imports the package from another
 checkout inside this one (an unpacked earlier commit under build/, say), so
@@ -114,7 +117,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      reward_sum within 1e-4, equal steps and replay size;
  24-27 run in a process of their own (no profiler session before them):
  24. the KS22 fidelity recipe through the CLI (`run KS22 --train`: seed 609,
-     800 steps per loop, cut from 8 loops to 2), read back through the full
+     cut from 8 loops of 800 steps to 2 of 400), read back through the full
      checkpoint; its best actor on phase 4's te=200 protocol must reach
      suppression < 0.25; env-steps/s, and K1's launches equal the env steps;
  25. `--resume` from phase 24's checkpoint for 1 loop x 100 steps (episodes,
@@ -151,16 +154,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
      te=200: suppression < 0.05; the iteration's time alone; KellerSegel10_16_
      fast and Fluid_8 `--train --ppo` cut in depth, read back through
      `load_ppo`, every reward and parameter finite;
- 38. `KS22 --train --batched --population 8` on phase 15's recipe (sf tier,
-     256 envs per member, 3000 steps, noise x0.5 per 1000, a 500-step eval
-     every 500), then every member at te=200 on the CNAB2 env: the median
-     member's suppression < 0.05, every member finite, population.json ranks
-     8; a CNAB2 population of 8 x 256 at full width for 2 chunks (K1 at 2048
+ 38. a CNAB2 population of 8 x 256 at full width for 2 chunks (K1 at 2048
      rows, once per train step); `--pop-search 4 --population 2` and
-     `KellerSegel10_16_fast --population 4`, cut in depth;
+     `KellerSegel10_16_fast --population 4`, cut in depth (the population
+     study on phase 15's recipe is phase 42's, on the JAX study's preset);
  39. the population's cost: env-steps/s of 8 x 256 fused against a solo run at
      256 (sf tier) and their ratio, the study speedup; then, under the
-     profiler, launches per train step of each and the idle share.
+     profiler, launches per train step of each and the idle share;
+ 40. each transform tier (matmul, matmul_hi, matmul_fast) on the card at the
+     slice's shapes: 16384x192 `rfft_ri`/`irfft_ri`, Fluid_8's 3/2-padded
+     192^2 grid (the four stacked spectra's inverse and the product's forward,
+     full and half spectrum), 256^2 `fft2_ri`/`ifft2_ri_real` at 16 fields;
+     each against the port on the CPU (rel 1e-5) and against a float64
+     transform (rel L2 <= 2e-6 matmul, <= 2e-5 matmul_hi, 3e-4..1e-2
+     matmul_fast), with its time beside cuFFT's; cuBLAS's float32 precision
+     unchanged after;
+ 41. the tiers' error per env step against the float32 step of the same
+     stepper: KS22 ETDRK4 on 16384 states after 500 uncontrolled steps,
+     matmul_hi everywhere and with the nonlinear term at matmul_fast, each
+     within 0.1x-3x of the TPU's ladder (2.0e-5, 1.8e-4: PERFORMANCE.md, an
+     accuracy, not a speed); Fluid_8_tp's IF-RK4 step against Fluid_8_fast's:
+     > 0 and <= 1.1e-3;
+ 42-43 run in a process of their own (no profiler session):
+ 42. `KS22_tp --train --batched --population 8` on phase 15's recipe (256
+     envs per member, 3000 steps, noise x0.5 per 1000, a 500-step eval every
+     500; the JAX study's preset, artifacts/KS22_tp_pop8), then every member at
+     te=200 on the standard CNAB2 env (K1 at 1 row): the median member's
+     suppression < 0.05, every member finite, printed beside the JAX study's
+     0.24-0.85 % (RESULTS.md:32);
+ 43. `Fluid_8_tp --train` (20 env steps of te=0.2) and `Fluid_16_256_tp
+     --train --mesh 1x1` (50 train steps of te=0.5), read back through their
+     checkpoints: every reward and parameter finite, a best actor; on the
+     mesh K2's launches equal 4 x the IF-RK4 substeps x the train steps;
+ 44. `bench_torch.py` and `bench_torch.py --tier tp` (bench.py's exact
+     configuration), each in a process of its own, in turns (sf, tp, tp, sf):
+     their train env-steps/s side by side.
 
 Times of the kernels' first designs (PERF.md, same card and power limit) are
 printed beside the new ones in the phases' text lines; the kernels JSON line
@@ -176,9 +204,10 @@ rollout); a stage of an RK4 substep is one launch of K2, counted by the
 library where it launches. Phases 24-27 count K1 in their own process, from 0
 before each CLI run, rollout and the rows, and report the counts by path; so
 do phases 35 (the shipped PPO controllers' rollouts), 36 (PPO training and the
-trained controller's rollout) and 38 (the members' rollouts and the CNAB2
-population at full width). K2 lies on none of the PPO and population paths. The
-second-to-last line is the kernels JSON line and the last line is
+trained controller's rollout), 38 (the CNAB2 population at full width), 42
+(the KS22_tp members' rollouts) and 43 (K2 in the Fluid_16_256_tp mesh
+training). K2 lies on none of the PPO and population
+paths. The second-to-last line is the kernels JSON line and the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -778,12 +807,13 @@ def fluid_train_profile(card: str) -> None:
 
 # ------------------------------------------------------------- the fidelity loop (23-28)
 FIDELITY_SEED = 609  # phase 24: the KS22 preset's seed, the CLI's default
-# The fidelity loop is host-bound at 51-103 ms per env step on the H100 machines
+# The fidelity loop is host-bound at 51-116 ms per env step on the H100 machines
 # (PERF.md), so phases 24-26 are cut in depth only, never in width: phase 24's KS22 recipe
-# (RESULTS.md) from 8 loops to 2 (8 would take the smoke to ~950 s of its 1200 s on the
-# fastest host seen), phase 25's restart protocol to 10-step episodes (te=1), phase 26's
-# mono training from 8 x 8000 steps to 400
-FIDELITY_LOOPS, FIDELITY_STEPS = 2, 800
+# (RESULTS.md) from 8 loops of 800 steps to 2 of 400 (2 x 800 gave 0.077 on the card; 2 x
+# 400 gave 0.083 on the CPU; the whole smoke took 849 s of its 1200 s before phases 40-44),
+# phase 25's restart protocol to 10-step episodes (te=1), phase 26's mono training from
+# 8 x 8000 steps to 400
+FIDELITY_LOOPS, FIDELITY_STEPS = 2, 400
 FIDELITY_LIMIT = 0.25  # phase 24: RESULTS.md's band for the recipe: 1.6 %-19 % on CPU seeds
 RESUME_STEPS, MULTI_EPISODES, MULTI_TE = 100, 50, 1.0  # phase 25
 MONO_STEPS, HYPEROPT_TRIALS, HYPEROPT_EPISODES = 400, 2, 5  # phase 26
@@ -1609,7 +1639,6 @@ def agents_child(out_json: str) -> int:
         BatchedTrainer,
         BatchedTrainerConfig,
     )
-    from distributedconvrl_pde_control_torch.train.eval import actor_policy, rollout
     from distributedconvrl_pde_control_torch.train.population import PopulationTrainer
 
     card = card_line()
@@ -1702,41 +1731,10 @@ def agents_child(out_json: str) -> int:
           f"{PPO_LIMIT}")
     out["phase36"] = res36
 
-    print(f"== 38. populations: KS22 --population {POP_MEMBERS} on phase 15's recipe, every member "
-          f"te=200 on CNAB2; a CNAB2 population at full width ({POP_MEMBERS} x {POP_ENVS}); "
-          "--pop-search 4 --population 2 and KellerSegel10_16_fast --population 4, cut in depth")
+    print(f"== 38. populations: a CNAB2 population at full width ({POP_MEMBERS} x {POP_ENVS}); "
+          "--pop-search 4 --population 2 and KellerSegel10_16_fast --population 4, cut in depth "
+          "(the study's recipe runs on KS22_tp in phase 42)")
     res38 = {}
-    pop_dir = base + "/KS22_pop8"
-    text, secs, launches = cli([
-        "KS22", "--train", "--batched", "--population", str(POP_MEMBERS), "--n-envs",
-        str(POP_ENVS), "--total-steps", "3000", "--noise-every", "1000", "--noise-decay", "0.5",
-        "--eval-every", "500", "--eval-steps", "500", "--capacity", "1000000", "--seed",
-        str(TRAIN_SEED), "--config-overrides", json.dumps(SF_TIER), "--out", pop_dir])
-    check(launches == 0, "the sf-tier population launched K1")
-    ranking = json.load(open(pop_dir + "/population.json"))["ranking"]
-    ks_kernel.KS_CNAB2.launches = 0
-    members = []
-    for i in range(POP_MEMBERS):
-        mdir = f"{pop_dir}/member_{i:02d}"
-        ts, hook = checkpoint.load(mdir, ks.agent, device="cuda")
-        actor = checkpoint.actor_from_jax(hook.best_actor).to("cuda")
-        y = rollout(ks.env, actor_policy(ks.agent, actor), te=200.0, t_action=100.0)["y"]
-        members.append(run.suppression_of(y, 100.0, ks.env.dt)["suppression"]
-                       if np.isfinite(y).all() else float("nan"))
-    k1["population members' rollouts (phase 38)"] = ks_kernel.KS_CNAB2.launches
-    steps = 3000 * POP_MEMBERS * POP_ENVS
-    res38["KS22 --population 8"] = {
-        "seconds": secs, "env_steps_per_s": steps / secs, "suppression_by_member": members,
-        "median": float(np.median(members)),
-        "ranking": [(r["dir"], r["best_reward"]) for r in ranking]}
-    print(json.dumps({"row": "KS22 --population 8, every member te=200 on CNAB2",
-                      **res38["KS22 --population 8"], "card": card}))
-    check(len(ranking) == POP_MEMBERS and np.isfinite(members).all()
-          and k1["population members' rollouts (phase 38)"] == 2000 * POP_MEMBERS,
-          "the population study is malformed")
-    check(float(np.median(members)) < POP_LIMIT,
-          f"the median member's suppression {np.median(members)} is not below {POP_LIMIT}")
-
     full = build_ks(KS22, device="cuda")
     pop = PopulationTrainer(full.env, full.agent,
                             BatchedTrainerConfig(n_envs=POP_ENVS, batch_size=256), POP_MEMBERS,
@@ -1890,6 +1888,329 @@ def agents_phases(card: str) -> dict:
     return k1
 
 
+# ------------------------------------------------------------ the transform tiers (40-44)
+# phase 40: each tier's relative L2 error against a float64 transform of the same input,
+# (floor, ceiling); matmul_fast's floor shows that the rounding happens. Calibrated on the
+# CPU at these shapes: matmul 1.8e-7-4.0e-7, matmul_hi 3.2e-6-5.9e-6, matmul_fast
+# 1.9e-3-3.2e-3. The card against the CPU: rel 1e-5 per pass (the same rounding, other sum
+# orders), a 2D transform's second pass fed the card's first: a float32 intermediate one
+# ulp apart can flip a bf16 rounding of the next pass (2^-9 of that operand at
+# matmul_fast), so the chained 2D results of the two devices differ by up to ~6e-5 (seen)
+TIER_ORACLE_LIMITS = {"matmul": (0.0, 2e-6), "matmul_hi": (0.0, 2e-5), "matmul_fast": (3e-4, 1e-2)}
+TIER_CPU_RTOL = 1e-5
+# phase 41: the TPU's accuracy (not speed) per KS22 ETDRK4 env step on attractor states
+# against HIGHEST (PERFORMANCE.md:254-255); the port's must fall within 0.1x-3x of it.
+# Calibrated on the CPU (512 states): 5.2e-6 and 1.7e-4
+KS_TIER_LADDER = {"matmul_hi everywhere": ("matmul_hi", None, 2.0e-5),
+                  "hi + nl matmul_fast": ("matmul_hi", "matmul_fast", 1.8e-4)}
+KS_TIER_WARMUP = 500
+FLUID_TIER_LIMIT = 1.1e-3  # phase 41: PERFORMANCE.md:270 (ifrk4@10/hi + nl); 6.2e-4 on the CPU
+# the JAX study's members (RESULTS.md:32, KS22_tp_pop8 at te=200), beside phase 42's
+JAX_TP_POP8 = [0.0024, 0.0024, 0.0024, 0.0024, 0.0044, 0.0044, 0.0067, 0.0085]
+# phase 43, cut in depth: Fluid_8_tp's single-env loop for 20 env steps of te=0.2 episodes;
+# Fluid_16_256_tp on --mesh 1x1 for 50 train steps (two chunks of 25) of te=0.5 episodes
+F8_TP_STEPS, F8_TP_TE, MESH_TP_STEPS, MESH_TP_TE = 20, 0.2, 50, 0.5
+BENCH_TIERS = ("sf", "tp", "tp", "sf")  # phase 44, in turns
+
+
+def _rel_np(got, want) -> float:
+    import numpy as np
+
+    got, want = np.asarray(got, np.complex128), np.asarray(want, np.complex128)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def tier_transforms(card: str) -> dict:
+    """Phase 40: each tier's transforms at the slice's shapes on the card,
+    against the port on the CPU and against a float64 transform; their times
+    beside torch.fft's (cuFFT)."""
+    import numpy as np
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
+    from distributedconvrl_pde_control_torch.ops import fourier as F
+    from distributedconvrl_pde_control_torch.ops.navier_stokes import NSSolver, initial_condition
+
+    ys = build_ks(KS22, device="cpu").random_init(torch.Generator().manual_seed(40), N_ENVS)
+    half = torch.fft.rfft(ys.double()).to(torch.complex64)
+    rng = np.random.default_rng(40)
+    # Fluid_8's advection inputs on the 3/2-padded 192^2 grid: the four spectra of a case-4
+    # field, full and half, and a product field
+    w8 = torch.fft.fft2(torch.tensor(np.fft.ifft2(initial_condition(4, 128, 128, 1.0, 1.0, rng)).real,
+                                     dtype=torch.float32))[None]
+    ns = NSSolver(nx=128, ny=128, device="cpu")
+    full8 = ns._stage_spectra(w8, False).contiguous()
+    half8 = ns._stage_spectra(w8[..., :65], True).contiguous()
+    r8 = torch.fft.ifft2(full8).real
+    prod8 = (-r8[:, 0] * r8[:, 2] - r8[:, 1] * r8[:, 3]).contiguous()
+    f256 = torch.tensor(np.stack([np.fft.ifft2(initial_condition(4, 256, 256, 1.0, 1.0, rng)).real
+                                  for _ in range(16)]), dtype=torch.float32)
+    w256 = torch.fft.fft2(f256)
+    c128 = np.complex128
+
+    def inv_last(z, m):
+        return F.ifft(z, axis=-1, mode=m)
+
+    def fwd_last(x, m):
+        return F.fft(x, axis=-1, mode=m)
+
+    cases = {  # label -> (transform of (input, mode), input, float64 transform, its passes
+        # (first, second) for a 2D transform)
+        "rfft_ri 16384x192": (lambda x, m: torch.complex(*F.rfft_ri(x, m)), ys,
+                              np.fft.rfft(ys.double().numpy()), None),
+        "irfft_ri 16384x192": (lambda h, m: F.irfft_ri(h.real.contiguous(), h.imag.contiguous(), 192, m),
+                               half, np.fft.irfft(half.numpy().astype(c128), 192), None),
+        "Fluid_8 192^2 full inverse, 4 spectra": (
+            lambda s, m: F.ifft2(s, mode=m).real, full8, np.fft.ifft2(full8.numpy().astype(c128)).real,
+            (inv_last, lambda z, m: F.ifft(z, axis=-2, mode=m).real)),
+        "Fluid_8 192^2 full forward": (lambda x, m: F.fft2(x, mode=m), prod8,
+                                       np.fft.fft2(prod8.double().numpy()),
+                                       (fwd_last, lambda z, m: F.fft(z, axis=-2, mode=m))),
+        "Fluid_8 192^2 half inverse, 4 spectra": (
+            lambda s, m: F.irfft2(s, 192, mode=m), half8,
+            np.fft.irfft2(half8.numpy().astype(c128), s=(192, 192)),
+            (lambda s, m: F.ifft(s, axis=-2, mode=m), lambda z, m: F.irfft(z, 192, mode=m))),
+        "Fluid_8 192^2 half forward": (lambda x, m: F.rfft2(x, mode=m), prod8,
+                                       np.fft.rfft2(prod8.double().numpy()),
+                                       (lambda x, m: F.rfft(x, mode=m),
+                                        lambda z, m: F.fft(z, axis=-2, mode=m))),
+        "256^2 fft2_ri, 16 fields": (lambda x, m: torch.complex(*F.fft2_ri(x, None, m)), f256,
+                                     np.fft.fft2(f256.double().numpy()),
+                                     (fwd_last, lambda z, m: F.fft(z, axis=-2, mode=m))),
+        "256^2 ifft2_ri_real, 16 spectra": (
+            lambda w, m: F.ifft2_ri_real(w.real.contiguous(), w.imag.contiguous(), m), w256,
+            np.fft.ifft2(w256.numpy().astype(c128)).real,
+            (inv_last, lambda z, m: F.ifft(z, axis=-2, mode=m).real)),
+    }
+    mm = torch.backends.cuda.matmul
+    flags = (mm.fp32_precision, torch.get_float32_matmul_precision())
+    rows = []
+    for label, (fn, x, exact, passes) in cases.items():
+        xg = x.cuda()
+        fft_ms = cuda_ms(lambda: fn(xg, "auto"), 20)
+        for mode in F.TIERS:
+            got = fn(xg, mode).cpu().numpy()
+            # per pass: the CPU's transform of the input, or of the card's first pass
+            cpu = (fn(x, mode) if passes is None
+                   else passes[1](passes[0](xg, mode).cpu(), mode)).numpy()
+            e_cpu, e_exact = _rel_np(got, cpu), _rel_np(got, exact)
+            lo, hi = TIER_ORACLE_LIMITS[mode]
+            rows.append({"transform": label, "shape": list(x.shape), "mode": mode,
+                         "rel_to_cpu_per_pass": e_cpu,
+                         "rel_to_cpu_chained": _rel_np(got, fn(x, mode).numpy()),
+                         "rel_to_float64": e_exact, "limits": [lo, hi],
+                         "ms": cuda_ms(lambda: fn(xg, mode), 20), "torch_fft_ms": fft_ms})
+            print(json.dumps({"phase": 40, **rows[-1]}))
+            check(e_cpu <= TIER_CPU_RTOL, f"{label} at {mode}: card against CPU {e_cpu:.2e}")
+            check(lo <= e_exact <= hi, f"{label} at {mode}: {e_exact:.2e} against float64 is "
+                                       f"outside [{lo}, {hi}]")
+    check((mm.fp32_precision, torch.get_float32_matmul_precision()) == flags,
+          "a tier call left cuBLAS's float32 precision changed")
+    print(json.dumps({"phase": 40, "cases": len(rows), "card": card}))
+    return {"rows": rows}
+
+
+def tier_step_errors(card: str) -> dict:
+    """Phase 41: the tiers' error per env step against the float32 step of the
+    same stepper: KS22 ETDRK4 on 16384 attractor states, Fluid_8_tp's IF-RK4
+    step against Fluid_8_fast's."""
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.fluid import build_fluid
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
+    from distributedconvrl_pde_control_torch.experiments.run import fluid_config_for
+    from distributedconvrl_pde_control_torch.ops.ks import KSSolverETDRK4
+
+    def rel(a, b):
+        return (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
+
+    setup = build_ks(KS22, device="cuda")
+    y = setup.random_init(torch.Generator(device="cuda").manual_seed(41), N_ENVS)
+    grid = dict(nx=KS22.nx, lx=KS22.lx, dt=KS22.dt, device="cuda")
+    f32 = KSSolverETDRK4(**grid)
+    zero = torch.zeros_like(y)
+    for _ in range(KS_TIER_WARMUP):
+        y = f32.step(y, zero)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    forcing = setup.env.prepare_action(
+        torch.rand((N_ENVS, 1, KS22.n_actuators), generator=gen, device="cuda") * 2.0 - 1.0)
+    ref = f32.step(y, forcing)
+    res = {"states": N_ENVS, "warmup_steps": KS_TIER_WARMUP, "max_abs_y": y.abs().max().item()}
+    check(bool(torch.isfinite(y).all()), "the KS warm-up left non-finite states")
+    for label, (fm, nl, tpu) in KS_TIER_LADDER.items():
+        err = rel(KSSolverETDRK4(**grid, fft_mode=fm, nl_fft_mode=nl).step(y, forcing), ref)
+        res[label] = {"rel_err_per_env_step": err, "tpu_ladder": tpu, "ratio": err / tpu}
+        check(0.1 * tpu <= err <= 3.0 * tpu,
+              f"KS22 {label}: {err:.2e} per env step, outside 0.1x-3x of the TPU's {tpu:.1e}")
+    res["matmul_fast everywhere (reported)"] = rel(
+        KSSolverETDRK4(**grid, fft_mode="matmul_fast").step(y, forcing), ref)
+    steps = {}
+    for name in ("Fluid_8_fast", "Fluid_8_tp"):
+        fl = build_fluid(fluid_config_for(name), device="cuda")
+        act = torch.rand((1, 1, fl.env.action_shape[-1]), generator=torch.Generator().manual_seed(43))
+        steps[name] = fl.env.step_fn(fl.env.y0[None], fl.env.prepare_action(act.cuda() * 2.0 - 1.0))
+    err = rel(steps["Fluid_8_tp"], steps["Fluid_8_fast"])
+    res["Fluid_8_tp against Fluid_8_fast"] = {"rel_err_per_env_step": err, "limit": FLUID_TIER_LIMIT}
+    print(json.dumps({"phase": 41, **res, "card": card}))
+    check(bool(torch.isfinite(steps["Fluid_8_tp"]).all()) and 0.0 < err <= FLUID_TIER_LIMIT,
+          f"Fluid_8_tp's step is {err:.2e} off Fluid_8_fast's (limit {FLUID_TIER_LIMIT})")
+    return res
+
+
+def tiers_child(out_json: str) -> int:
+    """Phases 42 and 43 in a process of their own, which has run no profiler
+    session: the KS22_tp population study and the fluid `_tp` training CLIs.
+    Writes K1's and K2's launches by path to `out_json`."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
+    from distributedconvrl_pde_control_torch.experiments import run
+    from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
+    from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
+    from distributedconvrl_pde_control_torch.parallel.multichip import (
+        ShardedFluidTrainer,
+        ShardedTrainConfig,
+        load_sharded,
+    )
+    from distributedconvrl_pde_control_torch.train import checkpoint
+    from distributedconvrl_pde_control_torch.train.eval import actor_policy, rollout
+
+    card = card_line()
+    k1, k2_paths = {}, {}
+    base = ROOT / "build" / "smoke_tiers"
+    shutil.rmtree(base, ignore_errors=True)
+
+    def cli(argv):
+        """The CLI's output (also printed), its seconds, and K1's and K2's launches in it."""
+        ks_kernel.KS_CNAB2.launches = k2.NS_ADVECTION.launches = 0
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            run.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(buf.getvalue(), end="", flush=True)
+        return secs, ks_kernel.KS_CNAB2.launches, k2.NS_ADVECTION.launches
+
+    def finite(chain):
+        return all(bool(torch.isfinite(p).all()) for p in chain.parameters())
+
+    print(f"== 42. KS22_tp --train --batched --population {POP_MEMBERS} on phase 15's recipe "
+          f"({POP_ENVS} envs per member, 3000 steps), every member te=200 on the CNAB2 env (K1)")
+    pop_dir = str(base / "KS22_tp_pop8")
+    secs, launches, _ = cli([
+        "KS22_tp", "--train", "--batched", "--population", str(POP_MEMBERS), "--n-envs",
+        str(POP_ENVS), "--total-steps", "3000", "--noise-every", "1000", "--noise-decay", "0.5",
+        "--eval-every", "500", "--eval-steps", "500", "--capacity", "1000000", "--seed",
+        str(TRAIN_SEED), "--out", pop_dir])
+    check(launches == 0, "the KS22_tp population launched K1")
+    ranking = json.load(open(pop_dir + "/population.json"))["ranking"]
+    ks = build_ks(KS22, device="cuda")
+    ks_kernel.KS_CNAB2.launches = 0
+    members = []
+    for i in range(POP_MEMBERS):
+        _, hook = checkpoint.load(f"{pop_dir}/member_{i:02d}", ks.agent, device="cuda")
+        actor = checkpoint.actor_from_jax(hook.best_actor).to("cuda")
+        y = rollout(ks.env, actor_policy(ks.agent, actor), te=200.0, t_action=100.0)["y"]
+        members.append(run.suppression_of(y, 100.0, ks.env.dt)["suppression"]
+                       if np.isfinite(y).all() else float("nan"))
+    k1["KS22_tp population members' rollouts (phase 42)"] = ks_kernel.KS_CNAB2.launches
+    res42 = {"seconds": secs, "env_steps_per_s": 3000 * POP_MEMBERS * POP_ENVS / secs,
+             "suppression_by_member": members, "median": float(np.median(members)),
+             "jax_study_by_member": JAX_TP_POP8, "jax_study_median": float(np.median(JAX_TP_POP8)),
+             "ranking": [(r["dir"], r["best_reward"]) for r in ranking]}
+    print(json.dumps({"row": "KS22_tp --population 8, every member te=200 on CNAB2", **res42,
+                      "card": card}))
+    check(len(ranking) == POP_MEMBERS and np.isfinite(members).all()
+          and ks_kernel.KS_CNAB2.launches == 2000 * POP_MEMBERS, "the KS22_tp population is malformed")
+    check(res42["median"] < POP_LIMIT,
+          f"the median KS22_tp member's suppression {res42['median']} is not below {POP_LIMIT}")
+
+    print(f"== 43. Fluid_8_tp --train ({F8_TP_STEPS} env steps of te={F8_TP_TE}) and "
+          f"Fluid_16_256_tp --train --mesh 1x1 ({MESH_TP_STEPS} train steps of te={MESH_TP_TE}), "
+          "cut in depth")
+    res43 = {}
+    f8_dir = str(base / "Fluid_8_tp")
+    secs, _, launches = cli(["Fluid_8_tp", "--train", "--loops", "1", "--no-steps", str(F8_TP_STEPS),
+                             "--config-overrides", json.dumps({"te": F8_TP_TE}), "--out", f8_dir])
+    f8 = run.build_setup(dataclasses.replace(run.fluid_config_for("Fluid_8_tp"), te=F8_TP_TE),
+                         device="cuda")
+    ts, hook = checkpoint.load(f8_dir, f8.agent, device="cuda")
+    res43["Fluid_8_tp --train"] = {"seconds": secs, "ms_per_env_step": 1e3 * secs / F8_TP_STEPS,
+                                   "episodes": hook.ep - 1, "rewards": hook.rewards,
+                                   "best_reward": hook.bestreward, "K2_launches": launches}
+    check(hook.ep > 1 and np.isfinite(hook.rewards).all() and hook.best_actor is not None
+          and finite(ts.agent.actor) and finite(ts.agent.critic)
+          and finite(checkpoint.actor_from_jax(hook.best_actor)) and launches == 0,
+          "Fluid_8_tp --train is malformed")
+    mesh_dir = str(base / "Fluid_16_256_tp")
+    secs, _, launches = cli(["Fluid_16_256_tp", "--train", "--mesh", "1x1", "--loops", "1",
+                             "--no-steps", str(MESH_TP_STEPS), "--horizon", str(MESH_TP_TE),
+                             "--out", mesh_dir])
+    k2_paths["Fluid_16_256_tp --mesh 1x1 training (phase 43)"] = launches
+    cfg = run.fluid_config_for("Fluid_16_256_tp")
+    trainer = ShardedFluidTrainer(cfg, (1, 1), ShardedTrainConfig(n_envs=1), device="cuda")
+    agent_state, mhook = load_sharded(mesh_dir, trainer)
+    want = 4 * cfg.fast_oversampling_eff * MESH_TP_STEPS
+    res43["Fluid_16_256_tp --train --mesh 1x1"] = {
+        "seconds": secs, "ms_per_train_step": 1e3 * secs / MESH_TP_STEPS,
+        "substeps_per_env_step": cfg.fast_oversampling_eff, "K2_launches": launches,
+        "K2_launches_expected": want, "episodes": mhook.ep - 1, "best_reward": mhook.bestreward}
+    res43["card"] = card
+    print(json.dumps({"phase": 43, **res43}))
+    check(launches == want, f"K2 launched {launches} times in {MESH_TP_STEPS} Fluid_16_256_tp train "
+                            f"steps, expected {want} (4 per IF-RK4 substep)")
+    check(mhook.best_actor is not None and np.isfinite(mhook.rewards).all()
+          and finite(agent_state.actor) and finite(agent_state.critic)
+          and finite(checkpoint.actor_from_jax(mhook.best_actor)),
+          "Fluid_16_256_tp --mesh 1x1 --train is malformed")
+    Path(out_json).write_text(json.dumps({"K1": k1, "K2": k2_paths}))
+    return 0
+
+
+def bench_tiers(card: str) -> dict:
+    """Phase 44: bench_torch.py at the sf and the tp tier, each in a process of
+    its own (no profiler session before it), in turns."""
+    rates = {}
+    for tier in BENCH_TIERS:
+        proc = subprocess.run([sys.executable, str(ROOT / "bench_torch.py"), "--tier", tier],
+                              cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"bench_torch.py --tier {tier} failed: {proc.stderr[-2000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(line["tier"] == tier and line["value"] > 0, f"bench_torch.py printed {line}")
+        rates.setdefault(tier, []).append(line["value"])
+    res = {"train_env_steps_per_s": rates,
+           "tp_over_sf": max(rates["tp"]) / max(rates["sf"]), "card": card}
+    print(json.dumps({"phase": 44, **res}))
+    return res
+
+
+def tiers_phases(card: str) -> dict:
+    """Phases 40-44. Returns K1's and K2's launches on the tier paths."""
+    print("== 40. each tier's transforms at the slice's shapes, card against the CPU and against "
+          "float64")
+    tier_transforms(card)
+    print(f"== 41. the tiers' error per env step: KS22 ETDRK4 on {N_ENVS} states after "
+          f"{KS_TIER_WARMUP} steps, Fluid_8_tp against Fluid_8_fast")
+    tier_step_errors(card)
+    out_json = ROOT / "build" / "smoke_tiers.json"
+    out_json.unlink(missing_ok=True)
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--tiers-child",
+                           str(out_json)], cwd=str(ROOT), timeout=900)
+    check(proc.returncode == 0 and out_json.exists(),
+          f"phases 42 and 43 failed in their process (exit {proc.returncode})")
+    print("== 44. bench_torch.py at the sf and the tp tier, in turns, each in its own process")
+    bench_tiers(card)
+    return json.loads(out_json.read_text())
+
+
 def main() -> int:
     import torch
 
@@ -1906,9 +2227,12 @@ def main() -> int:
                         help="run phases 1, 2 and 29-33 and print no result line")
     parser.add_argument("--agents-only", action="store_true",
                         help="run phases 1, 2 and 34-39 and print no result line")
+    parser.add_argument("--tiers-only", action="store_true",
+                        help="run phases 1, 2 and 40-44 and end with the ok line")
     parser.add_argument("--fidelity-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--agents-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--families-child", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--tiers-child", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1919,6 +2243,8 @@ def main() -> int:
         return families_child(args.families_child)
     if args.agents_child:
         return agents_child(args.agents_child)
+    if args.tiers_child:
+        return tiers_child(args.tiers_child)
     if args.times_only:
         return times_only(args.tree)
     if args.tree:
@@ -1977,6 +2303,12 @@ def main() -> int:
         return 0
     if args.agents_only:
         print(json.dumps({"K1_launches_on_the_agent_paths": agents_phases(card)}))
+        return 0
+    if args.tiers_only:
+        print(json.dumps({"launches_on_the_tier_paths": tiers_phases(card)}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
         return 0
     if args.train_only:
         k1_training = train_phases(card)
@@ -2355,26 +2687,28 @@ def main() -> int:
     k1_fidelity = fidelity_phases(card)
     families_phases(card)
     k1_agents = agents_phases(card)
+    k_tiers = tiers_phases(card)
 
     print(json.dumps({"kernels": [{
         "name": "ks_cnab2", "route": "cuda",
         "source": "distributedconvrl_pde_control_torch/csrc/" + ks_kernel.SOURCE,
         "replaces": ks_kernel.REPLACES,
         "launches": (launches + sum(k1_training.values()) + sum(k1_fidelity.values())
-                     + sum(k1_agents.values())),
+                     + sum(k1_agents.values()) + sum(k_tiers["K1"].values())),
         "launches_by_path": {"evaluation (phases 4-5)": launches,
                              "training: trained controller's rollout (phase 15)": k1_training["rollout"],
                              "training: train steps (phase 16)": k1_training["train_steps"],
-                             **k1_fidelity, **k1_agents},
+                             **k1_fidelity, **k1_agents, **k_tiers["K1"]},
         "max_abs_err": max(errs[k] for k in MAIN_PATH_SHAPES), "ms": k_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None, "status": "ok", "shape": "16384x192, 30 substeps",
         "at_1x192": k1_one}, {
         "name": "ns_advection", "route": "cuda",
         "source": "distributedconvrl_pde_control_torch/csrc/" + k2.SOURCE,
-        "replaces": k2.REPLACES, "launches": k2_launches + k2_training,
+        "replaces": k2.REPLACES,
+        "launches": k2_launches + k2_training + sum(k_tiers["K2"].values()),
         "launches_by_path": {"evaluation (phases 9-10)": k2_launches,
-                             "training (phases 20-21)": k2_training},
+                             "training (phases 20-21)": k2_training, **k_tiers["K2"]},
         "max_abs_err": max(k2_errs[k] for k in K2_MAIN_PATH_SHAPES),
         "max_err_of_scale": max(k2_rel_errs[k] for k in K2_MAIN_PATH_SHAPES),
         "max_fused_err_of_scale": max(k2_fused_errs.values()),

@@ -24,6 +24,7 @@ from distributedconvrl_pde_control_torch.envs.features import (
     taylor_kernels_2d,
 )
 from distributedconvrl_pde_control_torch.envs.pde_env import PDEEnv
+from distributedconvrl_pde_control_torch.ops import fourier
 from distributedconvrl_pde_control_torch.ops.integrators import rk4_adaptive
 from distributedconvrl_pde_control_torch.ops.navier_stokes import NSSolver, initial_condition
 from distributedconvrl_pde_control_torch.train.drivers import Setup
@@ -44,8 +45,10 @@ class FluidConfig:
     lx: float = 1.0
     nu: float = 5e-5
     dealias: bool = True
-    # transform tier of the JAX package; the port computes every transform
-    # in float32 ("auto" only; the reduced-precision tiers are not ported)
+    # transform tier (ops/fourier.py): "auto" = torch.fft in float32; "matmul",
+    # "matmul_hi", "matmul_fast" = the JAX package's DFT-product tiers; the
+    # advection's tier is nl_fft_mode (None: fft_mode). On --mesh the
+    # advection is kernel K2, float32 under every nl_fft_mode
     fft_mode: str = "auto"
     nl_fft_mode: str | None = None
     adaptive: bool = False  # do_step2 semantics: adaptive RK4, tol 1e0
@@ -207,22 +210,24 @@ class AdaptiveFluidStep:
     """The reference's do_step2 (FluidSetup.jl:181-186): adaptive RK4 at the
     loose tolerance `tol` over one env step, through
     `ops/integrators.py::rk4_adaptive` on the full complex spectra, each env
-    with its own step control. `last_trials` holds each env's trial count of
-    the last call (host integers)."""
+    with its own step control; the field's and the forcing's transforms run
+    at the solver's `fft_mode`, the right-hand sides' at its `nl_fft_mode`.
+    `last_trials` holds each env's trial count of the last call (host
+    integers)."""
 
     def __init__(self, solver: NSSolver, dt: float, tol: float, max_steps: int = 256):
         self.solver, self.dt, self.tol, self.max_steps = solver, dt, tol, max_steps
         self.last_trials = None
 
     def __call__(self, y, forcing):
-        s = self.solver
-        f = torch.fft.fft2(forcing.to(torch.float32))
+        s, mode = self.solver, self.solver.fft_mode
+        f = fourier.fft2(forcing.to(torch.float32), mode=mode)
         info = {}
-        w = rk4_adaptive(lambda z, f_: s.rhs_real_layout(z, f_), torch.fft.fft2(y.to(torch.float32)),
-                         f, self.dt, rtol=self.tol, atol=self.tol, max_steps=self.max_steps,
-                         info=info)
+        w = rk4_adaptive(lambda z, f_: s.rhs_real_layout(z, f_),
+                         fourier.fft2(y.to(torch.float32), mode=mode), f, self.dt, rtol=self.tol,
+                         atol=self.tol, max_steps=self.max_steps, info=info)
         self.last_trials = info["trials"]
-        return torch.fft.ifft2(w).real
+        return fourier.ifft2(w, mode=mode).real
 
 
 def fluid_random_field(cfg: FluidConfig, seed: int) -> np.ndarray:

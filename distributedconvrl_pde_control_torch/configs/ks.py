@@ -6,9 +6,10 @@ constants of `scripts/KS/setup/KSSetup.jl` (distributed agents) and
 per-experiment scripts KS22 / KS200 / KS500 / KS200_disturbed /
 KS22_global-agent; `build_ks` for the reference's CNAB2 stepper and for the
 throughput tiers (`stepper="etdrk4"`, `spectral_carry`,
-`spectral_featurize`), `build_ks_global` for the mono agent, all in float32. The JAX package's
-reduced-precision transform tiers are not ported yet: `build_ks` refuses
-them.
+`spectral_featurize`, and the transform tiers `fft_mode` / `nl_fft_mode` of
+``ops/fourier.py``), `build_ks_global` for the mono agent. The CNAB2 step
+is kernel K1, which computes in float32 under every `fft_mode`, as its
+Pallas twin does.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from distributedconvrl_pde_control_torch.envs.features import (
     gaussian_kernels_1d,
 )
 from distributedconvrl_pde_control_torch.envs.pde_env import PDEEnv
+from distributedconvrl_pde_control_torch.ops.fourier import use_matmul_dft
 from distributedconvrl_pde_control_torch.ops.ks import KSSolver, KSSolverETDRK4
 from distributedconvrl_pde_control_torch.train.drivers import Setup
 
@@ -50,13 +52,16 @@ class KSConfig:
     t0: float = 0.0
     dt: float = 0.1
     oversampling: int = 30
-    # transform tier of the JAX package; the port computes every transform
-    # in float32 ("auto", "native" and "matmul" all mean that here)
+    # transform tier (ops/fourier.py): "auto"/"native" = torch.fft in float32;
+    # "matmul", "matmul_hi" (3-pass bf16), "matmul_fast" (1-pass bf16) = the
+    # JAX package's DFT-product tiers. The CNAB2 stepper (K1) stays float32
     fft_mode: str = "auto"
     # integrator: "cnab2" = the reference's do_step (30 substeps,
     # KSSetup.jl:130-160), kernel K1; "etdrk4" = exact linear part, one step
     # per env step on torch.fft (ops/ks.py::KSSolverETDRK4)
     stepper: str = "cnab2"
+    # etdrk4-only: the tier of the nonlinear evaluations' transforms (their
+    # error enters scaled by the O(h) phi-weights); None = fft_mode
     nl_fft_mode: str | None = None
     # etdrk4-only: carry the field as its complex half-spectrum across env
     # steps and feed the solver spectral forcing computed directly from the
@@ -166,13 +171,13 @@ def build_ks(cfg: KSConfig = KS22, device: str = "cuda") -> Setup:
         raise ValueError("spectral_carry requires stepper='etdrk4'")
     if cfg.stepper not in ("cnab2", "etdrk4"):
         raise ValueError(f"unknown stepper {cfg.stepper!r}")
-    if cfg.fft_mode not in ("auto", "native", "matmul") or cfg.nl_fft_mode is not None:
-        raise NotImplementedError(
-            "reduced-precision transform tiers are ROADMAP.md queue 1 item 16")
     if cfg.stepper == "etdrk4":
         solver = KSSolverETDRK4(nx=cfg.nx, lx=cfg.lx, dt=cfg.dt, oversampling=1, mu=cfg.mu,
+                                fft_mode=cfg.fft_mode, nl_fft_mode=cfg.nl_fft_mode,
                                 device=device)
     else:
+        # K1 computes in float32 under every tier (its Pallas twin is HIGHEST only)
+        use_matmul_dft(cfg.fft_mode)  # an unknown mode raises here
         solver = KSSolver(nx=cfg.nx, lx=cfg.lx, dt=cfg.dt, oversampling=cfg.oversampling,
                           mu=cfg.mu, device=device)
     sensors = gaussian_kernels_1d(cfg.sensor_positions, cfg.nx, cfg.lx, cfg.sigma_sensors,
@@ -343,7 +348,9 @@ def build_ks_global(cfg: KSConfig = KS22_GLOBAL, device: str = "cuda") -> Setup:
 
     Per-episode training inits stay random (the reference trains with
     use_random_init=true, KSglobalSetup.jl:326,330); the fixed stored y0 is
-    the env's reset default, which evaluation protocols use."""
+    the env's reset default, which evaluation protocols use. K1 computes in
+    float32 under every `fft_mode`."""
+    use_matmul_dft(cfg.fft_mode)  # an unknown mode raises here
     solver = KSSolver(nx=cfg.nx, lx=cfg.lx, dt=cfg.dt, oversampling=cfg.oversampling, mu=cfg.mu,
                       device=device)
     sensors = gaussian_kernels_1d(cfg.sensor_positions, cfg.nx, cfg.lx, cfg.sigma_sensors,

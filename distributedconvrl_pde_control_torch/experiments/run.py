@@ -4,7 +4,12 @@ Counterpart of the single-device `--train`, `--train-multi`, `--hyperopt`,
 `--train --batched` (with `--population` and `--pop-search`), `--ppo` and
 `--eval` branches and of the `--mesh` branch at a 1x1 mesh of
 ``distributedconvrl_pde_control_tpu/experiments/run.py``, for the KS,
-Keller-Segel (`KellerSegel10_16[_fast]`) and fluid families.
+Keller-Segel (`KellerSegel10_16[_fast]`) and fluid families. The `_tp`
+presets (`KS22_tp`, `KS200_tp`, `KS500_tp`, `KS22_64_tp` and every
+`Fluid_*_tp`) run every branch their base preset runs: ETDRK4 (KS, with the
+spectral carry at nx >= 192) or IF-RK4 (fluid) with the transforms at the
+JAX package's bf16 tiers, `matmul_hi` at the boundaries and `matmul_fast`
+in the nonlinear term (``ops/fourier.py``).
 
 KS presets, the fidelity loop (one env, 20 learner updates per env step):
 
@@ -111,8 +116,9 @@ import numpy as np
 
 # suffix tiers derivable from any fluid base preset:
 #   _fast      = integrating-factor RK4 throughput tier
-#   _tp        = _fast + the reference's bf16 transform tiers (named here so that the
-#                CLI can say they are not ported; it refuses them)
+#   _tp        = _fast + the bf16 transform tiers (3-pass at the boundaries, 1-pass
+#                in the advection, whose error enters scaled by dt_os); on --mesh
+#                the advection is kernel K2, float32 under every tier
 #   _fixedstep = the reference's do_step fixed-step RK4 (FluidSetup.jl:163-172;
 #                the single-grid presets default to the adaptive do_step2)
 #   _eval      = evaluation protocol (nx=256, seed 76; FluidSetup.jl:32-37)
@@ -125,23 +131,32 @@ _FLUID_TIERS = {
 }
 
 
-# the JAX CLI's KS throughput presets: ETDRK4 with its bf16 transform tiers (named here so
-# that the CLI can say they are not ported; it refuses them)
-KS_TP_PRESETS = ("KS22_tp", "KS200_tp", "KS500_tp", "KS22_64_tp")
-# the presets `--hyperopt` searches around (JAX run.py:615-633)
-HYPEROPT_PRESETS = ("KS200", "KS22", "KS22_global", "KellerSegel10_16", "KellerSegel10_16_fast")
+# the KS `_tp` tier (JAX run.py:77-120), `bench.py`'s configuration: ETDRK4, 3-pass bf16
+# transforms at the boundaries and 1-pass bf16 in the nonlinear term, and the spectral
+# carry where it pays (nx >= 192; the JAX package measured it slower on the 64-point grid)
+_KS_TP = dict(stepper="etdrk4", fft_mode="matmul_hi", nl_fft_mode="matmul_fast")
+# the presets `--hyperopt` searches around (JAX run.py:615-633) and, as an extension of the
+# JAX CLI, their `_tp` tiers
+HYPEROPT_PRESETS = ("KS200", "KS22", "KS22_global", "KellerSegel10_16", "KellerSegel10_16_fast",
+                    "KS200_tp", "KS22_tp")
 
 
 def ks_presets() -> dict:
     """name -> (KSConfig, setup builder) of every KS preset the port runs,
-    the JAX CLI's table (run.py:96-109): `build_ks_global` builds the mono
-    agent of KS22_global, `build_ks` the distributed agent of the others."""
+    the JAX CLI's table (run.py:96-120): `build_ks_global` builds the mono
+    agent of KS22_global, `build_ks` the distributed agent of the others,
+    the `_tp` tiers of KS22, KS200, KS500 and KS22_64 included."""
     from distributedconvrl_pde_control_torch.configs import ks as C
 
-    return {"KS22": (C.KS22, C.build_ks), "KS200": (C.KS200, C.build_ks),
-            "KS500": (C.KS500, C.build_ks), "KS200_disturbed": (C.KS200_DISTURBED, C.build_ks),
-            "KS22_64": (C.KS22_64, C.build_ks),
-            "KS22_global": (C.KS22_GLOBAL, C.build_ks_global)}
+    table = {"KS22": (C.KS22, C.build_ks), "KS200": (C.KS200, C.build_ks),
+             "KS500": (C.KS500, C.build_ks), "KS200_disturbed": (C.KS200_DISTURBED, C.build_ks),
+             "KS22_64": (C.KS22_64, C.build_ks),
+             "KS22_global": (C.KS22_GLOBAL, C.build_ks_global)}
+    for name in ("KS22", "KS200", "KS500", "KS22_64"):
+        cfg = table[name][0]
+        table[name + "_tp"] = (dataclasses.replace(cfg, name=name + "_tp", **_KS_TP,
+                                                   spectral_carry=cfg.nx >= 192), C.build_ks)
+    return table
 
 
 def presets() -> dict:
@@ -665,10 +680,9 @@ def main(argv=None):
 
     fluid_names = sorted(FLUID_PRESETS) + sorted(b + s for b in FLUID_PRESETS for s in _FLUID_TIERS)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("preset", choices=sorted(table) + list(KS_TP_PRESETS) + fluid_names,
-                    metavar="preset",
+    ap.add_argument("preset", choices=sorted(table) + fluid_names, metavar="preset",
                     help="a KS or Keller-Segel preset (%s) or a fluid preset (%s, each with an "
-                         "optional _fast/_fixedstep/_eval tier)" % (
+                         "optional _fast/_tp/_fixedstep/_eval tier)" % (
                              ", ".join(sorted(table)), ", ".join(sorted(FLUID_PRESETS))))
     mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("--eval", action="store_true", help="evaluate a trained actor")
@@ -794,10 +808,6 @@ def main(argv=None):
     if args.import_jld2:
         raise SystemExit("--import-jld2: the reference JLD2 import is not ported yet "
                          "(ROADMAP.md queue 1 item 17)")
-    if args.preset in KS_TP_PRESETS:
-        raise SystemExit(f"{args.preset}: the reduced-precision transform tiers are not ported "
-                         "yet (ROADMAP.md queue 1 item 16); the float32 ETDRK4 tiers run with "
-                         "--config-overrides '{\"stepper\": \"etdrk4\", \"spectral_carry\": true}'")
     fluid_cfg = fluid_config_for(args.preset)
     if args.batched and args.mesh and (args.population or args.pop_search):
         raise SystemExit("--population/--pop-search --mesh: a population over a device mesh is "
@@ -806,10 +816,6 @@ def main(argv=None):
         raise SystemExit("--batched --mesh: data-parallel batched training over a device mesh "
                          "is not ported yet (ROADMAP.md queue 1 item 15)")
     if fluid_cfg is not None:
-        if fluid_cfg.fft_mode != "auto" or fluid_cfg.nl_fft_mode is not None:
-            raise SystemExit(f"{args.preset}: the reduced-precision transform tiers are not "
-                             "ported yet (ROADMAP.md queue 1 item 16); the port runs the "
-                             "float32 tiers (the base presets, _fast, _fixedstep, _eval)")
         if args.hyperopt:
             raise SystemExit(f"--hyperopt supports {list(HYPEROPT_PRESETS)}")
         if args.mesh:

@@ -9,8 +9,12 @@ environment step. The CNAB2 step itself is kernel K1
 (``ops/kernels/ks_kernel.py``): the CUDA kernel on CUDA tensors (all substeps
 in one launch, on an in-kernel mixed-radix FFT whose stage plan and tables
 the solver makes once, as ``kernel_constants``), its plain ``torch.fft``
-version on CPU tensors. The ETDRK4 stepper has no hand kernel in either
-package: it runs on complex ``torch.fft`` and carries the half-spectrum as
+version on CPU tensors. K1 computes in float32 whatever transform tier
+the config names, as its Pallas twin does (HIGHEST only, ``ks_kernel.py:102``);
+the JAX package's non-Pallas ``KSSolver`` would round at the tier there. The
+ETDRK4 stepper has no hand kernel in either package: it transforms through
+``ops/fourier.py`` at its `fft_mode` / `nl_fft_mode` (``torch.fft`` at
+"auto", the DFT-product tiers otherwise) and carries the half-spectrum as
 one complex64 tensor.
 """
 
@@ -21,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from distributedconvrl_pde_control_torch.ops import fourier
 from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
 from distributedconvrl_pde_control_torch.ops.spectral import ks_rfft_operators
 
@@ -98,6 +103,12 @@ class KSSolverETDRK4:
     The half-spectrum (..., nx//2+1) is one complex64 tensor wherever it is
     carried (`init_carry`, `step_spectral`, `step_spectral_only`). Drop-in
     `.step(y, forcing)` interface; every method takes leading batch dims.
+
+    `fft_mode` is the tier of the boundary transforms (`step`, `init_carry`
+    and the synthesis of `_advance`), `nl_fft_mode` that of the eight
+    transforms per substep inside the nonlinear term (None: `fft_mode`);
+    ETDRK4 multiplies every nonlinear result by the O(h) phi-weights, so a
+    cheaper tier's error enters the state scaled by them.
     """
 
     nx: int
@@ -105,6 +116,8 @@ class KSSolverETDRK4:
     dt: float
     oversampling: int = 1  # substeps per env step (1 suffices for KS22)
     mu: float = 0.0
+    fft_mode: str = "auto"
+    nl_fft_mode: str | None = None
     device: str = "cuda"
 
     e_full: torch.Tensor = dataclasses.field(init=False, repr=False, compare=False)
@@ -121,6 +134,8 @@ class KSSolverETDRK4:
     dist: torch.Tensor = dataclasses.field(init=False, repr=False, compare=False)
 
     def __post_init__(self):
+        fourier.use_matmul_dft(self.fft_mode)  # an unknown mode raises here
+        fourier.use_matmul_dft(self.nl_mode)
         alpha, _, lin = ks_rfft_operators(self.nx, self.lx)
         lin = np.asarray(lin, np.float64)
         h = self.dt / self.oversampling
@@ -153,19 +168,23 @@ class KSSolverETDRK4:
                                                        -self.g_alpha))
         object.__setattr__(self, "dist", torch.complex(self.dist_re, self.dist_im))
 
+    @property
+    def nl_mode(self) -> str:
+        return self.nl_fft_mode or self.fft_mode
+
     def step(self, y: torch.Tensor, forcing: torch.Tensor) -> torch.Tensor:
         """One env step (= `oversampling` ETDRK4 steps). Forcing (+ the
         mu-disturbance) is constant over the env step and enters the
         nonlinear term additively, like the reference's CNAB2 treats it."""
-        v = torch.fft.rfft(y.to(torch.float32))
-        f_hat = torch.fft.rfft(forcing.to(torch.float32))
+        v = fourier.rfft(y.to(torch.float32), mode=self.fft_mode)
+        f_hat = fourier.rfft(forcing.to(torch.float32), mode=self.fft_mode)
         return self._advance(v, f_hat)[1]
 
     def init_carry(self, y: torch.Tensor) -> torch.Tensor:
         """Spectral-carry API: the complex64 half-spectrum of `y`, to be
         threaded through `step_spectral` across env steps (configs/ks.py
         spectral_carry tier)."""
-        return torch.fft.rfft(y.to(torch.float32))
+        return fourier.rfft(y.to(torch.float32), mode=self.fft_mode)
 
     def step_spectral(self, carry: torch.Tensor, f_hat: torch.Tensor):
         """One env step on the spectral carry: `carry', y' = step(...)`.
@@ -189,16 +208,16 @@ class KSSolverETDRK4:
         """`oversampling` ETDRK4 substeps from spectral state + spectral
         forcing; returns (new carry, real-space field)."""
         v = self._advance_spectral(carry, f_hat)
-        return v, torch.fft.irfft(v, n=self.nx)
+        return v, fourier.irfft(v, self.nx, mode=self.fft_mode)
 
     def _advance_spectral(self, v, f_hat):
         """The spectral-state advance shared by step/step_spectral[_only]."""
         f_hat = f_hat + self.dist
-        nx, g = self.nx, self.g_op
+        nx, g, mode = self.nx, self.g_op, self.nl_mode
 
         def nonlin(z):
-            u = torch.fft.irfft(z, n=nx)
-            return g * torch.fft.rfft(u * u) + f_hat  # G*s plus the constant forcing
+            u = fourier.irfft(z, nx, mode=mode)
+            return g * fourier.rfft(u * u, mode=mode) + f_hat  # G*s plus the constant forcing
 
         for _ in range(self.oversampling):
             nv = nonlin(v)

@@ -15,10 +15,14 @@ reference's pair interface around it. One advection term is a batched
 transform of the four spectra (u, v, dw/dx, dw/dy) stacked on an axis: one
 gather puts the spectrum on the padded grid, one product with a
 precomputed (4, nyp, nxp) table (zero in the padded band) forms the four,
-one inverse `torch.fft.ifft2` takes them to the 3/2 grid, then the product,
+one inverse 2D transform takes them to the 3/2 grid, then the product,
 one forward transform, one gather back (the chop) and the 2.25 rescale. No
 TPU kernel computes this term (the Pallas kernel K2 applies the 2/3 mask,
-not padding), so it runs on cuFFT.
+not padding). The transforms go through ``ops/fourier.py``: cuFFT at
+`fft_mode="auto"`, the JAX package's DFT-product tiers otherwise, the
+boundary transforms of a step at `fft_mode` and the advection's at
+`nl_fft_mode` (its stacked inverse is the tier's 2D transform of the stack,
+the same function as the JAX package's four).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import functools
 import numpy as np
 import torch
 
+from distributedconvrl_pde_control_torch.ops import fourier
 from distributedconvrl_pde_control_torch.ops.spectral import chop_index, fft_wavenumbers, pad_index
 
 
@@ -37,7 +42,10 @@ class NSSolver:
     """Wavenumber tables of one (nx, ny, Lx, Ly, nu) configuration on
     `device` (FluidSetup.jl:106-124); `dealias=True` is the reference's
     `ifpad=1` (FluidSetup.jl:101). `half_spectrum` carries the real-field
-    paths (`step_real`, `step_real_if`) on the Hermitian half (kx >= 0)."""
+    paths (`step_real`, `step_real_if`) on the Hermitian half (kx >= 0).
+    `fft_mode` is the transform tier of the boundary transforms and of the
+    complex-spectra paths' advection, `nl_fft_mode` (None: `fft_mode`) that
+    of the real-field paths' advection (its error enters scaled by dt)."""
 
     nx: int
     ny: int
@@ -56,11 +64,8 @@ class NSSolver:
     inv_k2: torch.Tensor = dataclasses.field(init=False, repr=False, compare=False)
 
     def __post_init__(self):
-        if self.fft_mode not in ("auto", "native") or self.nl_fft_mode not in (None, "auto",
-                                                                                "native"):
-            raise NotImplementedError(
-                "reduced-precision transform tiers are ROADMAP.md queue 1 item 16; the port "
-                "runs fft_mode='auto' (float32) only")
+        fourier.use_matmul_dft(self.fft_mode)  # an unknown mode raises here
+        fourier.use_matmul_dft(self.nl_mode)
         kx = fft_wavenumbers(self.nx, self.lx)
         ky = fft_wavenumbers(self.ny, self.ly)
         # kx varies along columns (axis 1), ky along rows (axis 0), as
@@ -75,6 +80,10 @@ class NSSolver:
                                                            device=self.device))
 
     # ---------------------------------------------------------- operators
+    @property
+    def nl_mode(self) -> str:
+        return self.nl_fft_mode or self.fft_mode
+
     @property
     def _nxh(self) -> int:
         return self.nx // 2 + 1
@@ -117,18 +126,19 @@ class NSSolver:
         g = w.flatten(-2).index_select(-1, idx).unsqueeze(-2) * table
         return g.unflatten(-1, (nyp, nxp // 2 + 1 if half else nxp))
 
-    def _advection_c(self, w: torch.Tensor, half: bool = False) -> torch.Tensor:
+    def _advection_c(self, w: torch.Tensor, half: bool, mode: str) -> torch.Tensor:
         """Advection term -u dw/dx - v dw/dy in wavespace (fluid_rk4.jl:
-        145-190) of complex spectra (..., ny, nx) (half: (..., ny, nx//2+1))."""
+        145-190) of complex spectra (..., ny, nx) (half: (..., ny, nx//2+1)),
+        its transforms at `mode`."""
         spectra = self._stage_spectra(w, half)
         nyp, nxp = self.padded_shape
         if half:
-            r = torch.fft.irfft2(spectra, s=(nyp, nxp))
+            r = fourier.irfft2(spectra, nxp, mode=mode)
         else:
-            r = torch.fft.ifft2(spectra).real
+            r = fourier.ifft2(spectra, mode=mode).real
         u, v, dwdx, dwdy = r.unbind(-3)
         prod = -u * dwdx - v * dwdy
-        t = torch.fft.rfft2(prod) if half else torch.fft.fft2(prod)
+        t = fourier.rfft2(prod, mode=mode) if half else fourier.fft2(prod, mode=mode)
         if not self.dealias:
             return t
         idx = chop_index(self.ny, self._nxh if half else self.nx, nyp,
@@ -140,7 +150,7 @@ class NSSolver:
     # ----------------------------------------------------- complex spectra
     def advection(self, omghat: torch.Tensor) -> torch.Tensor:
         """Nonlinear advection term in wavespace (fluid_rk4.jl:145-190)."""
-        return self._advection_c(omghat)
+        return self._advection_c(omghat, False, self.fft_mode)
 
     def rhs(self, omghat: torch.Tensor, forcing_hat: torch.Tensor) -> torch.Tensor:
         """d(omega_hat)/dt = -nu k^2 omega_hat + advection + forcing
@@ -191,21 +201,24 @@ class NSSolver:
     def forward_real(self, x: torch.Tensor) -> torch.Tensor:
         """Spectrum of a real field in the layout of the real-field paths."""
         x = x.to(torch.float32)
-        return torch.fft.rfft2(x) if self.half_spectrum else torch.fft.fft2(x)
+        if self.half_spectrum:
+            return fourier.rfft2(x, mode=self.fft_mode)
+        return fourier.fft2(x, mode=self.fft_mode)
 
     def inverse_real(self, w: torch.Tensor) -> torch.Tensor:
         """Real field of a spectrum in the layout of the real-field paths."""
         if self.half_spectrum:
-            return torch.fft.irfft2(w, s=(self.ny, self.nx))
-        return torch.fft.ifft2(w).real
+            return fourier.irfft2(w, self.nx, mode=self.fft_mode)
+        return fourier.ifft2(w, mode=self.fft_mode).real
 
     def rhs_real_layout(self, w: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
         """-nu k^2 w + advection(w) + f in the real-field paths' layout."""
-        return -self.nu * self._k2h * w + self._advection_c(w, self.half_spectrum) + f
+        return (-self.nu * self._k2h * w
+                + self._advection_c(w, self.half_spectrum, self.nl_mode) + f)
 
     def _advection_ri(self, wr, wi):
         """Advection of (re, im) spectra (full or half), as a pair."""
-        a = self._advection_c(torch.complex(wr, wi), self.half_spectrum)
+        a = self._advection_c(torch.complex(wr, wi), self.half_spectrum, self.nl_mode)
         return a.real, a.imag
 
     def _rhs_ri(self, wr, wi, fr, fi):
@@ -228,7 +241,7 @@ class NSSolver:
         w, f = self.forward_real(omg), self.forward_real(forcing)
 
         def n_of(z):
-            return self._advection_c(z, self.half_spectrum) + f
+            return self._advection_c(z, self.half_spectrum, self.nl_mode) + f
 
         for _ in range(oversampling):
             w = self._ifrk4(w, n_of, dt_os, self._k2h)
@@ -242,7 +255,7 @@ class NSSolver:
         uhat = 1j * self.ky_col * psihat
         vhat = -1j * self.kx_row * psihat
         spectra = torch.stack([uhat, vhat, omghat, psihat], dim=-3)
-        u, v, omg, psi = torch.fft.ifft2(spectra).real.unbind(-3)
+        u, v, omg, psi = fourier.ifft2(spectra, mode=self.fft_mode).real.unbind(-3)
         return u, v, omg, psi
 
 

@@ -3,7 +3,9 @@
 Counterpart of ``distributedconvrl_pde_control_tpu/parallel/dfft.py``. The
 reference shards a field over a mesh axis `sp` (rows in real space, columns
 in wave space) and transforms by the transpose method. With one rank the
-block is the whole field and the transform is `torch.fft.fft2` / `ifft2` on
+block is the whole field and the transform is ``ops/fourier.py``'s `fft2` /
+`ifft2` at `mode` (``torch.fft`` at "auto", the DFT-product tiers
+otherwise: axis -1, then -2, as the reference's local transforms run) on
 complex64 spectra; the reference's (re, im) split variants fold into these.
 The transpose method over more than one rank (`torch.distributed`) is not
 ported yet.
@@ -13,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from distributedconvrl_pde_control_torch.ops import fourier
+
 
 def _one_rank(world_size: int):
     if world_size != 1:
@@ -21,20 +25,20 @@ def _one_rank(world_size: int):
             "the port transforms whole fields on one rank")
 
 
-def dfft2(x_block: torch.Tensor, world_size: int = 1) -> torch.Tensor:
+def dfft2(x_block: torch.Tensor, world_size: int = 1, mode: str = "auto") -> torch.Tensor:
     """Real or complex field block (..., ny, nx) -> full spectrum (..., ny, nx) complex."""
     _one_rank(world_size)
-    return torch.fft.fft2(x_block)
+    return fourier.fft2(x_block, mode=mode)
 
 
-def difft2(w_block: torch.Tensor, world_size: int = 1) -> torch.Tensor:
+def difft2(w_block: torch.Tensor, world_size: int = 1, mode: str = "auto") -> torch.Tensor:
     """Spectrum (..., ny, nx) -> complex field; take `.real` at the call
     site for real fields, or use `difft2_real`."""
     _one_rank(world_size)
-    return torch.fft.ifft2(w_block)
+    return fourier.ifft2(w_block, mode=mode)
 
 
-def difft2_real(w_block: torch.Tensor, world_size: int = 1) -> torch.Tensor:
+def difft2_real(w_block: torch.Tensor, world_size: int = 1, mode: str = "auto") -> torch.Tensor:
     """Real part of the full complex inverse (the reference's
     `difft2_ri_real`: the imaginary part is dropped, not assumed zero)."""
-    return difft2(w_block, world_size).real
+    return difft2(w_block, world_size, mode).real

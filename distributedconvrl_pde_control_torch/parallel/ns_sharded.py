@@ -22,7 +22,10 @@ env step does not grow with the substep count. The integrating-factor tier,
 whose stage states carry exp factors, calls ``ns_advection`` once per stage
 with the forcing as its operand. On CPU tensors the same calls run the
 kernel's plain version: ``torch.fft`` and the same arithmetic in PyTorch.
-The boundary transforms of a step are ``torch.fft`` (``parallel/dfft.py``).
+The boundary transforms of a step run at `fft_mode` (``parallel/dfft.py``
+over ``ops/fourier.py``). The advection is K2 in float32 under every
+`nl_fft_mode`, as its Pallas twin is HIGHEST only (``ns_advection.py:40``);
+the reference's sharded path rounds it at the nonlinear tier.
 
 What bounds it. The device, and in it K2: at one env a stage is a chain of
 dependent passes over an L2-resident field (its bytes alone would take under
@@ -42,6 +45,7 @@ from distributedconvrl_pde_control_torch.ops.kernels.ns_advection import (
     ns_advection,
     ns_rk4_substeps,
 )
+from distributedconvrl_pde_control_torch.ops import fourier
 from distributedconvrl_pde_control_torch.ops.spectral import fft_wavenumbers
 from distributedconvrl_pde_control_torch.parallel.dfft import dfft2, difft2_real
 
@@ -69,17 +73,17 @@ class NSShardedSolver:
     Spectra are complex64 (B, n, n); the arithmetic around the kernel calls
     (the integrating factors, the adaptive stepper's error) runs on their
     interleaved float32 views so that real operators multiply both
-    components without a complex product."""
+    components without a complex product. `fft_mode` is the tier of the
+    boundary transforms; `nl_fft_mode` is validated and kept for the
+    reference's interface, and the advection (K2) computes in float32."""
 
     nu: float
     fft_mode: str = "auto"
     nl_fft_mode: str | None = None
 
     def __post_init__(self):
-        if self.fft_mode != "auto" or self.nl_fft_mode not in (None, "auto"):
-            raise NotImplementedError(
-                "reduced-precision transform tiers are ROADMAP.md queue 1 item 16; "
-                "the port runs fft_mode='auto' (float32) only")
+        fourier.use_matmul_dft(self.fft_mode)  # an unknown mode raises here
+        fourier.use_matmul_dft(self.nl_fft_mode or self.fft_mode)
 
     # ------------------------------------------------------------ spectra
     def _rhs_v(self, wv, fv, ops: ShardedOps, lin):
@@ -107,13 +111,18 @@ class NSShardedSolver:
         return ns_rk4_substeps(w.contiguous(), ops, self._lin(ops), forcing_hat.contiguous(), dt)
 
     # --------------------------------------------------------- real fields
-    @staticmethod
-    def _to_spectra(omg, forcing):
+    def _to_spectra(self, omg, forcing):
         shape = omg.shape
         n2 = shape[-2:]
-        wv = torch.view_as_real(dfft2(omg.to(torch.float32).reshape(-1, *n2)).contiguous())
-        fv = torch.view_as_real(dfft2(forcing.to(torch.float32).reshape(-1, *n2)).contiguous())
-        return wv, fv, shape
+
+        def fwd(x):
+            return torch.view_as_real(dfft2(x.to(torch.float32).reshape(-1, *n2),
+                                            mode=self.fft_mode).contiguous())
+
+        return fwd(omg), fwd(forcing), shape
+
+    def _to_field(self, w, shape):
+        return difft2_real(w, mode=self.fft_mode).reshape(shape)
 
     def step_real(self, omg, forcing, ops: ShardedOps, dt, oversampling: int):
         """REAL field (..., n, n) -> advanced real field: `oversampling` RK4
@@ -123,7 +132,7 @@ class NSShardedSolver:
         wv, fv, shape = self._to_spectra(omg, forcing)
         w = ns_rk4_substeps(torch.view_as_complex(wv), ops, self._lin(ops),
                             torch.view_as_complex(fv), dt_os, oversampling)
-        return difft2_real(w).reshape(shape)
+        return self._to_field(w, shape)
 
     def step_real_if(self, omg, forcing, ops: ShardedOps, dt, oversampling: int):
         """Integrating-factor RK4 tier: the viscous diagonal is integrated
@@ -143,7 +152,7 @@ class NSShardedSolver:
             k3 = n_of(e_half * wv + 0.5 * dt_os * k2)
             k4 = n_of(e_full * wv + dt_os * e_half * k3)
             wv = e_full * wv + dt_os / 6.0 * (e_full * k1 + 2.0 * e_half * (k2 + k3) + k4)
-        return difft2_real(torch.view_as_complex(wv.contiguous())).reshape(shape)
+        return self._to_field(torch.view_as_complex(wv.contiguous()), shape)
 
     def step_real_adaptive(self, omg, forcing, ops: ShardedOps, dt, rtol: float = 1.0,
                            atol: float = 1.0, max_steps: int = 256):
@@ -173,7 +182,7 @@ class NSShardedSolver:
                 t = t + h
             h = h * f32(np.clip(f32(0.9) * (f32(15.0) / err) ** f32(0.2), 0.2, 5.0))
             n += 1
-        return difft2_real(torch.view_as_complex(wv)).reshape(shape)
+        return self._to_field(torch.view_as_complex(wv), shape)
 
 
 # the reference's complex-free twin: one class serves both here

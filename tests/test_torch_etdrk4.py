@@ -237,15 +237,21 @@ def test_sf_guard_is_sound_parseval_rms():
 
 def test_build_ks_guards_and_tiers():
     """The ValueError guards of configs/ks.py:212-216 stay; the float32
-    ETDRK4 tiers build; reduced-precision tiers stay refused."""
+    ETDRK4 tiers build; the reduced-precision transform tiers build (CNAB2's
+    K1 keeps float32), and an unknown transform mode raises."""
     with pytest.raises(ValueError, match="spectral_featurize requires spectral_carry"):
         tks.build_ks(torch_cfg(stepper="etdrk4", spectral_featurize=True), device="cpu")
     with pytest.raises(ValueError, match="spectral_carry requires stepper='etdrk4'"):
         tks.build_ks(torch_cfg(spectral_carry=True), device="cpu")
     with pytest.raises(ValueError, match="unknown stepper"):
         tks.build_ks(torch_cfg(stepper="rk4"), device="cpu")
-    for kw in ({"fft_mode": "matmul_hi"}, {"stepper": "etdrk4", "nl_fft_mode": "matmul_fast"}):
-        with pytest.raises(NotImplementedError, match="item 16"):
+    assert isinstance(tks.build_ks(torch_cfg(fft_mode="matmul_hi"), device="cpu").env.step_fn.__self__,
+                      KSSolver)
+    solver = tks.build_ks(torch_cfg(stepper="etdrk4", nl_fft_mode="matmul_fast"),
+                          device="cpu").env.step_fn.__self__
+    assert (solver.fft_mode, solver.nl_mode) == ("auto", "matmul_fast")
+    for kw in ({"fft_mode": "bf16"}, {"stepper": "etdrk4", "nl_fft_mode": "bf16"}):
+        with pytest.raises(ValueError, match="unknown fft mode"):
             tks.build_ks(torch_cfg(**kw), device="cpu")
     env = tks.build_ks(torch_cfg(**ETD), device="cpu").env
     assert isinstance(env.step_fn.__self__, KSSolverETDRK4) and env.init_carry is None

@@ -108,11 +108,15 @@ def test_fluid_error_detection_matches():
 
 
 def test_build_fluid_names_its_queue():
-    """`build_fluid` builds the float32 tiers and refuses the reduced-precision
-    transform tiers, naming their queue item."""
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tfluid.build_fluid(dataclasses.replace(tfluid.FLUID_8, nx=16, fft_mode="matmul_hi"),
+    """`build_fluid` builds the float32 tiers and the reduced-precision
+    transform tiers, whose queue item is done, and refuses an unknown mode."""
+    with pytest.raises(ValueError, match="unknown fft mode"):
+        tfluid.build_fluid(dataclasses.replace(tfluid.FLUID_8, nx=16, fft_mode="bf16"),
                            device="cpu")
+    tp = tfluid.build_fluid(dataclasses.replace(trun.fluid_config_for("Fluid_8_tp"), nx=16,
+                                                sensors_per_axis=4), device="cpu")
+    y = tp.env.step_fn(tp.env.y0[None], torch.zeros(1, 16, 16))
+    assert y.shape == (1, 16, 16) and bool(torch.isfinite(y).all())
     setup = tfluid.build_fluid(dataclasses.replace(tfluid.FLUID_8, nx=16, sensors_per_axis=4),
                                device="cpu")
     assert setup.env.y0.shape == (16, 16) and setup.agent.cfg.ns == 9
@@ -315,10 +319,12 @@ def test_fused_rk4_substep_matches_unfused():
 
 
 def test_solver_refuses_unported_tiers():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tsh.NSShardedSolverRI(nu=1e-3, fft_mode="matmul_hi")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tsh.NSShardedSolverRI(nu=1e-3, nl_fft_mode="matmul_fast")
+    """Every tier of the reference builds now; only an unknown mode is refused."""
+    tsh.NSShardedSolverRI(nu=1e-3, fft_mode="matmul_hi", nl_fft_mode="matmul_fast")
+    with pytest.raises(ValueError, match="unknown fft mode"):
+        tsh.NSShardedSolverRI(nu=1e-3, fft_mode="bf16")
+    with pytest.raises(ValueError, match="unknown fft mode"):
+        tsh.NSShardedSolverRI(nu=1e-3, nl_fft_mode="bf16")
 
 
 # ------------------------------------------------------- the whole slice
@@ -473,8 +479,8 @@ def test_cli_runs_an_adaptive_preset(capsys):
     (["Fluid_16_256", "--eval", "--mesh", "2x1"], "1x1 only"),
     (["Fluid_16_256", "--eval", "--mesh", "two"], "DPxSP"),
     (["Fluid_16_256", "--train", "--mesh", "2x1"], "1x1 only"),
-    (["Fluid_8_tp", "--eval", "--ppo"], "item 16"),
-    (["Fluid_8_tp", "--eval", "--mesh", "1x1", "--nx", "16"], "item 16"),
+    (["Fluid_8_tp", "--eval", "--mesh", "2x1"], "1x1 only"),
+    (["Fluid_8_tp", "--train", "--batched", "--mesh", "1x1"], "item 15"),
     (["KS22", "--eval", "--mesh", "1x1"], "fluid presets"),
 ])
 def test_cli_refusals_name_what_is_missing(argv, message):

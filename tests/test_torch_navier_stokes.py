@@ -119,10 +119,16 @@ def test_fourier_call_surface_matches():
 
 
 def test_fourier_matmul_modes_name_their_queue():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tfourier.fft2(torch.zeros(4, 4), mode="matmul_hi")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tns.NSSolver(8, 8, fft_mode="matmul_fast", device="cpu")
+    """The matmul tiers run (their queue item is done): the 2D transform at
+    matmul agrees with torch.fft; an unknown mode raises in the transform and
+    in the solver."""
+    x = torch.tensor(np.random.default_rng(0).standard_normal((4, 8)), dtype=torch.float32)
+    _close(tfourier.fft2(x, mode="matmul").numpy(), torch.fft.fft2(x).numpy(), FFT_RTOL)
+    tns.NSSolver(8, 8, fft_mode="matmul_hi", nl_fft_mode="matmul_fast", device="cpu")
+    with pytest.raises(ValueError, match="unknown fft mode"):
+        tfourier.fft2(torch.zeros(4, 4), mode="bf16")
+    with pytest.raises(ValueError, match="unknown fft mode"):
+        tns.NSSolver(8, 8, fft_mode="bf16", device="cpu")
 
 
 # ------------------------------------------------------------------ NSSolver

@@ -137,12 +137,19 @@ def test_random_init_law():
 
 def test_build_ks_refuses_unported_tiers():
     """The float32 ETDRK4 stepper builds; the reduced-precision transform
-    tiers stay refused; a carry without ETDRK4 stays a ValueError."""
+    tiers, ported now, build on both steppers (CNAB2's K1 stays float32) and
+    only an unknown mode is refused; a carry without ETDRK4 stays a
+    ValueError."""
     setup = tks.build_ks(dataclasses.replace(tks.KS22, stepper="etdrk4"), device="cpu")
     assert type(setup.env.step_fn.__self__).__name__ == "KSSolverETDRK4"
     assert setup.env.step_fn.__self__.oversampling == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tks.build_ks(dataclasses.replace(tks.KS22, fft_mode="matmul_hi"), device="cpu")
+    tier = tks.build_ks(dataclasses.replace(tks.KS22, stepper="etdrk4", fft_mode="matmul_hi"),
+                        device="cpu")
+    assert tier.env.step_fn.__self__.fft_mode == "matmul_hi"
+    assert type(tks.build_ks(dataclasses.replace(tks.KS22, fft_mode="matmul_hi"),
+                             device="cpu").env.step_fn.__self__).__name__ == "KSSolver"
+    with pytest.raises(ValueError, match="unknown fft mode"):
+        tks.build_ks(dataclasses.replace(tks.KS22, fft_mode="bf16"), device="cpu")
     with pytest.raises(ValueError):
         tks.build_ks(dataclasses.replace(tks.KS22, spectral_carry=True), device="cpu")
 

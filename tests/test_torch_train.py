@@ -43,8 +43,11 @@ from distributedconvrl_pde_control_torch.train.records import (
 
 N_ENVS, BATCH, N_STEPS, POOL = 4, 16, 60, 6
 SF = dict(stepper="etdrk4", spectral_carry=True, spectral_featurize=True)
+# the KS22_tp preset's tiers (tests/test_torch_tiers.py holds its chunk to JAX's)
+TP = dict(stepper="etdrk4", fft_mode="matmul_hi", nl_fft_mode="matmul_fast", spectral_carry=True)
 # id -> (config overrides, the JAX trainer's TPU layout knobs)
-CHUNK_CASES = {"cnab2-unflat": ({}, False), "cnab2-flat": ({}, True), "sf": (SF, True)}
+CHUNK_CASES = {"cnab2-unflat": ({}, False), "cnab2-flat": ({}, True), "sf": (SF, True),
+               "tp": (TP, True), "tp-matmul": ({**TP, "fft_mode": "matmul", "nl_fft_mode": None}, True)}
 
 
 def torch_trainer(kw=None, n_envs=N_ENVS, batch=BATCH, pool=None, **cfg_kw):
@@ -60,7 +63,7 @@ def jax_chunk(case):
     """One JAX chunk from a fresh state: (initial state as numpy, the pool,
     the draws of every step, final state, packed records)."""
     kw, flat = CHUNK_CASES[case]
-    setup = jks.build_ks(dataclasses.replace(jks.KS22, fft_mode="native", **kw))
+    setup = jks.build_ks(dataclasses.replace(jks.KS22, **{"fft_mode": "native", **kw}))
     init = jks.ks_random_init(jks.KS22)
     pool = np.stack([np.asarray(init(k)) for k in jax.random.split(jax.random.PRNGKey(7), POOL)])
     trainer = jbatched.BatchedTrainer(
@@ -118,7 +121,7 @@ def torch_chunk(case, **cfg_kw):
     return trainer, tts, tpacked
 
 
-@pytest.fixture(scope="module", params=list(CHUNK_CASES))
+@pytest.fixture(scope="module", params=["cnab2-unflat", "cnab2-flat", "sf"])
 def chunk_pair(request):
     """The JAX chunk and the port's chunk on the same state and draws."""
     _, _, _, jts1, jpacked = jax_chunk(request.param)
@@ -375,7 +378,7 @@ def test_held_out_eval_pool_extends_and_is_disjoint():
     (["KS22", "--train", "--batched", "--pop-search", "4", "--mesh", "2"], "item 15"),
     (["KS22", "--train", "--batched", "--import-jld2", "x"], "item 17"),
     (["KS22", "--train", "--batched", "--mesh", "2"], "item 15"),
-    (["KS22_tp", "--train", "--batched"], "item 16"),
+    (["KS22_tp", "--train", "--batched", "--population", "2", "--mesh", "2"], "item 15"),
     (["Fluid_8", "--train", "--batched", "--mesh", "1x1"], "item 15"),
     (["KellerSegel10_16", "--train", "--batched", "--population", "2", "--pop-overrides",
       '{"gamma": [0.9, 0.99]}'], r"--pop-overrides supports \['act_noise'"),
