@@ -20,11 +20,17 @@ back to back with one `synchronize` at the end of each round. Prints one JSON
 line: `metric`, `value`, `unit`, `tier`, and the card's `device` and
 `power_limit` as nvidia-smi gives them. It needs a CUDA device and exits
 non-zero without one.
+
+One attempt, bounded by a hard deadline (`utils/resilience.py`;
+`BENCH_DEADLINE_S`, default 1020 s). When the attempt fails or the deadline
+passes, the one JSON line carries `value` 0.0 and an `error` field, and the
+exit status is non-zero.
 """
 
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -69,22 +75,40 @@ def run_once(tier: str = "sf") -> float:
     return best_rate
 
 
-def main() -> int:
+def card() -> tuple:
+    """(name, power limit) of the card as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    name, power = (x.strip() for x in smi.stdout.strip().splitlines()[0].split(","))
+    return name, power
+
+
+def main(argv=None) -> int:
     import torch
+
+    from distributedconvrl_pde_control_torch.utils.resilience import arm_hard_deadline
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tier", choices=sorted(TIERS), default="sf",
                         help="sf: float32 torch.fft; tp: bench.py's bf16 transform tiers")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench_torch: no CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    name, power = (x.strip() for x in smi.stdout.strip().splitlines()[0].split(","))
-    rate = run_once(args.tier)
-    print(json.dumps({"metric": METRIC, "value": round(rate, 1), "unit": "env_steps/s",
-                      "tier": args.tier, "device": name, "power_limit": power}))
+    name, power = card()
+    line = {"metric": METRIC, "value": 0.0, "unit": "env_steps/s", "tier": args.tier,
+            "device": name, "power_limit": power}
+    deadline_s = float(os.environ.get("BENCH_DEADLINE_S", "1020"))
+    deadline = arm_hard_deadline(deadline_s, lambda: print(json.dumps(
+        {**line, "error": f"TimeoutError: bench exceeded the {deadline_s:.0f}s hard deadline"})))
+    try:
+        rate = run_once(args.tier)
+    except Exception as e:
+        deadline.cancel()
+        print(json.dumps({**line, "error": f"{type(e).__name__}: {e}"[:500]}))
+        return 1
+    deadline.cancel()
+    print(json.dumps({**line, "value": round(rate, 1)}))
     return 0
 
 

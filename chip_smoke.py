@@ -7,6 +7,7 @@
     python3 chip_smoke.py --families-only
     python3 chip_smoke.py --agents-only
     python3 chip_smoke.py --tiers-only
+    python3 chip_smoke.py --tools-only
     python3 chip_smoke.py --times-only [--tree DIR]
 
 With no argument it runs the phases below. `--train-only` runs phases 1, 2 and
@@ -15,11 +16,16 @@ fidelity loop), `--families-only` phases 1, 2 and 29-33 (the single-device
 fluid env and Keller-Segel), `--agents-only` phases 1, 2 and 34-39 (PPO and
 populations), and none of them prints a result line; `--tiers-only` runs
 phases 1, 2 and 40-44 (the reduced-precision transform tiers and the `_tp`
-presets) and ends with the ok line. `--times-only` prints the card and
+presets) and `--tools-only` phases 1, 2 and 45-50 (serving, export, the live
+view, the population evaluation scripts, the profiler); both end with the ok
+line. `--times-only` prints the card and
 one JSON line of both kernels' times through their wrappers at the main
 paths' shapes and nothing else; `--tree DIR` imports the package from another
 checkout inside this one (an unpacked earlier commit under build/, say), so
 that two designs of a kernel are timed in turns within one run on one card.
+
+Every phase's banner carries the seconds since its process started, and each
+process prints the seconds of its phases as one JSON line before it ends.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -96,8 +102,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      ending at step 15), every draw made once on the CPU and passed to both:
      K2 against its plain twin inside a train step, phase 14's limits;
  20. training a fluid controller at full width through the CLI's code path
-     (`run Fluid_16_256 --train --mesh 1x1`: 1 env, 10 loops x 580 steps in
-     chunks of 25 = 6000 train steps, learner batch 32, capacity 100,000,
+     (`run Fluid_16_256 --train --mesh 1x1`: 1 env, 8 of the recipe's 10 loops
+     x 580 steps in chunks of 25 = 4800 train steps, learner batch 32, capacity 100,000,
      seed 436, the recipe of artifacts/Fluid_16_256), read back through the
      light checkpoint and hook.npz; its best actor on phase 9's te=2 protocol
      must keep all 100 steps active with a mean energy below 0.7 of no action.
@@ -188,7 +194,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
      mesh K2's launches equal 4 x the IF-RK4 substeps x the train steps;
  44. `bench_torch.py` and `bench_torch.py --tier tp` (bench.py's exact
      configuration), each in a process of its own, in turns (sf, tp, tp, sf):
-     their train env-steps/s side by side.
+     their train env-steps/s side by side;
+ 45-50 run in a process of their own, 50 last in it (its profiler session
+ slows every later launch of the process):
+ 45. `run.py --eval --serve` on the shipped KS22, KellerSegel10_16_fast
+     (artifacts/KellerSegel_popsearch_pop8/member_00) and Fluid_8 controllers:
+     200 control steps each, p50, p99 and headroom over the control interval
+     (> 1, and neither kernel launched);
+ 46. `run.py --eval --export-controller` for the same three on the card, each
+     program reloaded by `load_exported`'s own source in a process where the
+     port cannot be imported, on the card (bit-equal to the live step there)
+     and moved to the CPU (bit-equal to the port's live CPU step); then
+     `serve --from-export` on each (neither kernel launched by the export or
+     the serving);
+ 47. `run.py KS22 --eval --live` (te=200) to a non-TTY stream: one frame per
+     env step, K1's launches equal to the env steps, suppression < 0.05, and
+     the plots written or one line saying matplotlib is missing;
+ 48. `eval_kss_pop_torch.py` on KellerSegel_popsearch_pop8 (8 members x keys
+     7-10): each post value within max(0.1 JAX, 0.0005) of eval_kss_pop.py's
+     (`JAX_KSS_POP`, computed on the CPU);
+ 49. `eval_fluid_pop_torch.py` on Fluid_8_tp_pop8 (te=6, 8 members and the 2
+     baselines as one batch): each energy prefix within 2 % of
+     eval_fluid_pop.py's (`JAX_FLUID_POP`);
+ 50. `run.py KS22 --train --profile` cut to one loop of one 30-step episode
+     (the learner starts after the preset's update_after of 10 steps):
+     the trace file exists, holds K1 once per env step (as the library counts
+     it), and the StepTimer summary is printed.
 
 Times of the kernels' first designs (PERF.md, same card and power limit) are
 printed beside the new ones in the phases' text lines; the kernels JSON line
@@ -205,10 +236,12 @@ library where it launches. Phases 24-27 count K1 in their own process, from 0
 before each CLI run, rollout and the rows, and report the counts by path; so
 do phases 35 (the shipped PPO controllers' rollouts), 36 (PPO training and the
 trained controller's rollout), 38 (the CNAB2 population at full width), 42
-(the KS22_tp members' rollouts) and 43 (K2 in the Fluid_16_256_tp mesh
-training). K2 lies on none of the PPO and population
-paths. The second-to-last line is the kernels JSON line and the last line is
-{"ok": true, "device": {...}}.
+(the KS22_tp members' rollouts), 43 (K2 in the Fluid_16_256_tp mesh
+training), 47 (the live eval) and 50 (the profiled training). K2 lies on
+none of the PPO, population and tooling paths; serving and export launch
+neither kernel. The line before the kernels JSON line holds the seconds of
+the main process's phases; the second-to-last line is the kernels JSON line
+and the last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -271,12 +304,46 @@ TRAIN_CHUNK = 50
 LEARNER_BATCH = 4096
 FLUID_TRAIN_SEED = 436  # phase 20: the Fluid_16_256 preset's seed, the CLI's default
 FLUID_TRAIN_CHUNK = 25  # phase 20: the CLI's chunk length on --mesh
+# phase 20: the recipe's 10 loops cut to 8 (4,800 train steps): its best actor came at episode
+# 15 of 20, in loop 8 (PERF.md section 4)
+FLUID_TRAIN_LOOPS = 8
 FLUID_TRAIN_BATCH, FLUID_TRAIN_ENVS = 32, 16  # phases 20-22: the CLI's learner batch; phase 10's width
 
 
 def check(cond: bool, msg: str):
     if not cond:
         raise RuntimeError(msg)
+
+
+T_START = time.perf_counter()
+PHASE_SECONDS = {}  # banner -> seconds, for this process
+_CURRENT_PHASE = [None, T_START]
+
+
+def phase(banner: str) -> None:
+    """Print a phase's banner with the seconds since the process started; the
+    phase before it ends here and its seconds are kept for
+    `print_phase_seconds`."""
+    now = time.perf_counter()
+    end_phase(now)
+    _CURRENT_PHASE[:] = [banner[3:].split(" ")[0].rstrip(".") if banner.startswith("== ")
+                         else banner, now]
+    print(f"{banner} [at {now - T_START:.1f} s]", flush=True)
+
+
+def end_phase(now: float) -> None:
+    name, t0 = _CURRENT_PHASE
+    if name is not None:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + now - t0
+    _CURRENT_PHASE[:] = [None, now]
+
+
+def print_phase_seconds() -> None:
+    """One JSON line: the seconds of each phase this process ran (a phase
+    that starts a child process counts the child's run)."""
+    end_phase(time.perf_counter())
+    print(json.dumps({"phase_seconds": {k: round(v, 1) for k, v in PHASE_SECONDS.items()},
+                      "process_seconds": round(time.perf_counter() - T_START, 1)}), flush=True)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -383,7 +450,7 @@ def train_phases(card: str) -> dict:
     )
 
     dev = "cuda"
-    print("== 14. the train step on the card against the CPU (4 envs, 20 steps)")
+    phase("== 14. the train step on the card against the CPU (4 envs, 20 steps)")
     n_small, b_small, steps_small, n_pool = 4, 16, 20, 6
     for tier, over in (("cnab2 (K1 vs its plain twin)", {}), ("spectral-featurize", SF_TIER)):
         cfg = dataclasses.replace(KS22, te=1.5, **over)  # episodes end at step 15
@@ -432,7 +499,7 @@ def train_phases(card: str) -> dict:
 
     ks_kernel.KS_CNAB2.launches = 0  # the training path starts here
 
-    print("== 15. training to a controller (sf tier, 256 envs, 3000 steps), then te=200 on CNAB2")
+    phase("== 15. training to a controller (sf tier, 256 envs, 3000 steps), then te=200 on CNAB2")
     setup = build_ks(dataclasses.replace(KS22, **SF_TIER), device=dev)
     agent = DDPGAgent(dataclasses.replace(setup.agent.cfg, capacity=1_000_000))
     pool = setup.random_init(torch.Generator().manual_seed(setup.seed), 32)  # the CLI's pool
@@ -474,7 +541,7 @@ def train_phases(card: str) -> dict:
           "the trained controller's rollout is malformed")
     check(post / pre < 0.05, f"trained controller's suppression {post / pre} not below 0.05")
 
-    print(f"== 16. training with K1 at full width ({N_ENVS} envs, learner batch {LEARNER_BATCH})")
+    phase(f"== 16. training with K1 at full width ({N_ENVS} envs, learner batch {LEARNER_BATCH})")
     full = build_ks(KS22, device=dev)
     full_pool = full.random_init(torch.Generator().manual_seed(full.seed), 32)
     push = N_ENVS * KS22.n_actuators
@@ -522,13 +589,13 @@ def train_phases(card: str) -> dict:
           f"({rec['finished'].shape[0]} finished step(s)); a chunk takes "
           f"{1e3 * TRAIN_CHUNK * N_ENVS / rate16:.0f} ms; {card}")
 
-    print("== 17. the bench unit (bench_torch.run_once): sf tier, 16384 envs, random_init")
+    phase("== 17. the bench unit (bench_torch.run_once): sf tier, 16384 envs, random_init")
     bench = bench_torch.run_once()
     print(json.dumps({"metric": bench_torch.METRIC, "value": bench, "unit": "env_steps/s",
                       "cnab2_value": rate16, "card": card}))
     check(np.isfinite(bench) and bench > 0, "the bench unit is malformed")
 
-    print("== 18. device time of 5 train steps by kernel group (torch.profiler)")
+    phase("== 18. device time of 5 train steps by kernel group (torch.profiler)")
     for tier, s_ in (("cnab2", full), ("spectral-featurize", setup)):
         tr = BatchedTrainer(s_.env, s_.agent,
                             BatchedTrainerConfig(n_envs=N_ENVS, batch_size=LEARNER_BATCH),
@@ -614,7 +681,7 @@ def fluid_chunk_vs_cpu() -> None:
     from distributedconvrl_pde_control_torch.train.batched import StepDraws
 
     dev = "cuda"
-    print("== 19. the fluid train chunk on the card against the CPU (32x32, 2 envs, 20 steps)")
+    phase("== 19. the fluid train chunk on the card against the CPU (32x32, 2 envs, 20 steps)")
     small = dataclasses.replace(FLUID_16_256, nx=32, sensors_per_axis=4, te=0.3, start_steps=2,
                                 update_after=4)  # episodes end at step 15, learning from step 3
     tcfg = ShardedTrainConfig(n_envs=2, batch_size=16, capacity_per_dp=4096)
@@ -670,17 +737,17 @@ def fluid_train_to_controller(card: str) -> None:
     )
 
     dev = "cuda"
-    loops, no_steps, chunk = FLUID_16_256.loops, FLUID_16_256.no_steps, FLUID_TRAIN_CHUNK
+    loops, no_steps, chunk = FLUID_TRAIN_LOOPS, FLUID_16_256.no_steps, FLUID_TRAIN_CHUNK
     # a loop runs whole chunks: 580 steps are 24 chunks of 25, 600 steps, as in the JAX package
     train_steps = loops * chunk * -(-no_steps // chunk)
-    print(f"== 20. training a fluid controller: Fluid_16_256, 1 env, {loops} loops x {no_steps} steps "
+    phase(f"== 20. training a fluid controller: Fluid_16_256, 1 env, {loops} loops x {no_steps} steps "
           f"in chunks of {chunk} through the CLI, then te=2 on the protocol of phase 9")
     run_dir = str(ROOT / "build" / "smoke_Fluid_16_256")
     shutil.rmtree(run_dir, ignore_errors=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run.main(["Fluid_16_256", "--train", "--mesh", "1x1", "--seed", str(FLUID_TRAIN_SEED),
-              "--out", run_dir])
+              "--loops", str(loops), "--out", run_dir])
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     ftr = ShardedFluidTrainer(FLUID_16_256, (1, 1), ShardedTrainConfig(n_envs=1), device=dev)
@@ -722,7 +789,7 @@ def fluid_train_rate(card: str) -> None:
     )
 
     dev = "cuda"
-    print(f"== 21. fluid training at {FLUID_TRAIN_ENVS} envs, learner batch {FLUID_TRAIN_BATCH}")
+    phase(f"== 21. fluid training at {FLUID_TRAIN_ENVS} envs, learner batch {FLUID_TRAIN_BATCH}")
     btr = ShardedFluidTrainer(FLUID_16_256, (1, 1), ShardedTrainConfig(
         n_envs=FLUID_TRAIN_ENVS, batch_size=FLUID_TRAIN_BATCH), device=dev)
     chunk_len = btr.tcfg.chunk_len
@@ -772,7 +839,7 @@ def fluid_train_profile(card: str) -> None:
     )
 
     dev = "cuda"
-    print("== 22. device time of one fluid train step by kernel group (torch.profiler)")
+    phase("== 22. device time of one fluid train step by kernel group (torch.profiler)")
     for n_envs in (1, FLUID_TRAIN_ENVS):
         tr = ShardedFluidTrainer(FLUID_16_256, (1, 1), ShardedTrainConfig(
             n_envs=n_envs, batch_size=FLUID_TRAIN_BATCH), device=dev)
@@ -837,7 +904,7 @@ def fidelity_vs_cpu(card: str) -> None:
     from distributedconvrl_pde_control_torch.train.loop import TrainState, make_episode_fn
 
     n_steps = 30  # te=3: the start policy to step 6, learning from step 12 (81 rows > 80)
-    print(f"== 23. one KS22 fidelity episode with learning ({n_steps} steps) on the card against "
+    phase(f"== 23. one KS22 fidelity episode with learning ({n_steps} steps) on the card against "
           "the CPU (K1 against its plain twin inside the loop)")
     cfg = dataclasses.replace(KS22, te=0.1 * n_steps)
     cpu_setup = build_ks(cfg, device="cpu")
@@ -922,7 +989,7 @@ def fidelity_child(out_json: str) -> int:
     for d in (run_dir, run_dir + "_resumed", run_dir + "_multi", run_dir + "_mono"):
         shutil.rmtree(d, ignore_errors=True)
 
-    print(f"== 24. the KS22 fidelity recipe through the CLI: seed {FIDELITY_SEED}, "
+    phase(f"== 24. the KS22 fidelity recipe through the CLI: seed {FIDELITY_SEED}, "
           f"{FIDELITY_LOOPS} loops x {FIDELITY_STEPS} steps, 20 learner updates per env step")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -953,7 +1020,7 @@ def fidelity_child(out_json: str) -> int:
           f"the fidelity-trained controller's suppression {supp['suppression']} is not below "
           f"{FIDELITY_LIMIT}")
 
-    print(f"== 25. --resume for 1 loop x {RESUME_STEPS} steps, then --train-multi "
+    phase(f"== 25. --resume for 1 loop x {RESUME_STEPS} steps, then --train-multi "
           f"(1 experiment, {MULTI_EPISODES} episodes of te={MULTI_TE})")
     count0 = int(checkpoint.agent_state_dict(ts.agent)["opt_actor"]["0"]["count"])
     _, launches = cli(["KS22", "--train", "--resume", "--load-from", run_dir, "--out",
@@ -985,7 +1052,7 @@ def fidelity_child(out_json: str) -> int:
           and launches_multi == ts3.replay.size // KS22.n_actuators
           and np.isfinite(hook3.rewards).all(), "--train-multi's numbered saves are malformed")
 
-    print(f"== 26. the KS mono ablation: 1 loop x {MONO_STEPS} steps of KS22_global --train, "
+    phase(f"== 26. the KS mono ablation: 1 loop x {MONO_STEPS} steps of KS22_global --train, "
           f"--hyperopt {HYPEROPT_TRIALS} (the shipped KS22_global actors: phase 27)")
     res26 = {"card": card}
     _, launches = cli(["KS22_global", "--train", "--loops", "1", "--no-steps", str(MONO_STEPS),
@@ -1006,11 +1073,13 @@ def fidelity_child(out_json: str) -> int:
                          "best_trial": trials[-1]["best_trial"], "K1_launches": launches}
     check(len(trials) == HYPEROPT_TRIALS + 1
           and all(t["cost"] is not None and "error" not in t for t in trials[:HYPEROPT_TRIALS])
-          and 0 < launches <= HYPEROPT_TRIALS * HYPEROPT_EPISODES * 50,
-          "the hyperopt search is malformed")
+          and 0 < launches <= HYPEROPT_TRIALS * HYPEROPT_EPISODES * 50
+          and trials[-1]["best_cost"] == min(t["cost"] for t in trials[:HYPEROPT_TRIALS])
+          == trials[trials[-1]["best_trial"]]["cost"],
+          "the hyperopt search is malformed or did not select its cheapest trial")
     print(json.dumps(res26))
 
-    print("== 27. reproduce_torch.py on the card: every KS row of reproduce.py beside the JAX "
+    phase("== 27. reproduce_torch.py on the card: every KS row of reproduce.py beside the JAX "
           "package's value")
     ks_kernel.KS_CNAB2.launches = 0
     rows, t0 = [], time.perf_counter()
@@ -1046,7 +1115,7 @@ def fidelity_profile(card: str) -> None:
     from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
     from distributedconvrl_pde_control_torch.train.loop import init_train_state, make_episode_fn
 
-    print("== 28. device time of 5 KS22 fidelity env steps with learning by kernel group "
+    phase("== 28. device time of 5 KS22 fidelity env steps with learning by kernel group "
           "(torch.profiler)")
     setup = build_ks(KS22, device="cuda")
     ts = init_train_state(setup.env, setup.agent, torch.Generator(device="cuda").manual_seed(28))
@@ -1077,6 +1146,7 @@ def fidelity_profile(card: str) -> None:
 def fidelity_phases(card: str) -> dict:
     """Phases 23-28. Returns K1's launches on the fidelity paths (phases 24-27)."""
     fidelity_vs_cpu(card)
+    phase("-- phases 24-27 in a process of their own")
     out_json = ROOT / "build" / "smoke_fidelity.json"
     out_json.unlink(missing_ok=True)
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--fidelity-child",
@@ -1123,7 +1193,7 @@ def fluid_env_vs_cpu(card: str) -> None:
     from distributedconvrl_pde_control_torch.configs.fluid import FLUID_8, build_fluid
     from distributedconvrl_pde_control_torch.ops.navier_stokes import initial_condition
 
-    print("== 29. the 3/2-rule fluid env (32x32, 4x4 actuators, 2 envs from different fields, "
+    phase("== 29. the 3/2-rule fluid env (32x32, 4x4 actuators, 2 envs from different fields, "
           "6 steps, actuation from step 2) on the card against the CPU")
     rng = np.random.default_rng(29)
     y0 = torch.tensor(np.stack([np.fft.ifft2(initial_condition(4, 32, 32, 1.0, 1.0, rng)).real
@@ -1164,7 +1234,7 @@ def keller_segel_vs_cpu(card: str) -> None:
     )
     from distributedconvrl_pde_control_torch.ops.keller_segel import KellerSegelSolver
 
-    print("== 30. the Keller-Segel env (4 envs, 20 steps) on the card against the CPU; the step's "
+    phase("== 30. the Keller-Segel env (4 envs, 20 steps) on the card against the CPU; the step's "
           "CUDA graph against its eager launches")
     setups = {d: build_keller_segel(cfg, device=d) for d in ("cuda", "cpu")}
     y0 = setups["cpu"].random_init(torch.Generator().manual_seed(30), 4)
@@ -1210,7 +1280,7 @@ def families_child(out_json: str) -> int:
     card = card_line()
     out = {}
 
-    print("== 31. reproduce_torch.py on the card: the five Keller-Segel DDPG rows, then the "
+    phase("== 31. reproduce_torch.py on the card: the five Keller-Segel DDPG rows, then the "
           "fluid energy rows, each beside the JAX package's value")
     rows = []
     for name, setup, actor in reproduce_torch.keller_segel_rows("cuda"):
@@ -1253,7 +1323,7 @@ def families_child(out_json: str) -> int:
         print(buf.getvalue(), end="", flush=True)
         return buf.getvalue(), secs, torch.cuda.max_memory_allocated()
 
-    print("== 32. the new training entry points through the CLI at full width, cut in depth: "
+    phase("== 32. the new training entry points through the CLI at full width, cut in depth: "
           f"Fluid_8 --train ({FLUID_TRAIN_STEPS} steps) and --batched ({FLUID_BATCHED_ENVS} "
           f"envs), KellerSegel10_16_fast --train ({KSS_TRAIN_STEPS} steps), --batched "
           f"({KSS_BATCHED_ENVS} envs) and --hyperopt 2")
@@ -1306,8 +1376,10 @@ def families_child(out_json: str) -> int:
     res32["KellerSegel10_16_fast --hyperopt 2"] = {
         "costs": [t["cost"] for t in trials[:2]], "seconds": secs, "peak_mem_bytes": mem}
     check(len(trials) == 3 and all(t["cost"] is not None and np.isfinite(t["cost"])
-                                   and "error" not in t for t in trials[:2]),
-          "the Keller-Segel hyperopt search is malformed")
+                                   and "error" not in t for t in trials[:2])
+          and trials[-1]["best_cost"] == min(t["cost"] for t in trials[:2])
+          == trials[trials[-1]["best_trial"]]["cost"],
+          "the Keller-Segel hyperopt search is malformed or did not select its cheapest trial")
     res32["card"] = card
     print(json.dumps({"phase": 32, **res32}))
     out["phase32"] = res32
@@ -1380,7 +1452,7 @@ def families_profile(card: str) -> None:
         build_keller_segel,
     )
 
-    print("== 33. device time of one adaptive Fluid_8 env step and one Keller-Segel env step by "
+    phase("== 33. device time of one adaptive Fluid_8 env step and one Keller-Segel env step by "
           "kernel group (torch.profiler)")
     for label, setup in (("Fluid_8 (128x128, adaptive RK4, 1 env)", build_fluid(FLUID_8, "cuda")),
                          ("KellerSegel10_16_fast (1 env, 10 RK4 substeps in one graph)",
@@ -1418,6 +1490,7 @@ def families_phases(card: str) -> None:
     """Phases 29-33."""
     fluid_env_vs_cpu(card)
     keller_segel_vs_cpu(card)
+    phase("-- phases 31-32 in a process of their own")
     out_json = ROOT / "build" / "smoke_families.json"
     out_json.unlink(missing_ok=True)
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--families-child",
@@ -1572,7 +1645,7 @@ def ppo_controllers(card: str) -> int:
     from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
     from distributedconvrl_pde_control_torch.train.eval import energy_eval, rollout
 
-    print("== 35. the shipped PPO controllers on the card: four KS22 (te=200, actuation from "
+    phase("== 35. the shipped PPO controllers on the card: four KS22 (te=200, actuation from "
           "t=100), the Keller-Segel row of reproduce.py, two Fluid_8 (te=3)")
     setup = build_ks(KS22, device="cuda")
     bad = []
@@ -1671,7 +1744,7 @@ def agents_child(out_json: str) -> int:
                 and all(bool(torch.isfinite(t).all()) for t in param_tensors(
                     PPOAgent._params(state))), state, info)
 
-    print(f"== 36. PPO training through the CLI: the KS22_ppo_lh recipe ({PPO_ITERS} iterations, "
+    phase(f"== 36. PPO training through the CLI: the KS22_ppo_lh recipe ({PPO_ITERS} iterations, "
           f"8 envs, a {PPO_EVAL_STEPS}-step eval every {PPO_EVAL_EVERY}), then --eval at te=200; "
           "KellerSegel10_16_fast and Fluid_8 cut in depth")
     res36 = {}
@@ -1731,7 +1804,7 @@ def agents_child(out_json: str) -> int:
           f"{PPO_LIMIT}")
     out["phase36"] = res36
 
-    print(f"== 38. populations: a CNAB2 population at full width ({POP_MEMBERS} x {POP_ENVS}); "
+    phase(f"== 38. populations: a CNAB2 population at full width ({POP_MEMBERS} x {POP_ENVS}); "
           "--pop-search 4 --population 2 and KellerSegel10_16_fast --population 4, cut in depth "
           "(the study's recipe runs on KS22_tp in phase 42)")
     res38 = {}
@@ -1785,7 +1858,7 @@ def agents_child(out_json: str) -> int:
     print(json.dumps({"phase": 38, **res38}))
     out["phase38"] = res38
 
-    print(f"== 39. the population's cost: {POP_MEMBERS} x {POP_ENVS} fused against a solo run at "
+    phase(f"== 39. the population's cost: {POP_MEMBERS} x {POP_ENVS} fused against a solo run at "
           f"{POP_ENVS} (sf tier, learner batch 256, chunks of {TRAIN_CHUNK})")
     sf = build_ks(dataclasses.replace(KS22, **SF_TIER), device="cuda")
     sf_pool = sf.random_init(torch.Generator().manual_seed(sf.seed), 32)
@@ -1859,7 +1932,7 @@ def population_profile(card: str) -> None:
 
 def agents_phases(card: str) -> dict:
     """Phases 34-39. Returns K1's launches on the PPO and population paths."""
-    print("== 34. PPO on the card against the CPU: one collect_and_update iteration on KS22 "
+    phase("== 34. PPO on the card against the CPU: one collect_and_update iteration on KS22 "
           "(2 envs, rollout 8, 2 epochs x 4 microbatches), every draw made once on the CPU")
     res = ppo_pair()
     print(json.dumps({"phase": 34, **res, "card": card}))
@@ -1867,7 +1940,7 @@ def agents_phases(card: str) -> dict:
           and res["trunk_moved"] > 1e-5 and res["K1_launches"] == [res["env_steps"], 0],
           f"PPO on the card disagrees with the CPU: {res}")
     k1 = {"PPO evaluation: shipped controllers (phase 35)": ppo_controllers(card)}
-    print("== 37. the population chunk on the card against the CPU: P=2 x 4 envs, per-member "
+    phase("== 37. the population chunk on the card against the CPU: P=2 x 4 envs, per-member "
           "learning rates and act_noise, 20 steps, on CNAB2 (K1 vs its plain twin) and the sf tier")
     for tier, over in (("cnab2", {}), ("spectral-featurize", SF_TIER)):
         res = population_pair(over)
@@ -1877,6 +1950,7 @@ def agents_phases(card: str) -> dict:
               and res["finished"] == 8 and res["episodes"] == [8, 8]
               and res["K1_launches"] == [0 if over else res["steps"], 0],
               f"the population chunk on the card disagrees with the CPU ({tier}): {res}")
+    phase("-- phases 36, 38 and 39's rates in a process of their own")
     out_json = ROOT / "build" / "smoke_agents.json"
     out_json.unlink(missing_ok=True)
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--agents-child",
@@ -2102,7 +2176,7 @@ def tiers_child(out_json: str) -> int:
     def finite(chain):
         return all(bool(torch.isfinite(p).all()) for p in chain.parameters())
 
-    print(f"== 42. KS22_tp --train --batched --population {POP_MEMBERS} on phase 15's recipe "
+    phase(f"== 42. KS22_tp --train --batched --population {POP_MEMBERS} on phase 15's recipe "
           f"({POP_ENVS} envs per member, 3000 steps), every member te=200 on the CNAB2 env (K1)")
     pop_dir = str(base / "KS22_tp_pop8")
     secs, launches, _ = cli([
@@ -2133,7 +2207,7 @@ def tiers_child(out_json: str) -> int:
     check(res42["median"] < POP_LIMIT,
           f"the median KS22_tp member's suppression {res42['median']} is not below {POP_LIMIT}")
 
-    print(f"== 43. Fluid_8_tp --train ({F8_TP_STEPS} env steps of te={F8_TP_TE}) and "
+    phase(f"== 43. Fluid_8_tp --train ({F8_TP_STEPS} env steps of te={F8_TP_TE}) and "
           f"Fluid_16_256_tp --train --mesh 1x1 ({MESH_TP_STEPS} train steps of te={MESH_TP_TE}), "
           "cut in depth")
     res43 = {}
@@ -2194,21 +2268,269 @@ def bench_tiers(card: str) -> dict:
 
 def tiers_phases(card: str) -> dict:
     """Phases 40-44. Returns K1's and K2's launches on the tier paths."""
-    print("== 40. each tier's transforms at the slice's shapes, card against the CPU and against "
+    phase("== 40. each tier's transforms at the slice's shapes, card against the CPU and against "
           "float64")
     tier_transforms(card)
-    print(f"== 41. the tiers' error per env step: KS22 ETDRK4 on {N_ENVS} states after "
+    phase(f"== 41. the tiers' error per env step: KS22 ETDRK4 on {N_ENVS} states after "
           f"{KS_TIER_WARMUP} steps, Fluid_8_tp against Fluid_8_fast")
     tier_step_errors(card)
+    phase("-- phases 42-43 in a process of their own")
     out_json = ROOT / "build" / "smoke_tiers.json"
     out_json.unlink(missing_ok=True)
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--tiers-child",
                            str(out_json)], cwd=str(ROOT), timeout=900)
     check(proc.returncode == 0 and out_json.exists(),
           f"phases 42 and 43 failed in their process (exit {proc.returncode})")
-    print("== 44. bench_torch.py at the sf and the tp tier, in turns, each in its own process")
+    phase("== 44. bench_torch.py at the sf and the tp tier, in turns, each in its own process")
     bench_tiers(card)
     return json.loads(out_json.read_text())
+
+
+# ------------------------------------------- deployment and tooling (45-50)
+SERVE_KEYS = {"preset", "latency_ms_p50", "latency_ms_p99", "control_interval_ms", "headroom_x"}
+SERVED = [("KS22", "artifacts/KS22"),  # phases 45-46: one shipped controller of each family
+          ("KellerSegel10_16_fast", "artifacts/KellerSegel_popsearch_pop8/member_00"),
+          ("Fluid_8", "artifacts/Fluid_8")]
+LIVE_STEPS = 2000  # phase 47: the KS22 protocol's te=200
+KSS_POP_DIR, KSS_POP_SEEDS = "artifacts/KellerSegel_popsearch_pop8", (7, 8, 9, 10)  # phase 48
+# phase 48: eval_kss_pop.py's lines on the CPU (JAX 0.9.0, threefry keys), as printed: the
+# post-control mean |u - 1| of each member from keys 7, 8, 9, 10 (RESULTS.md:504-513 prints the
+# same values to 2-4 digits). Limit: max(0.1 JAX, 0.0005)
+JAX_KSS_POP = {0: (0.0097, 0.0064, 0.0133, 0.0143), 1: (0.0852, 0.0893, 0.0821, 0.0797),
+               2: (0.0308, 0.0306, 0.0283, 0.0282), 3: (0.0284, 0.0288, 0.0388, 0.0399),
+               4: (0.054, 0.0546, 0.0652, 0.0661), 5: (0.0249, 0.0235, 0.5678, 0.6133),
+               6: (0.1557, 0.869, 0.8626, 0.8625), 7: (0.0903, 0.0914, 0.0891, 0.0884)}
+FLUID_POP_DIR, FLUID_POP_PRESET = "artifacts/Fluid_8_tp_pop8", "Fluid_8"  # phase 49
+# phase 49: eval_fluid_pop.py's lines on the CPU, as printed: the mean energy over the te=2, 3
+# and 6 prefixes of each member and of the two baselines (RESULTS.md:89-100 prints them to 2
+# digits; four of its cells differ from these by one in the last digit). Limit: 2 %
+JAX_FLUID_POP = {0: (7.917, 7.078, 5.384), 1: (9.179, 8.624, 7.859), 2: (7.802, 6.895, 5.163),
+                 3: (7.862, 6.964, 5.22), 4: (7.748, 6.843, 5.165), 5: (9.012, 8.031, 6.402),
+                 6: (7.791, 6.93, 5.281), 7: (7.933, 7.058, 5.338),
+                 "negate": (7.613, 6.38, 4.469), "no_action": (8.731, 7.773, 6.026)}
+PROFILE_STEPS, PROFILE_TE = 30, 3.0  # phase 50: one loop of one 30-step episode (te cut from 5)
+
+# phase 46: the exported controllers reloaded by `load_exported`'s own source in a process
+# where neither package (nor JAX) can be imported, on the card and moved to the CPU
+EXPORT_LOADER = """
+import json, os, sys
+for name in ("distributedconvrl_pde_control_torch", "distributedconvrl_pde_control_tpu", "jax"):
+    sys.modules[name] = None
+import numpy as np
+import torch
+ARTIFACT, MANIFEST = {artifact!r}, {manifest!r}
+{source}
+for out in sys.argv[1:]:
+    x = np.load(os.path.join(out, "inputs.npz"))
+    for device in ("cuda", "cpu"):
+        program, manifest = load_exported(out, device=device)
+        with torch.no_grad():
+            action, next_obs = program(torch.from_numpy(x["y"]).to(device),
+                                       torch.from_numpy(x["obs"]).to(device))
+        assert action.device.type == device, action.device
+        np.savez(os.path.join(out, "outputs_" + device + ".npz"), action=action.cpu().numpy(),
+                 next_obs=next_obs.cpu().numpy())
+    print(manifest["preset"], "reloaded")
+"""
+
+
+def tools_child(out_json: str) -> int:
+    """Phases 45-50 in a process of their own: 45-49 before any profiler
+    session (45 and 46 time latencies on the host's clock), then 50, which
+    profiles, last. Writes K1's launches by path to `out_json`."""
+    import contextlib
+    import inspect
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import eval_fluid_pop_torch
+    import eval_kss_pop_torch
+    from distributedconvrl_pde_control_torch.experiments import export_controller as ec
+    from distributedconvrl_pde_control_torch.experiments import run, serve
+    from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
+    from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
+    from distributedconvrl_pde_control_torch.train import checkpoint
+    from distributedconvrl_pde_control_torch.utils.profiling import TRACE_FILE
+
+    card = card_line()
+    base = ROOT / "build" / "smoke_tools"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    k1 = {}
+
+    def cli(main, argv):
+        """An entry point's output, its seconds, and K1's and K2's launches in
+        one run of it."""
+        ks_kernel.KS_CNAB2.launches = k2.NS_ADVECTION.launches = 0
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+        torch.cuda.synchronize()
+        return (buf.getvalue(), ks_kernel.KS_CNAB2.launches, time.perf_counter() - t0,
+                k2.NS_ADVECTION.launches)
+
+    phase("== 45. run.py --eval --serve: KS22, KellerSegel10_16_fast (popsearch member 0), Fluid_8; "
+          "200 control steps each, each timed to the end of its device work")
+    res45 = {}
+    for preset, run_dir in SERVED:
+        text, launches, _, launches_k2 = cli(run.main, [preset, "--eval", "--serve",
+                                                        "--load-from", str(ROOT / run_dir)])
+        line = json.loads(text.strip().splitlines()[-1])
+        res45[preset] = line
+        check(set(line) == SERVE_KEYS and launches == launches_k2 == 0 and line["headroom_x"] > 1,
+              f"the serving probe on {preset} is malformed or slower than real time: {line}")
+    print(json.dumps({"phase": 45, "serve": res45, "card": card}))
+
+    phase("== 46. export round trips on the card: exported on cuda, bit-equal to the live step there "
+          "and, moved to the CPU, to the port's live CPU step, reloaded without the port; then "
+          "serve --from-export")
+    outs, live = [], {}
+    for preset, run_dir in SERVED:
+        out = base / f"export_{preset}"
+        text, launches, secs, launches_k2 = cli(run.main, [
+            preset, "--eval", "--export-controller", str(out), "--load-from", str(ROOT / run_dir)])
+        manifest = json.loads((out / ec.MANIFEST).read_text())
+        check(manifest["exported_on"] == "cuda" and (out / ec.ARTIFACT).exists()
+              and launches == launches_k2 == 0,
+              f"the {preset} export is malformed: {manifest}")
+        rng = np.random.default_rng(46)
+        for device in ("cuda", "cpu"):
+            setup = run.build_setup(run.preset_config(preset), device=device)
+            step = ec.build_control_step(setup, checkpoint.load_actor(str(ROOT / run_dir),
+                                                                      setup.agent, device=device))
+            if device == "cuda":
+                est = setup.env.reset()
+                y0 = est.y.cpu().numpy()
+                y = (y0 + 0.1 * np.abs(y0).max() * rng.standard_normal(y0.shape)).astype(np.float32)
+                obs = rng.uniform(-1, 1, tuple(est.obs.shape)).astype(np.float32)
+                np.savez(out / "inputs.npz", y=y, obs=obs)
+            with torch.no_grad():
+                a, o = step(torch.from_numpy(y).to(device), torch.from_numpy(obs).to(device))
+            live[(preset, device)] = (a.cpu().numpy(), o.cpu().numpy())
+        print(f"{preset}: exported in {secs:.1f} s, {(out / ec.ARTIFACT).stat().st_size} B, "
+              f"args {manifest['args']}")
+        outs.append(str(out))
+    code = EXPORT_LOADER.format(artifact=ec.ARTIFACT, manifest=ec.MANIFEST,
+                                source=inspect.getsource(ec.load_exported))
+    proc = subprocess.run([sys.executable, "-c", code, *outs], capture_output=True, text=True,
+                          timeout=300, cwd=str(base))
+    print(proc.stdout, end="")
+    check(proc.returncode == 0, f"reloading the exports without the port failed: {proc.stderr[-3000:]}")
+    res46 = {}
+    for (preset, _), out in zip(SERVED, outs):
+        row = {}
+        for device in ("cuda", "cpu"):
+            got = np.load(Path(out) / f"outputs_{device}.npz")
+            want_a, want_o = live[(preset, device)]
+            row[f"bit_equal_{device}"] = bool(np.array_equal(got["action"], want_a)
+                                              and np.array_equal(got["next_obs"], want_o))
+        text, launches, _, launches_k2 = cli(serve.main, [preset, "--from-export", out])
+        row["serve_from_export"] = json.loads(text.strip().splitlines()[-1])
+        res46[preset] = row
+        check(row["bit_equal_cuda"] and row["bit_equal_cpu"] and launches == launches_k2 == 0
+              and set(row["serve_from_export"]) == SERVE_KEYS,
+              f"the {preset} export round trip is not the live step: {row}")
+    print(json.dumps({"phase": 46, "exports": res46, "card": card}))
+
+    phase(f"== 47. run.py KS22 --eval --live (te=200: {LIVE_STEPS} env steps) to a non-TTY stream")
+    live_dir = base / "live"
+    text, launches, secs, _ = cli(run.main, ["KS22", "--eval", "--live", "--load-from",
+                                             str(ROOT / "artifacts" / "KS22"), "--out", str(live_dir)])
+    lines = text.splitlines()
+    frames = [i for i, line in enumerate(lines) if line.startswith("step ")]
+    supp = next(json.loads(line) for line in lines if line.startswith("{"))
+    plotted = all((live_dir / f).exists() for f in ("heat.png", "sums.png", "actions.png"))
+    k1["live eval (phase 47)"] = launches
+    print("\n".join(lines[frames[-1]:frames[-1] + 4]) if frames else "(no frame)")
+    res47 = {"frames": len(frames), "K1_launches": launches, "seconds": secs, **supp,
+             "plots": "written" if plotted else next(
+                 (line for line in lines if line.startswith("plots not written")), None)}
+    print(json.dumps({"phase": 47, **res47, "card": card}))
+    check(len(frames) == LIVE_STEPS == launches and supp["suppression"] < 0.05
+          and res47["plots"] is not None, f"the live eval is malformed: {res47}")
+
+    phase(f"== 48. eval_kss_pop_torch.py on {KSS_POP_DIR}: 8 members x keys {KSS_POP_SEEDS}, "
+          "te=12, each member's seeds one batch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = list(eval_kss_pop_torch.evaluate(str(ROOT / KSS_POP_DIR), 8, list(KSS_POP_SEEDS)))
+    secs = time.perf_counter() - t0
+    worst = 0.0
+    for member, row in rows:
+        want = dict(zip(KSS_POP_SEEDS, JAX_KSS_POP[member]))
+        ok = all(abs(row[s]["post"] - want[s]) <= max(0.1 * want[s], 0.0005) for s in KSS_POP_SEEDS)
+        worst = max([worst] + [abs(row[s]["post"] - want[s]) / max(0.1 * want[s], 0.0005)
+                               for s in KSS_POP_SEEDS])
+        print(json.dumps({**eval_kss_pop_torch.printed_row(member, row), "jax": want, "ok": ok}))
+        check(ok, f"Keller-Segel member {member} disagrees with eval_kss_pop.py")
+    print(json.dumps({"phase": 48, "members": len(rows), "seconds": secs,
+                      "worst_error_of_limit": worst, "card": card}))
+
+    phase(f"== 49. eval_fluid_pop_torch.py on {FLUID_POP_DIR} ({FLUID_POP_PRESET}, te=6): 8 members "
+          "and the 2 baselines, one batch of 10 envs")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = eval_fluid_pop_torch.evaluate(str(ROOT / FLUID_POP_DIR), FLUID_POP_PRESET, 8)
+    secs = time.perf_counter() - t0
+    worst = 0.0
+    for label, row in rows:
+        want = dict(zip(("te2", "te3", "te6"), JAX_FLUID_POP[label[1]]))
+        errs = {k: abs(row[k] - w) / w for k, w in want.items()}
+        worst = max([worst, *errs.values()])
+        ok = all(e <= 0.02 for e in errs.values())
+        print(json.dumps({**eval_fluid_pop_torch.printed_row(label, row), "jax": want, "ok": ok}))
+        check(ok, f"fluid {label} disagrees with eval_fluid_pop.py")
+    print(json.dumps({"phase": 49, "rollouts": len(rows), "seconds": secs,
+                      "ms_per_env_step_of_the_batch": 1e3 * secs / 300, "worst_rel_error": worst,
+                      "card": card}))
+
+    phase(f"== 50. KS22 --train --profile: one loop of one {PROFILE_STEPS}-step episode (te="
+          f"{PROFILE_TE}) under torch.profiler, last in its process")
+    for attempt in (1, 2):
+        out = base / "profiled"
+        shutil.rmtree(out, ignore_errors=True)
+        text, launches, secs, _ = cli(run.main, [
+            "KS22", "--train", "--profile", "--loops", "1", "--no-steps", str(PROFILE_STEPS),
+            "--config-overrides", json.dumps({"te": PROFILE_TE}), "--out", str(out)])
+        trace_path = out / "profile" / TRACE_FILE
+        events = json.loads(trace_path.read_text())["traceEvents"] if trace_path.exists() else []
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        k1_seen = sum("ks_cnab2" in e.get("name", "") for e in kernels)
+        # a session can lose records (as phase 18 allows for): the library counts every
+        # launch, so a session that saw fewer is measured again
+        if k1_seen == launches:
+            break
+        print(f"attempt {attempt}: the trace holds {k1_seen} K1 launches, the library counted "
+              f"{launches}")
+    print("\n".join(line for line in text.splitlines() if "ms/call" in line or "trace ->" in line))
+    k1["profiled fidelity training (phase 50)"] = launches
+    res50 = {"env_steps": launches, "K1_in_trace": k1_seen, "kernels_in_trace": len(kernels),
+             "kernels_per_env_step": len(kernels) / max(launches, 1),
+             "trace_bytes": trace_path.stat().st_size if trace_path.exists() else 0,
+             "seconds": secs, "attempts": attempt, "card": card}
+    print(json.dumps({"phase": 50, **res50}))
+    check(trace_path.exists() and launches == PROFILE_STEPS and k1_seen == launches
+          and "first_loop" in text, f"the profiled training run is malformed: {res50}")
+    Path(out_json).write_text(json.dumps({"K1_launches_by_path": k1}))
+    return 0
+
+
+def tools_phases(card: str) -> dict:
+    """Phases 45-50, in a process of their own. Returns K1's launches on the
+    tooling paths."""
+    phase("-- phases 45-50 in a process of their own")
+    out_json = ROOT / "build" / "smoke_tools.json"
+    out_json.unlink(missing_ok=True)
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--tools-child",
+                           str(out_json)], cwd=str(ROOT), timeout=900)
+    check(proc.returncode == 0 and out_json.exists(),
+          f"phases 45-50 failed in their process (exit {proc.returncode})")
+    return json.loads(out_json.read_text())["K1_launches_by_path"]
 
 
 def main() -> int:
@@ -2229,22 +2551,29 @@ def main() -> int:
                         help="run phases 1, 2 and 34-39 and print no result line")
     parser.add_argument("--tiers-only", action="store_true",
                         help="run phases 1, 2 and 40-44 and end with the ok line")
+    parser.add_argument("--tools-only", action="store_true",
+                        help="run phases 1, 2 and 45-50 and end with the ok line")
     parser.add_argument("--fidelity-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--agents-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--families-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--tiers-child", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--tools-child", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if args.fidelity_child:
-        return fidelity_child(args.fidelity_child)
-    if args.families_child:
-        return families_child(args.families_child)
-    if args.agents_child:
-        return agents_child(args.agents_child)
-    if args.tiers_child:
-        return tiers_child(args.tiers_child)
+    if not (ROOT / "distributedconvrl_pde_control_torch" / "__init__.py").exists():
+        print(f"chip_smoke: the port's package is not beside this script in {ROOT}; run it from "
+              "the repository's root", file=sys.stderr)
+        return 1
+    children = {"fidelity_child": fidelity_child, "families_child": families_child,
+                "agents_child": agents_child, "tiers_child": tiers_child,
+                "tools_child": tools_child}
+    for name, child in children.items():
+        if getattr(args, name):
+            rc = child(getattr(args, name))
+            print_phase_seconds()
+            return rc
     if args.times_only:
         return times_only(args.tree)
     if args.tree:
@@ -2271,13 +2600,13 @@ def main() -> int:
     from distributedconvrl_pde_control_torch.train.eval import actor_policy, rollout
 
     dev = "cuda"
-    print("== 1. device")
+    phase("== 1. device")
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    print("== 2. build")
+    phase("== 2. build")
     t0 = time.perf_counter()
     sources = (ks_kernel.SOURCE, k2.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
@@ -2304,8 +2633,11 @@ def main() -> int:
     if args.agents_only:
         print(json.dumps({"K1_launches_on_the_agent_paths": agents_phases(card)}))
         return 0
-    if args.tiers_only:
-        print(json.dumps({"launches_on_the_tier_paths": tiers_phases(card)}))
+    if args.tiers_only or args.tools_only:
+        launches = tiers_phases(card) if args.tiers_only else {"K1": tools_phases(card)}
+        print_phase_seconds()
+        print(json.dumps({"launches_on_the_tier_paths" if args.tiers_only
+                          else "launches_on_the_tool_paths": launches}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
@@ -2316,7 +2648,7 @@ def main() -> int:
                           "K2_launches_on_the_training_path": fluid_train_phases(card)}))
         return 0
 
-    print("== 3. K1 against its plain version")
+    phase("== 3. K1 against its plain version")
     setup = build_ks(KS22, device=dev)
     gen = torch.Generator().manual_seed(0)
     slice_y = setup.random_init(gen, N_ENVS)
@@ -2345,7 +2677,7 @@ def main() -> int:
     policy = actor_policy(setup.agent, actor)
     ks_kernel.KS_CNAB2.launches = 0  # the main path starts here
 
-    print("== 4. KS22 reproduce protocol (te=200, actuation from t=100)")
+    phase("== 4. KS22 reproduce protocol (te=200, actuation from t=100)")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     traces = rollout(setup.env, policy, te=200.0, t_action=100.0)
@@ -2362,7 +2694,7 @@ def main() -> int:
     check(np.isfinite(yt).all() and yt.shape == (2000, KS22.nx), "rollout trace malformed")
     check(supp < 0.05, f"suppression {supp} not below 0.05")
 
-    print(f"== 5. batched eval: {N_ENVS} envs, {EVAL_STEPS} steps after {EVAL_WARMUP} warm-up steps")
+    phase(f"== 5. batched eval: {N_ENVS} envs, {EVAL_STEPS} steps after {EVAL_WARMUP} warm-up steps")
     trainer = BatchedTrainer(setup.env, setup.agent, BatchedTrainerConfig(n_envs=N_ENVS),
                              random_init=setup.random_init)
     torch.cuda.reset_peak_memory_stats()
@@ -2398,7 +2730,7 @@ def main() -> int:
         print(f"4-env eval score={score}: cuda {vals[0]:.7f} cpu {vals[1]:.7f} rel {rel:.2e} (rtol 1e-4)")
         check(rel <= 1e-4, f"card and CPU evals disagree ({score})")
 
-    print("== 6. K1 time at the slice's shapes")
+    phase("== 6. K1 time at the slice's shapes")
     solver = KSSolver(nx=192, lx=22.0, dt=0.1, oversampling=30, device=dev)
     k_ms = cuda_ms(lambda: ks_kernel.ks_cnab2_step(slice_y, slice_f, solver), 20)
     plain_ms = cuda_ms(lambda: ks_kernel.ks_cnab2_plain(slice_y, slice_f, solver), 5)
@@ -2425,7 +2757,7 @@ def main() -> int:
                       "env_steps_per_s_first_call": rates["mean"], "peak_mem_bytes": peak_mem,
                       "rollout_seconds": t_roll, "card": card}))
 
-    print("== 7. device time of 5 batched env steps by kernel (torch.profiler)")
+    phase("== 7. device time of 5 batched env steps by kernel (torch.profiler)")
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2443,7 +2775,7 @@ def main() -> int:
                       "kernels": len(kern), "launches": sum(e.count for e in kern),
                       "top": [[e.key[:60], e.count, e.self_device_time_total] for e in top]}))
 
-    print("== 8. K2 against its plain version")
+    phase("== 8. K2 against its plain version")
     fluid_ops = make_sharded_ops(256, 256, device=dev)  # the fluid path's constants
     k2_inputs, k2_errs, k2_rel_errs = {}, {}, {}
     for label, n, batch, kind, consts_kind in K2_SHAPES:
@@ -2521,7 +2853,7 @@ def main() -> int:
     n_steps = int(round(FLUID_P_TE / FLUID_16_256.dt))
     k2.NS_ADVECTION.launches = 0  # the fluid path starts here
 
-    print(f"== 9. Fluid_16_256 protocol (1 env, te={FLUID_P_TE}: {n_steps} env steps of "
+    phase(f"== 9. Fluid_16_256 protocol (1 env, te={FLUID_P_TE}: {n_steps} env steps of "
           f"{FLUID_16_256.oversampling} RK4 substeps)")
     ftrainer = ShardedFluidTrainer(FLUID_16_256, (1, 1), ShardedTrainConfig(n_envs=1), device=dev)
     factor = load_actor_for_eval(fluid_dir, ftrainer)
@@ -2546,7 +2878,7 @@ def main() -> int:
     check(energies["trained"] < 0.7 * energies["no action"],
           f"trained energy {energies['trained']} not below 0.7 of no action {energies['no action']}")
 
-    print(f"== 10. batched width: {FLUID_BATCH} envs, {FLUID_BATCH_STEPS} steps")
+    phase(f"== 10. batched width: {FLUID_BATCH} envs, {FLUID_BATCH_STEPS} steps")
     btrainer = ShardedFluidTrainer(FLUID_16_256, (1, 1), ShardedTrainConfig(n_envs=FLUID_BATCH),
                                    device=dev)
     bw0 = btrainer.eval_w0()
@@ -2572,7 +2904,7 @@ def main() -> int:
     check(launches_protocol > 0 and k2_launches - launches_protocol > 0,
           "K2 was not launched on the fluid path")
 
-    print("== 11. the fluid slice on the card against the CPU (32x32, 2 envs, 6 steps)")
+    phase("== 11. the fluid slice on the card against the CPU (32x32, 2 envs, 6 steps)")
     rng = np.random.default_rng(5)
     small_w0 = torch.tensor(np.stack([
         np.fft.ifft2(initial_condition(4, 32, 32, 1.0, 1.0, rng)).real for _ in range(2)
@@ -2608,7 +2940,7 @@ def main() -> int:
     check(bool(arecs["active"].all() and np.isfinite(arecs["energy"]).all()),
           "adaptive fluid rollout malformed")
 
-    print("== 12. K2 time at the fluid path's shapes")
+    phase("== 12. K2 time at the fluid path's shapes")
     k2_times = {}
     for label in K2_TIMED_SHAPES:
         w = k2_inputs[label]
@@ -2646,7 +2978,7 @@ def main() -> int:
           f"device time ({100 * k2_step_ms / step_ms_1:.1f}%); the bound of one launch at batch 1 "
           f"is below the cost of a launch; {card}")
 
-    print("== 13. device time of one fluid env step by kernel group (torch.profiler)")
+    phase("== 13. device time of one fluid env step by kernel group (torch.profiler)")
     one_step = ftrainer.make_eval_fn(1)
     one_step(factor, fw0)
     counted = k2.NS_ADVECTION.launches
@@ -2688,17 +3020,20 @@ def main() -> int:
     families_phases(card)
     k1_agents = agents_phases(card)
     k_tiers = tiers_phases(card)
+    k1_tools = tools_phases(card)
+    print_phase_seconds()
 
     print(json.dumps({"kernels": [{
         "name": "ks_cnab2", "route": "cuda",
         "source": "distributedconvrl_pde_control_torch/csrc/" + ks_kernel.SOURCE,
         "replaces": ks_kernel.REPLACES,
         "launches": (launches + sum(k1_training.values()) + sum(k1_fidelity.values())
-                     + sum(k1_agents.values()) + sum(k_tiers["K1"].values())),
+                     + sum(k1_agents.values()) + sum(k_tiers["K1"].values())
+                     + sum(k1_tools.values())),
         "launches_by_path": {"evaluation (phases 4-5)": launches,
                              "training: trained controller's rollout (phase 15)": k1_training["rollout"],
                              "training: train steps (phase 16)": k1_training["train_steps"],
-                             **k1_fidelity, **k1_agents, **k_tiers["K1"]},
+                             **k1_fidelity, **k1_agents, **k_tiers["K1"], **k1_tools},
         "max_abs_err": max(errs[k] for k in MAIN_PATH_SHAPES), "ms": k_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None, "status": "ok", "shape": "16384x192, 30 substeps",

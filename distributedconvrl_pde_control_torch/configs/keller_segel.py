@@ -114,6 +114,21 @@ def keller_segel_y0_key7() -> np.ndarray:
     return np.load(_Y0_KEY7)
 
 
+SHIPPED_KEYS = (7, 8, 9, 10)
+
+
+def keller_segel_y0_key(seed: int) -> np.ndarray:
+    """The JAX package's `random_init(jax.random.PRNGKey(seed))` of the
+    KellerSegel10_16 presets, (2, 100) float32, for the seeds whose field
+    ships as data (`SHIPPED_KEYS`: the unseen initial fields of
+    eval_kss_pop.py's protocol)."""
+    if seed not in SHIPPED_KEYS:
+        raise ValueError(f"the JAX package's Keller-Segel field of key {seed} does not ship; "
+                         f"shipped keys: {SHIPPED_KEYS}")
+    return np.load(os.path.join(os.path.dirname(__file__),
+                                f"data_keller_segel_y0_key{seed}.npy"))
+
+
 def keller_segel_random_init(cfg: KellerSegelConfig, device: str = "cuda"):
     """generate_random_init (KellerSegelSetup.jl:373-384): u and v are 1 plus
     ceil(Lx/3) sines with coefficients drawn uniform in [-1, 1) and

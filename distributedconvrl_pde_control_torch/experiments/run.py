@@ -63,7 +63,7 @@ reference's):
 write saves/ppo.msgpack and saves/ppo_info.npz, and roll the best params as
 the DDPG eval does, printing the JAX CLI's keys ("agent": "ppo" first).
 
-KS and Keller-Segel presets (the plot_heat protocol, without plots):
+KS and Keller-Segel presets (the plot_heat protocol):
 
     python -m distributedconvrl_pde_control_torch.experiments.run KS22 --eval \\
         --load-from artifacts/KS22 --p-te 200 --p-t-action 100 [--cpu]
@@ -73,9 +73,24 @@ loads the checkpoint in --load-from (default --out), rolls its best actor
 from the standard initial field, and prints one JSON line with the mean |y|
 over the last 100 uncontrolled steps, over the last tenth of the run, and
 their ratio; for Keller-Segel the deviation |u - 1| from the controlled
-state (default te 12, actuation from te/2).
+state (default te 12, actuation from te/2), and writes heat.png, sums.png and
+actions.png into --out (`--plot-separate`, `--from-step`, `--to-step`);
+`--plot-best` draws the stored best episode instead, `--live` animates the
+rollout in the terminal, `--video` writes its frames (and an mp4 with ffmpeg).
+`--import-jld2 SAVES_DIR` converts a reference JLD2 save into --out first.
+Every branch that plots writes the JAX CLI's file names when matplotlib is
+installed and says in one line that it did not otherwise.
 
-Fluid presets on the single-device env (the testrun protocol, without plots):
+Deployment (experiments/serve.py, experiments/export_controller.py):
+
+    python -m distributedconvrl_pde_control_torch.experiments.run KS22 --eval \\
+        --load-from artifacts/KS22 (--serve | --export-controller DIR) [--cpu]
+
+prints the serving probe's latency line, or exports the controller with
+torch.export. `--train --profile` traces the first loop of the single-env
+training into <out>/profile/trace.json and prints per-phase timings.
+
+Fluid presets on the single-device env (the testrun protocol, energy.png):
 
     python -m distributedconvrl_pde_control_torch.experiments.run Fluid_8 --eval \\
         --load-from artifacts/Fluid_8 [--p-te 6] [--cpu]
@@ -204,6 +219,13 @@ def fluid_config_for(name: str):
     return None
 
 
+def preset_config(name: str):
+    """The config of any preset name the CLI takes: a fluid preset or tier,
+    else a KS or Keller-Segel preset."""
+    cfg = fluid_config_for(name)
+    return cfg if cfg is not None else presets()[name][0]
+
+
 def run_sharded(args, cfg, device: str) -> None:
     """`--mesh DPxSP` path (parallel.multichip, 1x1 only): the fluid preset
     trains (`--train`, `--train-multi`, `--resume`) or evaluates on the
@@ -306,7 +328,8 @@ def held_out_eval_pool(setup, n: int) -> "torch.Tensor":
 def run_train_batched(args, cfg, overrides, device: str) -> None:
     """`--train --batched`: `train_batched` from a pool of 32 `random_init`
     fields drawn from the preset's seed (JAX run.py:808-813, every family),
-    then the hook's checkpoint into --out."""
+    warm-started with `--import-jld2` from a reference JLD2 save's networks
+    (JAX run.py:958-965), then the hook's checkpoint into --out."""
     import torch
 
     from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent
@@ -336,6 +359,12 @@ def run_train_batched(args, cfg, overrides, device: str) -> None:
                              min_best_episode=setup.min_best_episode),
         y0_pool=pool, eval_y0_pool=eval_pool)
     seed = args.seed if args.seed is not None else setup.seed
+    warm = None
+    if args.import_jld2:
+        from distributedconvrl_pde_control_torch.train.reference_import import load_warm_start
+
+        warm = load_warm_start(args.import_jld2)
+        print(f"warm-starting from imported reference JLD2 {args.import_jld2} ({sorted(warm)})")
     ts, hook, means = train_batched(
         trainer, total_steps=args.total_steps,
         generator=torch.Generator(device=device).manual_seed(seed),
@@ -343,7 +372,7 @@ def run_train_batched(args, cfg, overrides, device: str) -> None:
         noise_decay=args.noise_decay if args.noise_decay is not None else setup.noise_decay,
         chunk_len=args.chunk_len or 50, verbose=True, eval_every=args.eval_every,
         eval_steps=args.eval_steps, eval_warmup_steps=args.eval_warmup,
-        eval_score=args.eval_score)
+        eval_score=args.eval_score, warm_start=warm)
     checkpoint.save(out_dir, TrainState(ts.agent, None, ts.generator), hook,
                     include_replay=False, config_overrides=overrides)
     print(hook.ascii_curve())
@@ -454,11 +483,13 @@ def run_population(args, cfg, overrides, device: str) -> None:
 
 def run_train(args, cfg, overrides, device: str) -> None:
     """`--train` (the single-env loop, `drivers.train`; `--resume` continues
-    the checkpoint in --load-from or --out) and `--train-multi` (the restart
-    protocol with numbered saves); the full checkpoint with its replay goes
-    into --out."""
+    the checkpoint in --load-from or --out, or with `--import-jld2` a
+    reference JLD2 save; `--profile` traces the first loop) and
+    `--train-multi` (the restart protocol with numbered saves); the full
+    checkpoint with its replay and rewards.png go into --out."""
     from distributedconvrl_pde_control_torch.train import checkpoint
     from distributedconvrl_pde_control_torch.train.drivers import train, train_multi
+    from distributedconvrl_pde_control_torch.viz import plotting
 
     setup = build_setup(cfg, device=device)
     if overrides:
@@ -473,12 +504,41 @@ def run_train(args, cfg, overrides, device: str) -> None:
         print("best rewards per experiment:", best)
         return
     ts = hook = None
-    if args.resume:
+    if args.resume and args.import_jld2:
+        # the reference's own load(); train() continuation (KS22.jl:26-32) from its JLD2
+        # saves, with a fresh replay as after a light checkpoint
+        from distributedconvrl_pde_control_torch.train.reference_import import (
+            import_reference_checkpoint,
+        )
+
+        ts, hook = import_reference_checkpoint(args.import_jld2, setup)
+        print(f"resuming from imported reference JLD2 {args.import_jld2} (ep {hook.ep - 1}, "
+              f"best {hook.bestreward:.4f})")
+    elif args.resume:
         ts, hook = checkpoint.load(args.load_from or out_dir, setup.agent, device=device)
         print(f"resuming from ep {hook.ep - 1}, best {hook.bestreward:.4f}")
-    ts, hook = train(setup, loops=args.loops, no_steps=args.no_steps, seed=args.seed, ts=ts,
-                     hook=hook)
+    if args.profile:
+        from distributedconvrl_pde_control_torch.utils.profiling import StepTimer, trace
+
+        timer = StepTimer()
+        profile_dir = os.path.join(out_dir, "profile")
+        with trace(profile_dir):
+            with timer.phase("first_loop(train)"):
+                ts, hook = train(setup, loops=1, no_steps=args.no_steps, seed=args.seed, ts=ts,
+                                 hook=hook, verbose=False)
+        remaining = (args.loops if args.loops is not None else setup.loops) - 1
+        if remaining > 0:
+            with timer.phase("steady_loops"):
+                ts, hook = train(setup, loops=remaining, no_steps=args.no_steps, seed=args.seed,
+                                 ts=ts, hook=hook, verbose=False)
+        print(timer.summary())
+        print(f"profiler trace -> {profile_dir}")
+    else:
+        ts, hook = train(setup, loops=args.loops, no_steps=args.no_steps, seed=args.seed, ts=ts,
+                         hook=hook)
     checkpoint.save(out_dir, ts, hook, config_overrides=overrides)
+    plots(lambda: plotting.plot_rewards_curve(hook.rewards, os.path.join(out_dir, "rewards.png"),
+                                              hook.bestepisode))
     print(hook.ascii_curve())
     print(f"saved to {out_dir}; best reward {hook.bestreward:.4f} @ ep {hook.bestepisode}")
 
@@ -511,23 +571,60 @@ def run_hyperopt(args, device: str) -> None:
 
 def run_eval(args, cfg, device: str) -> None:
     """`--eval`: the checkpoint in --load-from (default --out) as
-    `checkpoint.load` reads it, its best actor (else its current one). KS and
+    `checkpoint.load` reads it, or a reference JLD2 save converted into --out
+    (`--import-jld2`), its best actor (else its current one). KS and
     Keller-Segel presets: the plot_heat protocol's suppression (of |u - 1|
-    for Keller-Segel); fluid presets: the testrun's masked mean energies of
-    the actor, corrected opposition control and no action (JAX run.py:
-    1098-1140)."""
+    for Keller-Segel) and heat.png, sums.png, actions.png; fluid presets: the
+    testrun's masked mean energies of the actor, corrected opposition control
+    and no action, and energy.png (JAX run.py:1045-1142). `--serve` and
+    `--export-controller` deploy the checkpoint instead; `--plot-best` draws
+    the stored best episode; `--live` animates the rollout in the terminal,
+    `--video` writes its frames and an mp4."""
     from distributedconvrl_pde_control_torch.configs.fluid import FluidConfig
     from distributedconvrl_pde_control_torch.configs.keller_segel import KellerSegelConfig
     from distributedconvrl_pde_control_torch.train import checkpoint
     from distributedconvrl_pde_control_torch.train.eval import actor_policy, energy_eval, rollout
+    from distributedconvrl_pde_control_torch.viz import plotting
 
+    out_dir = args.out or os.path.join("runs", args.preset)
+    load_dir = args.load_from or out_dir
+    if args.serve:
+        from distributedconvrl_pde_control_torch.experiments import serve
+
+        return serve.main([args.preset, "--load-from", load_dir] + (["--cpu"] if args.cpu else []))
     fluid, chemo = isinstance(cfg, FluidConfig), isinstance(cfg, KellerSegelConfig)
     p_te, t_action = eval_times(args, cfg)
     setup = build_setup(cfg, device=device)
-    load_dir = args.load_from or args.out or os.path.join("runs", args.preset)
-    ts, hook = checkpoint.load(load_dir, setup.agent, device=device)
-    actor = (checkpoint.actor_from_jax(hook.best_actor).to(device) if hook.best_actor is not None
-             else ts.agent.actor)
+    if args.export_controller:
+        from distributedconvrl_pde_control_torch.experiments.export_controller import (
+            export_controller,
+        )
+
+        manifest = export_controller(setup, checkpoint.load_actor(load_dir, setup.agent, device),
+                                     args.export_controller, preset=args.preset)
+        print(f"exported the controller ({manifest['exported_on']}; serves on "
+              f"{manifest['platforms']}) to {args.export_controller} (args: {manifest['args']})")
+        return
+    os.makedirs(out_dir, exist_ok=True)
+    if args.import_jld2:
+        from distributedconvrl_pde_control_torch.train.reference_import import (
+            import_reference_checkpoint,
+        )
+
+        ts, hook = import_reference_checkpoint(args.import_jld2, setup, out_dir=out_dir)
+        print(f"imported reference JLD2 saves {args.import_jld2} -> {out_dir} (standard light "
+              f"checkpoint; reference bestreward {hook.bestreward:.4f} @ ep {hook.bestepisode})")
+    else:
+        ts, hook = checkpoint.load(load_dir, setup.agent, device=device)
+    if args.plot_best:
+        if hook.best_trace is None:
+            raise SystemExit("checkpoint has no stored best-episode trace")
+        path = os.path.join(out_dir, "heat_best.png")
+        plotting.plot_heat(hook.best_trace, path, title=f"{args.preset} best episode")
+        print(f"rendered stored best episode (ep {hook.bestepisode}, reward "
+              f"{hook.bestreward:.4f}) -> {path}")
+        return
+    actor = checkpoint.eval_actor(ts, hook, device)
     policy = actor_policy(setup.agent, actor)
     y0 = random_init_field(args, setup)
     if fluid:
@@ -542,13 +639,50 @@ def run_eval(args, cfg, device: str) -> None:
         runs = {"trained": (policy, t_action), "negate": (negate, t_action),
                 "no action": (ZeroPolicy(env.action_shape), 0.0)}
         # as the JAX CLI: the --random-init field starts the trained rollout only
-        print(json.dumps({k: energy_eval(env, pol, y0=y0 if k == "trained" else None, te=p_te,
-                                         t_action=ta)["mean_energy"]
-                          for k, (pol, ta) in runs.items()}))
-        return
-    traces = rollout(setup.env, policy, y0=y0, te=p_te, t_action=t_action)
-    y = traces["y"][:, 0] - 1.0 if chemo else traces["y"]
-    print(json.dumps(suppression_of(y, t_action, setup.env.dt)))
+        evals = {k: energy_eval(env, pol, y0=y0 if k == "trained" else None, te=p_te, t_action=ta)
+                 for k, (pol, ta) in runs.items()}
+        plots(lambda: plotting.plot_energy({k: tr["energy"] for k, tr in evals.items()},
+                                           os.path.join(out_dir, "energy.png")))
+        print(json.dumps({k: tr["mean_energy"] for k, tr in evals.items()}))
+        traces = evals["trained"]
+    else:
+        traces = rollout(setup.env, policy, y0=y0, te=p_te, t_action=t_action)
+
+        def draw():
+            plotting.plot_heat(traces, os.path.join(out_dir, "heat.png"), title=args.preset,
+                               plot_separate=args.plot_separate, from_step=args.from_step,
+                               to_step=args.to_step)
+            plotting.plot_sums(traces, os.path.join(out_dir, "sums.png"))
+            plotting.plot_actions(traces, os.path.join(out_dir, "actions.png"))
+
+        plots(draw)
+        y = traces["y"][:, 0] - 1.0 if chemo else traces["y"]
+        print(json.dumps(suppression_of(y, t_action, setup.env.dt)))
+    show(args, traces, out_dir)
+
+
+def plots(draw) -> None:
+    """Run `draw()`, which writes the branch's plots, when matplotlib is
+    installed; otherwise say in one line that they were not written."""
+    from distributedconvrl_pde_control_torch.viz import plotting
+
+    if plotting.have_matplotlib():
+        draw()
+    else:
+        print(f"plots not written: {plotting.MATPLOTLIB_MISSING}")
+
+
+def show(args, traces: dict, out_dir: str) -> None:
+    """`--live`: the rollout as a live terminal animation; `--video`: its
+    frames under OUT/frames and, with ffmpeg, OUT/output.mp4."""
+    from distributedconvrl_pde_control_torch.viz import plotting
+
+    if args.live:
+        plotting.live_view(traces, fps=args.fps)
+    if args.video:
+        out = plotting.render_animation(traces, out_dir, fps=int(args.fps))
+        print("video:", out if out else f"None (ffmpeg not found; frames in "
+                                         f"{os.path.join(out_dir, 'frames')})")
 
 
 def eval_times(args, cfg) -> tuple:
@@ -633,6 +767,7 @@ def run_ppo(args, cfg, overrides, device: str) -> None:
               f"{info['best_iter']}")
         return
     from distributedconvrl_pde_control_torch.train.eval import energy_eval, rollout
+    from distributedconvrl_pde_control_torch.viz import plotting
 
     pstate, info = checkpoint.load_ppo(args.load_from or out_dir, pagent, device=device)
     params = (params_from_numpy(info["best_params"], device) if info.get("best_params")
@@ -645,13 +780,21 @@ def run_ppo(args, cfg, overrides, device: str) -> None:
 
         tr = energy_eval(setup.env, policy, y0=y0, te=p_te, t_action=t_action)
         zero = energy_eval(setup.env, ZeroPolicy(setup.env.action_shape), te=p_te)
+        plots(lambda: plotting.plot_energy({"ppo": tr["energy"], "no action": zero["energy"]},
+                                           os.path.join(out_dir, "energy_ppo.png")))
         print(json.dumps({"agent": "ppo", "mean_energy": tr["mean_energy"],
                           "no_action": zero["mean_energy"],
                           "mean_step_reward": float(np.asarray(tr["reward"]).mean())}))
+        if args.live:
+            plotting.live_view(tr, fps=args.fps)
         return
     traces = rollout(setup.env, policy, y0=y0, te=p_te, t_action=t_action)
+    plots(lambda: plotting.plot_heat(traces, os.path.join(out_dir, "heat_ppo.png"),
+                                     title=f"{args.preset} PPO"))
     y = traces["y"][:, 0] - 1.0 if chemo else traces["y"]
     print(json.dumps({"agent": "ppo", **suppression_of(y, t_action, setup.env.dt)}))
+    if args.live:
+        plotting.live_view(traces, fps=args.fps)
 
 
 def suppression_of(y: np.ndarray, t_action: float, dt: float) -> dict:
@@ -671,6 +814,33 @@ def _read_overrides(raw: str) -> dict:
         return json.loads(raw)
     with open(raw) as f:
         return json.load(f)
+
+
+def refuse_missing(args) -> None:
+    """Refuse, naming what is missing, a flag this installation cannot run:
+    orbax checkpoints (never in the port), --import-jld2 without h5py or on a
+    branch that does not read it, --plot-best/--video, which exist only to
+    draw, without matplotlib; --profile outside the single-env --train loop
+    it traces."""
+    import importlib.util
+
+    from distributedconvrl_pde_control_torch.viz import plotting
+
+    if args.ckpt_backend == "orbax":
+        raise SystemExit("--ckpt-backend orbax: orbax is not installed and the port writes flax "
+                         "msgpack checkpoints only (--ckpt-backend msgpack)")
+    if args.import_jld2 and (args.ppo or args.mesh or args.population or args.pop_search or not (
+            args.eval or (args.train and (args.resume or args.batched)))):
+        raise SystemExit("--import-jld2 is read by --eval, --train --resume and --train --batched "
+                         "(DDPG, without --mesh or a population)")
+    if args.import_jld2 and importlib.util.find_spec("h5py") is None:
+        raise SystemExit("--import-jld2: h5py is not installed; the JLD2 reader needs it")
+    for flag, on in (("--plot-best", args.plot_best), ("--video", args.video)):
+        if on and not plotting.have_matplotlib():
+            raise SystemExit(f"{flag}: {plotting.MATPLOTLIB_MISSING}; it draws with it")
+    if args.profile and not (args.train and not (args.batched or args.ppo or args.mesh)):
+        raise SystemExit("--profile traces the single-env --train loop (KS, Keller-Segel and "
+                         "fluid presets without --batched, --ppo or --mesh)")
 
 
 def main(argv=None):
@@ -796,7 +966,40 @@ def main(argv=None):
                     help="--eval from one field of the preset's random_init (the port's "
                          "generator, seeded --seed) instead of the standard y0")
     ap.add_argument("--import-jld2", default=None, metavar="SAVES_DIR",
-                    help="(not ported: ROADMAP.md queue 1 item 17)")
+                    help="a reference-format JLD2 save directory (agent.jld2/hook.jld2, "
+                         "KSSetup.jl:378-402): --eval converts it to the light checkpoint in "
+                         "--out and evaluates it, --train --resume continues it, --train "
+                         "--batched warm-starts from its networks (needs h5py)")
+    ap.add_argument("--ckpt-backend", choices=("msgpack", "orbax"), default="msgpack",
+                    help="checkpoint format of --train saves: flax msgpack (orbax is refused: "
+                         "the port writes msgpack only)")
+    ap.add_argument("--serve", action="store_true",
+                    help="with --eval: run the closed-loop serving probe (experiments/serve.py) "
+                         "on the checkpoint instead of the protocol")
+    ap.add_argument("--export-controller", metavar="DIR", default=None,
+                    help="with --eval: export the deployed obs->action program (weights as "
+                         "buffers) with torch.export into DIR (experiments/export_controller.py)")
+    ap.add_argument("--plot-best", action="store_true",
+                    help="with --eval: draw the stored best-episode trace (heat_best.png) instead "
+                         "of a fresh rollout (needs matplotlib)")
+    ap.add_argument("--plot-separate", action="store_true",
+                    help="write each heat panel as its own figure (plot_heat plot_separate)")
+    ap.add_argument("--from-step", type=int, default=0,
+                    help="heatmap window start (plot_heat `from`)")
+    ap.add_argument("--to-step", type=int, default=None,
+                    help="heatmap window end (plot_heat `to`)")
+    ap.add_argument("--live", action="store_true",
+                    help="animate the eval rollout live in the terminal (numpy only)")
+    ap.add_argument("--video", action="store_true",
+                    help="write the eval rollout's frames and, with ffmpeg, an mp4 (needs "
+                         "matplotlib)")
+    ap.add_argument("--fps", type=float, default=16.0, help="--live/--video frame rate")
+    ap.add_argument("--profile", action="store_true",
+                    help="with --train (the single-env loop): trace the first loop with "
+                         "torch.profiler into <out>/profile/trace.json and print per-phase "
+                         "timings")
+    ap.add_argument("--virtual-devices", type=int, default=None,
+                    help="(not ported: CPU ranks for --mesh wait for ROADMAP.md queue 1 item 15)")
     ap.add_argument("--resume", action="store_true",
                     help="--train: continue from the checkpoint in --load-from (default --out); "
                          "--batched ignores it, as the JAX CLI does")
@@ -805,9 +1008,10 @@ def main(argv=None):
     device = "cpu" if args.cpu else "cuda"
 
     # what the port does not run yet, each with the queue item that holds it
-    if args.import_jld2:
-        raise SystemExit("--import-jld2: the reference JLD2 import is not ported yet "
-                         "(ROADMAP.md queue 1 item 17)")
+    if args.virtual_devices:
+        raise SystemExit("--virtual-devices: CPU ranks for a device mesh are not ported yet "
+                         "(ROADMAP.md queue 1 item 15)")
+    refuse_missing(args)
     fluid_cfg = fluid_config_for(args.preset)
     if args.batched and args.mesh and (args.population or args.pop_search):
         raise SystemExit("--population/--pop-search --mesh: a population over a device mesh is "

@@ -170,9 +170,12 @@ def load_best_actor(dirpath: str) -> list[dict]:
 
 def actor_from_jax(params) -> Chain:
     """The port's chain from a JAX chain pytree (a list of {"w", "b"} arrays,
-    numpy or anything np.asarray takes)."""
-    return Chain([np.asarray(p["w"], np.float32) for p in params],
-                 [np.asarray(p["b"], np.float32) for p in params])
+    numpy or anything np.asarray takes), its weights row-major whatever the
+    arrays' order (`hook.npz` loads Fortran-ordered): every loader of the
+    port and an exported controller share one layout, so that a matrix
+    product rounds alike in each."""
+    return Chain([np.ascontiguousarray(p["w"], np.float32) for p in params],
+                 [np.ascontiguousarray(p["b"], np.float32) for p in params])
 
 
 def _set_adam_state(opt: torch.optim.Adam, chain: Chain, adam_state) -> None:
@@ -455,6 +458,17 @@ def load_ppo(dirpath: str, agent, device="cuda"):
                         for leaf in ("w", "b")} for i in range(len(params_np[name]))]
                 for name in PARAM_NAMES}
     return state, info
+
+
+def eval_actor(ts: TrainState, hook: PDEHook, device="cuda") -> Chain:
+    """The actor an evaluation rolls: the hook's best actor, else the
+    state's current one."""
+    return actor_from_jax(hook.best_actor).to(device) if hook.best_actor is not None else ts.agent.actor
+
+
+def load_actor(dirpath: str, agent: DDPGAgent, device="cuda") -> Chain:
+    """`eval_actor` of the checkpoint in `dirpath`, on `device`."""
+    return eval_actor(*load(dirpath, agent, device=device), device=device)
 
 
 def load(dirpath: str, agent: DDPGAgent, number: Optional[int] = None, device="cuda"):

@@ -3,7 +3,9 @@
 Counterpart of ``distributedconvrl_pde_control_tpu/train/eval.py``:
   * `rollout`     - a policy rollout with horizon override and delayed
                     actuation (plotting.jl:4-73: te/dt overridden, zero action
-                    until p_t_action, best-actor swap-in);
+                    until p_t_action, best-actor swap-in); `rollouts` rolls a
+                    batch of envs at once (`per_env_policy` gives each env a
+                    policy of its own);
   * `energy_eval` - the fluid testrun's per-step energy sum(|omega|)/(nx*ny)
                     (FluidSetup.jl:497-500), averaged over the active steps;
   * `regulation_of` - the Keller-Segel score of reproduce.py (:181-184):
@@ -23,6 +25,35 @@ from distributedconvrl_pde_control_torch.envs.pde_env import PDEEnv, where_state
 
 
 @torch.no_grad()
+def rollouts(env: PDEEnv, policy_fn: Callable, y0s: Optional[torch.Tensor] = None,
+             te: Optional[float] = None, t_action: float = 0.0) -> dict:
+    """`rollout` of a batch of envs from the fields y0s (B, ...) (None: one
+    env from the env's y0): traces (steps, B, ...), and `steps` and
+    `completed` per env. Each env runs as it would alone: its own
+    termination, its own frozen frames."""
+    if te is not None:
+        env = dataclasses.replace(env, te=float(te))
+    n_steps = env.max_steps
+    t_action_steps = int(round(t_action / env.dt))
+    estate = env.reset(y0s)
+    outs = {k: [] for k in ("y", "action", "forcing", "reward", "active")}
+    for step_idx in range(n_steps):
+        if step_idx < t_action_steps:
+            action = torch.zeros_like(estate.action)
+        else:
+            action = policy_fn(estate.obs)
+        active = ~estate.done
+        estate = where_state(active, env.step(estate, action), estate)
+        for k in ("y", "action", "forcing", "reward"):
+            outs[k].append(getattr(estate, k))
+        outs["active"].append(active)
+    traces = {k: torch.stack(v).cpu().numpy() for k, v in outs.items()}
+    traces["steps"] = traces["active"].sum(axis=0)
+    traces["completed"] = (estate.time >= env.te * (1 - 1e-6)).cpu().numpy()
+    traces["time"] = env.dt * np.arange(1, n_steps + 1)
+    return traces
+
+
 def rollout(env: PDEEnv, policy_fn: Callable, y0: Optional[torch.Tensor] = None,
             te: Optional[float] = None, t_action: float = 0.0) -> dict:
     """Roll `policy_fn(obs) -> action` on one env of `env`.
@@ -34,27 +65,23 @@ def rollout(env: PDEEnv, policy_fn: Callable, y0: Optional[torch.Tensor] = None,
     repeat its last state and record active=False. Returns a dict of traces
     y, action, forcing, reward, active, plus steps, completed and time.
     """
-    if te is not None:
-        env = dataclasses.replace(env, te=float(te))
-    n_steps = env.max_steps
-    t_action_steps = int(round(t_action / env.dt))
-    estate = env.reset(None if y0 is None else y0[None])
-    outs = {k: [] for k in ("y", "action", "forcing", "reward", "active")}
-    for step_idx in range(n_steps):
-        if step_idx < t_action_steps:
-            action = torch.zeros_like(estate.action)
-        else:
-            action = policy_fn(estate.obs)
-        active = ~estate.done
-        estate = where_state(active, env.step(estate, action), estate)
-        for k in ("y", "action", "forcing", "reward"):
-            outs[k].append(getattr(estate, k)[0])
-        outs["active"].append(active[0])
-    traces = {k: torch.stack(v).cpu().numpy() for k, v in outs.items()}
-    traces["steps"] = int(traces["active"].sum())
-    traces["completed"] = bool(estate.time[0] >= env.te * (1 - 1e-6))
-    traces["time"] = env.dt * np.arange(1, n_steps + 1)
+    tr = rollouts(env, policy_fn, None if y0 is None else y0[None], te=te, t_action=t_action)
+    traces = {k: tr[k][:, 0] for k in ("y", "action", "forcing", "reward", "active")}
+    traces["steps"] = int(tr["steps"][0])
+    traces["completed"] = bool(tr["completed"][0])
+    traces["time"] = tr["time"]
     return traces
+
+
+def per_env_policy(policies: list) -> Callable:
+    """One policy over a batch of len(policies) envs: env i acts with
+    `policies[i]` on its own observation (members of a population, or a
+    controller beside its baselines, rolled as one batch)."""
+
+    def policy_fn(obs):
+        return torch.cat([p(obs[i:i + 1]) for i, p in enumerate(policies)])
+
+    return policy_fn
 
 
 def actor_policy(agent, actor_params, act_limit: float = 1.0):

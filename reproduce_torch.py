@@ -102,10 +102,7 @@ def load_actor(preset_builder, path, device: str = "cuda"):
     from distributedconvrl_pde_control_torch.train import checkpoint
 
     setup = preset_builder()
-    ts, hook = checkpoint.load(str(path), setup.agent, device=device)
-    actor = (checkpoint.actor_from_jax(hook.best_actor).to(device) if hook.best_actor is not None
-             else ts.agent.actor)
-    return setup, actor
+    return setup, checkpoint.load_actor(str(path), setup.agent, device=device)
 
 
 def suppression(setup, actor, te: float, t_action: float, ndigits=4) -> dict:

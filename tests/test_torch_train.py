@@ -376,7 +376,7 @@ def test_held_out_eval_pool_extends_and_is_disjoint():
 @pytest.mark.parametrize("argv,item", [
     (["KS22", "--train", "--batched", "--population", "4", "--mesh", "2"], "item 15"),
     (["KS22", "--train", "--batched", "--pop-search", "4", "--mesh", "2"], "item 15"),
-    (["KS22", "--train", "--batched", "--import-jld2", "x"], "item 17"),
+    (["KS22", "--train", "--batched", "--virtual-devices", "2"], "item 15"),
     (["KS22", "--train", "--batched", "--mesh", "2"], "item 15"),
     (["KS22_tp", "--train", "--batched", "--population", "2", "--mesh", "2"], "item 15"),
     (["Fluid_8", "--train", "--batched", "--mesh", "1x1"], "item 15"),
@@ -384,6 +384,7 @@ def test_held_out_eval_pool_extends_and_is_disjoint():
       '{"gamma": [0.9, 0.99]}'], r"--pop-overrides supports \['act_noise'"),
     (["KellerSegel10_16_fast", "--train", "--batched", "--population", "4", "--pop-overrides",
       '{"act_noise": [1.0, 0.5]}'], r"--pop-overrides\[act_noise\] needs 4 values, got 2"),
+    (["KS22", "--train", "--ckpt-backend", "orbax"], "orbax is not installed"),
 ])
 def test_cli_refusals_name_their_queue_item(argv, item):
     with pytest.raises(SystemExit, match=item):
@@ -434,20 +435,25 @@ def test_cli_ks22_global_train(tmp_path, capsys):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, chip_smoke.py, bench_torch.py and
-    reproduce_torch.py import in a process where `jax`, `flax`, `optax`,
-    `msgpack` and the JAX package cannot be."""
+    """Every module of the port, chip_smoke.py, bench_torch.py,
+    reproduce_torch.py and the two population evaluation scripts import in a
+    process where `jax`, `flax`, `optax`, `msgpack`, `h5py`, `matplotlib`
+    and the JAX package cannot be."""
     code = """
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "optax", "msgpack", "distributedconvrl_pde_control_tpu"):
+for name in ("jax", "flax", "optax", "msgpack", "h5py", "matplotlib",
+             "distributedconvrl_pde_control_tpu"):
     sys.modules[name] = None
 import distributedconvrl_pde_control_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-for name in names + ["chip_smoke", "bench_torch", "reproduce_torch"]:
+for name in names + ["chip_smoke", "bench_torch", "reproduce_torch", "eval_kss_pop_torch",
+                     "eval_fluid_pop_torch"]:
     importlib.import_module(name)
 assert len(names) > 25, names
 new = {"agents.policies", "configs.keller_segel", "ops.fourier", "ops.integrators",
-       "ops.keller_segel"}
+       "ops.keller_segel", "experiments.serve", "experiments.export_controller",
+       "train.reference_import", "utils.jld2", "utils.profiling", "utils.resilience",
+       "viz.plotting"}
 assert {pkg.__name__ + "." + n for n in new} <= set(names), names
 print("imported", len(names))
 """
