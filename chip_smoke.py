@@ -8,6 +8,7 @@
     python3 chip_smoke.py --agents-only
     python3 chip_smoke.py --tiers-only
     python3 chip_smoke.py --tools-only
+    python3 chip_smoke.py --mesh-only
     python3 chip_smoke.py --times-only [--tree DIR]
 
 With no argument it runs the phases below. `--train-only` runs phases 1, 2 and
@@ -16,9 +17,9 @@ fidelity loop), `--families-only` phases 1, 2 and 29-33 (the single-device
 fluid env and Keller-Segel), `--agents-only` phases 1, 2 and 34-39 (PPO and
 populations), and none of them prints a result line; `--tiers-only` runs
 phases 1, 2 and 40-44 (the reduced-precision transform tiers and the `_tp`
-presets) and `--tools-only` phases 1, 2 and 45-50 (serving, export, the live
-view, the population evaluation scripts, the profiler); both end with the ok
-line. `--times-only` prints the card and
+presets), `--tools-only` phases 1, 2 and 45-50 (serving, export, the live
+view, the population evaluation scripts, the profiler) and `--mesh-only`
+phases 1, 2 and 51-54 (the rank mesh); these three end with the ok line. `--times-only` prints the card and
 one JSON line of both kernels' times through their wrappers at the main
 paths' shapes and nothing else; `--tree DIR` imports the package from another
 checkout inside this one (an unpacked earlier commit under build/, say), so
@@ -82,7 +83,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      plain twin inside a train step) and on the spectral-featurize tier;
  15. training to a controller: the KS22 long-horizon recipe (spectral-featurize
      tier, 256 envs, 3000 steps, learner batch 256, noise x0.5 every 1000,
-     capacity 1,000,000, a 500-step deterministic eval every 500 steps picks the
+     capacity 1,000,000, a 500-step deterministic eval every 50 steps picks the
      best actor) through `train_batched`, saved and read back through the
      checkpoint; then that actor on the te=200 protocol of phase 4 on the
      standard CNAB2 env (K1): suppression must stay below 0.05;
@@ -129,7 +130,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
  25. `--resume` from phase 24's checkpoint for 1 loop x 100 steps (episodes,
      replay and Adam steps go on from the saved ones), then `--train-multi`
      (1 experiment, 50 episodes cut to te=1) with its numbered saves;
- 26. the KS mono ablation: 1 loop x 400 steps of `KS22_global --train` at
+ 26. the KS mono ablation: 1 loop x 200 steps of `KS22_global --train` at
      full width, and `--hyperopt 2 --hyperopt-episodes 5`: every step and
      cost finite;
  27. reproduce_torch.py on the card: every KS row of reproduce.py (the two
@@ -184,7 +185,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
  42-43 run in a process of their own (no profiler session):
  42. `KS22_tp --train --batched --population 8` on phase 15's recipe (256
      envs per member, 3000 steps, noise x0.5 per 1000, a 500-step eval every
-     500; the JAX study's preset, artifacts/KS22_tp_pop8), then every member at
+     50, the JAX study's cadence; the JAX study's preset, artifacts/KS22_tp_pop8), then every member at
      te=200 on the standard CNAB2 env (K1 at 1 row): the median member's
      suppression < 0.05, every member finite, printed beside the JAX study's
      0.24-0.85 % (RESULTS.md:32);
@@ -193,7 +194,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      checkpoints: every reward and parameter finite, a best actor; on the
      mesh K2's launches equal 4 x the IF-RK4 substeps x the train steps;
  44. `bench_torch.py` and `bench_torch.py --tier tp` (bench.py's exact
-     configuration), each in a process of its own, in turns (sf, tp, tp, sf):
+     configuration), each in a process of its own, in turns (sf, tp):
      their train env-steps/s side by side;
  45-50 run in a process of their own, 50 last in it (its profiler session
  slows every later launch of the process):
@@ -220,6 +221,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (the learner starts after the preset's update_after of 10 steps):
      the trace file exists, holds K1 once per env step (as the library counts
      it), and the StepTimer summary is printed.
+ 51-54 run in a process of their own (no profiler session); the card's 1x1
+ mesh is an NCCL process group of one rank, larger meshes run on gloo CPU
+ ranks, whose times are CPU times and never a speed of the port:
+ 51. phase 9's protocol cut to 20 env steps through the sharded trainer on an
+     NCCL group of one (the backend must be nccl), against the same code
+     without a group and phase 9's per-step energies (rel 1e-6), K2 launched
+     4 x substeps x env steps, the ms per env step with and without the group;
+     then `run.py Fluid_16_256 --eval --mesh 1x1` (NCCL) over the same steps;
+ 52. `run.py Fluid_16_256 --train --mesh 1x1` (NCCL) for 50 train steps with
+     K2 launched 4 x substeps x train steps; on the NCCL group, two chunks of
+     25 under `set_sync_debug_mode("error")` (no device-to-host read inside a
+     chunk); the save evaluated by the single-device `--eval`;
+ 53. `run.py Fluid_16_256 --eval --virtual-devices 4 --mesh 2x2` on gloo CPU
+     ranks at 256^2 for 2 env steps: the trained energy within rel 1e-4 of
+     phase 51's card energies on the same steps;
+ 54. `run.py KellerSegel10_16_fast --mesh 1x1 --eval` (NCCL), then
+     reproduce.py's KellerSegel10_16_fast row through the sharded trainer's
+     rollout on the 1x1 NCCL mesh, then on 2 gloo CPU ranks (1x2) once every
+     card phase is timed, each against the single-device port's row: pre
+     within 1e-3, post within max(0.1 JAX, 0.0005).
 
 Times of the kernels' first designs (PERF.md, same card and power limit) are
 printed beside the new ones in the phases' text lines; the kernels JSON line
@@ -237,7 +258,8 @@ before each CLI run, rollout and the rows, and report the counts by path; so
 do phases 35 (the shipped PPO controllers' rollouts), 36 (PPO training and the
 trained controller's rollout), 38 (the CNAB2 population at full width), 42
 (the KS22_tp members' rollouts), 43 (K2 in the Fluid_16_256_tp mesh
-training), 47 (the live eval) and 50 (the profiled training). K2 lies on
+training), 47 (the live eval), 50 (the profiled training) and 51-52 (K2 on
+the NCCL 1x1 mesh's evaluation and training). K2 lies on
 none of the PPO, population and tooling paths; serving and export launch
 neither kernel. The line before the kernels JSON line holds the seconds of
 the main process's phases; the second-to-last line is the kernels JSON line
@@ -300,6 +322,10 @@ FLUID_P_TE = 2.0  # 100 env steps of dt = 0.02
 FLUID_BATCH, FLUID_BATCH_STEPS = 16, 5
 SF_TIER = dict(stepper="etdrk4", spectral_carry=True, spectral_featurize=True)
 TRAIN_SEED = 609  # phase 15: the KS22 preset's seed, the CLI's default
+# phases 15 and 42: the JAX study's eval cadence (artifacts/KS22_tp_pop8: 60 evals per
+# member); every 500 steps selected from 6 evals and left the members' median at 2.09 %
+# against the JAX study's 0.34 % (0.42 % at 50)
+POP_EVAL_EVERY = 50
 TRAIN_CHUNK = 50
 LEARNER_BATCH = 4096
 FLUID_TRAIN_SEED = 436  # phase 20: the Fluid_16_256 preset's seed, the CLI's default
@@ -512,7 +538,7 @@ def train_phases(card: str) -> dict:
     ts, hook, means = train_batched(trainer, total_steps=3000,
                                     generator=torch.Generator(device=dev).manual_seed(TRAIN_SEED),
                                     noise_decay_every=1000, noise_decay=0.5, chunk_len=TRAIN_CHUNK,
-                                    eval_every=500, eval_steps=500)
+                                    eval_every=POP_EVAL_EVERY, eval_steps=500)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     check(ks_kernel.KS_CNAB2.launches == 0, "the sf tier launched K1")
@@ -534,7 +560,8 @@ def train_phases(card: str) -> dict:
                       "chunk_means_first_last": [float(means[0]), float(means[-1])],
                       "pre": pre, "post": post, "suppression": post / pre,
                       "rollout_seconds": t_roll, "K1_launches": k1_rollout, "card": card}))
-    check(np.isfinite(means).all() and len(hook.evals) == 6 and ts.total_env_steps == 3000 * 256
+    check(np.isfinite(means).all() and len(hook.evals) == 3000 // POP_EVAL_EVERY
+          and ts.total_env_steps == 3000 * 256
           and ts.replay.size == min(3000 * 256 * 8, ts.replay.capacity),
           "the training run is malformed")
     check(np.isfinite(yt).all() and yt.shape == (2000, KS22.nx) and k1_rollout == 2000,
@@ -883,7 +910,7 @@ FIDELITY_SEED = 609  # phase 24: the KS22 preset's seed, the CLI's default
 FIDELITY_LOOPS, FIDELITY_STEPS = 2, 400
 FIDELITY_LIMIT = 0.25  # phase 24: RESULTS.md's band for the recipe: 1.6 %-19 % on CPU seeds
 RESUME_STEPS, MULTI_EPISODES, MULTI_TE = 100, 50, 1.0  # phase 25
-MONO_STEPS, HYPEROPT_TRIALS, HYPEROPT_EPISODES = 400, 2, 5  # phase 26
+MONO_STEPS, HYPEROPT_TRIALS, HYPEROPT_EPISODES = 200, 2, 5  # phase 26 (steps cut from 400)
 # phase 27: reproduce_torch.JAX_KS_ROWS holds the suppression of every KS row of reproduce.py
 # as the JAX package gives it; limit per row: |port - JAX| <= max(0.1 JAX, 0.0005)
 
@@ -1171,7 +1198,8 @@ FLUID_STEPPERS = {  # phase 29: (label, FluidConfig overrides)
 FLUID_TRAIN_TE, FLUID_TRAIN_STEPS = 1.0, 50  # Fluid_8 --train: 1 loop, one 50-step episode
 # Fluid_8 --train --batched: 3 chunks of 20, 20-step episodes (te 0.4), so that episodes end
 FLUID_BATCHED_ENVS, FLUID_BATCHED_STEPS, FLUID_BATCHED_TE = 16, 60, 0.4
-KSS_TRAIN_TE, KSS_TRAIN_STEPS = 3.0, 500  # KellerSegel10_16_fast --train: one 500-step episode
+# KellerSegel10_16_fast --train: one 250-step episode (cut from 500)
+KSS_TRAIN_TE, KSS_TRAIN_STEPS = 1.5, 250
 # --train --batched: 4 chunks of 50, 100-step episodes (te 0.6)
 KSS_BATCHED_ENVS, KSS_BATCHED_STEPS, KSS_BATCHED_TE = 64, 200, 0.6
 KSS_HYPEROPT_TE = 0.6  # --hyperopt 2 --hyperopt-episodes 3: 100-step episodes
@@ -1984,7 +2012,7 @@ JAX_TP_POP8 = [0.0024, 0.0024, 0.0024, 0.0024, 0.0044, 0.0044, 0.0067, 0.0085]
 # phase 43, cut in depth: Fluid_8_tp's single-env loop for 20 env steps of te=0.2 episodes;
 # Fluid_16_256_tp on --mesh 1x1 for 50 train steps (two chunks of 25) of te=0.5 episodes
 F8_TP_STEPS, F8_TP_TE, MESH_TP_STEPS, MESH_TP_TE = 20, 0.2, 50, 0.5
-BENCH_TIERS = ("sf", "tp", "tp", "sf")  # phase 44, in turns
+BENCH_TIERS = ("sf", "tp")  # phase 44, in turns (cut from sf, tp, tp, sf for the mesh phases)
 
 
 def _rel_np(got, want) -> float:
@@ -2182,7 +2210,7 @@ def tiers_child(out_json: str) -> int:
     secs, launches, _ = cli([
         "KS22_tp", "--train", "--batched", "--population", str(POP_MEMBERS), "--n-envs",
         str(POP_ENVS), "--total-steps", "3000", "--noise-every", "1000", "--noise-decay", "0.5",
-        "--eval-every", "500", "--eval-steps", "500", "--capacity", "1000000", "--seed",
+        "--eval-every", str(POP_EVAL_EVERY), "--eval-steps", "500", "--capacity", "1000000", "--seed",
         str(TRAIN_SEED), "--out", pop_dir])
     check(launches == 0, "the KS22_tp population launched K1")
     ranking = json.load(open(pop_dir + "/population.json"))["ranking"]
@@ -2533,6 +2561,285 @@ def tools_phases(card: str) -> dict:
     return json.loads(out_json.read_text())["K1_launches_by_path"]
 
 
+# ----------------------------------------------------- the rank mesh (51-54)
+MESH_EVAL_STEPS = 20  # phase 51: env steps of phase 9's protocol (te cut from 2 to 0.4)
+MESH_TRAIN_STEPS = 50  # phase 52: train steps through the CLI (2 chunks of 25)
+MESH_CPU_TE = 0.04  # phase 53: 2 env steps at 256^2 on 4 CPU ranks
+MESH_REL = {"phase 9": 1e-6, "2x2 CPU ranks": 1e-4}
+KSS_MESH_DIR = "artifacts/KellerSegel10_16_fast"
+
+
+def _fluid_eval_on(mesh, n_steps: int) -> dict:
+    """Phase 9's protocol cut to `n_steps` on `mesh` (a rank mesh, or (1, 1)
+    for no group): per-step energies of the trained actor, its seconds after
+    a 2-step warm-up, and K2's launches in the timed run."""
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.fluid import FLUID_16_256
+    from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
+    from distributedconvrl_pde_control_torch.parallel.multichip import (
+        ShardedFluidTrainer,
+        ShardedTrainConfig,
+        load_actor_for_eval,
+    )
+
+    tr = ShardedFluidTrainer(FLUID_16_256, mesh, ShardedTrainConfig(n_envs=1), device="cuda")
+    actor = load_actor_for_eval(str(ROOT / "artifacts" / "Fluid_16_256"), tr)
+    w0 = tr.eval_w0()
+    tr.make_eval_fn(2)(actor, w0)
+    torch.cuda.synchronize()
+    before = k2.NS_ADVECTION.launches
+    t0 = time.perf_counter()
+    recs = tr.make_eval_fn(n_steps)(actor, w0)
+    torch.cuda.synchronize()
+    return {"energy": recs["energy"][:, 0].tolist(), "active": bool(recs["active"].all()),
+            "seconds": time.perf_counter() - t0, "K2": k2.NS_ADVECTION.launches - before,
+            "backend": getattr(mesh, "backend", None)}
+
+
+def _fluid_chunks_on(mesh) -> dict:
+    """Phase 52's no-read check: 1 env of Fluid_16_256 on `mesh`, a warm-up
+    chunk of 25 train steps, then 2 chunks under set_sync_debug_mode("error")."""
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.fluid import FLUID_16_256
+    from distributedconvrl_pde_control_torch.parallel.multichip import (
+        ShardedFluidTrainer,
+        ShardedTrainConfig,
+    )
+
+    tr = ShardedFluidTrainer(FLUID_16_256, mesh, ShardedTrainConfig(n_envs=1), device="cuda")
+    st = tr.init(torch.Generator(device="cuda").manual_seed(FLUID_TRAIN_SEED), seed=FLUID_TRAIN_SEED)
+    chunk = tr.make_chunk_fn(FLUID_TRAIN_CHUNK)
+    st, _ = chunk(st)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            st, packed = chunk(st)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return {"ms_per_train_step": 1e3 * (time.perf_counter() - t0) / (2 * FLUID_TRAIN_CHUNK),
+            "finite": bool(torch.isfinite(packed).all()), "backend": mesh.backend}
+
+
+def _kss_regulation_on(mesh) -> dict:
+    """reproduce.py's Keller-Segel row (KellerSegel10_16_fast from the JAX
+    package's key-8 field, te=12, actuation from t=4) through the sharded
+    trainer's evaluation rollout on `mesh`: mean |u - 1| over the 100 steps
+    before actuation and over the last tenth, and the seconds."""
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.keller_segel import (
+        KELLER_SEGEL_10_16_FAST,
+        keller_segel_y0_key8,
+    )
+    from distributedconvrl_pde_control_torch.parallel.multichip import (
+        ShardedTrainConfig,
+        load_actor_for_eval,
+    )
+    from distributedconvrl_pde_control_torch.parallel.multichip_keller_segel import (
+        ShardedKellerSegelTrainer,
+    )
+
+    if mesh.device == "cpu":
+        torch.set_num_threads(1)  # 100-point fields: more threads only add overhead
+    cfg = KELLER_SEGEL_10_16_FAST
+    tr = ShardedKellerSegelTrainer(cfg, mesh, ShardedTrainConfig(n_envs=1), device=mesh.device)
+    actor = load_actor_for_eval(str(ROOT / KSS_MESH_DIR), tr)
+    w0 = tr._t(tr._local_rows(keller_segel_y0_key8()[None]))
+    n, a0 = int(round(12.0 / cfg.dt)), int(round(4.0 / cfg.dt))
+    t0 = time.perf_counter()
+    recs = tr.make_eval_fn(n, a0)(actor, w0)
+    if mesh.device != "cpu":
+        torch.cuda.synchronize()
+    e = recs["energy"][:, 0]
+    return {"pre": float(e[max(0, a0 - 100):a0].mean()), "post": float(e[-(n // 10):].mean()),
+            "active": bool(recs["active"].all()), "seconds": time.perf_counter() - t0,
+            "steps": n, "backend": mesh.backend}
+
+
+def _peak(device_phase: bool) -> dict:
+    """The phase's peak memory: the card's allocator peak, or on CPU ranks the
+    largest finished child process's resident set."""
+    import resource
+
+    import torch
+
+    if device_phase:
+        return {"peak_device_mb": torch.cuda.max_memory_allocated() / 2**20}
+    return {"peak_rank_rss_mb (largest CPU rank)":
+            resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 1024}
+
+
+def mesh_child(out_json: str) -> int:
+    """Phases 51-54 in a process of their own (no profiler session): the rank
+    mesh. The card's 1x1 runs through an NCCL process group of one rank; the
+    larger meshes run on gloo CPU ranks. Writes K2's launches by path, the
+    phases' seconds and peak memory to `out_json`."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import reproduce_torch
+    from distributedconvrl_pde_control_torch.configs.fluid import FLUID_16_256
+    from distributedconvrl_pde_control_torch.configs.keller_segel import (
+        KELLER_SEGEL_10_16_FAST,
+        build_keller_segel,
+    )
+    from distributedconvrl_pde_control_torch.experiments import run
+    from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
+    from distributedconvrl_pde_control_torch.parallel.mesh import launch
+
+    card = card_line()
+    base = ROOT / "build" / "smoke_mesh"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    k2_paths, record = {}, {"card": card}
+
+    def cli(argv):
+        """The CLI's output (also printed), its seconds and K2's launches in it."""
+        k2.NS_ADVECTION.launches = 0
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            run.main(argv)
+        torch.cuda.synchronize()
+        print(buf.getvalue(), end="", flush=True)
+        return buf.getvalue(), time.perf_counter() - t0, k2.NS_ADVECTION.launches
+
+    def nccl(fn, *args):
+        return launch(fn, 1, 1, *args, backend="nccl", store_dir=str(base))
+
+    substeps = FLUID_16_256.oversampling
+    phase(f"== 51. Fluid_16_256 --eval --mesh 1x1 on an NCCL group of one: 256^2, {substeps} RK4 "
+          f"substeps, {MESH_EVAL_STEPS} env steps of phase 9's protocol, against the same code "
+          "without a group and phase 9's energies")
+    torch.cuda.reset_peak_memory_stats()
+    k2.NS_ADVECTION.launches = 0
+    on_nccl = nccl(_fluid_eval_on, MESH_EVAL_STEPS)
+    k2_paths["mesh 1x1 evaluation on NCCL (phase 51)"] = k2.NS_ADVECTION.launches
+    alone = _fluid_eval_on((1, 1), MESH_EVAL_STEPS)
+    want_k2 = 4 * substeps * MESH_EVAL_STEPS
+    e_nccl, e_alone = on_nccl["energy"], alone["energy"]
+    rel_alone = max(abs(a - b) / abs(b) for a, b in zip(e_nccl, e_alone))
+    res51 = {"backend": on_nccl["backend"], "energy_per_step": e_nccl,
+             "rel_to_no_group": rel_alone, "K2_launches_timed": on_nccl["K2"],
+             "K2_launches_expected": want_k2,
+             "ms_per_env_step_nccl": 1e3 * on_nccl["seconds"] / MESH_EVAL_STEPS,
+             "ms_per_env_step_no_group": 1e3 * alone["seconds"] / MESH_EVAL_STEPS}
+    p9 = ROOT / "build" / "smoke_phase9.json"
+    if p9.exists():
+        ref = json.loads(p9.read_text())
+        res51["rel_to_phase_9"] = max(abs(a - b) / abs(b) for a, b in
+                                      zip(e_nccl, ref["energy_per_step"][:MESH_EVAL_STEPS]))
+        res51["phase_9_ms_per_env_step"] = ref["ms_per_env_step"]
+    else:
+        res51["rel_to_phase_9"] = "not run (phase 9 is not in this run)"
+    cli_out, secs, launches = cli(["Fluid_16_256", "--eval", "--mesh", "1x1", "--load-from",
+                                   str(ROOT / "artifacts" / "Fluid_16_256"), "--p-te",
+                                   str(MESH_EVAL_STEPS * FLUID_16_256.dt), "--out", str(base / "eval")])
+    line = json.loads(cli_out.strip().splitlines()[-1])
+    res51["cli"] = {**line, "seconds": secs, "K2_launches": launches}
+    k2_paths["mesh 1x1 evaluation on NCCL (phase 51)"] += launches
+    res51.update(_peak(True))
+    print(json.dumps({"phase": 51, **res51, "card": card}), flush=True)
+    record["51"] = res51
+    check(on_nccl["backend"] == "nccl", f"the 1x1 mesh ran on {on_nccl['backend']}, not nccl")
+    check(on_nccl["active"] and rel_alone <= MESH_REL["phase 9"],
+          f"the 1x1 NCCL energies differ from the no-group run by rel {rel_alone}")
+    check(not isinstance(res51["rel_to_phase_9"], float) or res51["rel_to_phase_9"] <= MESH_REL["phase 9"],
+          f"the 1x1 NCCL energies differ from phase 9's by rel {res51['rel_to_phase_9']}")
+    check(on_nccl["K2"] == want_k2 and launches == 2 * want_k2,
+          f"K2 launched {on_nccl['K2']} / {launches} times, expected {want_k2} / {2 * want_k2}")
+    check(line["mesh"] == "1x1" and abs(line["trained"] - sum(e_nccl) / len(e_nccl))
+          <= 1e-6 * abs(line["trained"]), "the CLI's 1x1 eval is not the mesh's rollout")
+
+    phase(f"== 52. Fluid_16_256 --train --mesh 1x1 on an NCCL group of one ({MESH_TRAIN_STEPS} train "
+          "steps, 1 env), chunks without device-to-host reads, the save read by the single-device "
+          "--eval")
+    torch.cuda.reset_peak_memory_stats()
+    train_dir = str(base / "train")
+    _, secs, launches = cli(["Fluid_16_256", "--train", "--mesh", "1x1", "--loops", "1",
+                             "--no-steps", str(MESH_TRAIN_STEPS), "--chunk-len",
+                             str(FLUID_TRAIN_CHUNK), "--out", train_dir])
+    k2_paths["mesh 1x1 training on NCCL (phase 52)"] = launches
+    chunks = nccl(_fluid_chunks_on)
+    single, _, _ = cli(["Fluid_16_256", "--eval", "--load-from", train_dir, "--p-te", "0.1"])
+    single = json.loads(single.strip().splitlines()[-1])
+    res52 = {"cli_seconds (trainer construction and save included)": secs,
+             "K2_launches": launches, "K2_launches_expected": 4 * substeps * MESH_TRAIN_STEPS,
+             "no_read_chunks": chunks, "single_device_eval_of_the_save": single, **_peak(True)}
+    print(json.dumps({"phase": 52, **res52, "card": card}), flush=True)
+    record["52"] = res52
+    check(launches == 4 * substeps * MESH_TRAIN_STEPS,
+          f"K2 launched {launches} times in {MESH_TRAIN_STEPS} train steps")
+    check(chunks["backend"] == "nccl" and chunks["finite"], "the NCCL chunks are malformed")
+    check(all(np.isfinite(v) for v in single.values()), "the single-device eval of the save failed")
+
+    phase(f"== 53. Fluid_16_256 --eval --virtual-devices 4 --mesh 2x2 on gloo CPU ranks at 256^2 "
+          f"(te={MESH_CPU_TE}), against phase 51's card energies on the same steps")
+    cpu_out, secs, _ = cli(["Fluid_16_256", "--eval", "--virtual-devices", "4", "--mesh", "2x2",
+                            "--load-from", str(ROOT / "artifacts" / "Fluid_16_256"), "--p-te",
+                            str(MESH_CPU_TE), "--out", str(base / "cpu2x2")])
+    line = json.loads(cpu_out.strip().splitlines()[-1])
+    n_cpu = int(round(MESH_CPU_TE / FLUID_16_256.dt))
+    want = sum(e_nccl[:n_cpu]) / n_cpu
+    rel = abs(line["trained"] - want) / abs(want)
+    res53 = {**line, "card_mean_energy_same_steps": want, "rel": rel,
+             "cpu_seconds (4 gloo ranks, not a speed of the port)": secs, **_peak(False)}
+    print(json.dumps({"phase": 53, **res53, "card": card}), flush=True)
+    record["53"] = res53
+    check(line["mesh"] == "2x2" and rel <= MESH_REL["2x2 CPU ranks"],
+          f"the 2x2 CPU ranks' energy is rel {rel} from the card's")
+
+    phase("== 54. KellerSegel10_16_fast --mesh 1x1 --eval on NCCL and the reproduce.py row on the "
+          "1x1 NCCL mesh and on 2 gloo CPU ranks (1x2), against the single-device port's row")
+    torch.cuda.reset_peak_memory_stats()
+    _, secs, _ = cli(["KellerSegel10_16_fast", "--eval", "--mesh", "1x1", "--load-from",
+                      str(ROOT / KSS_MESH_DIR), "--p-te", "0.3", "--out", str(base / "kss")])
+    setup = build_keller_segel(KELLER_SEGEL_10_16_FAST, device="cuda")
+    _, actor = reproduce_torch.load_actor(lambda: setup, ROOT / KSS_MESH_DIR)
+    t0 = time.perf_counter()
+    single = reproduce_torch.regulation(setup, actor, ndigits=None)
+    single_secs = time.perf_counter() - t0
+    jax_row = reproduce_torch.JAX_KELLER_SEGEL_ROWS["KellerSegel10_16_fast regulation"]
+    rows = {"1x1 NCCL": nccl(_kss_regulation_on)}
+    # last: the CPU ranks' row, its seconds CPU seconds, with nothing of the card's beside it
+    rows["1x2 gloo CPU ranks"] = launch(_kss_regulation_on, 1, 2, backend="gloo",
+                                        store_dir=str(base))
+    res54 = {"single_device_row": single, "single_device_seconds": single_secs, "jax_row": jax_row,
+             "cli_1x1_seconds": secs, **rows, **_peak(True)}
+    print(json.dumps({"phase": 54, **res54, "card": card}), flush=True)
+    record["54"] = res54
+    for name, row in rows.items():
+        check(row["active"] and abs(row["pre"] - single["pre"]) <= 1e-3
+              and abs(row["post"] - single["post"]) <= max(0.1 * jax_row["post"], 0.0005),
+              f"the Keller-Segel row on {name} ({row}) is outside the limits of {single}")
+    check(rows["1x1 NCCL"]["backend"] == "nccl", "the Keller-Segel 1x1 mesh did not run on NCCL")
+    Path(out_json).write_text(json.dumps({"K2": k2_paths, "record": record}))
+    return 0
+
+
+def mesh_phases(card: str) -> dict:
+    """Phases 51-54, in a process of their own. Returns K2's launches on the
+    mesh paths."""
+    phase("-- phases 51-54 in a process of their own")
+    out_json = ROOT / "build" / "smoke_mesh.json"
+    out_json.unlink(missing_ok=True)
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-child",
+                           str(out_json)], cwd=str(ROOT), timeout=900)
+    check(proc.returncode == 0 and out_json.exists(),
+          f"phases 51-54 failed in their process (exit {proc.returncode})")
+    return json.loads(out_json.read_text())["K2"]
+
+
 def main() -> int:
     import torch
 
@@ -2553,11 +2860,14 @@ def main() -> int:
                         help="run phases 1, 2 and 40-44 and end with the ok line")
     parser.add_argument("--tools-only", action="store_true",
                         help="run phases 1, 2 and 45-50 and end with the ok line")
+    parser.add_argument("--mesh-only", action="store_true",
+                        help="run phases 1, 2 and 51-54 and end with the ok line")
     parser.add_argument("--fidelity-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--agents-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--families-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--tiers-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--tools-child", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-child", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2568,7 +2878,7 @@ def main() -> int:
         return 1
     children = {"fidelity_child": fidelity_child, "families_child": families_child,
                 "agents_child": agents_child, "tiers_child": tiers_child,
-                "tools_child": tools_child}
+                "tools_child": tools_child, "mesh_child": mesh_child}
     for name, child in children.items():
         if getattr(args, name):
             rc = child(getattr(args, name))
@@ -2633,11 +2943,13 @@ def main() -> int:
     if args.agents_only:
         print(json.dumps({"K1_launches_on_the_agent_paths": agents_phases(card)}))
         return 0
-    if args.tiers_only or args.tools_only:
-        launches = tiers_phases(card) if args.tiers_only else {"K1": tools_phases(card)}
+    if args.tiers_only or args.tools_only or args.mesh_only:
+        launches = (tiers_phases(card) if args.tiers_only else {"K1": tools_phases(card)}
+                    if args.tools_only else {"K2": mesh_phases(card)})
         print_phase_seconds()
         print(json.dumps({"launches_on_the_tier_paths" if args.tiers_only
-                          else "launches_on_the_tool_paths": launches}))
+                          else "launches_on_the_tool_paths" if args.tools_only
+                          else "launches_on_the_mesh_paths": launches}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
@@ -2870,6 +3182,10 @@ def main() -> int:
         check(bool(np.isfinite(recs["energy"]).all() and np.isfinite(recs["reward_mean"]).all()),
               f"fluid rollout ({label}) is not finite")
         energies[label] = float(recs["energy"][recs["active"]].mean())
+        if label == "trained":  # phase 51 holds the 1x1 NCCL mesh to these
+            (ROOT / "build" / "smoke_phase9.json").write_text(json.dumps({
+                "energy_per_step": recs["energy"][:, 0].tolist(),
+                "ms_per_env_step": 1e3 * fluid_secs[label] / n_steps}))
     launches_protocol = k2.NS_ADVECTION.launches
     print(json.dumps({"row": "Fluid_16_256 te=2 on the 2/3-rule solver", "mesh": "1x1", "grid": 256,
                       **energies, "ratio": energies["trained"] / energies["no action"],
@@ -3021,6 +3337,7 @@ def main() -> int:
     k1_agents = agents_phases(card)
     k_tiers = tiers_phases(card)
     k1_tools = tools_phases(card)
+    k2_mesh = mesh_phases(card)
     print_phase_seconds()
 
     print(json.dumps({"kernels": [{
@@ -3041,9 +3358,10 @@ def main() -> int:
         "name": "ns_advection", "route": "cuda",
         "source": "distributedconvrl_pde_control_torch/csrc/" + k2.SOURCE,
         "replaces": k2.REPLACES,
-        "launches": k2_launches + k2_training + sum(k_tiers["K2"].values()),
+        "launches": (k2_launches + k2_training + sum(k_tiers["K2"].values())
+                     + sum(k2_mesh.values())),
         "launches_by_path": {"evaluation (phases 9-10)": k2_launches,
-                             "training (phases 20-21)": k2_training, **k_tiers["K2"]},
+                             "training (phases 20-21)": k2_training, **k_tiers["K2"], **k2_mesh},
         "max_abs_err": max(k2_errs[k] for k in K2_MAIN_PATH_SHAPES),
         "max_err_of_scale": max(k2_rel_errs[k] for k in K2_MAIN_PATH_SHAPES),
         "max_fused_err_of_scale": max(k2_fused_errs.values()),

@@ -26,6 +26,7 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.distributed
 
 from distributedconvrl_pde_control_torch.agents.replay import Replay, replay_sample
 from distributedconvrl_pde_control_torch.models.mlp import (
@@ -36,6 +37,17 @@ from distributedconvrl_pde_control_torch.models.mlp import (
     critic_sizes,
     init_chain,
 )
+
+
+def _dp_mean(grads, group) -> list:
+    """The gradients averaged over the ranks of `group` (None: as they are):
+    one `all_reduce` of their concatenation, divided by the group's size."""
+    if group is None:
+        return list(grads)
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    torch.distributed.all_reduce(flat, group=group)
+    flat /= torch.distributed.get_world_size(group)
+    return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,11 +232,14 @@ class DDPGAgent:
         reference's slot arithmetic in fidelity mode, agents/replay.py)."""
         return replay_sample(replay, batch_size, 0, generator=generator, offs=offs)
 
-    def learn_batch(self, astate: DDPGState, batch) -> DDPGState:
+    def learn_batch(self, astate: DDPGState, batch, dp_group=None) -> DDPGState:
         """One sampled SGD step, the math of PDEagent.jl:363-418, in place
-        on `astate`'s networks and optimizers. (The JAX package's `axis_name`,
-        the gradient mean of data-parallel learning, waits for ROADMAP.md
-        queue 1 item 15.)"""
+        on `astate`'s networks and optimizers. `dp_group` is the JAX
+        package's `axis_name`: a process group over which the critic's and
+        then the actor's gradients are averaged before each Adam step
+        (data-parallel learning), one `all_reduce` of each network's
+        flattened gradients, so that the parameters stay bit-identical on
+        every rank of the group; the losses stay local."""
         cfg = self.cfg
         s, a, r, t, sn = batch
 
@@ -236,7 +251,8 @@ class DDPGAgent:
         critic_params = list(astate.critic.parameters())
         q = self.critic_apply(astate.critic, s, a).reshape(-1)
         c_loss = torch.mean((q_target - q) ** 2)
-        for p, g in zip(critic_params, torch.autograd.grad(c_loss, critic_params)):
+        for p, g in zip(critic_params, _dp_mean(torch.autograd.grad(c_loss, critic_params),
+                                                 dp_group)):
             p.grad = g
         astate.opt_critic.step()
 
@@ -245,7 +261,8 @@ class DDPGAgent:
         # for the actor's parameters alone, so nothing lands on the critic's
         actor_params = list(astate.actor.parameters())
         a_loss = -torch.mean(self.critic_apply(astate.critic, s, self.actor_apply(astate.actor, s)))
-        for p, g in zip(actor_params, torch.autograd.grad(a_loss, actor_params)):
+        for p, g in zip(actor_params, _dp_mean(torch.autograd.grad(a_loss, actor_params),
+                                                dp_group)):
             p.grad = g
         astate.opt_actor.step()
 

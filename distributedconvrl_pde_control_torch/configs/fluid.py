@@ -13,6 +13,7 @@ on the 2/3-rule solver (``parallel/multichip.py``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -158,11 +159,16 @@ def fluid_error_detection(y: np.ndarray) -> bool:
 
 def fluid_kernels(cfg: FluidConfig):
     """Sensor/actuator Taylor-vortex kernels for a preset, shape
-    (n_act, n, n) each (FluidSetup.jl:139-161)."""
-    n = cfg.grid_nx
-    positions = cfg.positions
-    sensors = taylor_kernels_2d(positions, n, n, cfg.lx, cfg.lx, cfg.variance, norm_mode=1)
-    actuators = taylor_kernels_2d(positions, n, n, cfg.lx, cfg.lx, cfg.variance, norm_mode=2)
+    (n_act, n, n) each (FluidSetup.jl:139-161). Kept per grid and sensor
+    lattice for the process (at 256^2 they take seconds of host time to
+    make): the arrays are shared, and callers copy them before any change."""
+    return _fluid_kernels(cfg.grid_nx, tuple(cfg.positions), cfg.lx, cfg.variance)
+
+
+@functools.lru_cache(maxsize=4)
+def _fluid_kernels(n: int, positions: tuple, lx: float, variance: float):
+    sensors = taylor_kernels_2d(positions, n, n, lx, lx, variance, norm_mode=1)
+    actuators = taylor_kernels_2d(positions, n, n, lx, lx, variance, norm_mode=2)
     return sensors, actuators
 
 

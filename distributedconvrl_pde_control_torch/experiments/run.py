@@ -2,7 +2,7 @@
 
 Counterpart of the single-device `--train`, `--train-multi`, `--hyperopt`,
 `--train --batched` (with `--population` and `--pop-search`), `--ppo` and
-`--eval` branches and of the `--mesh` branch at a 1x1 mesh of
+`--eval` branches and of the `--mesh DPxSP` branch of
 ``distributedconvrl_pde_control_tpu/experiments/run.py``, for the KS,
 Keller-Segel (`KellerSegel10_16[_fast]`) and fluid families. The `_tp`
 presets (`KS22_tp`, `KS200_tp`, `KS500_tp`, `KS22_64_tp` and every
@@ -99,10 +99,16 @@ rolls the best actor, corrected opposition control and no action from the
 preset's initial field and prints one JSON line with their mean energies
 sum|omega|/n^2 over the active steps (keys trained, negate, no action).
 
-Fluid presets on the 2/3-rule solver (`run_sharded`, `--mesh 1x1`):
+Fluid presets on the 2/3-rule solver and KellerSegel10_16[_fast] over a dp x
+sp mesh of ranks (`run_sharded`, `--mesh DPxSP`): one NCCL rank per card (the
+1x1 mesh on one card is an NCCL group of one), or with `--virtual-devices N`
+N gloo ranks on the CPU (`--cpu` gives one); the ranks beyond one are
+spawned and rank 0's output is printed when they end:
 
     python -m distributedconvrl_pde_control_torch.experiments.run Fluid_16_256 --train \\
         --mesh 1x1 [--loops 10 --no-steps 580 --n-envs 1 --resume] [--cpu]
+    python -m distributedconvrl_pde_control_torch.experiments.run Fluid_16_256 --eval \\
+        --virtual-devices 4 --mesh 2x2 --load-from artifacts/Fluid_16_256 --nx 32 --p-te 0.1
 
 trains the preset's recipe with `train_sharded` (learner batch 32, one
 update per step, capacity 100,000, chunks of 25), prints the per-loop lines,
@@ -226,13 +232,60 @@ def preset_config(name: str):
     return cfg if cfg is not None else presets()[name][0]
 
 
+def sharded_config_for(name: str):
+    """The config `--mesh` runs: a fluid preset or tier, or KellerSegel10_16[_fast];
+    None for other names."""
+    from distributedconvrl_pde_control_torch.configs.keller_segel import PRESETS
+
+    cfg = fluid_config_for(name)
+    return cfg if cfg is not None else PRESETS.get(name)
+
+
 def run_sharded(args, cfg, device: str) -> None:
-    """`--mesh DPxSP` path (parallel.multichip, 1x1 only): the fluid preset
-    trains (`--train`, `--train-multi`, `--resume`) or evaluates on the
-    2/3-rule solver, checkpointing in the standard light format so that both
-    packages' eval and resume paths read the runs."""
+    """`--mesh DPxSP` path (parallel.multichip, parallel.multichip_keller_segel):
+    the fluid preset (on the 2/3-rule solver) or the Keller-Segel preset
+    trains (`--train`, `--train-multi`, `--resume`) or evaluates on a dp x sp
+    mesh of ranks, checkpointing in the standard light format so that both
+    packages' eval and resume paths read the runs at any mesh.
+
+    The ranks: with `--virtual-devices N`, N gloo ranks on the CPU; on the
+    card, one NCCL rank per card (a 1x1 mesh is an NCCL group of one); with
+    `--cpu`, one gloo rank. A mesh of one rank runs in this process; larger
+    meshes are spawned (`parallel.mesh.launch`), and rank 0's lines are
+    printed as it writes them. The run has no wall-clock limit: a rank that
+    waits on a collective its peers never reach fails by the group's
+    timeout."""
     import torch
 
+    from distributedconvrl_pde_control_torch.parallel.mesh import launch
+
+    if args.nx:
+        cfg = dataclasses.replace(cfg, nx=args.nx)
+    if args.horizon:
+        cfg = dataclasses.replace(cfg, te=args.horizon)
+    try:
+        dp, sp = (int(x) for x in args.mesh.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh wants DPxSP (e.g. 4x2), got {args.mesh!r}")
+    if args.virtual_devices:
+        have, backend = args.virtual_devices, "gloo"
+    elif device == "cuda":
+        have, backend = torch.cuda.device_count(), "nccl"
+    else:
+        have, backend = 1, "gloo"
+    if have < dp * sp:
+        raise SystemExit(f"mesh {dp}x{sp} needs {dp * sp} devices, have {have} "
+                         "(hint: --virtual-devices N)")
+    out_dir = args.out or os.path.join("runs", args.preset)
+    os.makedirs(out_dir, exist_ok=True)
+    launch(_run_on_mesh, dp, sp, args, cfg, out_dir, backend=backend, store_dir=out_dir)
+
+
+def _run_on_mesh(mesh, args, cfg, out_dir: str) -> None:
+    """One rank of `run_sharded`; rank 0 alone prints and saves."""
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.keller_segel import KellerSegelConfig
     from distributedconvrl_pde_control_torch.parallel.multichip import (
         ShardedFluidTrainer,
         ShardedTrainConfig,
@@ -242,62 +295,60 @@ def run_sharded(args, cfg, device: str) -> None:
         train_multi_sharded,
         train_sharded,
     )
+    from distributedconvrl_pde_control_torch.parallel.multichip_keller_segel import (
+        ShardedKellerSegelTrainer,
+    )
     from distributedconvrl_pde_control_torch.train.checkpoint import actor_from_jax
 
-    if args.nx:
-        cfg = dataclasses.replace(cfg, nx=args.nx)
-    if args.horizon:
-        cfg = dataclasses.replace(cfg, te=args.horizon)
-    try:
-        dp, sp = (int(x) for x in args.mesh.lower().split("x"))
-    except ValueError:
-        raise SystemExit(f"--mesh wants DPxSP (e.g. 1x1), got {args.mesh!r}")
-    if (dp, sp) != (1, 1):
-        raise SystemExit(f"--mesh {dp}x{sp}: the port runs --mesh 1x1 only; meshes of several "
-                         "devices are not ported yet (ROADMAP.md queue 1 item 15)")
+    dp, sp = mesh.shape
     tcfg = ShardedTrainConfig(n_envs=args.n_envs or dp, batch_size=args.learner_batch or 32,
                               update_loops=1, capacity_per_dp=args.capacity_per_dp or 100_000,
                               chunk_len=args.chunk_len or 25)
-    trainer = ShardedFluidTrainer(cfg, (dp, sp), tcfg, device=device)
-    out_dir = args.out or os.path.join("runs", args.preset)
+    kind = ShardedKellerSegelTrainer if isinstance(cfg, KellerSegelConfig) else ShardedFluidTrainer
+    trainer = kind(cfg, mesh, tcfg, device=mesh.device)
     seed = args.seed if args.seed is not None else cfg.seed
+    grid = getattr(cfg, "grid_nx", cfg.nx)
+    root = mesh.rank == 0
 
     if args.train_multi:
         # the restart protocol (FluidSetup.jl:559-601), numbered saves per experiment
-        os.makedirs(out_dir, exist_ok=True)
         best = train_multi_sharded(
             trainer, no_episodes=args.no_episodes or 17, n_experiments=args.n_experiments,
             seed=seed, save_fn=lambda n, state, hook: save_sharded(out_dir, trainer, state, hook,
                                                                    number=n))
-        print("best rewards per experiment:", best)
+        if root:
+            print("best rewards per experiment:", best)
         return
 
     if args.train:
-        os.makedirs(out_dir, exist_ok=True)
         state = hook = None
         if args.resume:
             # the light checkpoint's networks, Adam states and counters, the
-            # hook's accounting and best actor; fields, pool and replay start afresh
+            # hook's accounting and best actor (read on rank 0, broadcast);
+            # fields, pool and replay start afresh
             agent_state, hook = load_sharded(args.load_from or out_dir, trainer)
             # as the JAX CLI: `init(PRNGKey(args.seed or cfg.seed))` with the
             # pool of init's default seed 0 (`--seed 0` means the preset's seed)
-            state = trainer.init(torch.Generator(device=device).manual_seed(args.seed or cfg.seed))
+            state = trainer.init(torch.Generator(device=trainer.device).manual_seed(
+                args.seed or cfg.seed))
             state.agent = agent_state
             state.ep_count.fill_(hook.ep - 1)
             state.best_reward.fill_(hook.bestreward)
             state.best_episode.fill_(hook.bestepisode)
             if hook.best_actor is not None:
-                state.best_actor = actor_from_jax(hook.best_actor).to(device)
-            print(f"resuming from ep {hook.ep - 1}, best {hook.bestreward:.4f}")
+                state.best_actor = actor_from_jax(hook.best_actor).to(trainer.device)
+            if root:
+                print(f"resuming from ep {hook.ep - 1}, best {hook.bestreward:.4f}")
         state, hook = train_sharded(trainer, loops=args.loops, no_steps=args.no_steps, seed=seed,
                                     state=state, hook=hook, eval_every=args.eval_every,
                                     eval_steps=args.eval_steps)
         save_sharded(out_dir, trainer, state, hook)
-        print(hook.ascii_curve())
-        if getattr(hook, "evals", None):
-            print("evals:", [(s, round(r, 4)) for s, r in hook.evals])
-        print(f"saved to {out_dir}; best reward {hook.bestreward:.4f} @ ep {hook.bestepisode} "
-              f"(mesh {dp}x{sp}, grid {cfg.grid_nx})")
+        if root:
+            print(hook.ascii_curve())
+            if getattr(hook, "evals", None):
+                print("evals:", [(s, round(r, 4)) for s, r in hook.evals])
+            print(f"saved to {out_dir}; best reward {hook.bestreward:.4f} @ ep "
+                  f"{hook.bestepisode} (mesh {dp}x{sp}, grid {grid})")
         return
 
     # --eval: the sharded testrun, trained policy vs no action, masked energies
@@ -310,7 +361,8 @@ def run_sharded(args, cfg, device: str) -> None:
         recs = trainer.make_eval_fn(n_steps, t_action_steps=ta)(actor, w0)
         e, m = recs["energy"], recs["active"]
         energies[label] = float(e[m].mean()) if m.any() else float("nan")
-    print(json.dumps({"mesh": f"{dp}x{sp}", "grid": cfg.grid_nx, **energies}))
+    if root:
+        print(json.dumps({"mesh": f"{dp}x{sp}", "grid": grid, **energies}))
 
 
 def held_out_eval_pool(setup, n: int) -> "torch.Tensor":
@@ -858,7 +910,7 @@ def main(argv=None):
     mode.add_argument("--eval", action="store_true", help="evaluate a trained actor")
     mode.add_argument("--train", action="store_true",
                       help="train: the single-env loop, or batched with --batched; fluid presets "
-                           "with --mesh 1x1 on the 2/3-rule solver")
+                           "and Keller-Segel with --mesh DPxSP (fluid on the 2/3-rule solver)")
     mode.add_argument("--train-multi", action="store_true",
                       help="the restart protocol with numbered saves")
     mode.add_argument("--hyperopt", type=int, metavar="N_TRIALS", default=None,
@@ -887,8 +939,8 @@ def main(argv=None):
                     help="actuation start time (default p_te/2 for KS and Keller-Segel presets, "
                          "0 for fluid)")
     ap.add_argument("--mesh", default=None,
-                    help="train or evaluate a fluid preset on the 2/3-rule solver over a DPxSP "
-                         "mesh; only 1x1 so far")
+                    help="train or evaluate a fluid preset (on the 2/3-rule solver) or "
+                         "KellerSegel10_16[_fast] over a DPxSP mesh of ranks")
     ap.add_argument("--n-envs", type=int, default=None,
                     help="env batch for --batched (default 256) and --mesh runs (default: dp)")
     ap.add_argument("--loops", type=int, default=None,
@@ -999,33 +1051,32 @@ def main(argv=None):
                          "torch.profiler into <out>/profile/trace.json and print per-phase "
                          "timings")
     ap.add_argument("--virtual-devices", type=int, default=None,
-                    help="(not ported: CPU ranks for --mesh wait for ROADMAP.md queue 1 item 15)")
+                    help="N gloo ranks on the CPU for --mesh; without --mesh, run on the CPU")
     ap.add_argument("--resume", action="store_true",
                     help="--train: continue from the checkpoint in --load-from (default --out); "
                          "--batched ignores it, as the JAX CLI does")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
     args = ap.parse_args(argv)
-    device = "cpu" if args.cpu else "cuda"
+    # --virtual-devices without --mesh runs on the CPU, as the JAX CLI's does
+    device = "cpu" if args.cpu or (args.virtual_devices and not args.mesh) else "cuda"
 
     # what the port does not run yet, each with the queue item that holds it
-    if args.virtual_devices:
-        raise SystemExit("--virtual-devices: CPU ranks for a device mesh are not ported yet "
-                         "(ROADMAP.md queue 1 item 15)")
     refuse_missing(args)
     fluid_cfg = fluid_config_for(args.preset)
     if args.batched and args.mesh and (args.population or args.pop_search):
         raise SystemExit("--population/--pop-search --mesh: a population over a device mesh is "
-                         "not ported yet (ROADMAP.md queue 1 item 15)")
+                         "not ported yet (ROADMAP.md queue 1 item 15d)")
     if args.batched and args.mesh:
         raise SystemExit("--batched --mesh: data-parallel batched training over a device mesh "
-                         "is not ported yet (ROADMAP.md queue 1 item 15)")
-    if fluid_cfg is not None:
-        if args.hyperopt:
-            raise SystemExit(f"--hyperopt supports {list(HYPEROPT_PRESETS)}")
-        if args.mesh:
-            return run_sharded(args, fluid_cfg, device)
+                         "is not ported yet (ROADMAP.md queue 1 item 15d)")
+    if fluid_cfg is not None and args.hyperopt:
+        raise SystemExit(f"--hyperopt supports {list(HYPEROPT_PRESETS)}")
     if args.mesh:
-        raise SystemExit(f"--mesh supports fluid presets, not {args.preset}")
+        mesh_cfg = sharded_config_for(args.preset)
+        if mesh_cfg is None:
+            raise SystemExit("--mesh supports fluid presets (with their _fast/_tp/_fixedstep/"
+                             f"_eval tiers) and KellerSegel10_16[_fast], not {args.preset}")
+        return run_sharded(args, mesh_cfg, device)
     if args.hyperopt:
         return run_hyperopt(args, device)
 

@@ -52,7 +52,9 @@ class _CapturedStep:
                 fn(self.y, self.forcing)
         torch.cuda.current_stream(y.device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        # thread-local: a process group's watchdog thread may query its events
+        # while this thread captures (the sharded trainer at sp = 1)
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             self.out = fn(self.y, self.forcing)
 
     def __call__(self, y: torch.Tensor, forcing: torch.Tensor) -> torch.Tensor:

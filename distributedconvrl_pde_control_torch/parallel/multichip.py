@@ -1,29 +1,51 @@
-"""Preset-driven fluid control on the 2/3-rule solver: training and evaluation.
+"""Preset-driven fluid control on the 2/3-rule solver over a dp x sp mesh:
+training and evaluation.
 
-Counterpart of ``distributedconvrl_pde_control_tpu/parallel/multichip.py``
-for a 1x1 mesh (one data-parallel group, one spatial shard): the reference
-trains and evaluates a fluid preset across a ('dp', 'sp') chip mesh; with one
-device the env batch and every field live whole on that device, and the
-mesh collectives (psum, pmax, pmean over 'dp' or 'sp') are identities.
-Ported here: the trainer's arrays, the preset's stepper dispatch, forcing,
-sensor readout, featurization, reward, the evaluation rollout (`make_eval_fn`,
-the testrun protocol of FluidSetup.jl:400-537), and the training half: the
-fresh-IC pool, `init`, the train step (`_local_step`), `make_chunk_fn`,
-`train_sharded`, the restart protocol `train_multi_sharded`, the device-side
-corrupted-field detector, and the light checkpoint (`save_sharded`,
-`load_sharded`, `load_actor_for_eval`). Meshes of more than one device are
-not ported yet.
+Counterpart of ``distributedconvrl_pde_control_tpu/parallel/multichip.py``.
+The reference trains and evaluates a fluid preset across a ('dp', 'sp') chip
+mesh; here each mesh position is a rank (``parallel/mesh.py``):
+
+  * the env batch is split over dp: each dp group steps its own n_envs / dp
+    envs, keeps its own replay (capacity rounded to its push width) and
+    draws its own noise, samples and resets; the DDPG gradients are averaged
+    over dp (`DDPGAgent.learn_batch`'s `dp_group`), so the networks stay
+    bit-identical on every rank;
+  * each env's vorticity field is split over sp: a rank holds a y-pencil
+    block of rows (n/S, n), the rows of the sensor and actuator kernels and
+    of the reset pool, and the x-pencil columns of the operators; the sensor
+    dots and the eval metric are partial sums `psum`'d over sp, the field's
+    blow-up check and the corrupted-field detector `pmax`'d over sp (the
+    detector's y-neighbour of a block's first row is the previous rank's
+    last row), and the solver transforms by the transpose method
+    (``parallel/ns_sharded.py``; K2 at sp = 1);
+  * the episode accounting is reduced over dp (`psum` of the finished
+    count, `pmax` of the best candidate, `pmean` of the mean reward), so
+    every rank holds the same counters, best reward and best actor.
+
+With no mesh (or a (1, 1) tuple) the trainer runs on one device and every
+collective is the identity. Ported here: the trainer's arrays, the preset's
+stepper dispatch, forcing, sensor readout, featurization, reward, the
+evaluation rollout (`make_eval_fn`, the testrun protocol of
+FluidSetup.jl:400-537), the fresh-IC pool, `init`, the train step
+(`_local_step`), `make_chunk_fn`, `train_sharded`, the restart protocol
+`train_multi_sharded`, the device-side corrupted-field detector, and the
+light checkpoint (`save_sharded`, `load_sharded`, `load_actor_for_eval`).
 
 Where the JAX package compiles a chunk of steps into one program, here every
 operation is a launch the host makes, and the step is written so that the
 host never waits for the device inside a chunk: `global_step`, the replay's
 pointer and size, `update_step` and the learn gate follow from the step count
-and are host integers; termination, the episode accounting, the best-actor
-snapshot and the auto-reset stay on the device as `where`s; one packed record
-array leaves the device per chunk. The adaptive stepper is the exception: it
-reads each trial's error back (`parallel/ns_sharded.py`). Every draw of a run
-comes from one `torch.Generator` that the state carries; tests pass the JAX
-package's own draws in (`train.batched.StepDraws`).
+and are host integers identical on every rank (so every rank reaches the
+gradient mean's collective together); termination, the episode accounting,
+the best-actor snapshot and the auto-reset stay on the device as `where`s;
+one packed record array per chunk is gathered over dp and leaves the device.
+The adaptive stepper is the exception: it reads each trial's error back,
+`pmax`'d over sp first (`parallel/ns_sharded.py`). Every draw of a run
+comes from one `torch.Generator` that the state carries, re-seeded per dp
+index after the networks are drawn (the JAX package's `fold_in(k, dp_idx)`);
+tests pass the JAX package's own draws in (`train.batched.StepDraws`).
+Every rank keeps the hook's accounting (the restart protocol's loop reads
+it); rank 0 alone prints and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -31,7 +53,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -46,6 +68,7 @@ from distributedconvrl_pde_control_torch.configs.fluid import (
 )
 from distributedconvrl_pde_control_torch.models.mlp import Chain, chain_to_numpy, copy_chain
 from distributedconvrl_pde_control_torch.ops.navier_stokes import initial_condition
+from distributedconvrl_pde_control_torch.parallel.mesh import RankMesh
 from distributedconvrl_pde_control_torch.parallel.ns_sharded import (
     NSShardedSolverRI,
     make_sharded_ops,
@@ -62,7 +85,9 @@ from distributedconvrl_pde_control_torch.train.hooks import (
 )
 from distributedconvrl_pde_control_torch.train.loop import TrainState
 from distributedconvrl_pde_control_torch.train.records import (
+    SPARSE_RECORDS_MIN_BYTES,
     consume_record_read,
+    record_bytes,
     start_record_read,
 )
 
@@ -72,7 +97,7 @@ class ShardedTrainConfig:
     """Scale-out knobs of the trainer (everything physics/agent comes from
     the `FluidConfig` preset), the JAX package's defaults."""
 
-    n_envs: int = 8  # global env batch
+    n_envs: int = 8  # global env batch, split over dp
     batch_size: int = 32  # learner batch (scaled up from the reference's 3)
     update_loops: int = 1  # gradient steps per env step
     capacity_per_dp: int = 100_000  # rounded up to a multiple of the push width
@@ -84,17 +109,19 @@ class ShardedTrainConfig:
 
 @dataclasses.dataclass
 class MCState:
-    """Training state on one device (the JAX package's per-dp replay axis is
-    gone: one group, one replay). Updated in place by the train step."""
+    """One rank's training state: its dp group's envs (Bl = n_envs / dp of
+    them), its sp block of their fields, the dp group's replay (the JAX
+    package's leading per-dp replay axis is the rank itself), and the
+    replicated agent and accounting. Updated in place by the train step."""
 
-    w: torch.Tensor  # (B, n, n) float32, the REAL vorticity
-    obs: torch.Tensor  # (B, obs_dim, n_act)
-    action: torch.Tensor  # (B, na_rows, n_act)
-    steps: torch.Tensor  # (B,) int32, per-env episode step counter
-    ep_reward: torch.Tensor  # (B,) f32, running sum of per-step mean rewards
+    w: torch.Tensor  # (Bl, n/S, n) float32, the REAL vorticity's rows
+    obs: torch.Tensor  # (Bl, obs_dim, n_act)
+    action: torch.Tensor  # (Bl, na_rows, n_act)
+    steps: torch.Tensor  # (Bl,) int32, per-env episode step counter
+    ep_reward: torch.Tensor  # (Bl,) f32, running sum of per-step mean rewards
     agent: DDPGState
     replay: Replay
-    generator: torch.Generator  # every draw of the run
+    generator: torch.Generator  # every draw of the dp group
     global_step: int  # train steps taken
     ep_count: torch.Tensor  # i32, episodes finished (all envs)
     best_reward: torch.Tensor  # f32 (PDEhook bestreward)
@@ -105,53 +132,92 @@ class MCState:
 
 @dataclasses.dataclass
 class EvalState:
-    w: torch.Tensor  # (B, n, n) float32, the REAL vorticity
-    obs: torch.Tensor  # (B, obs_dim, n_act)
-    action: torch.Tensor  # (B, na_rows, n_act)
-    steps: torch.Tensor  # (B,) int32
-    done: torch.Tensor  # (B,) bool
+    w: torch.Tensor  # (Bl, n/S, n) float32, the REAL vorticity's rows
+    obs: torch.Tensor  # (Bl, obs_dim, n_act)
+    action: torch.Tensor  # (Bl, na_rows, n_act)
+    steps: torch.Tensor  # (Bl,) int32
+    done: torch.Tensor  # (Bl,) bool
+
+
+def mesh_of(mesh: Union[RankMesh, tuple, None]) -> RankMesh:
+    """A trainer's mesh: a RankMesh as given; for one device (None or the
+    tuple (1, 1)) a RankMesh without groups, whose collectives are
+    identities. A tuple of more ranks has no process groups to run on and
+    is refused."""
+    if isinstance(mesh, RankMesh):
+        return mesh
+    if mesh is not None and tuple(mesh) != (1, 1):
+        raise ValueError(f"mesh {mesh[0]}x{mesh[1]}: a mesh of several ranks is a "
+                         "parallel.mesh.RankMesh, one per rank (parallel.mesh.launch)")
+    return RankMesh()
+
+
+def fold_seed(seed: int, dp_idx: int) -> int:
+    """The seed of dp group `dp_idx`'s stream: the port's `fold_in`."""
+    return (seed + 0x9E3779B97F4A7C15 * (dp_idx + 1)) % (1 << 64)
 
 
 class ShardedFluidTrainer:
-    """Builds the device arrays, the train step and the evaluation rollout
-    of a fluid experiment preset on a dp x sp = 1 x 1 mesh.
+    """Builds one rank's arrays, the train step and the evaluation rollout
+    of a fluid experiment preset on a dp x sp mesh (module docstring).
 
     Stepper dispatch: `adaptive=True` runs the step-doubling do_step2
     (`step_real_adaptive`), `stepper="ifrk4"` the integrating-factor tier,
     and the default is the reference's fixed-step do_step
     (FluidSetup.jl:163-172) at the preset's oversampling."""
 
-    def __init__(self, cfg: FluidConfig, mesh: tuple[int, int] = (1, 1),
+    def __init__(self, cfg: FluidConfig, mesh: Union[RankMesh, tuple, None] = (1, 1),
                  tcfg: ShardedTrainConfig = ShardedTrainConfig(), device: str = "cuda"):
-        self.n_dp, self.n_sp = mesh
-        if (self.n_dp, self.n_sp) != (1, 1):
-            raise NotImplementedError(
-                f"mesh {self.n_dp}x{self.n_sp}: the port runs dp = sp = 1 only; meshes of "
-                "several devices (torch.distributed) are ROADMAP.md queue 1 item 15")
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = device
         n = cfg.grid_nx
-        self.n = n
+        self._place(mesh, n)
         self.solver = NSShardedSolverRI(nu=cfg.nu, fft_mode=cfg.fft_mode,
-                                        nl_fft_mode=cfg.nl_fft_mode)
-        self.ops = make_sharded_ops(n, n, cfg.lx, cfg.lx, device=device)
+                                        nl_fft_mode=cfg.nl_fft_mode, mesh=self.mesh)
+        self.ops = make_sharded_ops(n, n, cfg.lx, cfg.lx, device=device, mesh=self.mesh)
 
         n_act = cfg.sensors_per_axis**2
         self.n_act = n_act
         sens, acts = fluid_kernels(cfg)
-        self.sensor_kernels = torch.as_tensor(sens, dtype=torch.float32, device=device)  # (n_act, n, n)
-        self.actuator_kernels = torch.as_tensor(acts, dtype=torch.float32, device=device)
-        self.featurizer = fluid_featurizer(cfg, self.sensor_kernels.reshape(n_act, -1))
-        # the capacity rounded up to a multiple of the push width, so pushes take
-        # the contiguous path (replay_push_flat); the agent's config carries it
-        push = tcfg.n_envs * n_act
+        # y-pencil slices (n_act, n/S, n): this rank's rows of each kernel
+        self.sensor_kernels = self._t(sens[:, self.rows])
+        self.actuator_kernels = self._t(acts[:, self.rows])
+        self._sens_local = self.sensor_kernels.reshape(n_act, -1)
+        self.featurizer = fluid_featurizer(cfg, self._t(sens).reshape(n_act, -1))
+        # the capacity rounded up to a multiple of the dp group's push width, so
+        # pushes take the contiguous path (replay_push_flat); the agent's config
+        # carries it
+        push = self.n_local * n_act
         self.capacity_per_dp = ((tcfg.capacity_per_dp + push - 1) // push) * push
         self.agent = DDPGAgent(fluid_agent_config(cfg, self.featurizer.obs_dim,
                                                   capacity=self.capacity_per_dp))
         self.max_steps = int(math.ceil((cfg.te - cfg.t0) / cfg.dt - 1e-9))
-        self.pool = None  # (P, n, n) fresh initial fields, set by init
+        self.pool = None  # (P, n/S, n) this rank's rows of the fresh fields, set by init
         self.pool_obs = None  # (P, obs_dim, n_act) their reset observations
+
+    def _place(self, mesh, n: int) -> None:
+        """This rank's mesh, its envs and its rows of an n-point grid axis."""
+        m = self.mesh = mesh_of(mesh)
+        self.n_dp, self.n_sp = m.shape
+        self.dp_idx, self.sp_idx = m.dp_idx, m.sp_idx
+        self.n = n
+        if n % self.n_sp:
+            raise ValueError(f"the grid's {n} points do not divide over sp={self.n_sp}")
+        if self.tcfg.n_envs % self.n_dp:
+            raise ValueError(f"{self.tcfg.n_envs} envs do not divide over dp={self.n_dp}")
+        self.n_local = self.tcfg.n_envs // self.n_dp
+        rows = n // self.n_sp
+        self.rows = slice(self.sp_idx * rows, (self.sp_idx + 1) * rows)
+        self.envs = slice(self.dp_idx * self.n_local, (self.dp_idx + 1) * self.n_local)
+        self.is_root = m.rank == 0
+
+    def _t(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=self.device)
+
+    def _on_root(self, read):
+        """`read()` on mesh rank 0, its value broadcast to every rank."""
+        return self.mesh.broadcast_object(read() if self.is_root else None)
 
     # -------------------------------------------------------------- helpers
     def _solver_step(self, w, f):
@@ -165,22 +231,24 @@ class ShardedFluidTrainer:
         return self.solver.step_real(w, f, self.ops, cfg.dt, cfg.oversampling)
 
     def _forcing(self, actions):
-        """(B, na_rows, n_act) actions -> real-space forcing (B, n, n)
-        (prepare_action, FluidSetup.jl:247-261; row 0 is the physical action)."""
+        """(Bl, na_rows, n_act) actions -> this rank's rows of the real-space
+        forcing (Bl, n/S, n) (prepare_action, FluidSetup.jl:247-261; row 0 is
+        the physical action)."""
         return self.cfg.agent_power * torch.einsum("bn,nyx->byx", actions[:, 0, :],
                                                    self.actuator_kernels)
 
     def _eval_metric(self, w):
         """Per-env eval diagnostic: fluid energy sum|omega|/(nx*ny)
-        (testrun, FluidSetup.jl:497-500)."""
-        return w.abs().flatten(1).sum(-1) / (self.n * self.n)
+        (testrun, FluidSetup.jl:497-500), its partial sums psum'd over sp."""
+        return self.mesh.psum(w.abs().flatten(1).sum(-1), "sp") / (self.n * self.n)
 
     def _sensor_dots(self, w):
-        """Per-env raw sensor inner products <omega, g_i>: (B, n, n) -> (B, n_act)."""
-        return w.flatten(1) @ self.featurizer.sensor_matrix.T
+        """Per-env raw sensor inner products <omega, g_i>: partial products of
+        this rank's rows (Bl, n/S, n), psum'd over sp -> (Bl, n_act)."""
+        return self.mesh.psum(w.flatten(1) @ self._sens_local.T, "sp")
 
     def _featurize(self, dots, prev_obs, action):
-        """(B, n_act) raw dots -> (B, obs_dim, n_act) via the preset's
+        """(Bl, n_act) raw dots -> (Bl, obs_dim, n_act) via the preset's
         featurizer (window + actuators_to_sensors + temporal/memory rows)."""
         return self.featurizer.from_dots(dots, prev_obs, action)
 
@@ -202,12 +270,13 @@ class ShardedFluidTrainer:
 
     def _blowup(self, reward, w_new):
         """Per-env termination (PDEenv.jl:226-240): `check_max_value` on the
-        reward or the field, or a non-finite reward."""
+        reward or the field (its maximum pmax'd over sp), or a non-finite
+        reward."""
         cfg = self.cfg
         if cfg.check_max_value == "reward":
             blowup = reward.abs().amax(-1) > cfg.max_value
         elif cfg.check_max_value == "y":
-            blowup = w_new.abs().flatten(1).amax(-1) > cfg.max_value
+            blowup = self.mesh.pmax(w_new.abs().flatten(1).amax(-1), "sp") > cfg.max_value
         else:
             blowup = torch.zeros(reward.shape[:1], dtype=torch.bool, device=reward.device)
         return blowup | ~torch.isfinite(reward).all(-1)
@@ -215,18 +284,22 @@ class ShardedFluidTrainer:
     def _error_flags(self, w):
         """Per-env corrupted-field detector: real-space neighbour jumps > 10
         (FluidSetup.jl:263-273; the reference runs it on `real(ifft(y))`, `w`
-        is already real). On one shard the previous shard's boundary row is
-        the field's own last row, so the y-neighbour is a roll. NaN fields do
-        not flag (NaN > 10 is false), matching Julia's `maximum`."""
+        is already real). x-neighbours lie inside the block; the rolled
+        y-neighbour of the block's first row is the previous sp rank's last
+        row (on one rank the field's own last row), and the maximum is
+        pmax'd over sp. NaN fields do not flag (NaN > 10 is false), matching
+        Julia's `maximum`."""
         jump_x = (torch.roll(w, 1, 2) - w).abs().flatten(1).amax(-1)
-        jump_y = (torch.roll(w, 1, 1) - w).abs().flatten(1).amax(-1)
-        return torch.maximum(jump_x, jump_y) > 10.0
+        rolled_y = torch.cat([self.mesh.ppermute(w[:, -1:, :], "sp", 1), w[:, :-1, :]], dim=1)
+        jump_y = (rolled_y - w).abs().flatten(1).amax(-1)
+        return self.mesh.pmax(torch.maximum(jump_x, jump_y), "sp") > 10.0
 
     # ------------------------------------------------------------------ init
     def _make_pool(self, seed: int) -> np.ndarray:
-        """Fresh-IC pool for in-step resets: the host-side random-vortex
-        generator (generate_random_init, FluidSetup.jl:386-394; case 3 train
-        / 4 eval), drawn from `np.random.default_rng(seed)`."""
+        """Fresh-IC pool for in-step resets, whole fields (P, n, n): the
+        host-side random-vortex generator (generate_random_init,
+        FluidSetup.jl:386-394; case 3 train / 4 eval), drawn from
+        `np.random.default_rng(seed)`."""
         cfg = self.cfg
         rng = np.random.default_rng(seed)
         case = 4 if cfg.evaluation else 3
@@ -235,26 +308,33 @@ class ShardedFluidTrainer:
             for _ in range(self.tcfg.y0_pool_size)
         ]).astype(np.float32)
 
+    def _local_rows(self, fields: np.ndarray) -> np.ndarray:
+        """This rank's block of whole fields (..., n, n) -> (..., n/S, n)."""
+        return fields[..., self.rows, :]
+
     @torch.no_grad()
     def init(self, generator: torch.Generator, seed: int = 0) -> MCState:
-        """A fresh state: the pool of `seed`, env i on pool row i mod P, fresh
-        networks and every later draw of the run from `generator`, which the
-        state keeps."""
-        tcfg, acfg, dev = self.tcfg, self.agent.cfg, self.device
-        self.pool = torch.as_tensor(self._make_pool(seed), device=dev)
+        """A fresh state: the pool of `seed`, global env i on pool row i mod P
+        (this rank's envs and rows of them), fresh networks from `generator`
+        (the same on every rank), then every later draw of the dp group from
+        `generator`, re-seeded with `fold_seed` when dp > 1; the state keeps
+        it."""
+        bl, acfg, dev = self.n_local, self.agent.cfg, self.device
+        self.pool = self._t(self._local_rows(self._make_pool(seed)))
         # the JAX package featurizes `pool[idx]` at every step; a pool row gives
         # the same reset observation every time, so the rows are featurized once
         # here and the step gathers them
         self.pool_obs = self._featurize_reset(self._sensor_dots(self.pool))
-        rows = torch.arange(tcfg.n_envs, device=dev) % self.pool.shape[0]
+        rows = torch.arange(self.envs.start, self.envs.stop, device=dev) % self.pool.shape[0]
         astate = self.agent.init_state(generator, dev)
+        if self.n_dp > 1:
+            generator.manual_seed(fold_seed(generator.initial_seed(), self.dp_idx))
         return MCState(
             w=self.pool[rows],
             obs=self.pool_obs[rows],
-            action=torch.zeros((tcfg.n_envs, acfg.na_rows, self.n_act), dtype=torch.float32,
-                               device=dev),
-            steps=torch.zeros((tcfg.n_envs,), dtype=torch.int32, device=dev),
-            ep_reward=torch.zeros((tcfg.n_envs,), dtype=torch.float32, device=dev),
+            action=torch.zeros((bl, acfg.na_rows, self.n_act), dtype=torch.float32, device=dev),
+            steps=torch.zeros((bl,), dtype=torch.int32, device=dev),
+            ep_reward=torch.zeros((bl,), dtype=torch.float32, device=dev),
             agent=astate,
             replay=replay_init(self.capacity_per_dp, acfg.ns, acfg.na_rows, dev),
             generator=generator,
@@ -268,8 +348,9 @@ class ShardedFluidTrainer:
 
     # ------------------------------------------------------------- the step
     def _local_step(self, st: MCState, draws: Optional[StepDraws] = None):
-        """One train step, in place on `st`; returns (st, records). `draws`
-        (noise, start, offs, idx) replace the generator's draws."""
+        """One train step of this rank, in place on `st`; returns (st,
+        records of its envs). `draws` (noise, start, offs, idx: the dp
+        group's) replace the generator's draws."""
         cfg, tcfg = self.cfg, self.tcfg
         agent, acfg = self.agent, self.agent.cfg
         n_act = self.n_act
@@ -303,20 +384,22 @@ class ShardedFluidTrainer:
                              done.to(torch.float32).repeat_interleave(n_act),
                              obs_new.movedim(0, 1).reshape(acfg.ns, -1))
 
-        # learning: the gate is a function of the step count alone
+        # learning: the gate is a function of the step count alone, a host
+        # integer equal on every rank, so all of them reach the gradient mean
         if (st.replay.size > acfg.update_after * n_act
                 and astate.update_step % acfg.update_freq == 0):
             for i in range(tcfg.update_loops):
                 offs = None if draws.offs is None else draws.offs[i]
                 batch = agent.sample(st.replay, tcfg.batch_size, gen, offs=offs)
-                agent.learn_batch(astate, batch)
+                agent.learn_batch(astate, batch, dp_group=self.mesh.dp_group)
 
         with torch.no_grad():
-            # episode accounting + on-device best-actor tracking (PDEhook.jl:65-76)
+            # episode accounting + on-device best-actor tracking (PDEhook.jl:65-76),
+            # reduced over dp so that every rank holds the same counters
             step_mean_r = safe_r.mean(-1)
             ep_r = st.ep_reward + step_mean_r
-            ep_count = st.ep_count + done.sum(dtype=torch.int32)
-            cand_max = torch.where(completed, ep_r, -torch.inf).max()
+            ep_count = st.ep_count + self.mesh.psum(done.sum(dtype=torch.int32), "dp")
+            cand_max = self.mesh.pmax(torch.where(completed, ep_r, -torch.inf).max(), "dp")
             is_better = (cand_max > st.best_reward) & (ep_count >= cfg.min_best_episode)
             for best, cur in zip(st.best_actor.parameters(), astate.actor.parameters()):
                 torch.where(is_better, cur, best, out=best)
@@ -337,7 +420,7 @@ class ShardedFluidTrainer:
             st.steps = torch.where(done, 0, steps)
             st.ep_reward = torch.where(done, 0.0, ep_r)
             st.ep_count = ep_count
-            st.mean_reward = step_mean_r.mean()
+            st.mean_reward = self.mesh.pmean(step_mean_r.mean(), "dp")
             # a diverged episode whose final field trips the corruption test
             errored = blowup & self._error_flags(w_new)
         return st, {"finished": done, "completed": completed, "ep_reward": ep_r,
@@ -346,9 +429,10 @@ class ShardedFluidTrainer:
     def make_chunk_fn(self, n_steps: int):
         """`chunk(st, draws=None) -> (st, packed)`: `n_steps` train steps in
         place on `st`, and the packed (5, n_steps, n_envs) f32 record array
-        on the device (train.hooks.unpack_records row order): one
-        device-to-host copy per chunk for the whole host accounting. `draws`
-        is a sequence of `n_steps` StepDraws."""
+        of every env (gathered over dp) on the device
+        (train.hooks.unpack_records row order): one device-to-host copy per
+        chunk for the whole host accounting. `draws` is a sequence of
+        `n_steps` StepDraws of this rank's dp group."""
         rows = ((REC_FINISHED, "finished"), (REC_COMPLETED, "completed"),
                 (REC_EP_REWARD, "ep_reward"), (REC_ERRORED, "errored"),
                 (REC_MEAN_REWARD, "mean_reward"))
@@ -360,7 +444,7 @@ class ShardedFluidTrainer:
                 st, rec = self._local_step(st, None if draws is None else draws[i])
                 for row, name in rows:
                     packed[row, i] = rec[name]
-            return st, packed
+            return st, self.mesh.gather_cat(packed, "dp", -1)
 
         return chunk
 
@@ -371,8 +455,10 @@ class ShardedFluidTrainer:
         sum(|omega|)/(nx*ny). Early-terminated envs freeze. The rollout has
         no te cap.
 
-        Returns fn (actor: Chain, w0 (B, n, n)) ->
-        {energy, reward_mean, active: (n_steps, B)} as numpy arrays."""
+        Returns fn (actor: Chain, w0 (Bl, n/S, n): this rank's block of the
+        initial fields, as `eval_w0` gives it) -> {energy, reward_mean,
+        active: (n_steps, n_envs)} of every env (gathered over dp) as numpy
+        arrays."""
         agent, acfg = self.agent, self.agent.cfg
         n_act = self.n_act
 
@@ -414,21 +500,25 @@ class ShardedFluidTrainer:
                 recs["energy"].append(self._eval_metric(w_out))
                 recs["reward_mean"].append(torch.where(keep, reward.mean(-1), 0.0))
                 recs["active"].append(keep)
-            return {k: torch.stack(v).cpu().numpy() for k, v in recs.items()}
+            return {k: self.mesh.gather_cat(torch.stack(v), "dp", -1).cpu().numpy()
+                    for k, v in recs.items()}
 
         return evaluate
 
     def eval_w0(self, n_envs: int | None = None) -> torch.Tensor:
         """Evaluation initial fields: the preset's canonical y0 (seeded
         case-4 random vortices, FluidSetup.jl:33-37) replicated over the
-        eval env batch."""
+        eval env batch of `n_envs` (default the trainer's), this rank's
+        block of it: (n_envs / dp, n/S, n)."""
         cfg = self.cfg
         n_envs = n_envs or self.tcfg.n_envs
+        if n_envs % self.n_dp:
+            raise ValueError(f"{n_envs} eval envs do not divide over dp={self.n_dp}")
         rng = np.random.default_rng(cfg.grid_seed)
         y0 = np.fft.ifft2(
             initial_condition(4, self.n, self.n, cfg.lx, cfg.lx, rng)
         ).real.astype(np.float32)
-        return torch.as_tensor(y0, device=self.device).expand(n_envs, -1, -1).contiguous()
+        return self._t(self._local_rows(y0)).expand(n_envs // self.n_dp, -1, -1).contiguous()
 
 
 # ---------------------------------------------------------- training loops
@@ -446,9 +536,10 @@ def train_sharded(trainer: ShardedFluidTrainer, loops: Optional[int] = None,
     overrides the preset's per-loop factor; `chunk_fn` reuses one chunk
     function across calls (train_multi_sharded). Chunk n's records are read
     after chunks n+1..n+pipeline_depth are queued, and drained at loop ends,
-    so the per-loop accounting is complete. Records are read dense: at
-    one device's env counts a chunk's plane is a few KB, far below the JAX
-    package's 1 MB switch to the sparse reader.
+    so the per-loop accounting is complete. A chunk's plane of every env is
+    read dense below `SPARSE_RECORDS_MIN_BYTES` and sparse from there on, as
+    the JAX package switches (a dp-scaled env batch reads sparse). On a mesh
+    every rank runs this loop and keeps the same hook; rank 0 alone prints.
 
     `eval_every > 0` runs a deterministic evaluation rollout (make_eval_fn
     on the preset's canonical eval fields, `eval_steps` steps, no te cap)
@@ -483,6 +574,7 @@ def train_sharded(trainer: ShardedFluidTrainer, loops: Optional[int] = None,
     noise = float(state.agent.act_noise)
     depth = max(1, tcfg.pipeline_depth)
     pending: list = []
+    sparse = record_bytes(tcfg.chunk_len, tcfg.n_envs) >= SPARSE_RECORDS_MIN_BYTES
     for i in range(loops):
         state.agent.act_noise = noise
         t0 = time.time()
@@ -491,7 +583,7 @@ def train_sharded(trainer: ShardedFluidTrainer, loops: Optional[int] = None,
             state, packed = chunk_fn(state)
             # the device-to-host copy starts at dispatch, overlapping the chunks
             # queued after it
-            pending.append(start_record_read(packed))
+            pending.append(start_record_read(packed, sparse))
             if len(pending) > depth:
                 hook.feed_episode_records(consume_record_read(pending.pop(0)))
             steps += tcfg.chunk_len
@@ -512,7 +604,7 @@ def train_sharded(trainer: ShardedFluidTrainer, loops: Optional[int] = None,
         for handle in pending:
             hook.feed_episode_records(consume_record_read(handle))
         pending.clear()
-        if verbose:
+        if verbose and trainer.is_root:
             print(f"[{cfg.name} sharded {trainer.n_dp}x{trainer.n_sp}] "
                   f"loop {i + 1}/{loops} noise={noise:.4f} "
                   f"best={float(state.best_reward):.4f} eps={int(state.ep_count)} "
@@ -556,7 +648,7 @@ def train_multi_sharded(trainer: ShardedFluidTrainer, no_episodes: int = 17,
         state = trainer.init(torch.Generator(device=trainer.device).manual_seed(exp_seed),
                              seed=exp_seed)
         hook = PDEHook(min_best_episode=cfg.min_best_episode, collect_best_trace=False)
-        if verbose:
+        if verbose and trainer.is_root:
             print(f"--------- STARTING EXPERIMENT # {n_exp} ---------")
         noise = restart_noise
         rounds = 0
@@ -572,7 +664,7 @@ def train_multi_sharded(trainer: ShardedFluidTrainer, no_episodes: int = 17,
         best_rewards.append(hook.bestreward)
         if save_fn is not None:
             save_fn(n_exp, state, hook)
-        if verbose:
+        if verbose and trainer.is_root:
             print(f"--------- BEST REWARD: {hook.bestreward} ---------")
     return best_rewards
 
@@ -588,25 +680,39 @@ def save_sharded(out_dir: str, trainer: ShardedFluidTrainer, state: MCState, hoo
                  number: Optional[int] = None) -> None:
     """Checkpoint a run in the standard light format (saves/hook{n}.npz and
     saves/agent_light{n}.msgpack, train.checkpoint), so both packages' eval
-    and resume paths read it. The replay is not kept (light semantics); the
-    key is that of the run's seed."""
-    checkpoint.save(out_dir, TrainState(state.agent, None, state.generator), hook, number=number,
-                    include_replay=False)
+    and resume paths read it at any mesh or on one device. Mesh rank 0
+    writes it (the agent and the hook are the same on every rank). The
+    replay is not kept (light semantics); the key is that of the run's
+    seed."""
+    if trainer.is_root:
+        checkpoint.save(out_dir, TrainState(state.agent, None, state.generator), hook,
+                        number=number, include_replay=False)
 
 
 def load_sharded(load_dir: str, trainer: ShardedFluidTrainer, number: Optional[int] = None):
     """(DDPGState, PDEHook) of a checkpoint, full or light as
     `checkpoint.load` chooses, on the trainer's device, against this
-    trainer's agent config."""
-    ts, hook = checkpoint.load(load_dir, trainer.agent, number, trainer.device)
-    return ts.agent, hook
+    trainer's agent config. On a mesh, rank 0 reads it and broadcasts the
+    agent's state dict and the hook, so that every rank starts from the
+    same bits."""
+    if trainer.mesh.group is None:
+        ts, hook = checkpoint.load(load_dir, trainer.agent, number, trainer.device)
+        return ts.agent, hook
+
+    def read():
+        ts, hook = checkpoint.load(load_dir, trainer.agent, number, "cpu")
+        return checkpoint.agent_state_dict(ts.agent), hook
+
+    tree, hook = trainer._on_root(read)
+    return checkpoint.agent_from_state_dict(tree, trainer.agent, load_dir, trainer.device), hook
 
 
 def load_actor_for_eval(load_dir: str, trainer: ShardedFluidTrainer) -> Chain:
     """The best actor of the run in `load_dir` on the trainer's device - the
     plot_heat/testrun bestNNA swap-in (plotting.jl:28-30) - or, when the
-    hook holds none, the current actor of its checkpoint."""
-    hook = checkpoint.load_hook(load_dir)
+    hook holds none, the current actor of its checkpoint. On a mesh, rank 0
+    reads the hook and broadcasts it."""
+    hook = trainer._on_root(lambda: checkpoint.load_hook(load_dir))
     if hook.best_actor is not None:
         actor = checkpoint.actor_from_jax(hook.best_actor)
     else:
@@ -620,8 +726,9 @@ def load_actor_for_eval(load_dir: str, trainer: ShardedFluidTrainer) -> Chain:
 
 
 def mc_state_from_jax(trainer: ShardedFluidTrainer, jstate, seed: int = 0) -> MCState:
-    """The port's MCState from a numpy pytree of the JAX package's MCState
-    whose leading dp axis (size 1) is stripped from the replay: fields,
+    """The port's MCState from a numpy pytree of the JAX package's MCState,
+    this rank's part of it (its envs, its rows of their fields, its dp
+    group's replay with the leading dp axis stripped): fields,
     observations, actions and counters, the agent (`ddpg_state_from_jax`),
     the replay (`replay_from_jax`), the episode accounting and the best
     actor. The pool is that of `seed`, as the JAX trainer's `init(key,

@@ -320,7 +320,7 @@ def replay_state_dict(rb: Replay) -> dict:
             "size": np.array(rb.size, np.int32)}
 
 
-def _agent_from_tree(tree: dict, agent: DDPGAgent, path: str, device) -> DDPGState:
+def agent_from_state_dict(tree: dict, agent: DDPGAgent, path: str, device) -> DDPGState:
     """The port's DDPGState from a checkpoint's "agent" state dict; the
     networks must have the layer sizes of `agent`'s config."""
     jstate = _jax_like(tree)
@@ -489,7 +489,7 @@ def load(dirpath: str, agent: DDPGAgent, number: Optional[int] = None, device="c
     with open(path, "rb") as f:
         tree = flax_msgpack.unpack(f.read())
     cfg = agent.cfg
-    state = _agent_from_tree(tree["agent"], agent, path, device)
+    state = agent_from_state_dict(tree["agent"], agent, path, device)
     replay = (_replay_from_tree(tree["replay"], agent, path, device) if full
               else replay_init(cfg.capacity, cfg.ns, cfg.na_rows, device))
     key = np.asarray(tree["key"], np.uint32)

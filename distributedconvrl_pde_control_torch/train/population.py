@@ -30,7 +30,7 @@ own loss's, and keeps the stock order: the critic step first, then the
 actor through the updated critic.
 
 A dp mesh (the JAX package's population over `parallel/batched_dp.py`)
-waits for ROADMAP.md queue 1 item 15.
+waits for ROADMAP.md queue 1 item 15d.
 """
 
 from __future__ import annotations
@@ -338,13 +338,13 @@ class PopulationTrainer:
     `cfg.n_envs` is per member; the trainer runs P * n_envs envs,
     member-major. `lr_actor` / `lr_critic`: optional (P,) per-member learning
     rates (see `PopulationDDPG`). `mesh` (a population over a dp mesh) is
-    refused: ROADMAP.md queue 1 item 15."""
+    refused: ROADMAP.md queue 1 item 15d."""
 
     def __init__(self, env, agent: DDPGAgent, cfg: BatchedTrainerConfig, n_members: int,
                  y0_pool=None, eval_y0_pool=None, lr_actor=None, lr_critic=None, mesh=None):
         if mesh is not None:
             raise NotImplementedError("a population over a device mesh is not ported yet "
-                                      "(ROADMAP.md queue 1 item 15)")
+                                      "(ROADMAP.md queue 1 item 15d)")
         self.n_members = int(n_members)
         self.n_envs_per_member = cfg.n_envs
         self.agent = PopulationDDPG(agent.cfg, self.n_members, cfg.n_envs, lr_actor=lr_actor,

@@ -22,8 +22,9 @@ largest shipped configuration (16384 envs x 50 steps, 16.4 MB) takes 2.4-7.0
 ms to read when waited for at once and the sparse reader 0.4-0.6 ms, against
 the 470-480 ms its chunk takes (chip_smoke.py phase 16, two runs); in the
 pipeline the dense copy overlaps the chunks queued after it, while the sparse
-reader's second read waits for all of them. The JAX package's switch at 1 MB
-was set by a measurement of its own transport and is not repeated here.
+reader's second read waits for all of them. The batched trainers read dense;
+the mesh trainer (`parallel/multichip.py::train_sharded`) switches to the
+sparse reader from `SPARSE_RECORDS_MIN_BYTES` on, the JAX package's switch.
 """
 
 from __future__ import annotations
@@ -39,6 +40,9 @@ from distributedconvrl_pde_control_torch.train.hooks import (
     REC_MEAN_REWARD,
     unpack_records,
 )
+
+
+SPARSE_RECORDS_MIN_BYTES = 1 << 20  # the JAX package's dense/sparse switch
 
 
 def record_bytes(n_steps: int, n_envs: int) -> int:

@@ -30,6 +30,7 @@ from distributedconvrl_pde_control_torch.experiments import run as trun
 from distributedconvrl_pde_control_torch.ops import navier_stokes as tns
 from distributedconvrl_pde_control_torch.ops.spectral import fft_wavenumbers
 from distributedconvrl_pde_control_torch.parallel import dfft as tdfft
+from distributedconvrl_pde_control_torch.parallel.mesh import RankMesh
 from distributedconvrl_pde_control_torch.parallel import multichip as tmc
 from distributedconvrl_pde_control_torch.parallel import ns_sharded as tsh
 from distributedconvrl_pde_control_torch.train.checkpoint import actor_from_jax, load_best_actor
@@ -186,9 +187,13 @@ def test_dfft_one_rank():
     np.testing.assert_allclose(w.numpy(), np.fft.fft2(x), rtol=0, atol=1e-4)
     np.testing.assert_allclose(tdfft.difft2(w).numpy(), x, rtol=0, atol=1e-6)
     np.testing.assert_allclose(tdfft.difft2_real(w).numpy(), x, rtol=0, atol=1e-6)
-    for fn in (tdfft.dfft2, tdfft.difft2, tdfft.difft2_real):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            fn(w, world_size=4)
+    # a one-rank mesh transforms whole fields, bit for bit as no mesh; an sp
+    # axis of several ranks transposes through the mesh's process groups
+    # (tests/test_torch_mesh.py), which a mesh built without them lacks
+    for fn, arg in ((tdfft.dfft2, torch.from_numpy(x)), (tdfft.difft2, w), (tdfft.difft2_real, w)):
+        assert torch.equal(fn(arg, RankMesh()), fn(arg))
+        with pytest.raises(RuntimeError, match="process groups"):
+            fn(arg, RankMesh(sp=4))
 
 
 def _solver_inputs(n=32, batch=2):
@@ -416,8 +421,18 @@ def test_eval_w0_and_trainer_refusals():
                                   jmc.ShardedTrainConfig(n_envs=3))
     np.testing.assert_array_equal(ttr.eval_w0().numpy(), np.asarray(jtr.eval_w0()))
     assert ttr.eval_w0(5).shape == (5, 16, 16)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # a mesh of several ranks is a RankMesh per rank; dp rank 1 of a 2x2 mesh
+    # holds envs 2-3 and rows 8-15 of the fields, and its dp group's replay is
+    # rounded to its own push width (2 envs x 16 actuators)
+    with pytest.raises(ValueError, match="RankMesh"):
         tmc.ShardedFluidTrainer(_tiny(tfluid), (2, 1), device="cpu")
+    rank = tmc.ShardedFluidTrainer(_tiny(tfluid), RankMesh(2, 2, 1, 1),
+                                   tmc.ShardedTrainConfig(n_envs=4, capacity_per_dp=100),
+                                   device="cpu")
+    assert (rank.n_local, rank.envs, rank.rows, rank.capacity_per_dp) == (2, slice(2, 4),
+                                                                           slice(8, 16), 128)
+    assert tuple(rank.sensor_kernels.shape) == (16, 8, 16)
+    np.testing.assert_array_equal(rank.eval_w0().numpy(), np.asarray(jtr.eval_w0(4))[2:, 8:])
 
 
 def test_load_actor_for_eval_reads_the_fluid_actor(tmp_path):
@@ -476,10 +491,10 @@ def test_cli_runs_an_adaptive_preset(capsys):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["Fluid_16_256", "--eval", "--mesh", "2x1"], "1x1 only"),
+    (["Fluid_16_256", "--eval", "--mesh", "2x1"], "needs 2 devices, have 1 (hint: --virtual-devices N)"),
     (["Fluid_16_256", "--eval", "--mesh", "two"], "DPxSP"),
-    (["Fluid_16_256", "--train", "--mesh", "2x1"], "1x1 only"),
-    (["Fluid_8_tp", "--eval", "--mesh", "2x1"], "1x1 only"),
+    (["Fluid_16_256", "--train", "--mesh", "2x1"], "needs 2 devices, have 1 (hint: --virtual-devices N)"),
+    (["Fluid_8_tp", "--eval", "--mesh", "2x1"], "needs 2 devices, have 1 (hint: --virtual-devices N)"),
     (["Fluid_8_tp", "--train", "--batched", "--mesh", "1x1"], "item 15"),
     (["KS22", "--eval", "--mesh", "1x1"], "fluid presets"),
 ])

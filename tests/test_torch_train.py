@@ -376,7 +376,7 @@ def test_held_out_eval_pool_extends_and_is_disjoint():
 @pytest.mark.parametrize("argv,item", [
     (["KS22", "--train", "--batched", "--population", "4", "--mesh", "2"], "item 15"),
     (["KS22", "--train", "--batched", "--pop-search", "4", "--mesh", "2"], "item 15"),
-    (["KS22", "--train", "--batched", "--virtual-devices", "2"], "item 15"),
+    (["KS22", "--train", "--batched", "--virtual-devices", "2", "--mesh", "2"], "item 15"),
     (["KS22", "--train", "--batched", "--mesh", "2"], "item 15"),
     (["KS22_tp", "--train", "--batched", "--population", "2", "--mesh", "2"], "item 15"),
     (["Fluid_8", "--train", "--batched", "--mesh", "1x1"], "item 15"),
@@ -389,6 +389,18 @@ def test_held_out_eval_pool_extends_and_is_disjoint():
 def test_cli_refusals_name_their_queue_item(argv, item):
     with pytest.raises(SystemExit, match=item):
         trun.main(argv + ["--cpu"])
+
+
+def test_cli_virtual_devices_without_mesh_runs_on_the_cpu(tmp_path, capsys):
+    """`--virtual-devices N` without `--mesh` runs on the CPU, as the JAX CLI's
+    does (no --cpu given: the default device would be the card)."""
+    out = str(tmp_path / "run")
+    trun.main(["KS22", "--train", "--batched", "--virtual-devices", "2", "--n-envs", "2",
+               "--total-steps", "10", "--chunk-len", "5", "--learner-batch", "8", "--capacity",
+               "2048", "--config-overrides", '{"te": 0.5}', "--out", out])
+    assert "saved to" in capsys.readouterr().out
+    _, hook = checkpoint.load(out, tks.build_ks(tks.KS22, device="cpu").agent, device="cpu")
+    assert hook.ep - 1 == 4 and np.isfinite(hook.rewards).all()
 
 
 def test_cli_batched_train_ignores_resume(tmp_path, capsys):
