@@ -9,6 +9,7 @@
     python3 chip_smoke.py --tiers-only
     python3 chip_smoke.py --tools-only
     python3 chip_smoke.py --mesh-only
+    python3 chip_smoke.py --dp-only
     python3 chip_smoke.py --times-only [--tree DIR]
 
 With no argument it runs the phases below. `--train-only` runs phases 1, 2 and
@@ -18,8 +19,9 @@ fluid env and Keller-Segel), `--agents-only` phases 1, 2 and 34-39 (PPO and
 populations), and none of them prints a result line; `--tiers-only` runs
 phases 1, 2 and 40-44 (the reduced-precision transform tiers and the `_tp`
 presets), `--tools-only` phases 1, 2 and 45-50 (serving, export, the live
-view, the population evaluation scripts, the profiler) and `--mesh-only`
-phases 1, 2 and 51-54 (the rank mesh); these three end with the ok line. `--times-only` prints the card and
+view, the population evaluation scripts, the profiler), `--mesh-only`
+phases 1, 2 and 51-54 (the rank mesh) and `--dp-only` phases 1, 2 and 55-60
+(data and tensor parallelism); these four end with the ok line. `--times-only` prints the card and
 one JSON line of both kernels' times through their wrappers at the main
 paths' shapes and nothing else; `--tree DIR` imports the package from another
 checkout inside this one (an unpacked earlier commit under build/, say), so
@@ -83,7 +85,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      plain twin inside a train step) and on the spectral-featurize tier;
  15. training to a controller: the KS22 long-horizon recipe (spectral-featurize
      tier, 256 envs, 3000 steps, learner batch 256, noise x0.5 every 1000,
-     capacity 1,000,000, a 500-step deterministic eval every 50 steps picks the
+     capacity 1,000,000, a 500-step deterministic eval every 100 steps picks the
      best actor) through `train_batched`, saved and read back through the
      checkpoint; then that actor on the te=200 protocol of phase 4 on the
      standard CNAB2 env (K1): suppression must stay below 0.05;
@@ -131,7 +133,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      replay and Adam steps go on from the saved ones), then `--train-multi`
      (1 experiment, 50 episodes cut to te=1) with its numbered saves;
  26. the KS mono ablation: 1 loop x 200 steps of `KS22_global --train` at
-     full width, and `--hyperopt 2 --hyperopt-episodes 5`: every step and
+     full width, and `--hyperopt 2 --hyperopt-episodes 3`: every step and
      cost finite;
  27. reproduce_torch.py on the card: every KS row of reproduce.py (the two
      KS22_global rows included) beside the JAX package's value for it
@@ -238,9 +240,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
      phase 51's card energies on the same steps;
  54. `run.py KellerSegel10_16_fast --mesh 1x1 --eval` (NCCL), then
      reproduce.py's KellerSegel10_16_fast row through the sharded trainer's
-     rollout on the 1x1 NCCL mesh, then on 2 gloo CPU ranks (1x2) once every
-     card phase is timed, each against the single-device port's row: pre
-     within 1e-3, post within max(0.1 JAX, 0.0005).
+     rollout on the 1x1 NCCL mesh, then, cut to te=6, on 2 gloo CPU
+     ranks (1x2) once every card phase is timed, each against the
+     single-device port's row at its te: pre within 1e-3, post within
+     max(0.1 JAX, 0.0005).
+ 55-60 run in a process of their own (data and tensor parallelism,
+ `parallel/batched_dp.py`, `train/population.py` over dp, `parallel/tp.py`):
+ 55. `DPBatchedTrainer` on an NCCL group of one at bench.py's shape (KS22,
+     16384 envs, learner batch 4096, the sf tier) against `BatchedTrainer`
+     from the same state: a warm-up chunk each, then 2 chunks of 50 each in
+     turns (no group, group, group, no group) under
+     `set_sync_debug_mode("error")`; records and obs_flat equal, parameters
+     within 1e-7, env-steps/s with and without the group; then at 4 envs (the
+     sf tier, learning from step 1) on the ranks' draws of phase 60 merged
+     into one single-device batch (`merge_rank_draws`);
+ 56. `run.py KS22 --train --batched --mesh 1` (NCCL, CNAB2: 256 envs, 200
+     steps, an eval of 50 steps every 100): K1 launched once per train step
+     and eval step; the save read by the single-device `--eval` (te=20);
+ 57. `run.py KS22 --train --batched --population 2 --mesh 1` (NCCL, CNAB2: 2 x
+     128 envs, 100 steps, an eval of 20 steps every 50): every member finite,
+     K1 once per train step and eval step; then a 20-step population chunk at
+     2 x 4 envs on the NCCL group against the unsharded population from the
+     same state: records and every member's routed records equal;
+ 58. `make_tp_learn_step` at tp = 1 on the NCCL group against `learn_batch`
+     (KS22's agent, a batch of 4096): networks within 1e-5;
+ 59. `bench_multichip_torch.py --meshes 1x1 --nx 256` (the fluid family, K2
+     launched 4 x 4 substeps x train steps) and `--family ks-dp --meshes 1x1
+     --n-envs 16384`, their lines as they come;
+ 60. last and alone: 2 gloo CPU ranks of `DPBatchedTrainer` on phase 55's
+     small run's draws, each rank's own: records within phase 14's limits of
+     the card's single-device run (finished exact, ep_reward 1e-3,
+     mean_reward 1e-4), networks within 1e-4 of each tensor's maximum.
 
 Times of the kernels' first designs (PERF.md, same card and power limit) are
 printed beside the new ones in the phases' text lines; the kernels JSON line
@@ -258,8 +288,10 @@ before each CLI run, rollout and the rows, and report the counts by path; so
 do phases 35 (the shipped PPO controllers' rollouts), 36 (PPO training and the
 trained controller's rollout), 38 (the CNAB2 population at full width), 42
 (the KS22_tp members' rollouts), 43 (K2 in the Fluid_16_256_tp mesh
-training), 47 (the live eval), 50 (the profiled training) and 51-52 (K2 on
-the NCCL 1x1 mesh's evaluation and training). K2 lies on
+training), 47 (the live eval), 50 (the profiled training), 51-52 (K2 on
+the NCCL 1x1 mesh's evaluation and training), 56-57 (K1 in the data-parallel
+training, its evals and the save's eval) and 59 (K2 in the bench's fluid
+chunks). K2 lies on
 none of the PPO, population and tooling paths; serving and export launch
 neither kernel. The line before the kernels JSON line holds the seconds of
 the main process's phases; the second-to-last line is the kernels JSON line
@@ -326,6 +358,7 @@ TRAIN_SEED = 609  # phase 15: the KS22 preset's seed, the CLI's default
 # member); every 500 steps selected from 6 evals and left the members' median at 2.09 %
 # against the JAX study's 0.34 % (0.42 % at 50)
 POP_EVAL_EVERY = 50
+TRAIN_EVAL_EVERY = 100  # phase 15: 30 evals, cut from 60 for room (PERF.md section 4)
 TRAIN_CHUNK = 50
 LEARNER_BATCH = 4096
 FLUID_TRAIN_SEED = 436  # phase 20: the Fluid_16_256 preset's seed, the CLI's default
@@ -538,7 +571,7 @@ def train_phases(card: str) -> dict:
     ts, hook, means = train_batched(trainer, total_steps=3000,
                                     generator=torch.Generator(device=dev).manual_seed(TRAIN_SEED),
                                     noise_decay_every=1000, noise_decay=0.5, chunk_len=TRAIN_CHUNK,
-                                    eval_every=POP_EVAL_EVERY, eval_steps=500)
+                                    eval_every=TRAIN_EVAL_EVERY, eval_steps=500)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     check(ks_kernel.KS_CNAB2.launches == 0, "the sf tier launched K1")
@@ -560,7 +593,7 @@ def train_phases(card: str) -> dict:
                       "chunk_means_first_last": [float(means[0]), float(means[-1])],
                       "pre": pre, "post": post, "suppression": post / pre,
                       "rollout_seconds": t_roll, "K1_launches": k1_rollout, "card": card}))
-    check(np.isfinite(means).all() and len(hook.evals) == 3000 // POP_EVAL_EVERY
+    check(np.isfinite(means).all() and len(hook.evals) == 3000 // TRAIN_EVAL_EVERY
           and ts.total_env_steps == 3000 * 256
           and ts.replay.size == min(3000 * 256 * 8, ts.replay.capacity),
           "the training run is malformed")
@@ -910,7 +943,8 @@ FIDELITY_SEED = 609  # phase 24: the KS22 preset's seed, the CLI's default
 FIDELITY_LOOPS, FIDELITY_STEPS = 2, 400
 FIDELITY_LIMIT = 0.25  # phase 24: RESULTS.md's band for the recipe: 1.6 %-19 % on CPU seeds
 RESUME_STEPS, MULTI_EPISODES, MULTI_TE = 100, 50, 1.0  # phase 25
-MONO_STEPS, HYPEROPT_TRIALS, HYPEROPT_EPISODES = 200, 2, 5  # phase 26 (steps cut from 400)
+# phase 26, cut for room: 200 steps (from 400), the search's episodes 3 (from 5)
+MONO_STEPS, HYPEROPT_TRIALS, HYPEROPT_EPISODES = 200, 2, 3
 # phase 27: reproduce_torch.JAX_KS_ROWS holds the suppression of every KS row of reproduce.py
 # as the JAX package gives it; limit per row: |port - JAX| <= max(0.1 JAX, 0.0005)
 
@@ -1198,11 +1232,11 @@ FLUID_STEPPERS = {  # phase 29: (label, FluidConfig overrides)
 FLUID_TRAIN_TE, FLUID_TRAIN_STEPS = 1.0, 50  # Fluid_8 --train: 1 loop, one 50-step episode
 # Fluid_8 --train --batched: 3 chunks of 20, 20-step episodes (te 0.4), so that episodes end
 FLUID_BATCHED_ENVS, FLUID_BATCHED_STEPS, FLUID_BATCHED_TE = 16, 60, 0.4
-# KellerSegel10_16_fast --train: one 250-step episode (cut from 500)
-KSS_TRAIN_TE, KSS_TRAIN_STEPS = 1.5, 250
+# KellerSegel10_16_fast --train: one 150-step episode (cut from 500)
+KSS_TRAIN_TE, KSS_TRAIN_STEPS = 0.9, 150
 # --train --batched: 4 chunks of 50, 100-step episodes (te 0.6)
 KSS_BATCHED_ENVS, KSS_BATCHED_STEPS, KSS_BATCHED_TE = 64, 200, 0.6
-KSS_HYPEROPT_TE = 0.6  # --hyperopt 2 --hyperopt-episodes 3: 100-step episodes
+KSS_HYPEROPT_TE = 0.6  # --hyperopt 2 --hyperopt-episodes 2: 100-step episodes
 
 
 def _rel(got, want) -> float:
@@ -1398,7 +1432,7 @@ def families_child(out_json: str) -> int:
     n = KSS_BATCHED_ENVS * KSS_BATCHED_STEPS
     res32["KellerSegel10_16_fast --train --batched"] = batched_result(
         text, base + "/kss_batched", ksetup.agent, n, secs, mem)
-    text, secs, mem = cli(["KellerSegel10_16_fast", "--hyperopt", "2", "--hyperopt-episodes", "3",
+    text, secs, mem = cli(["KellerSegel10_16_fast", "--hyperopt", "2", "--hyperopt-episodes", "2",
                            "--config-overrides", json.dumps({"te": KSS_HYPEROPT_TE})])
     trials = [json.loads(line) for line in text.strip().splitlines() if line.startswith("{")]
     res32["KellerSegel10_16_fast --hyperopt 2"] = {
@@ -2567,6 +2601,7 @@ MESH_TRAIN_STEPS = 50  # phase 52: train steps through the CLI (2 chunks of 25)
 MESH_CPU_TE = 0.04  # phase 53: 2 env steps at 256^2 on 4 CPU ranks
 MESH_REL = {"phase 9": 1e-6, "2x2 CPU ranks": 1e-4}
 KSS_MESH_DIR = "artifacts/KellerSegel10_16_fast"
+KSS_CPU_TE = 6.0  # phase 54's CPU row: the protocol cut from te=12 to 6, for room
 
 
 def _fluid_eval_on(mesh, n_steps: int) -> dict:
@@ -2625,11 +2660,11 @@ def _fluid_chunks_on(mesh) -> dict:
             "finite": bool(torch.isfinite(packed).all()), "backend": mesh.backend}
 
 
-def _kss_regulation_on(mesh) -> dict:
+def _kss_regulation_on(mesh, te: float = 12.0) -> dict:
     """reproduce.py's Keller-Segel row (KellerSegel10_16_fast from the JAX
-    package's key-8 field, te=12, actuation from t=4) through the sharded
-    trainer's evaluation rollout on `mesh`: mean |u - 1| over the 100 steps
-    before actuation and over the last tenth, and the seconds."""
+    package's key-8 field, te=12 or `te`, actuation from t=4) through the
+    sharded trainer's evaluation rollout on `mesh`: mean |u - 1| over the 100
+    steps before actuation and over the last tenth, and the seconds."""
     import torch
 
     from distributedconvrl_pde_control_torch.configs.keller_segel import (
@@ -2650,7 +2685,7 @@ def _kss_regulation_on(mesh) -> dict:
     tr = ShardedKellerSegelTrainer(cfg, mesh, ShardedTrainConfig(n_envs=1), device=mesh.device)
     actor = load_actor_for_eval(str(ROOT / KSS_MESH_DIR), tr)
     w0 = tr._t(tr._local_rows(keller_segel_y0_key8()[None]))
-    n, a0 = int(round(12.0 / cfg.dt)), int(round(4.0 / cfg.dt))
+    n, a0 = int(round(te / cfg.dt)), int(round(4.0 / cfg.dt))
     t0 = time.perf_counter()
     recs = tr.make_eval_fn(n, a0)(actor, w0)
     if mesh.device != "cpu":
@@ -2800,7 +2835,8 @@ def mesh_child(out_json: str) -> int:
           f"the 2x2 CPU ranks' energy is rel {rel} from the card's")
 
     phase("== 54. KellerSegel10_16_fast --mesh 1x1 --eval on NCCL and the reproduce.py row on the "
-          "1x1 NCCL mesh and on 2 gloo CPU ranks (1x2), against the single-device port's row")
+          f"1x1 NCCL mesh and, cut to te={KSS_CPU_TE}, on 2 gloo CPU ranks (1x2), against the "
+          "single-device port's row")
     torch.cuda.reset_peak_memory_stats()
     _, secs, _ = cli(["KellerSegel10_16_fast", "--eval", "--mesh", "1x1", "--load-from",
                       str(ROOT / KSS_MESH_DIR), "--p-te", "0.3", "--out", str(base / "kss")])
@@ -2809,19 +2845,21 @@ def mesh_child(out_json: str) -> int:
     t0 = time.perf_counter()
     single = reproduce_torch.regulation(setup, actor, ndigits=None)
     single_secs = time.perf_counter() - t0
+    single_cut = reproduce_torch.regulation(setup, actor, te=KSS_CPU_TE, ndigits=None)
     jax_row = reproduce_torch.JAX_KELLER_SEGEL_ROWS["KellerSegel10_16_fast regulation"]
     rows = {"1x1 NCCL": nccl(_kss_regulation_on)}
     # last: the CPU ranks' row, its seconds CPU seconds, with nothing of the card's beside it
-    rows["1x2 gloo CPU ranks"] = launch(_kss_regulation_on, 1, 2, backend="gloo",
-                                        store_dir=str(base))
-    res54 = {"single_device_row": single, "single_device_seconds": single_secs, "jax_row": jax_row,
+    rows[f"1x2 gloo CPU ranks, te={KSS_CPU_TE}"] = launch(_kss_regulation_on, 1, 2, KSS_CPU_TE,
+                                                          backend="gloo", store_dir=str(base))
+    res54 = {"single_device_row": single, "single_device_seconds": single_secs,
+             f"single_device_row_te{KSS_CPU_TE}": single_cut, "jax_row": jax_row,
              "cli_1x1_seconds": secs, **rows, **_peak(True)}
     print(json.dumps({"phase": 54, **res54, "card": card}), flush=True)
     record["54"] = res54
-    for name, row in rows.items():
-        check(row["active"] and abs(row["pre"] - single["pre"]) <= 1e-3
-              and abs(row["post"] - single["post"]) <= max(0.1 * jax_row["post"], 0.0005),
-              f"the Keller-Segel row on {name} ({row}) is outside the limits of {single}")
+    for (name, row), want in zip(rows.items(), (single, single_cut)):
+        check(row["active"] and abs(row["pre"] - want["pre"]) <= 1e-3
+              and abs(row["post"] - want["post"]) <= max(0.1 * jax_row["post"], 0.0005),
+              f"the Keller-Segel row on {name} ({row}) is outside the limits of {want}")
     check(rows["1x1 NCCL"]["backend"] == "nccl", "the Keller-Segel 1x1 mesh did not run on NCCL")
     Path(out_json).write_text(json.dumps({"K2": k2_paths, "record": record}))
     return 0
@@ -2838,6 +2876,395 @@ def mesh_phases(card: str) -> dict:
     check(proc.returncode == 0 and out_json.exists(),
           f"phases 51-54 failed in their process (exit {proc.returncode})")
     return json.loads(out_json.read_text())["K2"]
+
+
+# ------------------------------------- data and tensor parallelism (55-60)
+DP_SMALL = dict(n_envs=4, batch=8, steps=20, seed=3, draw_seed=29, pool=6)  # phases 55, 60
+DP_SMALL_KS = dict(SF_TIER, te=1.5, update_after=0)  # episodes end at step 15, learning from 1
+DP_CLI = dict(steps=200, eval_every=100, eval_steps=50)  # phase 56
+POP_CLI = dict(steps=100, eval_every=50, eval_steps=20)  # phase 57
+POP_CHUNK = 20  # phase 57's routing chunk
+BENCH_FLUID = dict(steps=50, chunk=10, substeps=4)  # phase 59: bench_multichip_torch's defaults
+NETS = ("actor", "critic", "target_actor", "target_critic")
+
+
+def _nets(agent) -> dict:
+    from distributedconvrl_pde_control_torch.models.mlp import chain_to_numpy
+
+    return {n: chain_to_numpy(getattr(agent, n)) for n in NETS}
+
+
+def _net_err(a: dict, b: dict, of_max: bool = False) -> float:
+    """The largest difference of two agents' networks (of each tensor's
+    largest value with `of_max`)."""
+    import numpy as np
+
+    return max(float(np.abs(x[k] - y[k]).max() / (max(np.abs(y[k]).max(), 1e-30) if of_max else 1))
+               for n in a for x, y in zip(a[n], b[n]) for k in ("w", "b"))
+
+
+def _dp_full_width(mesh) -> dict:
+    """Phase 55 at bench.py's shape: `BatchedTrainer` and `DPBatchedTrainer`
+    on `mesh`, each from the same generator and a warm-up chunk, then timed
+    in turns (no group, group, group, no group; 2 chunks each, under
+    set_sync_debug_mode("error")); the last records, obs_flat, networks and
+    the rate of each."""
+    import dataclasses
+
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
+    from distributedconvrl_pde_control_torch.parallel.batched_dp import DPBatchedTrainer
+    from distributedconvrl_pde_control_torch.train.batched import (
+        BatchedTrainer,
+        BatchedTrainerConfig,
+    )
+
+    setup = build_ks(dataclasses.replace(KS22, **SF_TIER), device="cuda")
+    cfg = BatchedTrainerConfig(n_envs=N_ENVS, batch_size=LEARNER_BATCH)
+    runs = {"no group": BatchedTrainer(setup.env, setup.agent, cfg, random_init=setup.random_init),
+            "NCCL group of one": DPBatchedTrainer(setup.env, setup.agent, cfg, mesh,
+                                                  random_init=setup.random_init)}
+    state = {}
+    for name, tr in runs.items():
+        ts = tr.init(torch.Generator(device="cuda").manual_seed(TRAIN_SEED))
+        chunk = tr.make_chunk_fn(TRAIN_CHUNK)
+        ts, _ = chunk(ts)  # warm-up: cuFFT plans, the allocator, past the learn gate
+        state[name] = [ts, chunk, None, []]
+    for name in ("no group", "NCCL group of one", "NCCL group of one", "no group"):
+        ts, chunk = state[name][:2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(2):
+                ts, packed = chunk(ts)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        state[name][0], state[name][2] = ts, packed
+        state[name][3].append(1e3 * (time.perf_counter() - t0) / (2 * TRAIN_CHUNK))
+    # the host's cost of one collective on the group: 200 scalar all_reduces
+    # (the hook scalars' form), ended by a synchronize
+    x = torch.zeros((), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        x = mesh.psum(x, "dp")
+    torch.cuda.synchronize()
+    out = {"backend": mesh.backend, "us_per_scalar_all_reduce": 1e6 * (time.perf_counter() - t0) / 200}
+    for name, (ts, _, packed, ms) in state.items():
+        out[name] = {"ms_per_train_step_in_turns": ms,
+                     "env_steps_per_s": 1e3 * N_ENVS * len(ms) / sum(ms),
+                     "packed": packed.cpu().numpy(), "obs_flat": ts.obs_flat.cpu().numpy(),
+                     "nets": _nets(ts.agent), "total_env_steps": ts.total_env_steps}
+    return out
+
+
+def _dp_small_inputs():
+    """Phase 55's small run: the pool, the fresh state's pool rows and each of
+    2 ranks' draws, from one CPU generator."""
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, ks_random_init
+    from distributedconvrl_pde_control_torch.train.batched import StepDraws
+
+    c = DP_SMALL
+    g = torch.Generator().manual_seed(c["draw_seed"])
+    nl = c["n_envs"] // 2
+    push = nl * KS22.n_actuators
+    pool = ks_random_init(KS22, "cpu")(g, c["pool"])
+    idx0 = torch.randint(0, c["pool"], (c["n_envs"],), generator=g)
+    draws = [[StepDraws(noise=torch.randn((1, push), generator=g),
+                        offs=torch.randint(0, (i + 1) * push, (1, c["batch"]), generator=g),
+                        idx=torch.randint(0, c["pool"], (nl,), generator=g))
+              for i in range(c["steps"])] for _ in range(2)]
+    return pool, idx0, draws, push
+
+
+def _dp_small_run(mesh) -> dict:
+    """Phase 55's small run on a dp mesh of 1 rank (the 2 ranks' draws merged
+    at twice the learner batch) or of 2 (each rank's own draws), from the same
+    state: the records and the networks."""
+    import dataclasses
+
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
+    from distributedconvrl_pde_control_torch.parallel.batched_dp import (
+        DPBatchedTrainer,
+        merge_rank_draws,
+    )
+    from distributedconvrl_pde_control_torch.train.batched import BatchedTrainerConfig, StepDraws
+
+    if mesh.device == "cpu":
+        torch.set_num_threads(1)  # 2 envs a rank: more threads only add overhead
+    dev = mesh.device
+    pool, idx0, draws, push = _dp_small_inputs()
+    setup = build_ks(dataclasses.replace(KS22, **DP_SMALL_KS), device=dev)
+    tr = DPBatchedTrainer(setup.env, setup.agent,
+                          BatchedTrainerConfig(n_envs=DP_SMALL["n_envs"],
+                                               batch_size=DP_SMALL["batch"] * 2 // mesh.dp),
+                          mesh, y0_pool=pool.to(dev))
+    ts = tr.init(torch.Generator().manual_seed(DP_SMALL["seed"]), idx=idx0)
+    mine = merge_rank_draws(draws, push) if mesh.dp == 1 else draws[mesh.dp_idx]
+    mine = [StepDraws(**{k: getattr(d, k).to(dev) for k in ("noise", "offs", "idx")})
+            for d in mine]
+    ts, packed = tr.make_chunk_fn(DP_SMALL["steps"])(ts, mine)
+    return {"packed": packed.cpu().numpy(), "nets": _nets(ts.agent), "backend": mesh.backend}
+
+
+def _pop_routing(mesh) -> dict:
+    """Phase 57's routing check: a P=2 chunk at 2 x 4 envs (CNAB2, per-member
+    learning rates) on `mesh` and unsharded, from the same state."""
+    import numpy as np
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
+    from distributedconvrl_pde_control_torch.train.batched import BatchedTrainerConfig
+    from distributedconvrl_pde_control_torch.train.hooks import unpack_records
+    from distributedconvrl_pde_control_torch.train.population import PopulationTrainer
+
+    setup = build_ks(KS22, device="cuda")
+    pool = setup.random_init(torch.Generator().manual_seed(1), 6)
+    cfg = BatchedTrainerConfig(n_envs=4, batch_size=16)
+    lrs = dict(lr_actor=[5e-4, 2e-3], lr_critic=[1e-3, 4e-3])
+    pops = [PopulationTrainer(setup.env, setup.agent, cfg, 2, y0_pool=pool, **lrs),
+            PopulationTrainer(setup.env, setup.agent, cfg, 2, y0_pool=pool, mesh=mesh, **lrs)]
+    out = []
+    for pop in pops:
+        ts = pop.init(torch.Generator(device="cuda").manual_seed(5))
+        ts, packed = pop.make_chunk_fn(POP_CHUNK)(ts)
+        recs = unpack_records(packed.cpu())
+        out.append({"packed": packed.cpu().numpy(), "nets": _nets(ts.agent),
+                    "members": [pop.member_records(recs, i) for i in range(2)]})
+    same = all(np.array_equal(a[k], b[k]) for a, b in zip(out[0]["members"], out[1]["members"])
+               for k in a)
+    return {"records_equal": bool(np.array_equal(out[0]["packed"], out[1]["packed"])),
+            "members_routed_equal": same, "net_err": _net_err(out[1]["nets"], out[0]["nets"]),
+            "finite": bool(np.isfinite(out[1]["packed"]).all()), "backend": mesh.backend}
+
+
+def _tp_one(mesh) -> dict:
+    """Phase 58: one TP learn step at tp = 1 on the group against
+    `learn_batch` (KS22's agent, a batch of LEARNER_BATCH)."""
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
+    from distributedconvrl_pde_control_torch.parallel.tp import make_tp_learn_step, make_tp_mesh
+
+    agent = build_ks(KS22, device="cuda").agent
+    state = agent.init_state(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ns, na, b = agent.cfg.ns, agent.cfg.na_rows, LEARNER_BATCH
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    batch = (randn(ns, b), randn(na, b).clamp(-1, 1), randn(b),
+             (torch.rand(b, generator=g, device="cuda") < 0.02).float(), randn(ns, b))
+    tp_mesh = make_tp_mesh(1, "cuda")
+    got = make_tp_learn_step(agent, tp_mesh)(state, batch)
+    agent.learn_batch(state, batch)
+    return {"max_abs_err": _net_err(_nets(got), _nets(state)), "backend": mesh.backend,
+            "tp_group_backend": torch.distributed.get_backend(tp_mesh.group)}
+
+
+def dp_child(out_json: str) -> int:
+    """Phases 55-60 in a process of their own (no profiler session): data and
+    tensor parallelism. The card's runs use NCCL process groups of one rank;
+    phase 60's 2 ranks are gloo CPU ranks, last and alone. Writes K1's and K2's
+    launches by path, the phases' seconds and records to `out_json`."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import bench_multichip_torch
+    from distributedconvrl_pde_control_torch.experiments import run
+    from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
+    from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
+    from distributedconvrl_pde_control_torch.parallel.mesh import launch
+    from distributedconvrl_pde_control_torch.train import checkpoint
+
+    card = card_line()
+    base = ROOT / "build" / "smoke_dp"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    k1_paths, k2_paths, record = {}, {}, {"card": card}
+
+    def counted(fn, *args):
+        """fn(*args) (its printed output captured and printed), its seconds and
+        K1's and K2's launches in it."""
+        ks_kernel.KS_CNAB2.launches = k2.NS_ADVECTION.launches = 0
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = fn(*args)
+        torch.cuda.synchronize()
+        print(buf.getvalue(), end="", flush=True)
+        return (result, buf.getvalue(), time.perf_counter() - t0, ks_kernel.KS_CNAB2.launches,
+                k2.NS_ADVECTION.launches)
+
+    def nccl(fn, *args):
+        return launch(fn, 1, 1, *args, backend="nccl", store_dir=str(base))
+
+    def last_json(text):
+        return json.loads(text.strip().splitlines()[-1])
+
+    phase(f"== 55. DPBatchedTrainer on an NCCL group of one at bench.py's shape (KS22 sf tier, "
+          f"{N_ENVS} envs, learner batch {LEARNER_BATCH}) against BatchedTrainer from the same "
+          "state, chunks without device-to-host reads; then at 4 envs on merged rank draws")
+    torch.cuda.reset_peak_memory_stats()
+    full = nccl(_dp_full_width)
+    a, b = full["no group"], full["NCCL group of one"]
+    small = nccl(_dp_small_run)
+    res55 = {"backend": full["backend"],
+             "records_equal": bool(np.array_equal(a["packed"], b["packed"])),
+             "obs_flat_equal": bool(np.array_equal(a["obs_flat"], b["obs_flat"])),
+             "net_max_abs_err": _net_err(b["nets"], a["nets"]),
+             "total_env_steps": b["total_env_steps"],
+             "env_steps_per_s_no_group": a["env_steps_per_s"],
+             "env_steps_per_s_nccl_group": b["env_steps_per_s"],
+             "ms_per_train_step_no_group (turns 1, 4)": a["ms_per_train_step_in_turns"],
+             "ms_per_train_step_nccl_group (turns 2, 3)": b["ms_per_train_step_in_turns"],
+             "us_per_scalar_all_reduce": full["us_per_scalar_all_reduce"],
+             "small_run_backend": small["backend"], **_peak(True)}
+    print(json.dumps({"phase": 55, **res55, "card": card}), flush=True)
+    record["55"] = res55
+    np.savez(base / "small_card.npz", packed=small["packed"])
+    check(full["backend"] == "nccl" and small["backend"] == "nccl",
+          "the dp runs did not run on NCCL")
+    check(res55["records_equal"] and res55["obs_flat_equal"] and res55["net_max_abs_err"] <= 1e-7,
+          f"the NCCL dp 1 trainer differs from the single-device one: {res55}")
+    check(res55["total_env_steps"] == 5 * TRAIN_CHUNK * N_ENVS, "the env steps are miscounted")
+    del full, a, b
+
+    phase(f"== 56. run.py KS22 --train --batched --mesh 1 on NCCL (CNAB2, 256 envs, "
+          f"{DP_CLI['steps']} steps, an eval of {DP_CLI['eval_steps']} steps every "
+          f"{DP_CLI['eval_every']}): K1 per train and eval step; the save read by the "
+          "single-device --eval")
+    torch.cuda.reset_peak_memory_stats()
+    train_dir = str(base / "dp1")
+    _, text, secs, k1, _ = counted(run.main, [
+        "KS22", "--train", "--batched", "--mesh", "1", "--n-envs", "256", "--total-steps",
+        str(DP_CLI["steps"]), "--chunk-len", "50", "--learner-batch", "256", "--eval-every",
+        str(DP_CLI["eval_every"]), "--eval-steps", str(DP_CLI["eval_steps"]), "--out", train_dir])
+    want_k1 = DP_CLI["steps"] + DP_CLI["steps"] // DP_CLI["eval_every"] * DP_CLI["eval_steps"]
+    k1_paths["dp batched training on NCCL: train and eval steps (phase 56)"] = k1
+    _, eval_text, eval_secs, eval_k1, _ = counted(run.main, [
+        "KS22", "--eval", "--load-from", train_dir, "--p-te", "20", "--p-t-action", "10",
+        "--out", str(base / "dp1_eval")])
+    k1_paths["the dp save's single-device eval (phase 56)"] = eval_k1
+    ev = last_json(eval_text)
+    res56 = {"cli_seconds (setup and save included)": secs, "K1_launches": k1,
+             "K1_launches_expected": want_k1, "summary": text.strip().splitlines()[-1],
+             "single_device_eval": ev, "eval_K1_launches": eval_k1, "eval_seconds": eval_secs,
+             **_peak(True)}
+    print(json.dumps({"phase": 56, **res56, "card": card}), flush=True)
+    record["56"] = res56
+    check(k1 == want_k1, f"K1 launched {k1} times in the dp training, expected {want_k1}")
+    check("over dp=1" in text and eval_k1 == 200 and all(np.isfinite(v) for v in ev.values()),
+          f"the dp save's single-device eval failed: {ev}, K1 {eval_k1}")
+
+    phase(f"== 57. run.py KS22 --train --batched --population 2 --mesh 1 on NCCL (CNAB2, 2 x 128 "
+          f"envs, {POP_CLI['steps']} steps, an eval of {POP_CLI['eval_steps']} steps every "
+          f"{POP_CLI['eval_every']}); a P=2 chunk on the group against the unsharded population")
+    pop_dir = base / "pop"
+    _, text, secs, k1, _ = counted(run.main, [
+        "KS22", "--train", "--batched", "--population", "2", "--mesh", "1", "--n-envs", "128",
+        "--total-steps", str(POP_CLI["steps"]), "--chunk-len", "50", "--learner-batch", "256",
+        "--eval-every", str(POP_CLI["eval_every"]), "--eval-steps", str(POP_CLI["eval_steps"]),
+        "--out", str(pop_dir)])
+    want_k1 = POP_CLI["steps"] + POP_CLI["steps"] // POP_CLI["eval_every"] * POP_CLI["eval_steps"]
+    k1_paths["population x dp training on NCCL: train and eval steps (phase 57)"] = k1
+    members = [checkpoint.load_best_actor(str(pop_dir / f"member_0{i}")) for i in range(2)]
+    finite = all(np.isfinite(l[k]).all() for m in members for l in m for k in ("w", "b"))
+    routing, _, rsecs, rk1, _ = counted(nccl, _pop_routing)
+    k1_paths["population x dp routing chunks on NCCL and unsharded (phase 57)"] = rk1
+    res57 = {"cli_seconds": secs, "K1_launches": k1, "K1_launches_expected": want_k1,
+             "members_finite": finite, "population_json": json.loads(
+                 (pop_dir / "population.json").read_text())["ranking"][0]["best_reward"],
+             "routing": routing, "routing_K1_launches": rk1}
+    print(json.dumps({"phase": 57, **res57, "card": card}), flush=True)
+    record["57"] = res57
+    check(k1 == want_k1, f"K1 launched {k1} times in the population x dp run, expected {want_k1}")
+    check(finite, "a member's best actor is not finite")
+    check(routing["backend"] == "nccl" and routing["records_equal"]
+          and routing["members_routed_equal"] and routing["finite"]
+          and routing["net_err"] <= 1e-7 and rk1 == 2 * POP_CHUNK,
+          f"the population over the NCCL group differs from the unsharded one: {routing}, K1 {rk1}")
+
+    phase("== 58. make_tp_learn_step at tp = 1 on an NCCL group against learn_batch")
+    tp = nccl(_tp_one)
+    print(json.dumps({"phase": 58, **tp, "card": card}), flush=True)
+    record["58"] = tp
+    check(tp["backend"] == "nccl" and tp["tp_group_backend"] == "nccl"
+          and tp["max_abs_err"] <= 1e-5, f"the TP step differs from learn_batch: {tp}")
+
+    phase("== 59. bench_multichip_torch.py --meshes 1x1 --nx 256 (fluid) and --family ks-dp "
+          f"--meshes 1x1 --n-envs {N_ENVS}")
+    lines = {}
+    for family, argv in (("fluid", ["--meshes", "1x1", "--nx", "256"]),
+                         ("ks-dp", ["--family", "ks-dp", "--meshes", "1x1", "--n-envs",
+                                    str(N_ENVS)])):
+        rc, text, secs, k1, k2n = counted(bench_multichip_torch.main, argv)
+        check(rc == 0, f"bench_multichip_torch.py {' '.join(argv)} exited {rc}")
+        lines[family] = {"line": last_json(text), "seconds": secs, "K1": k1, "K2": k2n}
+    c = BENCH_FLUID
+    train_steps = c["chunk"] + 2 * (c["chunk"] + 2 * c["steps"])  # warm-up + 2 modes x (warm + 2)
+    want_k2 = 4 * c["substeps"] * train_steps
+    k2_paths["bench_multichip_torch.py fluid 1x1 on NCCL (phase 59)"] = lines["fluid"]["K2"]
+    res59 = {f: {"seconds": v["seconds"], "K2_launches": v["K2"]} for f, v in lines.items()}
+    res59["fluid"]["K2_launches_expected"] = want_k2
+    print(json.dumps({"phase": 59, **res59, "card": card}), flush=True)
+    record["59"] = {**res59, "lines": {f: v["line"] for f, v in lines.items()}}
+    check(all(v["line"]["backend"] == "nccl" for v in lines.values()),
+          f"the bench did not run on NCCL: {lines}")
+    check(lines["fluid"]["K2"] == want_k2 and lines["ks-dp"]["K2"] == 0
+          and lines["ks-dp"]["K1"] == 0,
+          f"K2 launched {lines['fluid']['K2']} times in the bench's fluid run, expected {want_k2}")
+
+    # last and alone: CPU ranks, whose seconds are CPU seconds
+    phase("== 60. DPBatchedTrainer on 2 gloo CPU ranks against phase 55's small card run")
+    t0 = time.perf_counter()
+    cpu = launch(_dp_small_run, 2, 1, backend="gloo", store_dir=str(base))
+    cpu_secs = time.perf_counter() - t0
+    got, want = cpu["packed"], small["packed"]
+    res60 = {"backend": cpu["backend"],
+             "finished_equal": bool(np.array_equal(got[[0, 1, 3]], want[[0, 1, 3]])),
+             "episodes": float(want[0].sum()),
+             "ep_reward_max_abs_err": float(np.abs(got[2] - want[2]).max()),
+             "mean_reward_max_abs_err": float(np.abs(got[4] - want[4]).max()),
+             "net_err_of_max": _net_err(cpu["nets"], small["nets"], of_max=True),
+             "cpu_seconds (2 gloo ranks, not a speed of the port)": cpu_secs,
+             **_peak(False)}
+    print(json.dumps({"phase": 60, **res60, "card": card}), flush=True)
+    record["60"] = res60
+    check(res60["backend"] == "gloo" and res60["finished_equal"]
+          and res60["episodes"] == DP_SMALL["n_envs"] and res60["ep_reward_max_abs_err"] <= 1e-3
+          and res60["mean_reward_max_abs_err"] <= 1e-4 and res60["net_err_of_max"] <= 1e-4,
+          f"the 2 CPU ranks' run is outside the limits of the card's: {res60}")
+    Path(out_json).write_text(json.dumps({"K1": k1_paths, "K2": k2_paths, "record": record},
+                                         default=str))
+    return 0
+
+
+def dp_phases(card: str) -> dict:
+    """Phases 55-60, in a process of their own. Returns K1's and K2's
+    launches on the data-parallel paths."""
+    phase("-- phases 55-60 in a process of their own")
+    out_json = ROOT / "build" / "smoke_dp.json"
+    out_json.unlink(missing_ok=True)
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-child",
+                           str(out_json)], cwd=str(ROOT), timeout=600)
+    check(proc.returncode == 0 and out_json.exists(),
+          f"phases 55-60 failed in their process (exit {proc.returncode})")
+    got = json.loads(out_json.read_text())
+    return {"K1": got["K1"], "K2": got["K2"]}
 
 
 def main() -> int:
@@ -2862,12 +3289,15 @@ def main() -> int:
                         help="run phases 1, 2 and 45-50 and end with the ok line")
     parser.add_argument("--mesh-only", action="store_true",
                         help="run phases 1, 2 and 51-54 and end with the ok line")
+    parser.add_argument("--dp-only", action="store_true",
+                        help="run phases 1, 2 and 55-60 and end with the ok line")
     parser.add_argument("--fidelity-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--agents-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--families-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--tiers-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--tools-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--mesh-child", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--dp-child", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2878,7 +3308,7 @@ def main() -> int:
         return 1
     children = {"fidelity_child": fidelity_child, "families_child": families_child,
                 "agents_child": agents_child, "tiers_child": tiers_child,
-                "tools_child": tools_child, "mesh_child": mesh_child}
+                "tools_child": tools_child, "mesh_child": mesh_child, "dp_child": dp_child}
     for name, child in children.items():
         if getattr(args, name):
             rc = child(getattr(args, name))
@@ -2943,13 +3373,15 @@ def main() -> int:
     if args.agents_only:
         print(json.dumps({"K1_launches_on_the_agent_paths": agents_phases(card)}))
         return 0
-    if args.tiers_only or args.tools_only or args.mesh_only:
+    if args.tiers_only or args.tools_only or args.mesh_only or args.dp_only:
         launches = (tiers_phases(card) if args.tiers_only else {"K1": tools_phases(card)}
-                    if args.tools_only else {"K2": mesh_phases(card)})
+                    if args.tools_only else {"K2": mesh_phases(card)} if args.mesh_only
+                    else dp_phases(card))
         print_phase_seconds()
         print(json.dumps({"launches_on_the_tier_paths" if args.tiers_only
                           else "launches_on_the_tool_paths" if args.tools_only
-                          else "launches_on_the_mesh_paths": launches}))
+                          else "launches_on_the_mesh_paths" if args.mesh_only
+                          else "launches_on_the_dp_paths": launches}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
@@ -3338,6 +3770,7 @@ def main() -> int:
     k_tiers = tiers_phases(card)
     k1_tools = tools_phases(card)
     k2_mesh = mesh_phases(card)
+    k_dp = dp_phases(card)
     print_phase_seconds()
 
     print(json.dumps({"kernels": [{
@@ -3346,11 +3779,12 @@ def main() -> int:
         "replaces": ks_kernel.REPLACES,
         "launches": (launches + sum(k1_training.values()) + sum(k1_fidelity.values())
                      + sum(k1_agents.values()) + sum(k_tiers["K1"].values())
-                     + sum(k1_tools.values())),
+                     + sum(k1_tools.values()) + sum(k_dp["K1"].values())),
         "launches_by_path": {"evaluation (phases 4-5)": launches,
                              "training: trained controller's rollout (phase 15)": k1_training["rollout"],
                              "training: train steps (phase 16)": k1_training["train_steps"],
-                             **k1_fidelity, **k1_agents, **k_tiers["K1"], **k1_tools},
+                             **k1_fidelity, **k1_agents, **k_tiers["K1"], **k1_tools,
+                             **k_dp["K1"]},
         "max_abs_err": max(errs[k] for k in MAIN_PATH_SHAPES), "ms": k_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None, "status": "ok", "shape": "16384x192, 30 substeps",
@@ -3359,9 +3793,10 @@ def main() -> int:
         "source": "distributedconvrl_pde_control_torch/csrc/" + k2.SOURCE,
         "replaces": k2.REPLACES,
         "launches": (k2_launches + k2_training + sum(k_tiers["K2"].values())
-                     + sum(k2_mesh.values())),
+                     + sum(k2_mesh.values()) + sum(k_dp["K2"].values())),
         "launches_by_path": {"evaluation (phases 9-10)": k2_launches,
-                             "training (phases 20-21)": k2_training, **k_tiers["K2"], **k2_mesh},
+                             "training (phases 20-21)": k2_training, **k_tiers["K2"], **k2_mesh,
+                             **k_dp["K2"]},
         "max_abs_err": max(k2_errs[k] for k in K2_MAIN_PATH_SHAPES),
         "max_err_of_scale": max(k2_rel_errs[k] for k in K2_MAIN_PATH_SHAPES),
         "max_fused_err_of_scale": max(k2_fused_errs.values()),

@@ -39,7 +39,7 @@ from distributedconvrl_pde_control_torch.models.mlp import (
 )
 
 
-def _dp_mean(grads, group) -> list:
+def dp_mean(grads, group) -> list:
     """The gradients averaged over the ranks of `group` (None: as they are):
     one `all_reduce` of their concatenation, divided by the group's size."""
     if group is None:
@@ -251,8 +251,8 @@ class DDPGAgent:
         critic_params = list(astate.critic.parameters())
         q = self.critic_apply(astate.critic, s, a).reshape(-1)
         c_loss = torch.mean((q_target - q) ** 2)
-        for p, g in zip(critic_params, _dp_mean(torch.autograd.grad(c_loss, critic_params),
-                                                 dp_group)):
+        for p, g in zip(critic_params, dp_mean(torch.autograd.grad(c_loss, critic_params),
+                                                dp_group)):
             p.grad = g
         astate.opt_critic.step()
 
@@ -261,8 +261,8 @@ class DDPGAgent:
         # for the actor's parameters alone, so nothing lands on the critic's
         actor_params = list(astate.actor.parameters())
         a_loss = -torch.mean(self.critic_apply(astate.critic, s, self.actor_apply(astate.actor, s)))
-        for p, g in zip(actor_params, _dp_mean(torch.autograd.grad(a_loss, actor_params),
-                                                dp_group)):
+        for p, g in zip(actor_params, dp_mean(torch.autograd.grad(a_loss, actor_params),
+                                               dp_group)):
             p.grad = g
         astate.opt_actor.step()
 

@@ -124,6 +124,19 @@ rolls the best actor (the current one when the run kept no best) and a
 no-action baseline from the preset's evaluation field and prints one JSON
 line with the mesh, the grid and the two mean energies sum|omega|/n^2 over
 the active steps.
+
+Data-parallel batched training over a pure-dp mesh of ranks (`--batched
+--mesh N` or `Nx1`, any preset; `parallel/batched_dp.py`), and a population
+over one (`--population P` / `--pop-search N` with `--mesh N`), on the same
+ranks as `--mesh DPxSP`:
+
+    python -m distributedconvrl_pde_control_torch.experiments.run KS22 --train --batched \
+        --mesh 1 --n-envs 16384 --learner-batch 4096 [--population 2] [--virtual-devices 2]
+
+--n-envs is the global env count (per member for a population), split over
+dp; --learner-batch is per rank. The checkpoint is the single-device one
+(`--eval` reads it without `--mesh`); a population writes its members as
+`--population` does.
 """
 
 from __future__ import annotations
@@ -255,8 +268,6 @@ def run_sharded(args, cfg, device: str) -> None:
     printed as it writes them. The run has no wall-clock limit: a rank that
     waits on a collective its peers never reach fails by the group's
     timeout."""
-    import torch
-
     from distributedconvrl_pde_control_torch.parallel.mesh import launch
 
     if args.nx:
@@ -267,6 +278,18 @@ def run_sharded(args, cfg, device: str) -> None:
         dp, sp = (int(x) for x in args.mesh.lower().split("x"))
     except ValueError:
         raise SystemExit(f"--mesh wants DPxSP (e.g. 4x2), got {args.mesh!r}")
+    backend = mesh_backend(args, device, dp, sp)
+    out_dir = args.out or os.path.join("runs", args.preset)
+    os.makedirs(out_dir, exist_ok=True)
+    launch(_run_on_mesh, dp, sp, args, cfg, out_dir, backend=backend, store_dir=out_dir)
+
+
+def mesh_backend(args, device: str, dp: int, sp: int) -> str:
+    """The backend of a dp x sp mesh of ranks: with `--virtual-devices N`, N gloo
+    ranks on the CPU; on the card, one NCCL rank per card; with `--cpu`, one
+    gloo rank. Refused, as the JAX CLI refuses it, when there are fewer."""
+    import torch
+
     if args.virtual_devices:
         have, backend = args.virtual_devices, "gloo"
     elif device == "cuda":
@@ -276,9 +299,27 @@ def run_sharded(args, cfg, device: str) -> None:
     if have < dp * sp:
         raise SystemExit(f"mesh {dp}x{sp} needs {dp * sp} devices, have {have} "
                          "(hint: --virtual-devices N)")
-    out_dir = args.out or os.path.join("runs", args.preset)
-    os.makedirs(out_dir, exist_ok=True)
-    launch(_run_on_mesh, dp, sp, args, cfg, out_dir, backend=backend, store_dir=out_dir)
+    return backend
+
+
+def dp_of(args, device: str, flag: str) -> tuple:
+    """(n_dp, backend) of `--batched --mesh N[x1]`, refused with the JAX CLI's
+    messages: a mesh with an sp axis, too few devices, --n-envs that dp does
+    not divide."""
+    spec = args.mesh.lower().split("x")
+    try:
+        n_dp, sp = int(spec[0]), int(spec[1]) if len(spec) > 1 else 1
+    except ValueError:
+        raise SystemExit(f"--mesh wants N or Nx1 with {flag}, got {args.mesh!r}")
+    if sp != 1:
+        raise SystemExit(f"{flag} shards over dp only; use --mesh {n_dp} or {n_dp}x1, "
+                         f"got {args.mesh!r}")
+    backend = mesh_backend(args, device, n_dp, 1)
+    n_envs = args.n_envs or 256
+    if n_envs % n_dp:
+        per = " (per member)" if flag == "--population" else ""
+        raise SystemExit(f"--n-envs {n_envs}{per} must divide by dp={n_dp}")
+    return n_dp, backend
 
 
 def _run_on_mesh(mesh, args, cfg, out_dir: str) -> None:
@@ -381,10 +422,43 @@ def run_train_batched(args, cfg, overrides, device: str) -> None:
     """`--train --batched`: `train_batched` from a pool of 32 `random_init`
     fields drawn from the preset's seed (JAX run.py:808-813, every family),
     warm-started with `--import-jld2` from a reference JLD2 save's networks
-    (JAX run.py:958-965), then the hook's checkpoint into --out."""
+    (JAX run.py:958-965), then the hook's checkpoint into --out. With
+    `--mesh N[x1]` the same on each rank of a pure-dp mesh (JAX run.py's
+    `run_dp_batched`): the global env batch split over dp, the gradients
+    averaged, the single-device checkpoint written by rank 0."""
+    out_dir = args.out or os.path.join("runs", args.preset)
+    os.makedirs(out_dir, exist_ok=True)
+    if not args.mesh:
+        return _train_batched_on(None, args, cfg, overrides, out_dir, device)
+    from distributedconvrl_pde_control_torch.parallel.mesh import launch
+
+    n_dp, backend = dp_of(args, device, "--batched")
+    launch(_train_batched_on, n_dp, 1, args, cfg, overrides, out_dir, backend=backend,
+           store_dir=out_dir)
+
+
+def _setup_and_pools(args, cfg, device: str):
+    """The batched branches' setup (`--capacity` applied), the host-drawn pool
+    of 32 fresh ICs and, for --eval-warmup, the held-out pool."""
     import torch
 
     from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent
+
+    setup = build_setup(cfg, device=device)
+    if args.capacity:
+        setup = dataclasses.replace(
+            setup, agent=DDPGAgent(dataclasses.replace(setup.agent.cfg, capacity=args.capacity)))
+    pool = setup.random_init(torch.Generator().manual_seed(setup.seed), 32)
+    eval_pool = held_out_eval_pool(setup, args.eval_pool) if args.eval_warmup else None
+    return setup, pool, eval_pool
+
+
+def _train_batched_on(mesh, args, cfg, overrides, out_dir: str, device: str = "cpu") -> None:
+    """`run_train_batched` on one device (`mesh` None) or on one rank of a
+    pure-dp mesh; rank 0 alone prints and saves."""
+    import torch
+
+    from distributedconvrl_pde_control_torch.parallel.batched_dp import DPBatchedTrainer
     from distributedconvrl_pde_control_torch.train import checkpoint
     from distributedconvrl_pde_control_torch.train.batched import (
         BatchedTrainer,
@@ -393,23 +467,18 @@ def run_train_batched(args, cfg, overrides, device: str) -> None:
     )
     from distributedconvrl_pde_control_torch.train.loop import TrainState
 
-    setup = build_setup(cfg, device=device)
-    if overrides:
+    root = mesh is None or mesh.rank == 0
+    device = device if mesh is None else mesh.device
+    setup, pool, eval_pool = _setup_and_pools(args, cfg, device)
+    if overrides and root:
         print(f"applied config overrides: {sorted(overrides)}")
-    out_dir = args.out or os.path.join("runs", args.preset)
-    os.makedirs(out_dir, exist_ok=True)
-    if args.capacity:
-        setup = dataclasses.replace(
-            setup, agent=DDPGAgent(dataclasses.replace(setup.agent.cfg, capacity=args.capacity)))
-    # host-drawn pool of fresh ICs, and for --eval-warmup the held-out pool
-    pool = setup.random_init(torch.Generator().manual_seed(setup.seed), 32)
-    eval_pool = held_out_eval_pool(setup, args.eval_pool) if args.eval_warmup else None
-    trainer = BatchedTrainer(
-        setup.env, setup.agent,
-        BatchedTrainerConfig(n_envs=args.n_envs or 256, batch_size=args.learner_batch or 256,
-                             update_loops=args.update_loops,
-                             min_best_episode=setup.min_best_episode),
-        y0_pool=pool, eval_y0_pool=eval_pool)
+    tcfg = BatchedTrainerConfig(n_envs=args.n_envs or 256, batch_size=args.learner_batch or 256,
+                                update_loops=args.update_loops,
+                                min_best_episode=setup.min_best_episode)
+    trainer = (BatchedTrainer(setup.env, setup.agent, tcfg, y0_pool=pool, eval_y0_pool=eval_pool)
+               if mesh is None else
+               DPBatchedTrainer(setup.env, setup.agent, tcfg, mesh, y0_pool=pool,
+                                eval_y0_pool=eval_pool))
     seed = args.seed if args.seed is not None else setup.seed
     warm = None
     if args.import_jld2:
@@ -422,16 +491,19 @@ def run_train_batched(args, cfg, overrides, device: str) -> None:
         generator=torch.Generator(device=device).manual_seed(seed),
         noise_decay_every=args.noise_every or max(1, args.total_steps // setup.loops),
         noise_decay=args.noise_decay if args.noise_decay is not None else setup.noise_decay,
-        chunk_len=args.chunk_len or 50, verbose=True, eval_every=args.eval_every,
+        chunk_len=args.chunk_len or 50, verbose=root, eval_every=args.eval_every,
         eval_steps=args.eval_steps, eval_warmup_steps=args.eval_warmup,
         eval_score=args.eval_score, warm_start=warm)
+    if not root:
+        return
     checkpoint.save(out_dir, TrainState(ts.agent, None, ts.generator), hook,
                     include_replay=False, config_overrides=overrides)
     print(hook.ascii_curve())
     if hook.evals:
         print("evals:", [(s, round(r, 4)) for s, r in hook.evals])
+    over = "" if mesh is None else f" over dp={mesh.dp}"
     print(f"saved to {out_dir}; best reward {hook.bestreward:.4f} @ ep "
-          f"{hook.bestepisode}; {ts.total_env_steps} env steps, "
+          f"{hook.bestepisode}; {ts.total_env_steps} env steps{over}, "
           f"final chunk mean {means[-1]:.4f}")
 
 
@@ -468,10 +540,28 @@ def run_population(args, cfg, overrides, device: str) -> None:
     --pop-overrides; each member saved as a light checkpoint under
     OUT/member_XX beside population.json. With `--pop-search N`: N schedule
     trials in fused rounds of --population (default 8) members, search.json
-    and the winner's light checkpoint in OUT (JAX run.py:840-891)."""
+    and the winner's light checkpoint in OUT (JAX run.py:840-891). With
+    `--mesh N[x1]` on each rank of a pure-dp mesh (JAX run.py:820-840):
+    every rank a local mini-population of --n-envs / N envs per member."""
+    pov = pop_overrides(args.pop_overrides, args.population) if (
+        args.pop_overrides and not args.pop_search) else {}
+    out_dir = args.out or os.path.join("runs", args.preset)
+    os.makedirs(out_dir, exist_ok=True)
+    if not args.mesh:
+        return _population_on(None, args, cfg, overrides, pov, out_dir, device)
+    from distributedconvrl_pde_control_torch.parallel.mesh import launch
+
+    n_dp, backend = dp_of(args, device, "--population")
+    launch(_population_on, n_dp, 1, args, cfg, overrides, pov, out_dir, backend=backend,
+           store_dir=out_dir)
+
+
+def _population_on(mesh, args, cfg, overrides, pov: dict, out_dir: str,
+                   device: str = "cpu") -> None:
+    """`run_population` on one device (`mesh` None) or on one rank of a
+    pure-dp mesh; rank 0 alone prints and saves."""
     import torch
 
-    from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent
     from distributedconvrl_pde_control_torch.train import checkpoint
     from distributedconvrl_pde_control_torch.train.batched import BatchedTrainerConfig
     from distributedconvrl_pde_control_torch.train.loop import TrainState
@@ -482,16 +572,11 @@ def run_population(args, cfg, overrides, device: str) -> None:
         train_population,
     )
 
-    setup = build_setup(cfg, device=device)
-    if overrides:
+    root = mesh is None or mesh.rank == 0
+    device = device if mesh is None else mesh.device
+    setup, pool, eval_pool = _setup_and_pools(args, cfg, device)
+    if overrides and root:
         print(f"applied config overrides: {sorted(overrides)}")
-    out_dir = args.out or os.path.join("runs", args.preset)
-    os.makedirs(out_dir, exist_ok=True)
-    if args.capacity:
-        setup = dataclasses.replace(
-            setup, agent=DDPGAgent(dataclasses.replace(setup.agent.cfg, capacity=args.capacity)))
-    pool = setup.random_init(torch.Generator().manual_seed(setup.seed), 32)
-    eval_pool = held_out_eval_pool(setup, args.eval_pool) if args.eval_warmup else None
     tcfg = BatchedTrainerConfig(n_envs=args.n_envs or 256, batch_size=args.learner_batch or 256,
                                 update_loops=args.update_loops,
                                 min_best_episode=setup.min_best_episode)
@@ -503,7 +588,9 @@ def run_population(args, cfg, overrides, device: str) -> None:
             noise_decay_every=args.noise_every or 0, eval_every=args.eval_every or 50,
             eval_steps=args.eval_steps, eval_warmup_steps=args.eval_warmup,
             eval_score=args.eval_score, chunk_len=args.chunk_len or 50, y0_pool=pool,
-            eval_y0_pool=eval_pool)
+            eval_y0_pool=eval_pool, verbose=root, mesh=mesh)
+        if not root:
+            return
         with open(os.path.join(out_dir, "search.json"), "w") as f:
             json.dump({"best": best, "trials": trials, **SEARCH_NOTES}, f, indent=1)
         if best_state is not None:
@@ -512,10 +599,9 @@ def run_population(args, cfg, overrides, device: str) -> None:
         print(f"saved search.json + winner checkpoint to {out_dir}")
         return
     p = args.population
-    pov = pop_overrides(args.pop_overrides, p) if args.pop_overrides else {}
     pop = PopulationTrainer(setup.env, setup.agent, tcfg, p, y0_pool=pool,
                             eval_y0_pool=eval_pool, lr_actor=pov.get("learning_rate"),
-                            lr_critic=pov.get("learning_rate_critic"))
+                            lr_critic=pov.get("learning_rate_critic"), mesh=mesh)
     decay = pov.get("noise_decay",
                     args.noise_decay if args.noise_decay is not None else setup.noise_decay)
     ts, hooks, _ = train_population(
@@ -523,9 +609,11 @@ def run_population(args, cfg, overrides, device: str) -> None:
         generator=torch.Generator(device=device).manual_seed(seed),
         act_noise=pov.get("act_noise"),
         noise_decay_every=args.noise_every or max(1, args.total_steps // setup.loops),
-        noise_decay=decay, chunk_len=args.chunk_len or 50, verbose=True,
+        noise_decay=decay, chunk_len=args.chunk_len or 50, verbose=root,
         eval_every=args.eval_every, eval_steps=args.eval_steps,
         eval_warmup_steps=args.eval_warmup, eval_score=args.eval_score)
+    if not root:
+        return
     summary = save_population(out_dir, pop, ts, hooks, overrides=overrides)
     for row in summary["ranking"]:
         print(f"  {row['dir']}: best {row['best_reward']:.4f} @ ep {row['best_episode']} "
@@ -940,7 +1028,8 @@ def main(argv=None):
                          "0 for fluid)")
     ap.add_argument("--mesh", default=None,
                     help="train or evaluate a fluid preset (on the 2/3-rule solver) or "
-                         "KellerSegel10_16[_fast] over a DPxSP mesh of ranks")
+                         "KellerSegel10_16[_fast] over a DPxSP mesh of ranks; with --batched "
+                         "(any preset, populations too), N or Nx1 ranks of data parallelism")
     ap.add_argument("--n-envs", type=int, default=None,
                     help="env batch for --batched (default 256) and --mesh runs (default: dp)")
     ap.add_argument("--loops", type=int, default=None,
@@ -1060,18 +1149,20 @@ def main(argv=None):
     # --virtual-devices without --mesh runs on the CPU, as the JAX CLI's does
     device = "cpu" if args.cpu or (args.virtual_devices and not args.mesh) else "cuda"
 
-    # what the port does not run yet, each with the queue item that holds it
+    # what this installation cannot run, each named
     refuse_missing(args)
     fluid_cfg = fluid_config_for(args.preset)
-    if args.batched and args.mesh and (args.population or args.pop_search):
-        raise SystemExit("--population/--pop-search --mesh: a population over a device mesh is "
-                         "not ported yet (ROADMAP.md queue 1 item 15d)")
     if args.batched and args.mesh:
-        raise SystemExit("--batched --mesh: data-parallel batched training over a device mesh "
-                         "is not ported yet (ROADMAP.md queue 1 item 15d)")
+        # data-parallel batched training and populations (JAX run.py:595-606)
+        if args.train_multi:
+            raise SystemExit("--train-multi --mesh drives the sharded trainers; combine it with a "
+                             "plain --mesh, not --batched")
+        if not args.train:
+            raise SystemExit("--batched --mesh is a training mode; the saved checkpoint is "
+                             "standard single-chip format — eval it without --mesh")
     if fluid_cfg is not None and args.hyperopt:
         raise SystemExit(f"--hyperopt supports {list(HYPEROPT_PRESETS)}")
-    if args.mesh:
+    if args.mesh and not args.batched:
         mesh_cfg = sharded_config_for(args.preset)
         if mesh_cfg is None:
             raise SystemExit("--mesh supports fluid presets (with their _fast/_tp/_fixedstep/"

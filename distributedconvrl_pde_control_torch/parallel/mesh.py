@@ -69,6 +69,11 @@ def make_dp_sp_mesh(n: int, sp: Optional[int] = None) -> tuple[int, int]:
     return n // sp, sp
 
 
+def fold_seed(seed: int, dp_idx: int) -> int:
+    """The seed of dp group `dp_idx`'s stream: the port's `fold_in`."""
+    return (seed + 0x9E3779B97F4A7C15 * (dp_idx + 1)) % (1 << 64)
+
+
 @dataclasses.dataclass(eq=False)
 class RankMesh:
     """This rank's place in a (dp, sp) mesh, its device and its groups."""

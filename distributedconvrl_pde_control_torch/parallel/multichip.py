@@ -68,7 +68,7 @@ from distributedconvrl_pde_control_torch.configs.fluid import (
 )
 from distributedconvrl_pde_control_torch.models.mlp import Chain, chain_to_numpy, copy_chain
 from distributedconvrl_pde_control_torch.ops.navier_stokes import initial_condition
-from distributedconvrl_pde_control_torch.parallel.mesh import RankMesh
+from distributedconvrl_pde_control_torch.parallel.mesh import RankMesh, fold_seed
 from distributedconvrl_pde_control_torch.parallel.ns_sharded import (
     NSShardedSolverRI,
     make_sharded_ops,
@@ -150,11 +150,6 @@ def mesh_of(mesh: Union[RankMesh, tuple, None]) -> RankMesh:
         raise ValueError(f"mesh {mesh[0]}x{mesh[1]}: a mesh of several ranks is a "
                          "parallel.mesh.RankMesh, one per rank (parallel.mesh.launch)")
     return RankMesh()
-
-
-def fold_seed(seed: int, dp_idx: int) -> int:
-    """The seed of dp group `dp_idx`'s stream: the port's `fold_in`."""
-    return (seed + 0x9E3779B97F4A7C15 * (dp_idx + 1)) % (1 << 64)
 
 
 class ShardedFluidTrainer:

@@ -18,6 +18,13 @@ the episode accounting and the best-actor snapshot stay on the device as
 `where`s. One packed record array leaves the device per chunk. The JAX
 package's flat-carry layout knobs exist for the TPU's tiled layouts and are
 not ported.
+
+The step and the chunk take an optional `RankMesh` (the JAX package's
+`axis_name`): with one, the step is a rank's part of a data-parallel step
+(`parallel/batched_dp.py`): the DDPG gradients are averaged over dp, the
+finished-episode count is summed, the mean reward averaged and the best
+candidate maximized over dp, so that every rank keeps the same hook
+scalars, and each chunk's records are gathered over dp in global env order.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from distributedconvrl_pde_control_torch.envs.pde_env import (
     where_state,
 )
 from distributedconvrl_pde_control_torch.models.mlp import Chain, chain_to_numpy, copy_chain
+from distributedconvrl_pde_control_torch.parallel.mesh import RankMesh
 from distributedconvrl_pde_control_torch.train.hooks import (
     REC_COMPLETED,
     REC_EP_REWARD,
@@ -158,9 +166,11 @@ class BatchedTrainer:
         return self.env.reset(self._fresh_y0s(generator, n) if y0s is None else y0s)
 
     # ------------------------------------------------------------------ init
-    def init(self, generator: torch.Generator, y0s=None, idx=None) -> BatchedTrainState:
+    def init(self, generator: torch.Generator, y0s=None, idx=None,
+             capacity: Optional[int] = None) -> BatchedTrainState:
         """A fresh state whose every draw comes from `generator`, which the
-        state keeps for the run."""
+        state keeps for the run. `capacity` replaces the agent's replay
+        capacity (before its rounding to the push width)."""
         env_states = self._fresh_states(generator, self.cfg.n_envs, y0s=y0s, idx=idx)
         device = env_states.obs.device
         acfg = self.agent.cfg
@@ -169,7 +179,8 @@ class BatchedTrainer:
         # pushes take the contiguous path (replay_push_flat); a slightly
         # larger buffer is semantically benign
         push = self.cfg.n_envs * acfg.n_actuators
-        capacity = ((acfg.capacity + push - 1) // push) * push
+        capacity = acfg.capacity if capacity is None else capacity
+        capacity = ((capacity + push - 1) // push) * push
         return BatchedTrainState(
             agent=astate,
             replay=replay_init(capacity, acfg.ns, acfg.na_rows, device),
@@ -186,8 +197,9 @@ class BatchedTrainer:
 
     # ------------------------------------------------------------- one step
     def _train_step(self, ts: BatchedTrainState, learn: bool = True,
-                    draws: Optional[StepDraws] = None):
-        """One train step, in place on `ts`; returns (ts, records)."""
+                    draws: Optional[StepDraws] = None, mesh: Optional[RankMesh] = None):
+        """One train step, in place on `ts`; returns (ts, records). `mesh`:
+        this rank's part of a data-parallel step (module docstring)."""
         env, agent, cfg = self.env, self.agent, self.cfg
         acfg = agent.cfg
         draws = draws or StepDraws()
@@ -238,7 +250,8 @@ class BatchedTrainer:
                 # sampling routed through the agent so that agents with their
                 # own sampling rule can substitute it (ddpg.py::sample)
                 offs = None if draws.offs is None else draws.offs[i]
-                agent.learn_batch(astate, agent.sample(replay, cfg.batch_size, gen, offs=offs))
+                agent.learn_batch(astate, agent.sample(replay, cfg.batch_size, gen, offs=offs),
+                                  dp_group=None if mesh is None else mesh.dp_group)
 
         with torch.no_grad():
             # episode accounting + on-device best-actor tracking (PDEhook
@@ -246,9 +259,14 @@ class BatchedTrainer:
             # snapshots the actor as of that episode's end, PDEhook.jl:65-76)
             completed = done & (new_estates.time >= env.te * (1.0 - 1e-6))
             ep_r = ts.ep_reward + safe_reward.mean(dim=-1)
+            done_count = done.sum(dtype=torch.int32)
             mean_r_scalar = safe_reward.mean()
             cand_max = torch.where(completed, ep_r, -torch.inf).max()
-            ep_count = ts.ep_count + done.sum(dtype=torch.int32)
+            if mesh is not None:  # the hook scalars of every rank's envs
+                done_count = mesh.psum(done_count, "dp")
+                mean_r_scalar = mesh.pmean(mean_r_scalar, "dp")
+                cand_max = mesh.pmax(cand_max, "dp")
+            ep_count = ts.ep_count + done_count
             is_better = (cand_max > ts.best_reward) & (ep_count >= cfg.min_best_episode)
             for best, cur in zip(ts.best_actor.parameters(), astate.actor.parameters()):
                 torch.where(is_better, cur, best, out=best)
@@ -258,7 +276,7 @@ class BatchedTrainer:
 
         ts.env_states = estates
         ts.obs_flat = new_obs_flat
-        ts.total_env_steps += b
+        ts.total_env_steps += b * (1 if mesh is None else mesh.dp)
         ts.ep_count = ep_count
         records = {
             "finished": done,
@@ -269,24 +287,27 @@ class BatchedTrainer:
         return ts, records
 
     # ---------------------------------------------------------------- chunks
-    def make_chunk_fn(self, n_steps: int, learn: bool = True):
+    def make_chunk_fn(self, n_steps: int, learn: bool = True, mesh: Optional[RankMesh] = None):
         """`chunk(ts, draws=None) -> (ts, packed)`: `n_steps` train steps in
         place on `ts`, and the packed (5, n_steps, n_envs) f32 record array
         on the device (train.hooks.unpack_records row order; errored is all
         zero, as the detector exists only in the sharded fluid family). One
         array means one device-to-host copy per chunk for the whole host
-        accounting. `draws` is a sequence of `n_steps` StepDraws."""
+        accounting. `draws` is a sequence of `n_steps` StepDraws. With a
+        `mesh` the steps are this rank's of a data-parallel chunk, and the
+        records of every rank's envs come back, gathered over dp in rank
+        order (the global env order)."""
 
         def chunk(ts: BatchedTrainState, draws: Optional[Sequence[StepDraws]] = None):
             packed = torch.zeros((5, n_steps, self.cfg.n_envs), dtype=torch.float32,
                                  device=ts.obs_flat.device)
             for i in range(n_steps):
-                ts, rec = self._train_step(ts, learn, None if draws is None else draws[i])
+                ts, rec = self._train_step(ts, learn, None if draws is None else draws[i], mesh)
                 packed[REC_FINISHED, i] = rec["finished"]
                 packed[REC_COMPLETED, i] = rec["completed"]
                 packed[REC_EP_REWARD, i] = rec["ep_reward"]
                 packed[REC_MEAN_REWARD, i] = rec["mean_reward"]
-            return ts, packed
+            return ts, packed if mesh is None else mesh.gather_cat(packed, "dp", -1)
 
         return chunk
 

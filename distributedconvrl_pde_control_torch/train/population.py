@@ -29,8 +29,16 @@ The learner sums the members' losses, so that each member's gradient is its
 own loss's, and keeps the stock order: the critic step first, then the
 actor through the updated critic.
 
-A dp mesh (the JAX package's population over `parallel/batched_dp.py`)
-waits for ROADMAP.md queue 1 item 15d.
+Population x dp (`mesh`, a pure-dp `RankMesh`): the study sharded over the
+ranks of a mesh, as the JAX package shards it over devices. Every rank runs a
+local mini-population, P members x (n_envs / n_dp) envs member-major, on a
+`parallel/batched_dp.py::DPBatchedTrainer`, so the global env axis is
+rank-major (rank d's block holds a member-major block of every member). The
+stacked per-member gradients are averaged over dp elementwise, so member p's
+gradients reduce over p's env blocks on every rank and never mix with
+another member's. Replay regions, slot arithmetic, noise blocks and the
+auto-reset run on local widths unchanged. Member evals run on one rank's
+local env batch (the networks are replicated), n_envs / n_dp ICs per member.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent, DDPGState
+from distributedconvrl_pde_control_torch.agents.ddpg import DDPGAgent, DDPGState, dp_mean
 from distributedconvrl_pde_control_torch.agents.replay import Replay
 from distributedconvrl_pde_control_torch.models.mlp import Chain, chain_to_numpy, copy_chain
 from distributedconvrl_pde_control_torch.train.batched import (
@@ -278,11 +286,13 @@ class PopulationDDPG(DDPGAgent):
         return (rows[..., :ns].transpose(1, 2), rows[..., ns:ns + na].transpose(1, 2),
                 rows[..., ns + na], rows[..., ns + na + 1], rows[..., ns + na + 2:].transpose(1, 2))
 
-    def learn_batch(self, astate: DDPGState, batch) -> DDPGState:
+    def learn_batch(self, astate: DDPGState, batch, dp_group=None) -> DDPGState:
         """The stock learn step (PDEagent.jl:363-418) for every member at once,
         in place: the sum of the members' losses, so that each member's
         gradient is its own loss's; the critic step, then the actor through
-        the updated critic, then the polyak averaging."""
+        the updated critic, then the polyak averaging. `dp_group`: the stacked
+        gradients are averaged over its ranks, elementwise, before each Adam
+        step (member p's rows only with member p's)."""
         cfg = self.cfg
         s, a, r, t, sn = batch
         with torch.no_grad():
@@ -291,11 +301,13 @@ class PopulationDDPG(DDPGAgent):
             q_target = r + cfg.gamma * (1.0 - t) * q_next
         critic_params = chain_tensors(astate.critic)
         c_loss = torch.mean((q_target - self._critic_m(astate.critic, s, a)[:, 0]) ** 2, dim=1)
-        astate.opt_critic.step(list(torch.autograd.grad(c_loss.sum(), critic_params)))
+        astate.opt_critic.step(dp_mean(torch.autograd.grad(c_loss.sum(), critic_params),
+                                        dp_group))
         actor_params = chain_tensors(astate.actor)
         a_loss = -torch.mean(self._critic_m(astate.critic, s, self._actor_m(astate.actor, s))[:, 0],
                              dim=1)
-        astate.opt_actor.step(list(torch.autograd.grad(a_loss.sum(), actor_params)))
+        astate.opt_actor.step(dp_mean(torch.autograd.grad(a_loss.sum(), actor_params),
+                                       dp_group))
         with torch.no_grad():
             targets = chain_tensors(astate.target_actor) + chain_tensors(astate.target_critic)
             torch._foreach_mul_(targets, cfg.polyak)
@@ -335,24 +347,39 @@ class PopulationDDPG(DDPGAgent):
 class PopulationTrainer:
     """A P-member population as one flat `BatchedTrainer`.
 
-    `cfg.n_envs` is per member; the trainer runs P * n_envs envs,
-    member-major. `lr_actor` / `lr_critic`: optional (P,) per-member learning
-    rates (see `PopulationDDPG`). `mesh` (a population over a dp mesh) is
-    refused: ROADMAP.md queue 1 item 15d."""
+    `cfg.n_envs` is per member (global on a mesh); the trainer runs P *
+    n_envs envs, member-major. `lr_actor` / `lr_critic`: optional (P,)
+    per-member learning rates (see `PopulationDDPG`). `mesh`: a pure-dp
+    `RankMesh`, the population x dp of the module docstring; per-member
+    n_envs must divide by its dp size."""
 
     def __init__(self, env, agent: DDPGAgent, cfg: BatchedTrainerConfig, n_members: int,
-                 y0_pool=None, eval_y0_pool=None, lr_actor=None, lr_critic=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("a population over a device mesh is not ported yet "
-                                      "(ROADMAP.md queue 1 item 15d)")
+                 random_init=None, y0_pool=None, eval_y0_pool=None, lr_actor=None,
+                 lr_critic=None, mesh=None):
         self.n_members = int(n_members)
-        self.n_envs_per_member = cfg.n_envs
-        self.agent = PopulationDDPG(agent.cfg, self.n_members, cfg.n_envs, lr_actor=lr_actor,
-                                    lr_critic=lr_critic, hidden_act=agent.hidden_act,
+        self.mesh = mesh
+        self.n_dp = 1 if mesh is None else mesh.dp
+        if cfg.n_envs % self.n_dp:
+            raise ValueError(f"per-member n_envs={cfg.n_envs} must divide by dp={self.n_dp}")
+        self.n_envs_member_local = cfg.n_envs // self.n_dp
+        self.agent = PopulationDDPG(agent.cfg, self.n_members, self.n_envs_member_local,
+                                    lr_actor=lr_actor, lr_critic=lr_critic,
+                                    hidden_act=agent.hidden_act,
                                     hidden_act_critic=agent.hidden_act_critic)
-        self.base = BatchedTrainer(env, self.agent,
-                                   dataclasses.replace(cfg, n_envs=self.n_members * cfg.n_envs),
-                                   y0_pool=y0_pool, eval_y0_pool=eval_y0_pool)
+        flat_cfg = dataclasses.replace(cfg, n_envs=self.n_members * cfg.n_envs)
+        if mesh is None:
+            self.base = BatchedTrainer(env, self.agent, flat_cfg, random_init=random_init,
+                                       y0_pool=y0_pool, eval_y0_pool=eval_y0_pool)
+        else:
+            from distributedconvrl_pde_control_torch.parallel.batched_dp import DPBatchedTrainer
+
+            self.base = DPBatchedTrainer(env, self.agent, flat_cfg, mesh, random_init=random_init,
+                                         y0_pool=y0_pool, eval_y0_pool=eval_y0_pool)
+
+    @property
+    def _local(self) -> BatchedTrainer:
+        """The rank's BatchedTrainer (the trainer itself without a mesh)."""
+        return self.base if self.mesh is None else self.base.local
 
     def init(self, generator: torch.Generator, y0s=None, idx=None):
         return self.base.init(generator, y0s=y0s, idx=idx)
@@ -371,16 +398,18 @@ class PopulationTrainer:
         `y0s` (n_envs, ...)), tiled member-major, with the long-horizon and
         warmup semantics of `eval_rollout`. Returns (P,) scores, "mean" (the
         mean step reward over active steps) or "min" (the min over the
-        member's per-env masked means); NaN for a member with no active step."""
-        b = self.n_envs_per_member
+        member's per-env masked means); NaN for a member with no active step.
+        On a mesh the eval runs the rank's local batch, n_envs / n_dp ICs per
+        member (the networks are replicated)."""
+        b = self.n_envs_member_local
         if y0s is None:
-            y0s = self.base._fresh_eval_y0s(generator or torch.Generator().manual_seed(0), b)
+            y0s = self._local._fresh_eval_y0s(generator or torch.Generator().manual_seed(0), b)
         limit = self.agent.cfg.act_limit
 
         def act_cols(obs):
             return torch.clamp(self.agent.actor_apply(actors, obs), -limit, limit)
 
-        rs, actives = eval_rollout(self.base.env, act_cols, torch.cat([y0s] * self.n_members),
+        rs, actives = eval_rollout(self._local.env, act_cols, torch.cat([y0s] * self.n_members),
                                    n_steps, warmup_steps)
         return np.array([score_rollout(rs[:, i * b:(i + 1) * b], actives[:, i * b:(i + 1) * b],
                                        score) for i in range(self.n_members)], np.float64)
@@ -389,9 +418,15 @@ class PopulationTrainer:
         """Member i's (n_steps, n_envs) columns of a chunk's record dict
         (`consume_record_read`); `mean_reward` stays the population-global
         per-step mean (the fused step reduces over all envs): per-member
-        curves come from ep_reward and the evals."""
-        b = self.n_envs_per_member
-        return {k: (v if k == "mean_reward" else v[:, i * b:(i + 1) * b]) for k, v in recs.items()}
+        curves come from ep_reward and the evals. On a mesh the env axis is
+        rank-major (rank blocks of member-major local blocks), and member i's
+        columns are gathered from every rank's block."""
+        d, p, b = self.n_dp, self.n_members, self.n_envs_member_local
+
+        def member(v):
+            return v.reshape(v.shape[0], d, p, b)[:, :, i, :].reshape(v.shape[0], d * b)
+
+        return {k: (v if k == "mean_reward" else member(v)) for k, v in recs.items()}
 
 
 def train_population(trainer: PopulationTrainer, total_steps: int,
@@ -489,7 +524,7 @@ def population_search(env, agent, cfg: BatchedTrainerConfig, n_trials: int, tota
                       members_per_round: int = 8, seed: int = 0,
                       noise_decay_every: int = 0, eval_every: int = 50, eval_steps: int = 500,
                       eval_warmup_steps: int = 0, eval_score: str = "mean", chunk_len: int = 50,
-                      y0_pool=None, eval_y0_pool=None, verbose: bool = True):
+                      y0_pool=None, eval_y0_pool=None, verbose: bool = True, mesh=None):
     """Schedule and optimizer search where every round of up to
     `members_per_round` trials trains as one fused population, each trial
     scored by its eval-driven best. The trials come from numpy's
@@ -512,7 +547,7 @@ def population_search(env, agent, cfg: BatchedTrainerConfig, n_trials: int, tota
         p = min(members_per_round, n_trials - done)
         batch = params[done:done + p]
         trainer = PopulationTrainer(env, agent, cfg, p, y0_pool=y0_pool,
-                                    eval_y0_pool=eval_y0_pool,
+                                    eval_y0_pool=eval_y0_pool, mesh=mesh,
                                     lr_actor=[t["learning_rate"] for t in batch],
                                     lr_critic=[t["learning_rate_critic"] for t in batch])
         ts, hooks, _ = train_population(

@@ -495,7 +495,9 @@ def test_cli_runs_an_adaptive_preset(capsys):
     (["Fluid_16_256", "--eval", "--mesh", "two"], "DPxSP"),
     (["Fluid_16_256", "--train", "--mesh", "2x1"], "needs 2 devices, have 1 (hint: --virtual-devices N)"),
     (["Fluid_8_tp", "--eval", "--mesh", "2x1"], "needs 2 devices, have 1 (hint: --virtual-devices N)"),
-    (["Fluid_8_tp", "--train", "--batched", "--mesh", "1x1"], "item 15"),
+    # a refusal of ROADMAP queue 1 item 15 until the dp batched path was ported; it keeps its id
+    pytest.param(["Fluid_8_tp", "--train", "--batched", "--mesh", "1x2"],
+                 "--batched shards over dp only", id="argv4-item 15"),
     (["KS22", "--eval", "--mesh", "1x1"], "fluid presets"),
 ])
 def test_cli_refusals_name_what_is_missing(argv, message):

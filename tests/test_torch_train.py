@@ -373,20 +373,36 @@ def test_held_out_eval_pool_extends_and_is_disjoint():
     assert not any(torch.equal(w, t) for w in wide for t in train_pool)
 
 
+NEEDS_2 = r"mesh 2x1 needs 2 devices, have 1 \(hint: --virtual-devices N\)"
+
+
+# the first six cases were refusals of ROADMAP queue 1 item 15 until the data-parallel
+# batched paths were ported; they keep their ids and now hold the JAX CLI's behaviour
 @pytest.mark.parametrize("argv,item", [
-    (["KS22", "--train", "--batched", "--population", "4", "--mesh", "2"], "item 15"),
-    (["KS22", "--train", "--batched", "--pop-search", "4", "--mesh", "2"], "item 15"),
-    (["KS22", "--train", "--batched", "--virtual-devices", "2", "--mesh", "2"], "item 15"),
-    (["KS22", "--train", "--batched", "--mesh", "2"], "item 15"),
-    (["KS22_tp", "--train", "--batched", "--population", "2", "--mesh", "2"], "item 15"),
-    (["Fluid_8", "--train", "--batched", "--mesh", "1x1"], "item 15"),
+    pytest.param(["KS22", "--train", "--batched", "--population", "4", "--mesh", "2"], NEEDS_2,
+                 id="argv0-item 15"),
+    pytest.param(["KS22", "--train", "--batched", "--pop-search", "4", "--mesh", "2"], NEEDS_2,
+                 id="argv1-item 15"),
+    pytest.param(["KS22", "--train", "--batched", "--virtual-devices", "2", "--mesh", "2",
+                  "--n-envs", "4", "--total-steps", "20", "--chunk-len", "10", "--learner-batch",
+                  "8", "--capacity", "2048", "--config-overrides", '{"te": 0.5}'], None,
+                 id="argv2-item 15"),
+    pytest.param(["KS22", "--train", "--batched", "--mesh", "2"], NEEDS_2, id="argv3-item 15"),
+    pytest.param(["KS22_tp", "--train", "--batched", "--population", "2", "--mesh", "2"], NEEDS_2,
+                 id="argv4-item 15"),
+    pytest.param(["Fluid_8", "--train", "--batched", "--mesh", "1x2"],
+                 "--batched shards over dp only; use --mesh 1 or 1x1", id="argv5-item 15"),
     (["KellerSegel10_16", "--train", "--batched", "--population", "2", "--pop-overrides",
       '{"gamma": [0.9, 0.99]}'], r"--pop-overrides supports \['act_noise'"),
     (["KellerSegel10_16_fast", "--train", "--batched", "--population", "4", "--pop-overrides",
       '{"act_noise": [1.0, 0.5]}'], r"--pop-overrides\[act_noise\] needs 4 values, got 2"),
     (["KS22", "--train", "--ckpt-backend", "orbax"], "orbax is not installed"),
 ])
-def test_cli_refusals_name_their_queue_item(argv, item):
+def test_cli_refusals_name_their_queue_item(argv, item, tmp_path, capsys):
+    if item is None:  # a small run on 2 gloo ranks, as the JAX CLI runs it on 2 virtual devices
+        trun.main(argv + ["--cpu", "--out", str(tmp_path / "run")])
+        assert "80 env steps over dp=2" in capsys.readouterr().out
+        return
     with pytest.raises(SystemExit, match=item):
         trun.main(argv + ["--cpu"])
 
