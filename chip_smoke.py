@@ -10,6 +10,7 @@
     python3 chip_smoke.py --tools-only
     python3 chip_smoke.py --mesh-only
     python3 chip_smoke.py --dp-only
+    python3 chip_smoke.py --grids-only
     python3 chip_smoke.py --times-only [--tree DIR]
 
 With no argument it runs the phases below. `--train-only` runs phases 1, 2 and
@@ -20,8 +21,9 @@ populations), and none of them prints a result line; `--tiers-only` runs
 phases 1, 2 and 40-44 (the reduced-precision transform tiers and the `_tp`
 presets), `--tools-only` phases 1, 2 and 45-50 (serving, export, the live
 view, the population evaluation scripts, the profiler), `--mesh-only`
-phases 1, 2 and 51-54 (the rank mesh) and `--dp-only` phases 1, 2 and 55-60
-(data and tensor parallelism); these four end with the ok line. `--times-only` prints the card and
+phases 1, 2 and 51-54 (the rank mesh), `--dp-only` phases 1, 2 and 55-60
+(data and tensor parallelism) and `--grids-only` phases 1, 2 and 61 (both
+kernels on grids other than the main paths'); these five end with the ok line. `--times-only` prints the card and
 one JSON line of both kernels' times through their wrappers at the main
 paths' shapes and nothing else; `--tree DIR` imports the package from another
 checkout inside this one (an unpacked earlier commit under build/, say), so
@@ -85,7 +87,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      plain twin inside a train step) and on the spectral-featurize tier;
  15. training to a controller: the KS22 long-horizon recipe (spectral-featurize
      tier, 256 envs, 3000 steps, learner batch 256, noise x0.5 every 1000,
-     capacity 1,000,000, a 500-step deterministic eval every 100 steps picks the
+     capacity 1,000,000, a 500-step deterministic eval every 150 steps picks the
      best actor) through `train_batched`, saved and read back through the
      checkpoint; then that actor on the te=200 protocol of phase 4 on the
      standard CNAB2 env (K1): suppression must stay below 0.05;
@@ -187,7 +189,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
  42-43 run in a process of their own (no profiler session):
  42. `KS22_tp --train --batched --population 8` on phase 15's recipe (256
      envs per member, 3000 steps, noise x0.5 per 1000, a 500-step eval every
-     50, the JAX study's cadence; the JAX study's preset, artifacts/KS22_tp_pop8), then every member at
+     150, cut from the JAX study's 50 for room; the JAX study's preset,
+     artifacts/KS22_tp_pop8), then every member at
      te=200 on the standard CNAB2 env (K1 at 1 row): the median member's
      suppression < 0.05, every member finite, printed beside the JAX study's
      0.24-0.85 % (RESULTS.md:32);
@@ -240,7 +243,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      phase 51's card energies on the same steps;
  54. `run.py KellerSegel10_16_fast --mesh 1x1 --eval` (NCCL), then
      reproduce.py's KellerSegel10_16_fast row through the sharded trainer's
-     rollout on the 1x1 NCCL mesh, then, cut to te=6, on 2 gloo CPU
+     rollout on the 1x1 NCCL mesh, then, cut to te=5, on 2 gloo CPU
      ranks (1x2) once every card phase is timed, each against the
      single-device port's row at its te: pre within 1e-3, post within
      max(0.1 JAX, 0.0005).
@@ -271,6 +274,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      small run's draws, each rank's own: records within phase 14's limits of
      the card's single-device run (finished exact, ep_reward 1e-3,
      mean_reward 1e-4), networks within 1e-4 of each tensor's maximum.
+ 61 runs in a process of its own (no profiler session): both kernels on every
+ grid the JAX package steps. K2 against its plain version at n = 24, 45, 96,
+ 176, 384, 2048 and 4096 (mixed-radix lines, odd n, a generic stage of 11,
+ the largest power-of-two lines) and K1 at nx = 45, 50, 190 (16384 rows) and
+ 250, each launched once with torch.fft and both plain versions made to raise
+ (no plain route on the card); each wrapper's refusal above its shared-memory
+ limit (K2 at n = 6144, K1 at nx = 4320) naming the limit; K2's time at n =
+ 96, 384, 2048 and 4096 and K1's at nx = 190, 250 and 45 (batch 1 and 16 /
+ 16384) beside their bounds and their plain versions' times; `run.py
+ Fluid_16_256 --mesh 1x1 --eval --nx 96` on the card against its `--cpu` run
+ (rel 1e-4; K2 = 2 x 4 x substeps x env steps) and `run.py KS22 --eval
+ --config-overrides '{"nx": 190}' --p-te 20` (suppression within 1e-4; K1 =
+ env steps); `bench_decomp_torch.py` and `bench_population_torch.py` cut in
+ depth (one timed chunk of 5 steps per line), through their `main` in this process.
 
 Times of the kernels' first designs (PERF.md, same card and power limit) are
 printed beside the new ones in the phases' text lines; the kernels JSON line
@@ -290,8 +307,8 @@ trained controller's rollout), 38 (the CNAB2 population at full width), 42
 (the KS22_tp members' rollouts), 43 (K2 in the Fluid_16_256_tp mesh
 training), 47 (the live eval), 50 (the profiled training), 51-52 (K2 on
 the NCCL 1x1 mesh's evaluation and training), 56-57 (K1 in the data-parallel
-training, its evals and the save's eval) and 59 (K2 in the bench's fluid
-chunks). K2 lies on
+training, its evals and the save's eval), 59 (K2 in the bench's fluid
+chunks) and 61 (K2 in the 96^2 fluid eval, K1 in the nx = 190 KS eval). K2 lies on
 none of the PPO, population and tooling paths; serving and export launch
 neither kernel. The line before the kernels JSON line holds the seconds of
 the main process's phases; the second-to-last line is the kernels JSON line
@@ -299,6 +316,7 @@ and the last line is {"ok": true, "device": {...}}.
 """
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -354,11 +372,12 @@ FLUID_P_TE = 2.0  # 100 env steps of dt = 0.02
 FLUID_BATCH, FLUID_BATCH_STEPS = 16, 5
 SF_TIER = dict(stepper="etdrk4", spectral_carry=True, spectral_featurize=True)
 TRAIN_SEED = 609  # phase 15: the KS22 preset's seed, the CLI's default
-# phases 15 and 42: the JAX study's eval cadence (artifacts/KS22_tp_pop8: 60 evals per
-# member); every 500 steps selected from 6 evals and left the members' median at 2.09 %
-# against the JAX study's 0.34 % (0.42 % at 50)
-POP_EVAL_EVERY = 50
-TRAIN_EVAL_EVERY = 100  # phase 15: 30 evals, cut from 60 for room (PERF.md section 4)
+# phases 15 and 42: the JAX study evaluates every 50 steps (artifacts/KS22_tp_pop8: 60 evals
+# per member; 0.42 % median here at 50); every 500 steps selected from 6 evals and left the
+# members' median at 2.09 % against the JAX study's 0.34 %. Both cut for room to 20 evals
+# each (PERF.md section 4)
+POP_EVAL_EVERY = 150
+TRAIN_EVAL_EVERY = 150
 TRAIN_CHUNK = 50
 LEARNER_BATCH = 4096
 FLUID_TRAIN_SEED = 436  # phase 20: the Fluid_16_256 preset's seed, the CLI's default
@@ -429,8 +448,9 @@ def card_line() -> str:
 
 def times_only(tree) -> int:
     """K1 (`ks_cnab2_step`) at 16384x192 and 1x192 with 30 substeps and K2
-    (`ns_advection`, no optional operand) at n=256, batch 1 and 16 with the
-    fluid solver's constants, from the checkout `tree` or this one."""
+    at n=256, batch 1 and 16 with the fluid solver's constants (the bare
+    `ns_advection` call, and a stage inside `ns_rk4_substeps`' loop), from the
+    checkout `tree` or this one."""
     if tree:
         sys.path.insert(0, tree)
     import numpy as np
@@ -451,10 +471,15 @@ def times_only(tree) -> int:
         f = torch.tensor(rng.standard_normal((batch, 192)), dtype=torch.float32, device="cuda")
         times[f"K1 {batch}x192"] = cuda_ms(lambda: ks_kernel.ks_cnab2_step(y, f, solver), iters)
     ops = make_sharded_ops(256, 256, device="cuda")
+    lin = (-1e-3 * ops.k2).contiguous()
     for batch in (1, 16):
         w = torch.fft.fft2(torch.tensor(rng.standard_normal((batch, 256, 256)), dtype=torch.float32,
                                         device="cuda"))
+        f = (0.01 * w).contiguous()
         times[f"K2 n256_b{batch}"] = cuda_ms(lambda: k2.ns_advection(w, ops), 200)
+        # a stage inside the library's loop of 20 RK4 substeps (80 launches per call)
+        times[f"K2 n256_b{batch} stage in loop"] = cuda_ms(
+            lambda: k2.ns_rk4_substeps(w, ops, lin, f, 1e-6, 20), 5) / 80
     print(json.dumps({"tree": tree or ".", "card": card, "ms_per_call": times}))
     return 0
 
@@ -942,9 +967,9 @@ FIDELITY_SEED = 609  # phase 24: the KS22 preset's seed, the CLI's default
 # 8 x 8000 steps to 400
 FIDELITY_LOOPS, FIDELITY_STEPS = 2, 400
 FIDELITY_LIMIT = 0.25  # phase 24: RESULTS.md's band for the recipe: 1.6 %-19 % on CPU seeds
-RESUME_STEPS, MULTI_EPISODES, MULTI_TE = 100, 50, 1.0  # phase 25
-# phase 26, cut for room: 200 steps (from 400), the search's episodes 3 (from 5)
-MONO_STEPS, HYPEROPT_TRIALS, HYPEROPT_EPISODES = 200, 2, 3
+RESUME_STEPS, MULTI_EPISODES, MULTI_TE = 100, 50, 1.0  # phase 25 (train_multi runs whole 50-episode rounds)
+# phase 26, cut for room: 100 steps (from 400), the search's episodes 2 (from 5)
+MONO_STEPS, HYPEROPT_TRIALS, HYPEROPT_EPISODES = 100, 2, 2
 # phase 27: reproduce_torch.JAX_KS_ROWS holds the suppression of every KS row of reproduce.py
 # as the JAX package gives it; limit per row: |port - JAX| <= max(0.1 JAX, 0.0005)
 
@@ -1232,11 +1257,11 @@ FLUID_STEPPERS = {  # phase 29: (label, FluidConfig overrides)
 FLUID_TRAIN_TE, FLUID_TRAIN_STEPS = 1.0, 50  # Fluid_8 --train: 1 loop, one 50-step episode
 # Fluid_8 --train --batched: 3 chunks of 20, 20-step episodes (te 0.4), so that episodes end
 FLUID_BATCHED_ENVS, FLUID_BATCHED_STEPS, FLUID_BATCHED_TE = 16, 60, 0.4
-# KellerSegel10_16_fast --train: one 150-step episode (cut from 500)
-KSS_TRAIN_TE, KSS_TRAIN_STEPS = 0.9, 150
+# KellerSegel10_16_fast --train: one 100-step episode (cut from 500)
+KSS_TRAIN_TE, KSS_TRAIN_STEPS = 0.6, 100
 # --train --batched: 4 chunks of 50, 100-step episodes (te 0.6)
 KSS_BATCHED_ENVS, KSS_BATCHED_STEPS, KSS_BATCHED_TE = 64, 200, 0.6
-KSS_HYPEROPT_TE = 0.6  # --hyperopt 2 --hyperopt-episodes 2: 100-step episodes
+KSS_HYPEROPT_TE = 0.3  # --hyperopt 2 --hyperopt-episodes 2: 50-step episodes
 
 
 def _rel(got, want) -> float:
@@ -2598,10 +2623,10 @@ def tools_phases(card: str) -> dict:
 # ----------------------------------------------------- the rank mesh (51-54)
 MESH_EVAL_STEPS = 20  # phase 51: env steps of phase 9's protocol (te cut from 2 to 0.4)
 MESH_TRAIN_STEPS = 50  # phase 52: train steps through the CLI (2 chunks of 25)
-MESH_CPU_TE = 0.04  # phase 53: 2 env steps at 256^2 on 4 CPU ranks
+MESH_CPU_TE = 0.02  # phase 53: 1 env step at 256^2 on 4 CPU ranks
 MESH_REL = {"phase 9": 1e-6, "2x2 CPU ranks": 1e-4}
 KSS_MESH_DIR = "artifacts/KellerSegel10_16_fast"
-KSS_CPU_TE = 6.0  # phase 54's CPU row: the protocol cut from te=12 to 6, for room
+KSS_CPU_TE = 5.0  # phase 54's CPU row: the protocol cut from te=12 to 5, for room
 
 
 def _fluid_eval_on(mesh, n_steps: int) -> dict:
@@ -3267,6 +3292,258 @@ def dp_phases(card: str) -> dict:
     return {"K1": got["K1"], "K2": got["K2"]}
 
 
+# ------------------------------------------------- every grid the JAX package steps (61)
+# phase 61: K2 against its plain version at grids other than the fluid path's 256^2, powers of
+# two or not, odd ones included (label, n, batch), and K1 at grids that are not multiples of 4
+# (label, nx, batch; 30 substeps, ||y|| ~ 30 as phase 3's larger shapes); the tolerances of
+# phases 3 and 8 (K1 1e-3 absolute, K2 1e-4 of max|want|)
+GRID_K2_SHAPES = [("n24_b4", 24, 4), ("n45_b2", 45, 2), ("n96_b16", 96, 16), ("n176_b4", 176, 4),
+                  ("n384_b16", 384, 16), ("n2048_b1", 2048, 1), ("n4096_b1", 4096, 1)]
+GRID_K1_SHAPES = [("nx45_b33", 45, 33), ("nx50_b7", 50, 7), ("nx190_b16384", 190, N_ENVS),
+                  ("nx250_b37", 250, 37)]
+# timed shapes beside their bounds, with the iterations of the kernel's and the plain timing
+GRID_K2_TIMED = [(96, 1, 200, 50), (96, 16, 200, 50), (384, 1, 200, 50), (384, 16, 100, 20),
+                 (2048, 1, 20, 5), (2048, 16, 5, 3), (4096, 1, 10, 3), (4096, 16, 3, 2)]
+GRID_K1_TIMED = [(190, N_ENVS, 20, 5), (190, 1, 200, 5), (250, N_ENVS, 20, 5), (250, 1, 200, 5),
+                 (45, N_ENVS, 20, 5), (45, 1, 200, 5)]
+GRID_FLUID_NX, GRID_FLUID_P_TE = 96, 0.05  # --mesh 1x1 --eval: 2 env steps at 96^2
+GRID_KS_NX, GRID_KS_P_TE = 190, 20.0  # KS22 --eval: 200 env steps at nx = 190
+GRID_REL = 1e-4  # the card's CLI run against its --cpu run
+
+
+@contextlib.contextmanager
+def no_plain_route():
+    """Inside it, torch.fft and both kernels' plain versions raise: a wrapper
+    that reached any of them on a CUDA tensor fails the phase."""
+    import torch
+
+    from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
+    from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("a plain route was taken on the card")
+
+    patched = [(torch.fft, name) for name in ("fft", "ifft", "fft2", "ifft2", "rfft", "irfft",
+                                               "rfft2", "irfft2", "fftn", "ifftn")]
+    patched += [(k2, "ns_advection_plain"), (k2, "ns_rhs_plain"), (k2, "ns_rk4_plain"),
+                (ks_kernel, "ks_cnab2_plain")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in patched]
+    for mod, name in patched:
+        setattr(mod, name, refuse)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def grids_child(out_json: str) -> int:
+    """Phase 61 in a process of its own (no profiler session): both kernels
+    on every grid the JAX package steps. Writes the kernels' launches by
+    path and the new shapes' times to `out_json`."""
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.fluid import FLUID_16_256
+    from distributedconvrl_pde_control_torch.configs.ks import KS22
+    from distributedconvrl_pde_control_torch.experiments import run
+    from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
+    from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
+    from distributedconvrl_pde_control_torch.ops.ks import KSSolver
+    from distributedconvrl_pde_control_torch.parallel.ns_sharded import make_sharded_ops
+
+    card = card_line()
+    base = ROOT / "build" / "smoke_grids"
+    base.mkdir(parents=True, exist_ok=True)
+    record = {"card": card}
+
+    phase("== 61. K1 and K2 on every grid: each against its plain version at grids that are not "
+          "the main paths' (mixed radix, odd, above 1024), each timed beside its bound, the "
+          "refusals above the shared-memory limits, the two CLIs at such grids card vs CPU, and "
+          "bench_decomp_torch.py / bench_population_torch.py cut in depth")
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(61)
+    k2_inputs, parity = {}, {}
+    for label, n, batch in GRID_K2_SHAPES:
+        w = torch.fft.fft2(torch.tensor(rng.standard_normal((batch, n, n)), dtype=torch.float32,
+                                        device="cuda"))
+        consts = make_sharded_ops(n, n, device="cuda")  # the fluid path's constants
+        k2_inputs[(n, batch)] = (w, consts)
+        before = k2.NS_ADVECTION.launches
+        with no_plain_route():
+            got = k2.ns_advection(w, consts)
+        torch.cuda.synchronize()
+        launched = k2.NS_ADVECTION.launches - before
+        want = k2.ns_advection_plain(w, consts)
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        parity[f"K2 {label}"] = {"max_abs_err": err, "err_of_scale": err / scale}
+        print(f"K2 {label}: max_abs_err {err:.3e} = {err / scale:.2e} of max|want| {scale:.4e} "
+              f"(rtol {K2_RTOL:.0e} of it), {launched} launch", flush=True)
+        check(launched == 1 and bool(torch.isfinite(torch.view_as_real(got)).all())
+              and err <= K2_RTOL * scale, f"K2 disagrees at {label}")
+        del want, got
+    for label, nx, batch in GRID_K1_SHAPES:
+        solver = KSSolver(nx=nx, lx=22.0, dt=0.1, oversampling=30, mu=0.02, device="cuda")
+        y = torch.tensor(3.0 * rng.standard_normal((batch, nx)), dtype=torch.float32, device="cuda")
+        f = torch.tensor(rng.standard_normal((batch, nx)), dtype=torch.float32, device="cuda")
+        before = ks_kernel.KS_CNAB2.launches
+        with no_plain_route():
+            got = ks_kernel.ks_cnab2_step(y, f, solver)
+        torch.cuda.synchronize()
+        launched = ks_kernel.KS_CNAB2.launches - before
+        want = ks_kernel.ks_cnab2_plain(y, f, solver)
+        err = (got - want).abs().max().item()
+        parity[f"K1 {label}"] = {"max_abs_err": err}
+        print(f"K1 {label}: max_abs_err {err:.3e} (atol 1e-3), max|y'| "
+              f"{want.abs().max().item():.3f}, stages {ks_kernel.factor_radices(nx)}, "
+              f"{launched} launch", flush=True)
+        check(launched == 1 and bool(torch.isfinite(got).all()) and err <= 1e-3,
+              f"K1 disagrees at {label}")
+    record["parity"] = parity
+
+    # above the shared-memory limits each wrapper raises and names the limit
+    refusals = {}
+    big = torch.zeros((1, 6144, 6144), dtype=torch.complex64, device="cuda")
+    try:
+        k2.ns_advection(big, k2.fftfreq_constants(6144, device="cuda"))
+        refusals["K2 n=6144"] = None
+    except ValueError as e:
+        refusals["K2 n=6144"] = str(e)
+    del big
+    solver = KSSolver(nx=4320, lx=22.0, dt=0.1, oversampling=30, device="cuda")
+    y = torch.zeros((2, 4320), dtype=torch.float32, device="cuda")
+    try:
+        ks_kernel.ks_cnab2_step(y, y, solver)
+        refusals["K1 nx=4320"] = None
+    except ValueError as e:
+        refusals["K1 nx=4320"] = str(e)
+    print(json.dumps({"refusals": refusals}), flush=True)
+    record["refusals"] = refusals
+    check(refusals["K2 n=6144"] is not None and "up to 4304" in refusals["K2 n=6144"]
+          and refusals["K1 nx=4320"] is not None and "up to 4303" in refusals["K1 nx=4320"],
+          f"a wrapper did not refuse a grid above its limit: {refusals}")
+
+    # times beside the bounds
+    k2_times, k1_times = {}, {}
+    for n, batch, iters, plain_iters in GRID_K2_TIMED:
+        w, consts = k2_inputs.get((n, batch)) or (None, make_sharded_ops(n, n, device="cuda"))
+        if w is None:
+            w = torch.fft.fft2(torch.tensor(rng.standard_normal((batch, n, n)),
+                                            dtype=torch.float32, device="cuda"))
+        b_ms = 1e3 * k2.min_bytes(n, batch) / PEAK_BYTES_PER_S
+        o_ms = 1e3 * k2.flops(n, batch) / PEAK_F32_FLOPS
+        k2_times[f"n{n}_b{batch}"] = t = {
+            "ms": cuda_ms(lambda: k2.ns_advection(w, consts), iters),
+            "plain_ms": cuda_ms(lambda: k2.ns_advection_plain(w, consts), plain_iters),
+            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms > o_ms else "operations",
+            "library_ms": None, "column_tile": k2.column_tile(n, batch),
+            "row_pairs": k2.row_pairs(n, batch)}
+        print(f"K2 n={n} batch {batch}: {t['ms']:.4f} ms/call, plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}; x{t['ms'] / t['bound_ms']:.1f}); {card}",
+              flush=True)
+        del w
+    for nx, batch, iters, plain_iters in GRID_K1_TIMED:
+        solver = KSSolver(nx=nx, lx=22.0, dt=0.1, oversampling=30, device="cuda")
+        y = torch.tensor(3.0 * rng.standard_normal((batch, nx)), dtype=torch.float32, device="cuda")
+        f = torch.tensor(rng.standard_normal((batch, nx)), dtype=torch.float32, device="cuda")
+        b_ms = 1e3 * 3 * batch * nx * 4 / PEAK_BYTES_PER_S
+        o_ms = 1e3 * ks_kernel.flops_per_row(nx, 30) * batch / PEAK_F32_FLOPS
+        k1_times[f"{batch}x{nx}"] = t = {
+            "ms": cuda_ms(lambda: ks_kernel.ks_cnab2_step(y, f, solver), iters),
+            "plain_ms": cuda_ms(lambda: ks_kernel.ks_cnab2_plain(y, f, solver), plain_iters),
+            "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms > o_ms else "operations",
+            "library_ms": None, "launch_shape": list(ks_kernel.launch_shape(nx, batch))}
+        print(f"K1 {batch}x{nx}, 30 substeps: {t['ms']:.4f} ms/launch, plain {t['plain_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}; x{t['ms'] / t['bound_ms']:.1f}); {card}",
+              flush=True)
+    record["K2_times"], record["K1_times"] = k2_times, k1_times
+
+    def cli(argv):
+        """The CLI's last line, and the kernels' launches in it."""
+        k1_0, k2_0 = ks_kernel.KS_CNAB2.launches, k2.NS_ADVECTION.launches
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run.main(argv)
+        print(buf.getvalue(), end="", flush=True)
+        return (json.loads(buf.getvalue().strip().splitlines()[-1]),
+                ks_kernel.KS_CNAB2.launches - k1_0, k2.NS_ADVECTION.launches - k2_0)
+
+    fluid = ["Fluid_16_256", "--mesh", "1x1", "--eval", "--load-from",
+             str(ROOT / "artifacts" / "Fluid_16_256"), "--nx", str(GRID_FLUID_NX), "--p-te",
+             str(GRID_FLUID_P_TE)]
+    got, _, k2_fluid = cli(fluid + ["--out", str(base / "fluid_card")])
+    want, _, _ = cli(fluid + ["--cpu", "--out", str(base / "fluid_cpu")])
+    n_steps = int(round(GRID_FLUID_P_TE / FLUID_16_256.dt))
+    substeps = dataclasses.replace(FLUID_16_256, nx=GRID_FLUID_NX).oversampling  # 16 nx dt
+    k2_want = 2 * 4 * substeps * n_steps  # trained and no action
+    rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in ("trained", "no action"))
+    record["fluid_cli"] = {"card": got, "cpu": want, "rel": rel, "K2_launches": k2_fluid,
+                           "K2_launches_expected": k2_want}
+    print(json.dumps({"phase": 61, "fluid --mesh 1x1 --eval --nx": GRID_FLUID_NX,
+                      **record["fluid_cli"]}), flush=True)
+    check(got["grid"] == GRID_FLUID_NX and rel <= GRID_REL,
+          f"the fluid eval at {GRID_FLUID_NX}^2 differs card vs CPU by rel {rel}")
+    check(k2_fluid == k2_want, f"K2 launched {k2_fluid} times in the fluid eval, expected {k2_want}")
+
+    ks = ["KS22", "--eval", "--load-from", str(ROOT / "artifacts" / "KS22"), "--config-overrides",
+          json.dumps({"nx": GRID_KS_NX}), "--p-te", str(GRID_KS_P_TE)]
+    got, k1_ks, _ = cli(ks + ["--out", str(base / "ks_card")])
+    want, _, _ = cli(ks + ["--cpu", "--out", str(base / "ks_cpu")])
+    k1_want = int(round(GRID_KS_P_TE / KS22.dt))
+    diff = abs(got["suppression"] - want["suppression"])
+    record["ks_cli"] = {"card": got, "cpu": want, "abs_diff": diff, "K1_launches": k1_ks,
+                        "K1_launches_expected": k1_want}
+    print(json.dumps({"phase": 61, "KS22 --eval nx": GRID_KS_NX, **record["ks_cli"]}), flush=True)
+    check(diff <= GRID_REL, f"the KS22 nx={GRID_KS_NX} suppression differs card vs CPU by {diff}")
+    check(k1_ks == k1_want, f"K1 launched {k1_ks} times in the KS eval, expected {k1_want}")
+
+    # the two root scripts through their entry points, cut in depth only
+    import bench_decomp_torch
+    import bench_population_torch
+
+    benches = {}
+    for script, args in ((bench_decomp_torch, ["--chunks", "1", "--chunk-len", "5",
+                                               "--driver-chunks", "1"]),
+                         (bench_population_torch, ["--chunks", "1", "--chunk-len", "5"])):
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = script.main(args)
+        print(buf.getvalue(), end="", flush=True)
+        check(rc == 0, f"{script.__name__} failed (exit {rc})")
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        benches[script.__name__] = {**line, "seconds": time.perf_counter() - t0}
+        check(line["device"] == torch.cuda.get_device_name(0)
+              and all(r > 0 for r in line["env_steps_per_s"].values()),
+              f"{script.__name__}'s line is malformed: {line}")
+    record["benches"] = {k: {"seconds": v["seconds"]} for k, v in benches.items()}
+    record["peak_device_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    Path(out_json).write_text(json.dumps({
+        "K1": {"KS22 nx=190 --eval (phase 61)": k1_ks},
+        "K2": {"Fluid_16_256 --mesh 1x1 --eval --nx 96 (phase 61)": k2_fluid},
+        "K1_times": k1_times, "K2_times": k2_times,
+        "K1_max_abs_err": max(v["max_abs_err"] for k, v in parity.items() if k.startswith("K1")),
+        "K2_max_err_of_scale": max(v["err_of_scale"] for k, v in parity.items()
+                                   if k.startswith("K2")),
+        "record": record}))
+    return 0
+
+
+def grids_phases(card: str) -> dict:
+    """Phase 61, in a process of its own. Returns what grids_child wrote."""
+    phase("-- phase 61 in a process of its own")
+    out_json = ROOT / "build" / "smoke_grids.json"
+    out_json.unlink(missing_ok=True)
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--grids-child",
+                           str(out_json)], cwd=str(ROOT), timeout=600)
+    check(proc.returncode == 0 and out_json.exists(),
+          f"phase 61 failed in its process (exit {proc.returncode})")
+    return json.loads(out_json.read_text())
+
+
 def main() -> int:
     import torch
 
@@ -3291,6 +3568,8 @@ def main() -> int:
                         help="run phases 1, 2 and 51-54 and end with the ok line")
     parser.add_argument("--dp-only", action="store_true",
                         help="run phases 1, 2 and 55-60 and end with the ok line")
+    parser.add_argument("--grids-only", action="store_true",
+                        help="run phases 1, 2 and 61 and end with the ok line")
     parser.add_argument("--fidelity-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--agents-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--families-child", default=None, help=argparse.SUPPRESS)
@@ -3298,6 +3577,7 @@ def main() -> int:
     parser.add_argument("--tools-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--mesh-child", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--dp-child", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--grids-child", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3308,7 +3588,8 @@ def main() -> int:
         return 1
     children = {"fidelity_child": fidelity_child, "families_child": families_child,
                 "agents_child": agents_child, "tiers_child": tiers_child,
-                "tools_child": tools_child, "mesh_child": mesh_child, "dp_child": dp_child}
+                "tools_child": tools_child, "mesh_child": mesh_child, "dp_child": dp_child,
+                "grids_child": grids_child}
     for name, child in children.items():
         if getattr(args, name):
             rc = child(getattr(args, name))
@@ -3373,14 +3654,19 @@ def main() -> int:
     if args.agents_only:
         print(json.dumps({"K1_launches_on_the_agent_paths": agents_phases(card)}))
         return 0
-    if args.tiers_only or args.tools_only or args.mesh_only or args.dp_only:
-        launches = (tiers_phases(card) if args.tiers_only else {"K1": tools_phases(card)}
-                    if args.tools_only else {"K2": mesh_phases(card)} if args.mesh_only
-                    else dp_phases(card))
+    if args.tiers_only or args.tools_only or args.mesh_only or args.dp_only or args.grids_only:
+        if args.grids_only:
+            got = grids_phases(card)
+            launches = {"K1": got["K1"], "K2": got["K2"]}
+        else:
+            launches = (tiers_phases(card) if args.tiers_only else {"K1": tools_phases(card)}
+                        if args.tools_only else {"K2": mesh_phases(card)} if args.mesh_only
+                        else dp_phases(card))
         print_phase_seconds()
         print(json.dumps({"launches_on_the_tier_paths" if args.tiers_only
                           else "launches_on_the_tool_paths" if args.tools_only
                           else "launches_on_the_mesh_paths" if args.mesh_only
+                          else "launches_on_the_grid_paths" if args.grids_only
                           else "launches_on_the_dp_paths": launches}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                                  "kind": torch.cuda.get_device_name(0),
@@ -3771,6 +4057,7 @@ def main() -> int:
     k1_tools = tools_phases(card)
     k2_mesh = mesh_phases(card)
     k_dp = dp_phases(card)
+    grids = grids_phases(card)
     print_phase_seconds()
 
     print(json.dumps({"kernels": [{
@@ -3779,29 +4066,34 @@ def main() -> int:
         "replaces": ks_kernel.REPLACES,
         "launches": (launches + sum(k1_training.values()) + sum(k1_fidelity.values())
                      + sum(k1_agents.values()) + sum(k_tiers["K1"].values())
-                     + sum(k1_tools.values()) + sum(k_dp["K1"].values())),
+                     + sum(k1_tools.values()) + sum(k_dp["K1"].values())
+                     + sum(grids["K1"].values())),
         "launches_by_path": {"evaluation (phases 4-5)": launches,
                              "training: trained controller's rollout (phase 15)": k1_training["rollout"],
                              "training: train steps (phase 16)": k1_training["train_steps"],
                              **k1_fidelity, **k1_agents, **k_tiers["K1"], **k1_tools,
-                             **k_dp["K1"]},
+                             **k_dp["K1"], **grids["K1"]},
         "max_abs_err": max(errs[k] for k in MAIN_PATH_SHAPES), "ms": k_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None, "status": "ok", "shape": "16384x192, 30 substeps",
-        "at_1x192": k1_one}, {
+        "at_1x192": k1_one, "other_grids": grids["K1_times"],
+        "other_grids_max_abs_err": grids["K1_max_abs_err"]}, {
         "name": "ns_advection", "route": "cuda",
         "source": "distributedconvrl_pde_control_torch/csrc/" + k2.SOURCE,
         "replaces": k2.REPLACES,
         "launches": (k2_launches + k2_training + sum(k_tiers["K2"].values())
-                     + sum(k2_mesh.values()) + sum(k_dp["K2"].values())),
+                     + sum(k2_mesh.values()) + sum(k_dp["K2"].values())
+                     + sum(grids["K2"].values())),
         "launches_by_path": {"evaluation (phases 9-10)": k2_launches,
                              "training (phases 20-21)": k2_training, **k_tiers["K2"], **k2_mesh,
-                             **k_dp["K2"]},
+                             **k_dp["K2"], **grids["K2"]},
         "max_abs_err": max(k2_errs[k] for k in K2_MAIN_PATH_SHAPES),
         "max_err_of_scale": max(k2_rel_errs[k] for k in K2_MAIN_PATH_SHAPES),
         "max_fused_err_of_scale": max(k2_fused_errs.values()),
         **k2_times["n256_b1"], "library_ms": None, "status": "ok",
-        "shape": "n256_b1", "at_n256_b16": k2_times["n256_b16"]}]}))
+        "shape": "n256_b1", "at_n256_b16": k2_times["n256_b16"],
+        "other_grids": grids["K2_times"],
+        "other_grids_max_err_of_scale": grids["K2_max_err_of_scale"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -22,10 +22,12 @@
 //
 // The transforms are in-place mixed-radix FFTs over the factors of nx (4, 2,
 // 3 and 5 as butterflies in registers; any other factor by a generic
-// out-of-place stage, so every nx % 4 == 0 is taken). Neighbouring butterfly
-// stages share a pass: a thread loads up to 16 points, runs both stages on
-// them in registers and stores them, so 192 = (4*4)(4*3) is two passes over
-// shared memory where the first version summed 192-term DFTs. The inverse is
+// out-of-place stage, so every nx is taken, odd ones included; the
+// butterflies and a pass's stages are csrc/radix.cuh, shared with K2).
+// Neighbouring butterfly stages share a pass: a thread loads up to 16 points,
+// runs both stages on them in registers and stores them, so 192 =
+// (4*4)(4*3) is two passes over shared memory where the first version
+// summed 192-term DFTs. The inverse is
 // decimation in frequency (natural order in, digit-reversed out) and the
 // forward decimation in time (digit-reversed in, natural out); between them
 // the field is only squared, pointwise, so no stage ever permutes data: only
@@ -34,7 +36,9 @@
 // its inverse stages, squares and runs its forward stages on the same
 // registers. A substep at nx = 192 is thus three passes and the spectral
 // pass, one barrier each; the split, the CNAB2 update and the merge for the
-// next inverse are one pass (a thread owns bins k and nx - k of a pair).
+// next inverse are one pass (a thread owns bins k and nx - k of a pair; bin
+// 0, and for even nx the Nyquist bin nx/2, is its own mirror, and for odd nx
+// no other bin is).
 // Work lines are laid out [point][pair], so that neighbouring threads take
 // the same task of neighbouring pairs: consecutive shared-memory words
 // whatever the stage's stride, and one broadcast twiddle read.
@@ -49,7 +53,10 @@
 // remains is the shared-memory traffic of its passes (each reads and writes
 // the line once, the spectral pass also three half spectra), one barrier per
 // pass, and the registers of the 16-point passes (128 per thread, so an SM
-// holds 512 threads). Everything is float32. Requires nx % 4 == 0.
+// holds 512 threads). Everything is float32. A CTA of one row pair needs
+// ~54 B of shared memory per grid point (~62 with a generic stage), so nx
+// goes up to 4,303 (3,748); the Python wrapper refuses more and names the
+// limit.
 //
 // Plain C interface (built by nvcc, loaded with ctypes): every call returns
 // a cudaError_t code, 0 on success, checked by the Python wrapper.
@@ -58,6 +65,8 @@
 #include <stddef.h>
 
 namespace {
+
+#include "radix.cuh"
 
 constexpr int kOps = 5;  // a_inv, b, g_alpha, dist_re, dist_im
 constexpr int kMaxFactors = 16;
@@ -107,16 +116,6 @@ __device__ inline Smem carve(float4* base, int nx, int pairs, int generic) {
   return s;
 }
 
-__device__ inline float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
-__device__ inline float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
-__device__ inline float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-// a * (+i) for the inverse, a * (-i) for the forward transform
-template <bool kInverse>
-__device__ inline float2 mul_i(float2 a) {
-  return kInverse ? make_float2(-a.y, a.x) : make_float2(a.y, -a.x);
-}
 // exp(+-2 pi i idx / nx), idx < nx; + for the inverse
 template <bool kInverse>
 __device__ inline float2 twiddle_at(const float2* tw, int idx) {
@@ -124,103 +123,11 @@ __device__ inline float2 twiddle_at(const float2* tw, int idx) {
   if (!kInverse) t.y = -t.y;
   return t;
 }
-
-// R-point DFT in registers, natural order in and out.
-template <int R, bool kInverse>
-__device__ __forceinline__ void butterfly(float2 (&x)[R]) {
-  if constexpr (R == 2) {
-    const float2 a = x[0], b = x[1];
-    x[0] = cadd(a, b);
-    x[1] = csub(a, b);
-  } else if constexpr (R == 3) {
-    const float h = 0.86602540378443865f;  // sin(2 pi / 3)
-    const float2 s = cadd(x[1], x[2]), d = csub(x[1], x[2]);
-    const float2 t = make_float2(x[0].x - 0.5f * s.x, x[0].y - 0.5f * s.y);
-    const float2 e = mul_i<kInverse>(make_float2(h * d.x, h * d.y));
-    x[0] = cadd(x[0], s);
-    x[1] = cadd(t, e);
-    x[2] = csub(t, e);
-  } else if constexpr (R == 4) {
-    const float2 t0 = cadd(x[0], x[2]), t1 = csub(x[0], x[2]);
-    const float2 t2 = cadd(x[1], x[3]), t3 = mul_i<kInverse>(csub(x[1], x[3]));
-    x[0] = cadd(t0, t2);
-    x[1] = cadd(t1, t3);
-    x[2] = csub(t0, t2);
-    x[3] = csub(t1, t3);
-  } else if constexpr (R == 5) {
-    const float c1 = 0.30901699437494742f, c2 = -0.80901699437494742f;  // cos(2 pi / 5), cos(4 pi / 5)
-    const float s1 = 0.95105651629515357f, s2 = 0.58778525229247313f;   // sin(2 pi / 5), sin(4 pi / 5)
-    const float2 a1 = cadd(x[1], x[4]), a2 = cadd(x[2], x[3]);
-    const float2 b1 = csub(x[1], x[4]), b2 = csub(x[2], x[3]);
-    const float2 t1 = make_float2(x[0].x + c1 * a1.x + c2 * a2.x, x[0].y + c1 * a1.y + c2 * a2.y);
-    const float2 t2 = make_float2(x[0].x + c2 * a1.x + c1 * a2.x, x[0].y + c2 * a1.y + c1 * a2.y);
-    const float2 u1 = mul_i<kInverse>(make_float2(s1 * b1.x + s2 * b2.x, s1 * b1.y + s2 * b2.y));
-    const float2 u2 = mul_i<kInverse>(make_float2(s2 * b1.x - s1 * b2.x, s2 * b1.y - s1 * b2.y));
-    x[0] = cadd(x[0], cadd(a1, a2));
-    x[1] = cadd(t1, u1);
-    x[2] = cadd(t2, u2);
-    x[3] = csub(t2, u2);
-    x[4] = csub(t1, u1);
-  }  // R == 1: nothing to do
-}
-
-// The stages of one pass on the R1 * R2 points a thread holds: point
-// q = m1 * R2 + m2 of x sits at p + q * sub of a block of R1 * R2 * sub
-// points. Decimation in frequency (kDif): the radix-R1 stage on the whole
-// block (butterflies over m1, then twiddles), then the radix-R2 stage on each
-// of its R1 sub-blocks; decimation in time runs the mirror image, the R2
-// stage first and twiddles before butterflies. tw1 = nx / (block length),
-// tw2 = nx / (sub-block length) scale the twiddle indices.
-template <int R1, int R2, bool kInverse, bool kDif>
-__device__ __forceinline__ void pass_stages(float2 (&x)[R1 * R2], const float2* tw, int p,
-                                            int sub, int tw1, int tw2) {
-  float2 w2[R2];  // the R2 stage's twiddles do not depend on the sub-block
-  if (R2 > 1 && sub > 1) {
-#pragma unroll
-    for (int k = 1; k < R2; ++k) w2[k] = twiddle_at<kInverse>(tw, p * k * tw2);
-  }
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    if ((half == 0) == kDif) {  // the radix-R1 stage
-#pragma unroll
-      for (int m2 = 0; m2 < R2; ++m2) {
-        float2 t[R1];
-#pragma unroll
-        for (int m1 = 0; m1 < R1; ++m1) t[m1] = x[m1 * R2 + m2];
-        const int at = (p + m2 * sub) * tw1;
-        if (!kDif && (R2 > 1 || sub > 1)) {
-#pragma unroll
-          for (int m1 = 1; m1 < R1; ++m1) t[m1] = cmul(t[m1], twiddle_at<kInverse>(tw, at * m1));
-        }
-        butterfly<R1, kInverse>(t);
-        if (kDif && (R2 > 1 || sub > 1)) {
-#pragma unroll
-          for (int m1 = 1; m1 < R1; ++m1) t[m1] = cmul(t[m1], twiddle_at<kInverse>(tw, at * m1));
-        }
-#pragma unroll
-        for (int m1 = 0; m1 < R1; ++m1) x[m1 * R2 + m2] = t[m1];
-      }
-    } else if (R2 > 1) {  // the radix-R2 stage
-#pragma unroll
-      for (int m1 = 0; m1 < R1; ++m1) {
-        float2 t[R2];
-#pragma unroll
-        for (int m2 = 0; m2 < R2; ++m2) t[m2] = x[m1 * R2 + m2];
-        if (!kDif && sub > 1) {
-#pragma unroll
-          for (int m2 = 1; m2 < R2; ++m2) t[m2] = cmul(t[m2], w2[m2]);
-        }
-        butterfly<R2, kInverse>(t);
-        if (kDif && sub > 1) {
-#pragma unroll
-          for (int m2 = 1; m2 < R2; ++m2) t[m2] = cmul(t[m2], w2[m2]);
-        }
-#pragma unroll
-        for (int m2 = 0; m2 < R2; ++m2) x[m1 * R2 + m2] = t[m2];
-      }
-    }
-  }
-}
+template <bool kInverse>
+struct Table {  // pass_stages' twiddle lookup
+  const float2* tw;
+  __device__ float2 operator()(int idx) const { return twiddle_at<kInverse>(tw, idx); }
+};
 
 enum PassMode { kInversePass = 0, kForwardPass = 1, kTurnPass = 2 };
 
@@ -245,12 +152,14 @@ __device__ inline void fft_pass(float2* z, const float2* tw, int nx, int len, un
     float2 x[R];
 #pragma unroll
     for (int q = 0; q < R; ++q) x[q] = base[q * step];
-    if (kMode != kForwardPass) pass_stages<R1, R2, true, true>(x, tw, p, sub, tw1, tw2);
+    if (kMode != kForwardPass)
+      pass_stages<R1, R2, true, true>(x, Table<true>{tw}, p, sub, tw1, tw2);
     if (kMode == kTurnPass) {
 #pragma unroll
       for (int q = 0; q < R; ++q) x[q] = make_float2(x[q].x * x[q].x, x[q].y * x[q].y);
     }
-    if (kMode != kInversePass) pass_stages<R1, R2, false, false>(x, tw, p, sub, tw1, tw2);
+    if (kMode != kInversePass)
+      pass_stages<R1, R2, false, false>(x, Table<false>{tw}, p, sub, tw1, tw2);
 #pragma unroll
     for (int q = 0; q < R; ++q) base[q * step] = x[q];
   }
@@ -307,16 +216,6 @@ __device__ inline void run_pass(Smem& s, const Plan& plan, int pass, int len, in
   float2* done = s.z2;
   s.z2 = s.z;
   s.z = done;
-}
-
-// The pairs of neighbouring factors (r1, r2) that run as one pass: those that
-// `factor_radices`'s order (4s, a 2, 3s, 5s) can produce with at most 16
-// points per thread. run_pass has a case for each.
-inline bool shares_pass(int r1, int r2) {
-  const int pairs[][2] = {{4, 4}, {4, 3}, {4, 2}, {2, 3}, {2, 5}, {3, 3}, {3, 5}};
-  for (const auto& pr : pairs)
-    if (pr[0] == r1 && pr[1] == r2) return true;
-  return false;
 }
 
 // Unscaled inverse transforms of the work lines: natural order in,

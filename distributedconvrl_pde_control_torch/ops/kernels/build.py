@@ -3,8 +3,9 @@
 Each source under ``distributedconvrl_pde_control_torch/csrc/`` exposes a
 plain C interface and is compiled on its own into a shared library under
 ``build/kernels/`` at the root of the checkout (git-ignored), at first use.
-The library's name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.
+The sources share the headers (``*.cuh``) beside them. The library's name
+carries a hash of the source, the headers and the flags, so an edited source
+or header is rebuilt and an unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ def _nvcc() -> str:
 
 def _target(source: str) -> Path:
     src = (CSRC_DIR / source).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}_{key}.so"
 

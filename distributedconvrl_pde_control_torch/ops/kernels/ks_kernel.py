@@ -26,6 +26,11 @@ a CTA takes (``launch_shape``).
 What bounds it. Operations, not bytes: ``flops_per_row`` counts what the step
 needs (62 real FFTs and the per-bin update) whatever transform runs, and
 chip_smoke.py holds the kernel's time against that count.
+
+Grid sizes. Every nx >= 2, even or odd (odd nx has no Nyquist bin: the split
+and merge pair bins k and nx - k, and none is its own mirror but k = 0), up
+to the grid whose CTA of one row pair still fits the card's shared memory
+(``line_limit``); above it the wrapper raises and names the limit.
 """
 
 from __future__ import annotations
@@ -95,6 +100,13 @@ def factor_radices(nx: int) -> list[int]:
     return radices
 
 
+def has_generic_stage(n: int) -> bool:
+    """Whether a transform of length n runs a generic stage: a prime factor
+    that is none of the butterflies, which runs out of place (a second
+    line buffer in shared memory)."""
+    return any(r not in BUTTERFLIES for r in factor_radices(n))
+
+
 def digit_reversed_positions(nx: int, radices: list[int]) -> np.ndarray:
     """pos[j]: where the in-place decimation-in-frequency transform with
     these stages leaves output j (and where the decimation-in-time mirror
@@ -137,6 +149,17 @@ def smem_bytes(nx: int, pairs: int, generic: bool = False) -> int:
                 + OPS_ROWS * nf + nx)
 
 
+def line_limit(nx: int) -> int:
+    """The largest grid of nx's kind (with or without a factor the kernel
+    runs as a generic stage) whose CTA of one row pair fits the card's
+    shared memory: ~54 B per point, ~62 with a generic stage."""
+    generic = has_generic_stage(nx)
+    m = 2
+    while smem_bytes(m + 1, 1, generic) <= SMEM_LIMIT:
+        m += 1
+    return m
+
+
 def launch_shape(nx: int, batch: int) -> tuple[int, int]:
     """(row pairs per CTA, threads per CTA) for a batch at grid size nx: as
     many pairs as the batch has, up to 8, fewer where two CTAs would not
@@ -145,7 +168,7 @@ def launch_shape(nx: int, batch: int) -> tuple[int, int]:
     CTAs of 8 pairs and 128 threads: measured faster than two of 16 pairs
     and 256 threads, and than any shape with more threads per SM than the
     registers hold)."""
-    generic = any(r not in BUTTERFLIES for r in factor_radices(nx))
+    generic = has_generic_stage(nx)
     pairs, needed = MAX_PAIRS, (batch + 1) // 2
     while pairs > 1 and (smem_bytes(nx, pairs, generic) > SMEM_TARGET or pairs >= 2 * needed):
         pairs //= 2
@@ -197,8 +220,8 @@ class _KSCnab2Kernel:
             raise RuntimeError(f"K1 launches on CUDA tensors only, got {y.device}")
         ops, twiddle, pos, radices = constants
         batch, nx = y.shape
-        if nx % 4 or batch < 1:
-            raise ValueError(f"K1 needs nx % 4 == 0 and batch >= 1, got {tuple(y.shape)}")
+        if nx < 2 or batch < 1:
+            raise ValueError(f"K1 needs nx >= 2 and batch >= 1, got {tuple(y.shape)}")
         nf = nx // 2 + 1
         for name, t, shape, dtype in (("y", y, (batch, nx), torch.float32),
                                       ("forcing", forcing, (batch, nx), torch.float32),
@@ -215,8 +238,11 @@ class _KSCnab2Kernel:
         pairs, threads = launch_shape(nx, batch)
         generic = any(int(r) not in BUTTERFLIES for r in radices)
         if smem_bytes(nx, pairs, generic) > SMEM_LIMIT:
+            kind = "with a generic stage" if generic else "of butterfly radices"
             raise ValueError(f"K1 at nx={nx} needs {smem_bytes(nx, pairs, generic)} B of shared "
-                             f"memory per CTA, above the card's {SMEM_LIMIT}")
+                             f"memory per CTA, above the card's {SMEM_LIMIT} B: it keeps a row "
+                             f"pair's spectra and work lines on chip, which takes nx {kind} up "
+                             f"to {line_limit(nx)}")
         lib = self._load()
         out = torch.empty_like(y)
         stream = torch.cuda.current_stream(y.device).cuda_stream

@@ -32,6 +32,11 @@ Design of the wrapper. The constants are validated once, when
 call checks only the tensors it is given. The (B, 2, n, n) scratch is kept
 per device, stream and shape and reused: calls on one stream are ordered, so
 a later call may overwrite what an earlier one has finished with.
+
+Grid sizes. The kernel takes every square grid n >= 8 whose lines fit one
+block's shared memory (``line_limit``): a power of two runs radix-2 groups,
+any other n the mixed-radix passes of K1, with a generic stage for a prime
+factor above 5. Above the limit the wrapper raises and names it.
 """
 
 from __future__ import annotations
@@ -42,12 +47,21 @@ import dataclasses
 import numpy as np
 import torch
 
+from distributedconvrl_pde_control_torch.ops.kernels.ks_kernel import has_generic_stage
+
 SOURCE = "ns_advection.cu"
 REPLACES = "distributedconvrl_pde_control_tpu/ops/pallas/ns_advection.py:70"
 PACKED = 2  # u + i v and dw/dx + i dw/dy: the scratch holds one complex field each
-MIN_N, MAX_N = 8, 1024
+MIN_N = 8
 SMEM_TARGET = 98_304  # what a block takes at most here, so that two fit an SM
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 MIN_BLOCKS = 132  # one block per SM of an H100
+
+
+def twiddle_length(n: int) -> int:
+    """Entries of the twiddle table: n/2 for even n (the kernel takes the
+    second half by symmetry), n for odd n."""
+    return n // 2 if n % 2 == 0 else n
 
 
 # ------------------------------------------------------------- constants
@@ -57,8 +71,8 @@ class AdvectionConstants:
 
     kx varies along the last axis and ky along rows, (n, n) float32 each,
     as the reference solver holds them; `kx_vec`, `ky_vec` (n,) and the
-    twiddle table (n/2, 2) are what the kernel reads beside `inv_k2` and
-    `mask23`. What the kernel reads is validated here, once; `pointers`
+    twiddle table (`twiddle_length(n)`, 2) are what the kernel reads beside
+    `inv_k2` and `mask23`. What the kernel reads is validated here, once; `pointers`
     holds its device addresses in the order of the launch's arguments."""
 
     n: int
@@ -76,7 +90,7 @@ class AdvectionConstants:
         n, device = self.n, self.inv_k2.device
         read = (("kx_vec", self.kx_vec, (n,)), ("ky_vec", self.ky_vec, (n,)),
                 ("inv_k2", self.inv_k2, (n, n)), ("mask23", self.mask23, (n, n)),
-                ("twiddle", self.twiddle, (n // 2, 2)))
+                ("twiddle", self.twiddle, (twiddle_length(n), 2)))
         for name, t, shape in read:
             if t.device != device or t.dtype != torch.float32:
                 raise ValueError(f"K2 {name}: need float32 on {device}, got {t.dtype} on {t.device}")
@@ -105,7 +119,7 @@ def advection_constants(kx: np.ndarray, ky: np.ndarray, device="cuda") -> Advect
     inv_k2[k2 == 0.0] = 0.0
     ii = np.abs(np.fft.fftfreq(n) * n)
     mask = ((ii[:, None] <= n // 3) & (ii[None, :] <= n // 3)).astype(np.float32)
-    ang = 2.0 * np.pi * np.arange(n // 2) / n
+    ang = 2.0 * np.pi * np.arange(twiddle_length(n)) / n
     twiddle = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
 
     def dev(a):
@@ -170,22 +184,58 @@ def ns_rk4_plain(w: torch.Tensor, c: AdvectionConstants, lin: torch.Tensor, f: t
 
 
 # ---------------------------------------------------------- launch shape
+def _smem(which: int, n: int, tc: int, ppc: int, odd: bool, generic: bool) -> int:
+    npad = n + (n >> 4)
+    g = 2 if generic else 1
+    lines = (2 * ppc * n + 4 * ppc * npad * g, npad * (2 * tc * g + tc // 2), ppc * npad * g)[which]
+    return 8 * ((n if odd else n // 2) + lines)
+
+
 def smem_bytes(which: int, n: int, tc: int, ppc: int) -> int:
     """Dynamic shared memory of pass `which` (0 rows inverse, 1 columns, 2
     rows forward), as `ns_advection_smem_bytes` in the source: the twiddle
-    table and the padded lines (one spare point in 16)."""
-    npad = n + (n >> 4)
-    lines = (2 * ppc * n + 4 * ppc * npad, npad * (2 * tc + tc // 2), ppc * npad)[which]
-    return 8 * (n // 2 + lines)
+    table and the padded lines (one spare point in 16), the lines twice
+    where a generic stage runs out of place."""
+    return _smem(which, n, tc, ppc, n % 2 == 1, has_generic_stage(n))
+
+
+def line_limit(n: int) -> int:
+    """The largest grid of n's kind (odd or even; with or without a prime
+    factor above 5) whose lines fit one block at the narrowest launch shape
+    (one row pair, two columns): pass 0, the widest, grows as 8.5 n float2
+    (9 n for odd n), 4.25 n more with a generic stage."""
+    odd, generic = n % 2 == 1, has_generic_stage(n)
+    m = 8
+    while _smem(0, m + 1, 2, 1, odd, generic) <= SMEM_LIMIT:
+        m += 1
+    return m
 
 
 def column_tile(n: int, batch: int) -> int:
-    """Columns per block of the column pass: as wide as shared memory and a
-    full wave of blocks allow, so that the global accesses run long."""
-    tc = min(16, n)
-    while tc > 2 and (smem_bytes(1, n, tc, 1) > SMEM_TARGET or batch * (n // tc) < MIN_BLOCKS):
+    """Columns per block of the column pass, even: as wide as the grid,
+    shared memory and a full wave of blocks allow, so that the global
+    accesses run long. Where it does not divide n, the grid's last tile is
+    partial."""
+    tc = 16
+    while tc > 2 and (tc > n or smem_bytes(1, n, tc, 1) > SMEM_TARGET
+                      or batch * -(-n // tc) < MIN_BLOCKS):
         tc //= 2
     return tc
+
+
+def check_grid(n: int) -> None:
+    """Raises unless the kernel takes an n x n grid: n >= MIN_N, and lines
+    that fit one block's shared memory at the narrowest launch shape."""
+    if n < MIN_N:
+        raise ValueError(f"K2 takes grids of n >= {MIN_N}, got {n}")
+    need = max(smem_bytes(i, n, 2, 1) for i in range(3))
+    if need > SMEM_LIMIT:
+        kind = ("with a prime factor above 5" if has_generic_stage(n)
+                else "of factors 2, 3 and 5")
+        raise ValueError(
+            f"K2 at n={n} needs {need} B of shared memory per block, above the card's "
+            f"{SMEM_LIMIT} B: its line transforms hold whole lines, which takes "
+            f"{'odd' if n % 2 else 'even'} n {kind} up to {line_limit(n)}")
 
 
 def row_pairs(n: int, batch: int) -> int:
@@ -227,7 +277,7 @@ class _NSAdvectionKernel:
     def __init__(self):
         self.launches = 0  # kernel launches, as the library counts them where it makes them
         self._lib = None
-        self._plans = {}  # (device, stream, batch, n) -> [scratch, logn, tc, ppc, work or None]
+        self._plans = {}  # (device, stream, batch, n) -> [scratch, tc, ppc, work or None]
 
     def _load(self):
         if self._lib is None:
@@ -235,9 +285,9 @@ class _NSAdvectionKernel:
 
             lib = build.load(SOURCE)
             ptr, f64, i32 = ctypes.c_void_p, ctypes.c_double, ctypes.c_int
-            lib.ns_advection_launch.argtypes = [ptr] * 10 + [i32] * 6 + [ptr] * 2
+            lib.ns_advection_launch.argtypes = [ptr] * 10 + [i32] * 5 + [ptr] * 2
             lib.ns_advection_launch.restype = ctypes.c_int
-            lib.ns_advection_rk4_launch.argtypes = [ptr] * 11 + [f64] + [i32] * 7 + [ptr] * 2
+            lib.ns_advection_rk4_launch.argtypes = [ptr] * 11 + [f64] + [i32] * 6 + [ptr] * 2
             lib.ns_advection_rk4_launch.restype = ctypes.c_int
             lib.ns_advection_error_string.argtypes = [ctypes.c_int]
             lib.ns_advection_error_string.restype = ctypes.c_char_p
@@ -258,14 +308,11 @@ class _NSAdvectionKernel:
         key = (device.index, stream, w.shape[0], n)
         plan = self._plans.get(key)
         if plan is None:
-            if n < MIN_N or n > MAX_N or n & (n - 1):
-                raise ValueError(f"K2's line transform takes n a power of two in "
-                                 f"[{MIN_N}, {MAX_N}], got {n}")
+            check_grid(n)
             batch = w.shape[0]
             self._load()
             scratch = torch.empty((batch, PACKED, n, n), dtype=torch.complex64, device=device)
-            plan = self._plans[key] = [scratch, n.bit_length() - 1, column_tile(n, batch),
-                                       row_pairs(n, batch), None]
+            plan = self._plans[key] = [scratch, column_tile(n, batch), row_pairs(n, batch), None]
         return plan, stream
 
     @staticmethod
@@ -291,14 +338,14 @@ class _NSAdvectionKernel:
     def __call__(self, w: torch.Tensor, c: AdvectionConstants, lin=None, f=None,
                  chain: bool = False) -> torch.Tensor:
         """`ns_advection`: one launch of the kernel (three with `chain`)."""
-        (scratch, logn, tc, ppc, _), stream = self._plan(w, c)
+        (scratch, tc, ppc, _), stream = self._plan(w, c)
         self._check(c, lin, w=w, f=f)
         out = torch.empty_like(w)
         launched = ctypes.c_int(0)
         err = self._lib.ns_advection_launch(
             w.data_ptr(), *c.pointers, scratch.data_ptr(), out.data_ptr(),
             None if lin is None else lin.data_ptr(), None if f is None else f.data_ptr(),
-            w.shape[0], c.n, logn, tc, ppc, not chain, stream, ctypes.byref(launched))
+            w.shape[0], c.n, tc, ppc, not chain, stream, ctypes.byref(launched))
         self._count(err, launched)
         return out
 
@@ -312,14 +359,14 @@ class _NSAdvectionKernel:
         if lin is None or f is None:
             raise ValueError("K2 rk4: needs lin and f")
         self._check(c, lin, w=w, f=f)
-        if plan[4] is None:
-            plan[4] = torch.empty((5, *w.shape), dtype=torch.complex64, device=w.device)
-        scratch, logn, tc, ppc, work = plan
+        if plan[3] is None:
+            plan[3] = torch.empty((5, *w.shape), dtype=torch.complex64, device=w.device)
+        scratch, tc, ppc, work = plan
         out = torch.empty_like(w)
         launched = ctypes.c_int(0)
         err = self._lib.ns_advection_rk4_launch(
             w.data_ptr(), *c.pointers, scratch.data_ptr(), work.data_ptr(), out.data_ptr(),
-            lin.data_ptr(), f.data_ptr(), dt, substeps, w.shape[0], c.n, logn, tc, ppc,
+            lin.data_ptr(), f.data_ptr(), dt, substeps, w.shape[0], c.n, tc, ppc,
             not chain, stream, ctypes.byref(launched))
         self._count(err, launched)
         return out

@@ -52,7 +52,7 @@ from distributedconvrl_pde_control_torch.train.batched import (
 )
 
 
-def dp_mesh(n: Optional[int] = None, device: str = "cpu") -> Optional[RankMesh]:
+def dp_mesh(n: Optional[int] = None, device: str = "cuda") -> Optional[RankMesh]:
     """A pure-dp mesh (n x 1) of the first `n` ranks (default: all) of the
     default process group, as this rank sees it, or None on a rank outside
     it; every rank of the group must call it (creating groups is collective).

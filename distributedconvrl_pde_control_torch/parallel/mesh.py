@@ -18,7 +18,10 @@ The backend is NCCL when every rank has a card of its own (``cuda:<rank>``)
 and gloo on CPU ranks. A mesh built without process groups (`RankMesh()`,
 or a (dp, sp) tuple handed to a trainer) is a mesh of one rank whose
 collectives are identities; a mesh of several ranks without groups can be
-built and inspected, and raises at its first collective.
+built and inspected, and raises at its first collective. As in the JAX
+package, whose meshes take `jax.devices()`, a mesh is on the card unless the
+caller asks for the CPU: `RankMesh` defaults to device "cuda" and `launch`
+to the NCCL backend; CPU ranks are `device="cpu"` and `backend="gloo"`.
 
 `launch(fn, dp, sp, ...)` runs `fn(mesh, *args)` on dp * sp ranks and
 returns rank 0's result: a mesh of one rank runs in the calling process
@@ -82,7 +85,7 @@ class RankMesh:
     sp: int = 1
     dp_idx: int = 0
     sp_idx: int = 0
-    device: str = "cpu"
+    device: str = "cuda"
     dp_group: Any = None
     sp_group: Any = None
     group: Any = None  # every rank of the mesh
@@ -269,7 +272,7 @@ class _Forward:
             sys.stdout.flush()
 
 
-def launch(fn: Callable, dp: int, sp: int, *args, backend: str = "gloo", store_dir: str,
+def launch(fn: Callable, dp: int, sp: int, *args, backend: str = "nccl", store_dir: str,
            timeout_s: float = TIMEOUT_S, deadline_s: Optional[float] = None):
     """`fn(mesh, *args)` on each rank of a dp x sp mesh; returns rank 0's
     result. `backend` "nccl" gives rank r the card cuda:r, "gloo" CPU ranks.

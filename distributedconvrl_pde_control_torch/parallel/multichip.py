@@ -139,17 +139,17 @@ class EvalState:
     done: torch.Tensor  # (Bl,) bool
 
 
-def mesh_of(mesh: Union[RankMesh, tuple, None]) -> RankMesh:
+def mesh_of(mesh: Union[RankMesh, tuple, None], device: str = "cuda") -> RankMesh:
     """A trainer's mesh: a RankMesh as given; for one device (None or the
-    tuple (1, 1)) a RankMesh without groups, whose collectives are
-    identities. A tuple of more ranks has no process groups to run on and
-    is refused."""
+    tuple (1, 1)) a RankMesh on `device` without groups, whose collectives
+    are identities. A tuple of more ranks has no process groups to run on
+    and is refused."""
     if isinstance(mesh, RankMesh):
         return mesh
     if mesh is not None and tuple(mesh) != (1, 1):
         raise ValueError(f"mesh {mesh[0]}x{mesh[1]}: a mesh of several ranks is a "
                          "parallel.mesh.RankMesh, one per rank (parallel.mesh.launch)")
-    return RankMesh()
+    return RankMesh(device=device)
 
 
 class ShardedFluidTrainer:
@@ -193,7 +193,7 @@ class ShardedFluidTrainer:
 
     def _place(self, mesh, n: int) -> None:
         """This rank's mesh, its envs and its rows of an n-point grid axis."""
-        m = self.mesh = mesh_of(mesh)
+        m = self.mesh = mesh_of(mesh, self.device)
         self.n_dp, self.n_sp = m.shape
         self.dp_idx, self.sp_idx = m.dp_idx, m.sp_idx
         self.n = n

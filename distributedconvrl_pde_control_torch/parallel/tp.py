@@ -57,7 +57,7 @@ class TPMesh:
 
     tp: int = 1
     tp_idx: int = 0
-    device: str = "cpu"
+    device: str = "cuda"
     group: Any = None
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
@@ -75,7 +75,7 @@ class TPMesh:
         return torch.cat(parts, dim)
 
 
-def make_tp_mesh(n: Optional[int] = None, device: str = "cpu") -> Optional[TPMesh]:
+def make_tp_mesh(n: Optional[int] = None, device: str = "cuda") -> Optional[TPMesh]:
     """The `tp` mesh of the first `n` ranks (default: all) of the default
     process group as this rank sees it, or None on a rank outside it; every
     rank of the group must call it. Without a process group, the mesh of one

@@ -290,10 +290,10 @@ def test_dp_refusals():
     setup = tks.build_ks(tks.KS22, device="cpu")
     cfg = BatchedTrainerConfig(n_envs=4, batch_size=8)
     with pytest.raises(ValueError, match="shards only over 'dp'; axis 'sp' has size 2"):
-        DPBatchedTrainer(setup.env, setup.agent, cfg, RankMesh(dp=1, sp=2))
+        DPBatchedTrainer(setup.env, setup.agent, cfg, RankMesh(dp=1, sp=2, device="cpu"))
     with pytest.raises(ValueError, match="n_envs=4 must divide by dp=8"):
-        DPBatchedTrainer(setup.env, setup.agent, cfg, RankMesh(dp=8))
-    assert dp_mesh().shape == (1, 1)
+        DPBatchedTrainer(setup.env, setup.agent, cfg, RankMesh(dp=8, device="cpu"))
+    assert dp_mesh(device="cpu").shape == (1, 1)
 
 
 def test_cli_checkpoint_is_read_by_both_single_device_evals(tmp_path, capsys):

@@ -191,9 +191,9 @@ def test_dfft_one_rank():
     # axis of several ranks transposes through the mesh's process groups
     # (tests/test_torch_mesh.py), which a mesh built without them lacks
     for fn, arg in ((tdfft.dfft2, torch.from_numpy(x)), (tdfft.difft2, w), (tdfft.difft2_real, w)):
-        assert torch.equal(fn(arg, RankMesh()), fn(arg))
+        assert torch.equal(fn(arg, RankMesh(device="cpu")), fn(arg))
         with pytest.raises(RuntimeError, match="process groups"):
-            fn(arg, RankMesh(sp=4))
+            fn(arg, RankMesh(sp=4, device="cpu"))
 
 
 def _solver_inputs(n=32, batch=2):
@@ -426,7 +426,7 @@ def test_eval_w0_and_trainer_refusals():
     # rounded to its own push width (2 envs x 16 actuators)
     with pytest.raises(ValueError, match="RankMesh"):
         tmc.ShardedFluidTrainer(_tiny(tfluid), (2, 1), device="cpu")
-    rank = tmc.ShardedFluidTrainer(_tiny(tfluid), RankMesh(2, 2, 1, 1),
+    rank = tmc.ShardedFluidTrainer(_tiny(tfluid), RankMesh(2, 2, 1, 1, "cpu"),
                                    tmc.ShardedTrainConfig(n_envs=4, capacity_per_dp=100),
                                    device="cpu")
     assert (rank.n_local, rank.envs, rank.rows, rank.capacity_per_dp) == (2, slice(2, 4),
@@ -478,6 +478,21 @@ def test_cli_fluid_eval_prints_the_four_keys(capsys):
         e, m = np.asarray(recs["energy"]), np.asarray(recs["active"])
         np.testing.assert_allclose(out[label], float(e[m].mean()), rtol=SLICE_RTOL)
     assert out["trained"] != out["no action"]
+
+
+def test_cli_eval_at_a_grid_other_than_a_power_of_two_matches_the_jax_cli(tmp_path, capsys):
+    """`--mesh 1x1 --eval --nx 48` (48 = 16 * 3: K2's mixed-radix lines on
+    the card, its plain version here) against the JAX CLI's own run."""
+    argv = ["Fluid_16_256", "--mesh", "1x1", "--eval", "--load-from", ARTIFACT, "--nx", "48",
+            "--p-te", "0.05", "--cpu"]
+    trun.main(argv + ["--out", str(tmp_path / "port")])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    jrun.main(argv + ["--out", str(tmp_path / "jax")])
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["grid"] == want["grid"] == 48
+    for k in ("trained", "no action"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5)
+    assert got["trained"] != got["no action"]
 
 
 def test_cli_runs_an_adaptive_preset(capsys):

@@ -33,6 +33,7 @@ def _need_cuda():
     (192, 10, 0.0, 8, 2e-4), (64, 5, 0.02, 4, 1e-5), (192, 5, 0.0, 512, 2e-4),
     (192, 30, 0.0, 1000, 1e-3), (240, 30, 0.02, 33, 1e-3), (192, 30, 0.02, 1, 1e-3),
     (600, 30, 0.0, 37, 1e-3), (60, 5, 0.02, 3, 2e-4), (28, 5, 0.02, 9, 2e-4),
+    (50, 30, 0.02, 7, 1e-3), (190, 30, 0.0, 33, 1e-3),
 ])
 def test_k1_matches_plain_on_gpu(nx, os_, mu, batch, atol):
     _need_cuda()
@@ -64,7 +65,7 @@ def test_k1_wrapper_rejects_bad_inputs_on_gpu():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,batch", [(32, 4), (16, 4), (8, 1), (128, 8), (256, 1), (256, 16),
-                                     (512, 2), (1024, 1)])
+                                     (512, 2), (1024, 1), (24, 3), (96, 2), (2048, 1)])
 def test_k2_matches_plain_on_gpu(n, batch):
     """Spectra of standard-normal fields, the Pallas test's tolerance."""
     _need_cuda()
@@ -164,9 +165,9 @@ def test_k2_wrapper_rejects_bad_inputs_on_gpu():
     for bad in (w.to(torch.complex128), w[0], w[:, :, :16].contiguous(), w.transpose(1, 2)):
         with pytest.raises(ValueError):
             ns_advection.NS_ADVECTION(bad, c)
-    with pytest.raises(ValueError, match="power of two"):
-        ns_advection.NS_ADVECTION(torch.zeros(1, 24, 24, dtype=torch.complex64, device="cuda"),
-                                  ns_advection.fftfreq_constants(24, device="cuda"))
+    with pytest.raises(ValueError, match="up to 4304"):  # above the shared-memory limit
+        ns_advection.NS_ADVECTION(torch.zeros(1, 6144, 6144, dtype=torch.complex64, device="cuda"),
+                                  ns_advection.fftfreq_constants(6144, device="cuda"))
     with pytest.raises(ValueError, match="float32 on cuda"):
         ns_advection.NS_ADVECTION(w, ns_advection.fftfreq_constants(32, device="cpu"))
     for kw in (dict(f=w[:1]), dict(f=w.to(torch.complex128)), dict(lin=c.k2.double()),

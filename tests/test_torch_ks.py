@@ -34,6 +34,14 @@ CASES = [
     (64, 5, 0.02, 4, 0, 0.0, 0.0, 1e-5),
     (192, 5, 0.0, 512, 1, 0.3, 0.1, 2e-4),
 ]
+# grids that are not multiples of 4, at the same tolerance: odd nx (no Nyquist
+# bin) and nx = 2 mod 4 (KS22 at nx=190 through --config-overrides)
+OTHER_GRIDS = [
+    (45, 5, 0.02, 4, 2, 0.4, 0.2, 2e-4),
+    (50, 5, 0.0, 3, 3, 0.4, 0.2, 2e-4),
+    (90, 10, 0.02, 2, 4, 0.4, 0.2, 2e-4),
+    (190, 10, 0.0, 5, 5, 0.4, 0.2, 2e-4),
+]
 
 
 def _inputs(nx, batch, seed, amp_y, amp_f):
@@ -50,7 +58,7 @@ def test_ks_rfft_operators_match():
             np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("nx,os_,mu,batch,seed,amp_y,amp_f,atol", CASES)
+@pytest.mark.parametrize("nx,os_,mu,batch,seed,amp_y,amp_f,atol", CASES + OTHER_GRIDS)
 def test_plain_step_matches_jax_and_pallas(nx, os_, mu, batch, seed, amp_y, amp_f, atol):
     y, f = _inputs(nx, batch, seed, amp_y, amp_f)
     jsolver = JaxKSSolver(nx=nx, lx=22.0, dt=0.1, oversampling=os_, mu=mu, fft_mode="native")
@@ -92,7 +100,9 @@ def test_kernel_constants_layout():
 
 
 @pytest.mark.parametrize("nx,want", [(64, [4, 4, 4]), (192, [4, 4, 4, 3]), (240, [4, 4, 3, 5]),
-                                     (600, [4, 2, 3, 5, 5]), (28, [4, 7]), (404, [4, 101])])
+                                     (600, [4, 2, 3, 5, 5]), (28, [4, 7]), (404, [4, 101]),
+                                     (45, [3, 3, 5]), (50, [2, 5, 5]), (190, [2, 5, 19]),
+                                     (250, [2, 5, 5, 5])])
 def test_factor_radices_and_positions(nx, want):
     """Every preset's grid factors into the kernel's butterflies; another
     factor stays as it is (the generic stage). The position table is the
@@ -127,6 +137,17 @@ def test_launch_shape_fits_the_card(nx, batch):
         assert (pairs, threads) == want
         if batch == 16384:  # four CTAs of 16 rows fit an SM's shared memory
             assert ks_kernel.smem_bytes(nx, pairs) == 53_780
+
+
+def test_line_limit():
+    """The largest grid whose CTA of one row pair fits the card's shared
+    memory: with butterflies only and with a generic stage."""
+    for nx, generic, limit in ((192, False, 4303), (45, False, 4303), (28, True, 3748),
+                               (190, True, 3748)):
+        assert ks_kernel.line_limit(nx) == limit
+        assert ks_kernel.smem_bytes(limit, 1, generic) <= ks_kernel.SMEM_LIMIT
+        assert ks_kernel.smem_bytes(limit + 1, 1, generic) > ks_kernel.SMEM_LIMIT
+    assert ks_kernel.launch_shape(4303, 1)[0] == 1  # one row pair where nothing more fits
 
 
 # ------------------------------------------------------------------------
@@ -194,6 +215,7 @@ def emulated_k1(tmp_path_factory):
     d = tmp_path_factory.mktemp("k1emu")
     (d / "k1.cpp").write_text(src)
     subprocess.run([cxx, "-std=c++20", "-O2", "-pthread", "-shared", "-fPIC", "-w",
+                    "-I", str(build.CSRC_DIR),
                     "-o", str(d / "k1.so"), str(d / "k1.cpp")], check=True)
     lib = ctypes.CDLL(str(d / "k1.so"))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -219,6 +241,10 @@ def emulated_k1(tmp_path_factory):
     (256, 3, 0.0, 2, 11, 0.5, 0.2, 2e-4),  # two passes (4, 4)
     (36, 4, 0.0, 5, 12, 0.5, 0.2, 2e-4),  # passes (4, 3) and 3: the turn in a single stage
     (8, 4, 0.02, 2, 13, 0.5, 0.2, 2e-4),  # the one pass (4, 2) is the turn
+    (45, 4, 0.02, 3, 21, 0.5, 0.2, 2e-4),  # odd nx: passes (3, 3), 5; no Nyquist bin
+    (50, 4, 0.02, 5, 22, 0.5, 0.2, 2e-4),  # nx = 2 mod 4: passes (2, 5), 5
+    (90, 4, 0.0, 4, 23, 0.5, 0.2, 2e-4),  # passes (2, 3), (3, 5)
+    (190, 3, 0.02, 3, 24, 0.5, 0.2, 2e-4),  # passes (2, 5), 19: a generic innermost stage
 ])
 def test_k1_source_matches_plain(emulated_k1, nx, os_, mu, batch, seed, amp_y, amp_f, atol):
     y, f = (torch.from_numpy(a) for a in _inputs(nx, batch, seed, amp_y, amp_f))

@@ -111,6 +111,24 @@ def test_make_dp_sp_mesh_shapes():
     assert (RankMesh().shape, RankMesh(2, 4, 1, 3).rank) == ((1, 1), 7)
 
 
+def test_mesh_constructors_default_to_the_card():
+    """As the JAX package's meshes take jax.devices() (the accelerator), the
+    port's are on the card unless the caller asks for the CPU: RankMesh and
+    TPMesh default to "cuda", dp_mesh and make_tp_mesh build on "cuda" without
+    a process group, launch defaults to the NCCL backend, and a trainer's
+    one-device mesh takes the trainer's device."""
+    import inspect
+
+    from distributedconvrl_pde_control_torch.parallel import batched_dp, multichip, tp
+
+    assert RankMesh().device == "cuda" and tp.TPMesh().device == "cuda"
+    assert batched_dp.dp_mesh().device == "cuda" and tp.make_tp_mesh().device == "cuda"
+    assert batched_dp.dp_mesh(device="cpu").device == "cpu"
+    assert tp.make_tp_mesh(1, "cpu").device == "cpu"
+    assert inspect.signature(launch).parameters["backend"].default == "nccl"
+    assert multichip.mesh_of(None).device == "cuda" and multichip.mesh_of((1, 1), "cpu").device == "cpu"
+
+
 def jax_step(name, s, p):
     ops = jsh.make_sharded_ops(N, N)
     solver = jsh.NSShardedSolverRI(nu=NU, sp_axis="sp")

@@ -56,14 +56,16 @@ def test_constants_match_pallas(n):
     np.testing.assert_allclose(c.twiddle.numpy(), np.stack([np.cos(ang), np.sin(ang)], 1), atol=1e-7)
 
 
-@pytest.mark.parametrize("n,tile_b", [(32, 2), (16, 4)])
+@pytest.mark.parametrize("n,tile_b", [(32, 2), (16, 4), (12, 4), (24, 2), (45, 2), (48, 2),
+                                      (96, 1), (176, 1)])
 def test_plain_matches_pallas_and_xla(n, tile_b):
-    w = _spectra(n, 4)
+    batch = 4 if n <= 48 else 2  # grids other than powers of two too, odd ones included
+    w = _spectra(n, batch)
     wr, wi = jnp.asarray(w.real), jnp.asarray(w.imag)
     pr, pi = PallasAdvection2D(n=n, tile_b=tile_b, interpret=True)(wr, wi)
     xr, xi = xla_advection_ri(n)(wr, wi)
     got = k2.ns_advection(torch.from_numpy(w), k2.fftfreq_constants(n, device="cpu")).numpy()
-    assert got.shape == (4, n, n) and got.dtype == np.complex64
+    assert got.shape == (batch, n, n) and got.dtype == np.complex64
     for want_r, want_i in ((pr, pi), (xr, xi)):
         want = np.asarray(want_r) + 1j * np.asarray(want_i)
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
@@ -79,11 +81,32 @@ def test_flops_bytes_and_tile():
     assert [k2.column_tile(n, 1) for n in (8, 16, 256, 512, 1024)] == [2, 2, 2, 2, 4]
     assert [k2.column_tile(n, 16) for n in (8, 256, 512, 1024)] == [2, 16, 8, 4]
     assert [k2.row_pairs(n, b) for n, b in ((256, 1), (256, 16), (1024, 16), (8, 1))] == [1, 4, 1, 1]
-    for n in (8, 256, 1024):
+    # every grid: an even tile, no wider than the grid (a partial last tile where it does not
+    # divide n), within the target up to 1024 and within the card's limit up to line_limit
+    for n in (8, 12, 45, 96, 176, 256, 384, 1024, 2039, 2048, 4096):
         for b in (1, 16):
             tc, ppc = k2.column_tile(n, b), k2.row_pairs(n, b)
-            assert tc % 2 == 0 and n % tc == 0 and ppc >= 1
-            assert max(k2.smem_bytes(i, n, tc, ppc) for i in range(3)) <= k2.SMEM_TARGET
+            assert tc % 2 == 0 and 2 <= tc <= max(2, n) and ppc >= 1
+            need = max(k2.smem_bytes(i, n, tc, ppc) for i in range(3))
+            assert need <= (k2.SMEM_TARGET if n <= 1024 else k2.SMEM_LIMIT)
+            k2.check_grid(n)
+    assert (k2.column_tile(96, 16), k2.column_tile(176, 16), k2.column_tile(45, 16)) == (8, 8, 4)
+
+
+def test_k2_grid_limits():
+    """Every n >= 8 up to the shared-memory limit of its kind is taken; above
+    it the refusal names the limit, computed from smem_bytes."""
+    # the limit of each kind: even and odd, with factors 2, 3 and 5 only or another prime
+    assert [k2.line_limit(n) for n in (4096, 3645, 2638, 2527)] == [4304, 4008, 2641, 2527]
+    for n in (8, 9, 45, 176, 2039, 2048, 4096, 3645, 2638, 2527):
+        k2.check_grid(n)
+        assert max(k2.smem_bytes(i, n, 2, 1) for i in range(3)) <= k2.SMEM_LIMIT
+    with pytest.raises(ValueError, match="n >= 8"):
+        k2.check_grid(7)
+    for n, limit in ((4320, 4304), (6144, 4304), (6561, 4008), (2642, 2641), (4097, 2527)):
+        with pytest.raises(ValueError, match=f"up to {limit}$"):
+            k2.check_grid(n)
+    assert k2.twiddle_length(45) == 45 and k2.twiddle_length(96) == 48
 
 
 def test_k2_wrapper_never_falls_back():
@@ -129,6 +152,7 @@ inline void __syncthreads() { g_bar->arrive_and_wait(); }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 #define cudaSuccess 0
+#define cudaErrorInvalidValue 1
 #define cudaFuncAttributeMaxDynamicSharedMemorySize 0
 template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
@@ -146,7 +170,7 @@ template <class F> void emu_launch(int grid, int threads, size_t smem_bytes, F f
   }
 }
 """
-_LAUNCH = re.compile(r"(\w+)<<<(\w+), (\w+), (\w+), st>>>\(([^;]*)\);")
+_LAUNCH = re.compile(r"([\w<>]+)<<<(\w+), (\w+), (\w+), st>>>\(([^;]*)\);")
 
 
 @pytest.fixture(scope="module")
@@ -162,12 +186,13 @@ def emulated_k2(tmp_path_factory):
     d = tmp_path_factory.mktemp("k2emu")
     (d / "k2.cpp").write_text(src)
     subprocess.run([cxx, "-std=c++20", "-O2", "-pthread", "-shared", "-fPIC", "-w",
+                    "-I", str(build.CSRC_DIR),
                     "-o", str(d / "k2.so"), str(d / "k2.cpp")], check=True)
     lib = ctypes.CDLL(str(d / "k2.so"))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ns_advection_launch.argtypes = [ptr] * 10 + [i32] * 6 + [ptr] * 2
+    lib.ns_advection_launch.argtypes = [ptr] * 10 + [i32] * 5 + [ptr] * 2
     lib.ns_advection_launch.restype = ctypes.c_int
-    lib.ns_advection_rk4_launch.argtypes = [ptr] * 11 + [ctypes.c_double] + [i32] * 7 + [ptr] * 2
+    lib.ns_advection_rk4_launch.argtypes = [ptr] * 11 + [ctypes.c_double] + [i32] * 6 + [ptr] * 2
     lib.ns_advection_rk4_launch.restype = ctypes.c_int
     lib.ns_advection_smem_bytes.argtypes = [i32] * 4
     lib.ns_advection_smem_bytes.restype = ctypes.c_size_t
@@ -183,7 +208,7 @@ def _emulate(lib, w, c, tc, ppc, lin=None, f=None):
     err = lib.ns_advection_launch(
         w.data_ptr(), *c.pointers, scratch.data_ptr(), out.data_ptr(),
         None if lin is None else lin.data_ptr(), None if f is None else f.data_ptr(),
-        batch, n, n.bit_length() - 1, tc, ppc, 0, None, ctypes.byref(launched))
+        batch, n, tc, ppc, 0, None, ctypes.byref(launched))
     assert err == 0 and launched.value == 3  # the chain form: one launch per pass
     return out
 
@@ -237,6 +262,14 @@ def _assert_close(got, want, limit=2e-6):
     (32, 2, "complex", 8, 3),  # non-Hermitian everywhere
     (128, 1, "nyquist", 4, 1),  # Fluid_8's grid: groups of 4 + 3 stages
     (256, 1, "complex", 4, 1),  # the fluid path's grid at batch 1: 4 + 4 stages
+    # grids other than powers of two: mixed-radix passes
+    pytest.param(12, 3, "normal", 4, 2, id="12-3-normal"),  # one pass (4, 3)
+    (24, 2, "nyquist", 10, 2),  # passes (4, 2), 3; tiles of 10 columns, the last one of 4
+    pytest.param(45, 2, "normal", 4, 3, id="45-2-normal"),  # odd: passes (3, 3), 5; no Nyquist
+    (45, 1, "complex", 2, 1),  # odd, non-Hermitian everywhere, the narrowest tile
+    (48, 2, "case4", 14, 2),  # passes (4, 4), 3; tiles of 14 columns, the last one of 6
+    (96, 1, "nyquist", 8, 1),  # passes (4, 4), (2, 3)
+    pytest.param(176, 1, "case4", 8, 1, id="176-1-case4"),  # (4, 4), then 11: a generic stage
 ])
 def test_k2_source_matches_plain(emulated_k2, n, batch, kind, tc, ppc):
     w, c = _k2_inputs(n, batch, kind)
@@ -251,7 +284,7 @@ def _noise_spectra(rng, batch, n, scale):
 
 
 @pytest.mark.parametrize("operands", ["lin_f", "lin_only", "f_only"])
-@pytest.mark.parametrize("n,batch,kind", [(16, 2, "nyquist"), (32, 3, "case4")])
+@pytest.mark.parametrize("n,batch,kind", [(16, 2, "nyquist"), (32, 3, "case4"), (45, 2, "case4")])
 def test_k2_source_fused_operands_match_plain(emulated_k2, n, batch, kind, operands):
     """The optional operands of the function's launch against their plain
     twin, on the solver's constants and operator."""
@@ -270,6 +303,8 @@ def test_k2_source_fused_operands_match_plain(emulated_k2, n, batch, kind, opera
     (16, 3, "nyquist", 2, 2.5e-4),  # stage states that are not Hermitian on the Nyquist lines
     (32, 2, "complex", 1, 1e-4),  # nor anywhere
     (64, 1, "case4", 1, 1e-3),  # a long substep: the stage arithmetic carries weight
+    (24, 2, "nyquist", 2, 2.5e-4),  # mixed radix
+    (45, 1, "case4", 2, 1e-3),  # odd
 ])
 def test_k2_source_rk4_matches_plain(emulated_k2, n, batch, kind, substeps, dt):
     """The library's loop of RK4 substeps (four stage launches each with the
@@ -285,7 +320,7 @@ def test_k2_source_rk4_matches_plain(emulated_k2, n, batch, kind, substeps, dt):
     launched = ctypes.c_int(0)
     err = emulated_k2.ns_advection_rk4_launch(
         w.data_ptr(), *c.pointers, scratch.data_ptr(), work.data_ptr(), out.data_ptr(),
-        lin.data_ptr(), f.data_ptr(), dt, substeps, batch, n, n.bit_length() - 1, 4, 2, 0, None,
+        lin.data_ptr(), f.data_ptr(), dt, substeps, batch, n, 4, 2, 0, None,
         ctypes.byref(launched))
     assert err == 0 and launched.value == 3 * 4 * substeps  # four stages, each a chain of three
     want = k2.ns_rk4_plain(w, c, lin, f, dt, substeps)

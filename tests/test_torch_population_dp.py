@@ -200,4 +200,4 @@ def test_requires_divisible_envs():
     setup = tks.build_ks(tks.KS22, device="cpu")
     with pytest.raises(ValueError, match="divide"):
         PopulationTrainer(setup.env, setup.agent, BatchedTrainerConfig(n_envs=4, batch_size=16),
-                          P, mesh=RankMesh(dp=8))
+                          P, mesh=RankMesh(dp=8, device="cpu"))

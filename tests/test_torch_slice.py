@@ -154,6 +154,21 @@ def test_build_ks_refuses_unported_tiers():
         tks.build_ks(dataclasses.replace(tks.KS22, spectral_carry=True), device="cpu")
 
 
+def test_cli_eval_at_nx_190_matches_the_jax_cli(tmp_path, capsys):
+    """KS22 at nx = 190 (2 mod 4: K1's passes (2, 5) and a generic 19 on the
+    card, its plain version here) against the JAX CLI's own run."""
+    from distributedconvrl_pde_control_tpu.experiments import run as jrun
+
+    argv = ["KS22", "--eval", "--load-from", ARTIFACT, "--config-overrides", '{"nx": 190}',
+            "--p-te", "20", "--cpu"]
+    trun.main(argv + ["--out", str(tmp_path / "port")])
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    jrun.main(argv + ["--out", str(tmp_path / "jax")])
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert abs(got["suppression"] - want["suppression"]) <= 1e-5
+    assert 0.0 < got["suppression"] < 1.0
+
+
 def test_cli_eval_prints_the_three_keys(actors, capsys):
     """The CLI's numbers against the JAX CLI's formula (run.py:1128-1137)
     on the JAX rollout of the same actor and protocol (te=20, t_action=10)."""

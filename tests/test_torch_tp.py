@@ -117,7 +117,7 @@ def test_tp_of_one_rank_is_the_single_device_step():
     agent = DDPGAgent(DDPGConfig(**CFG))
     state = agent.init_state(torch.Generator().manual_seed(3), "cpu")
     batch = tuple(torch.from_numpy(x) for x in batch_np())
-    got = ttp.make_tp_learn_step(agent, ttp.make_tp_mesh(1))(state, batch)
+    got = ttp.make_tp_learn_step(agent, ttp.make_tp_mesh(1, "cpu"))(state, batch)
     agent.learn_batch(state, batch)
     for name in dpr.NETS:
         for g, w in zip(getattr(got, name).parameters(), getattr(state, name).parameters()):
@@ -139,7 +139,7 @@ def test_a_middle_layer_critic_is_refused_as_jax_cannot_lay_it_out():
     agent = DDPGAgent(DDPGConfig(**over))
     state = agent.init_state(torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(ValueError, match="DuplicateSpecError") as refusal:
-        ttp.make_tp_learn_step(agent, ttp.make_tp_mesh(1))(state, batch_np())
+        ttp.make_tp_learn_step(agent, ttp.make_tp_mesh(1, "cpu"))(state, batch_np())
     assert "tp.py:47" in str(refusal.value)
     with pytest.raises(ValueError, match="middle layer"):
         ttp.critic_tp_spec(Chain([np.zeros((2, 2))] * 3, [np.zeros(2)] * 3))
