@@ -189,7 +189,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
  42-43 run in a process of their own (no profiler session):
  42. `KS22_tp --train --batched --population 8` on phase 15's recipe (256
      envs per member, 3000 steps, noise x0.5 per 1000, a 500-step eval every
-     150, cut from the JAX study's 50 for room; the JAX study's preset,
+     300, cut from the JAX study's 50 for room; the JAX study's preset,
      artifacts/KS22_tp_pop8), then every member at
      te=200 on the standard CNAB2 env (K1 at 1 row): the median member's
      suppression < 0.05, every member finite, printed beside the JAX study's
@@ -278,16 +278,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
  grid the JAX package steps. K2 against its plain version at n = 24, 45, 96,
  176, 384, 2048 and 4096 (mixed-radix lines, odd n, a generic stage of 11,
  the largest power-of-two lines) and K1 at nx = 45, 50, 190 (16384 rows) and
- 250, each launched once with torch.fft and both plain versions made to raise
- (no plain route on the card); each wrapper's refusal above its shared-memory
- limit (K2 at n = 6144, K1 at nx = 4320) naming the limit; K2's time at n =
- 96, 384, 2048 and 4096 and K1's at nx = 190, 250 and 45 (batch 1 and 16 /
- 16384) beside their bounds and their plain versions' times; `run.py
- Fluid_16_256 --mesh 1x1 --eval --nx 96` on the card against its `--cpu` run
- (rel 1e-4; K2 = 2 x 4 x substeps x env steps) and `run.py KS22 --eval
- --config-overrides '{"nx": 190}' --p-te 20` (suppression within 1e-4; K1 =
- env steps); `bench_decomp_torch.py` and `bench_population_torch.py` cut in
- depth (one timed chunk of 5 steps per line), through their `main` in this process.
+ 250 on the block route; above the shared-memory limits, on the device
+ route (line transforms as levels through device memory, or Bluestein), K2
+ at n = 4097, 4099, 6144, 6561 and 8192 and K1 at nx = 4320, 4327 and 8192
+ (2 and 64 rows); each launched once with torch.fft and both plain versions
+ made to raise (no plain route on the card); the device route forced at the
+ main paths' shapes (the wrappers' SMEM_LIMIT patched: K1 at 16384x192, K2's
+ RK4 loop at 256^2, batch 1 and 16) against the block route; K2's time at n
+ = 96, 384, 2048, 4096 and the device grids, K1's at nx = 190, 250, 45 and
+ the device grids, and both forced routes', beside their bounds and their
+ plain versions' times; `run.py Fluid_16_256 --mesh 1x1 --eval --nx 96` on
+ the card against its `--cpu` run (rel 1e-4; K2 = 2 x 4 x substeps x env
+ steps), then again with K2's SMEM_LIMIT patched so that it runs the device
+ route; `run.py KS22 --eval --config-overrides '{"nx": 190}' --p-te 20`
+ (suppression within 1e-4; K1 = env steps) and the paper's transfer to a
+ 10x larger domain, `run.py KS500 --eval --load-from
+ artifacts/KS200_batched_lh --config-overrides '{"lx": 5000.0, "nx": 6000,
+ "n_actuators": 2000}' --p-te 20` (K1's device route; suppression within
+ 1e-4 of `--cpu`, K1 = env steps); `bench_decomp_torch.py` and
+ `bench_population_torch.py` cut in depth (one timed chunk of 5 steps per
+ line), through their `main` in this process.
 
 Times of the kernels' first designs (PERF.md, same card and power limit) are
 printed beside the new ones in the phases' text lines; the kernels JSON line
@@ -375,8 +385,8 @@ TRAIN_SEED = 609  # phase 15: the KS22 preset's seed, the CLI's default
 # phases 15 and 42: the JAX study evaluates every 50 steps (artifacts/KS22_tp_pop8: 60 evals
 # per member; 0.42 % median here at 50); every 500 steps selected from 6 evals and left the
 # members' median at 2.09 % against the JAX study's 0.34 %. Both cut for room to 20 evals
-# each (PERF.md section 4)
-POP_EVAL_EVERY = 150
+# each, phase 42 further to 10 (PERF.md section 4)
+POP_EVAL_EVERY = 300
 TRAIN_EVAL_EVERY = 150
 TRAIN_CHUNK = 50
 LEARNER_BATCH = 4096
@@ -3297,18 +3307,49 @@ def dp_phases(card: str) -> dict:
 # two or not, odd ones included (label, n, batch), and K1 at grids that are not multiples of 4
 # (label, nx, batch; 30 substeps, ||y|| ~ 30 as phase 3's larger shapes); the tolerances of
 # phases 3 and 8 (K1 1e-3 absolute, K2 1e-4 of max|want|)
+# the grids above the block route's shared-memory limits take the device route: K2 at n = 4097
+# (17 x 241), 4099 (prime: Bluestein over 8640), 6144, 6561 (3^8) and 8192; K1 at nx = 4320,
+# 4327 (prime: Bluestein over 8748) and 8192 at 2 and 64 rows
 GRID_K2_SHAPES = [("n24_b4", 24, 4), ("n45_b2", 45, 2), ("n96_b16", 96, 16), ("n176_b4", 176, 4),
-                  ("n384_b16", 384, 16), ("n2048_b1", 2048, 1), ("n4096_b1", 4096, 1)]
+                  ("n384_b16", 384, 16), ("n2048_b1", 2048, 1), ("n4096_b1", 4096, 1),
+                  ("n4097_b1", 4097, 1), ("n4099_b1", 4099, 1), ("n6144_b1", 6144, 1),
+                  ("n6561_b1", 6561, 1), ("n8192_b1", 8192, 1)]
 GRID_K1_SHAPES = [("nx45_b33", 45, 33), ("nx50_b7", 50, 7), ("nx190_b16384", 190, N_ENVS),
-                  ("nx250_b37", 250, 37)]
+                  ("nx250_b37", 250, 37), ("nx4320_b2", 4320, 2), ("nx4320_b64", 4320, 64),
+                  ("nx4327_b2", 4327, 2), ("nx4327_b64", 4327, 64), ("nx8192_b2", 8192, 2),
+                  ("nx8192_b64", 8192, 64)]
 # timed shapes beside their bounds, with the iterations of the kernel's and the plain timing
 GRID_K2_TIMED = [(96, 1, 200, 50), (96, 16, 200, 50), (384, 1, 200, 50), (384, 16, 100, 20),
-                 (2048, 1, 20, 5), (2048, 16, 5, 3), (4096, 1, 10, 3), (4096, 16, 3, 2)]
+                 (2048, 1, 20, 5), (2048, 16, 5, 3), (4096, 1, 10, 3), (4096, 16, 3, 2),
+                 (4097, 1, 3, 2), (4099, 1, 3, 2), (6144, 1, 3, 2), (6561, 1, 3, 2),
+                 (8192, 1, 3, 2)]
 GRID_K1_TIMED = [(190, N_ENVS, 20, 5), (190, 1, 200, 5), (250, N_ENVS, 20, 5), (250, 1, 200, 5),
-                 (45, N_ENVS, 20, 5), (45, 1, 200, 5)]
+                 (45, N_ENVS, 20, 5), (45, 1, 200, 5), (4320, 2, 20, 5), (4320, 64, 10, 5),
+                 (4327, 2, 10, 5), (4327, 64, 10, 5), (8192, 2, 20, 5), (8192, 64, 10, 5)]
+# the device route forced at the main paths' shapes: both wrappers' SMEM_LIMIT patched to a
+# value that no block-route line of 96^2, 192 or 256^2 fits
+FORCED_SMEM_LIMIT = 4096
+FORCED_K2_SUBSTEPS = 2
 GRID_FLUID_NX, GRID_FLUID_P_TE = 96, 0.05  # --mesh 1x1 --eval: 2 env steps at 96^2
 GRID_KS_NX, GRID_KS_P_TE = 190, 20.0  # KS22 --eval: 200 env steps at nx = 190
+# the paper's zero-shot transfer at 10x KS500's domain (reproduce.py:124-158 does KS200 -> KS500)
+TRANSFER_OVERRIDES = {"lx": 5000.0, "nx": 6000, "n_actuators": 2000}
+TRANSFER_P_TE = 20.0
 GRID_REL = 1e-4  # the card's CLI run against its --cpu run
+
+
+@contextlib.contextmanager
+def device_route_forced():
+    """Inside it, both wrappers take the device route at every grid of the main paths."""
+    from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
+    from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
+
+    saved = (ks_kernel.SMEM_LIMIT, k2.SMEM_LIMIT)
+    ks_kernel.SMEM_LIMIT = k2.SMEM_LIMIT = FORCED_SMEM_LIMIT
+    try:
+        yield
+    finally:
+        ks_kernel.SMEM_LIMIT, k2.SMEM_LIMIT = saved
 
 
 @contextlib.contextmanager
@@ -3348,9 +3389,9 @@ def grids_child(out_json: str) -> int:
     import torch
 
     from distributedconvrl_pde_control_torch.configs.fluid import FLUID_16_256
-    from distributedconvrl_pde_control_torch.configs.ks import KS22
+    from distributedconvrl_pde_control_torch.configs.ks import KS22, KS500
     from distributedconvrl_pde_control_torch.experiments import run
-    from distributedconvrl_pde_control_torch.ops.kernels import ks_kernel
+    from distributedconvrl_pde_control_torch.ops.kernels import device_route, ks_kernel
     from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
     from distributedconvrl_pde_control_torch.ops.ks import KSSolver
     from distributedconvrl_pde_control_torch.parallel.ns_sharded import make_sharded_ops
@@ -3361,9 +3402,10 @@ def grids_child(out_json: str) -> int:
     record = {"card": card}
 
     phase("== 61. K1 and K2 on every grid: each against its plain version at grids that are not "
-          "the main paths' (mixed radix, odd, above 1024), each timed beside its bound, the "
-          "refusals above the shared-memory limits, the two CLIs at such grids card vs CPU, and "
-          "bench_decomp_torch.py / bench_population_torch.py cut in depth")
+          "the main paths' (mixed radix, odd, above 1024, and on the device route above the "
+          "shared-memory limits), the device route forced at the main shapes, each timed beside "
+          "its bound, the CLIs at such grids card vs CPU (the KS transfer to Lx = 5000 among "
+          "them), and bench_decomp_torch.py / bench_population_torch.py cut in depth")
     torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(61)
     k2_inputs, parity = {}, {}
@@ -3379,9 +3421,10 @@ def grids_child(out_json: str) -> int:
         launched = k2.NS_ADVECTION.launches - before
         want = k2.ns_advection_plain(w, consts)
         err, scale = (got - want).abs().max().item(), want.abs().max().item()
-        parity[f"K2 {label}"] = {"max_abs_err": err, "err_of_scale": err / scale}
-        print(f"K2 {label}: max_abs_err {err:.3e} = {err / scale:.2e} of max|want| {scale:.4e} "
-              f"(rtol {K2_RTOL:.0e} of it), {launched} launch", flush=True)
+        parity[f"K2 {label}"] = {"max_abs_err": err, "err_of_scale": err / scale,
+                                 "route": k2.route(n)}
+        print(f"K2 {label} ({k2.route(n)} route): max_abs_err {err:.3e} = {err / scale:.2e} of "
+              f"max|want| {scale:.4e} (rtol {K2_RTOL:.0e} of it), {launched} launch", flush=True)
         check(launched == 1 and bool(torch.isfinite(torch.view_as_real(got)).all())
               and err <= K2_RTOL * scale, f"K2 disagrees at {label}")
         del want, got
@@ -3396,38 +3439,61 @@ def grids_child(out_json: str) -> int:
         launched = ks_kernel.KS_CNAB2.launches - before
         want = ks_kernel.ks_cnab2_plain(y, f, solver)
         err = (got - want).abs().max().item()
-        parity[f"K1 {label}"] = {"max_abs_err": err}
-        print(f"K1 {label}: max_abs_err {err:.3e} (atol 1e-3), max|y'| "
-              f"{want.abs().max().item():.3f}, stages {ks_kernel.factor_radices(nx)}, "
+        parity[f"K1 {label}"] = {"max_abs_err": err, "route": ks_kernel.route(nx)}
+        print(f"K1 {label} ({ks_kernel.route(nx)} route): max_abs_err {err:.3e} (atol 1e-3), "
+              f"max|y'| {want.abs().max().item():.3f}, stages {ks_kernel.factor_radices(nx)}, "
               f"{launched} launch", flush=True)
         check(launched == 1 and bool(torch.isfinite(got).all()) and err <= 1e-3,
               f"K1 disagrees at {label}")
     record["parity"] = parity
 
-    # above the shared-memory limits each wrapper raises and names the limit
-    refusals = {}
-    big = torch.zeros((1, 6144, 6144), dtype=torch.complex64, device="cuda")
-    try:
-        k2.ns_advection(big, k2.fftfreq_constants(6144, device="cuda"))
-        refusals["K2 n=6144"] = None
-    except ValueError as e:
-        refusals["K2 n=6144"] = str(e)
-    del big
-    solver = KSSolver(nx=4320, lx=22.0, dt=0.1, oversampling=30, device="cuda")
-    y = torch.zeros((2, 4320), dtype=torch.float32, device="cuda")
-    try:
-        ks_kernel.ks_cnab2_step(y, y, solver)
-        refusals["K1 nx=4320"] = None
-    except ValueError as e:
-        refusals["K1 nx=4320"] = str(e)
-    print(json.dumps({"refusals": refusals}), flush=True)
-    record["refusals"] = refusals
-    check(refusals["K2 n=6144"] is not None and "up to 4304" in refusals["K2 n=6144"]
-          and refusals["K1 nx=4320"] is not None and "up to 4303" in refusals["K1 nx=4320"],
-          f"a wrapper did not refuse a grid above its limit: {refusals}")
+    # the device route forced at the main paths' shapes, against the block route
+    forced, k2_times, k1_times = {}, {}, {}
+    solver = KSSolver(nx=192, lx=22.0, dt=0.1, oversampling=30, mu=0.02, device="cuda")
+    y = torch.tensor(3.0 * rng.standard_normal((N_ENVS, 192)), dtype=torch.float32, device="cuda")
+    f = torch.tensor(rng.standard_normal((N_ENVS, 192)), dtype=torch.float32, device="cuda")
+    want = ks_kernel.ks_cnab2_step(y, f, solver)
+    with device_route_forced():
+        check(ks_kernel.route(192) == "device", "K1's device route was not forced at nx = 192")
+        before = ks_kernel.KS_CNAB2.launches
+        with no_plain_route():
+            got = ks_kernel.ks_cnab2_step(y, f, solver)
+        torch.cuda.synchronize()
+        launched = ks_kernel.KS_CNAB2.launches - before
+        err = (got - want).abs().max().item()
+        forced["K1 16384x192"] = {"max_abs_err_vs_block": err, "launches": launched}
+        device_ms = cuda_ms(lambda: ks_kernel.ks_cnab2_step(y, f, solver), 5)
+    k1_times["16384x192 device route (forced)"] = {
+        "ms": device_ms, "block_ms": cuda_ms(lambda: ks_kernel.ks_cnab2_step(y, f, solver), 20)}
+    check(launched == 1 and err <= 1e-3, f"K1's device route differs from its block route: {err}")
+    consts = make_sharded_ops(256, 256, device="cuda")
+    lin = (-5e-5 * consts.k2).contiguous()
+    for batch in (1, 16):
+        w = torch.fft.fft2(torch.tensor(rng.standard_normal((batch, 256, 256)),
+                                        dtype=torch.float32, device="cuda"))
+        fw = (0.01 * w).contiguous()
+        want = k2.ns_rk4_substeps(w, consts, lin, fw, 2.5e-4, FORCED_K2_SUBSTEPS)
+        block_ms = cuda_ms(lambda: k2.ns_rk4_substeps(w, consts, lin, fw, 2.5e-4, 20), 3) / 80
+        with device_route_forced():
+            check(k2.route(256) == "device", "K2's device route was not forced at n = 256")
+            before = k2.NS_ADVECTION.launches
+            with no_plain_route():
+                got = k2.ns_rk4_substeps(w, consts, lin, fw, 2.5e-4, FORCED_K2_SUBSTEPS)
+            torch.cuda.synchronize()
+            launched = k2.NS_ADVECTION.launches - before
+            err, scale = (got - want).abs().max().item(), want.abs().max().item()
+            stage_ms = cuda_ms(lambda: k2.ns_rk4_substeps(w, consts, lin, fw, 2.5e-4, 20), 3) / 80
+        forced[f"K2 rk4 256^2 b{batch}"] = {"err_of_scale_vs_block": err / scale,
+                                            "launches": launched}
+        k2_times[f"n256_b{batch} stage, device route (forced)"] = {"ms": stage_ms,
+                                                                  "block_ms": block_ms}
+        check(launched == 4 * FORCED_K2_SUBSTEPS and err <= K2_RTOL * scale,
+              f"K2's device route differs from its block route at batch {batch}: {err / scale}")
+    print(json.dumps({"device route forced at the main shapes": forced,
+                      "K1": k1_times, "K2": k2_times, "card": card}), flush=True)
+    record["forced"] = forced
 
     # times beside the bounds
-    k2_times, k1_times = {}, {}
     for n, batch, iters, plain_iters in GRID_K2_TIMED:
         w, consts = k2_inputs.get((n, batch)) or (None, make_sharded_ops(n, n, device="cuda"))
         if w is None:
@@ -3439,9 +3505,13 @@ def grids_child(out_json: str) -> int:
             "ms": cuda_ms(lambda: k2.ns_advection(w, consts), iters),
             "plain_ms": cuda_ms(lambda: k2.ns_advection_plain(w, consts), plain_iters),
             "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms > o_ms else "operations",
-            "library_ms": None, "column_tile": k2.column_tile(n, batch),
-            "row_pairs": k2.row_pairs(n, batch)}
-        print(f"K2 n={n} batch {batch}: {t['ms']:.4f} ms/call, plain {t['plain_ms']:.4f} ms, bound "
+            "library_ms": None, "route": k2.route(n)}
+        if k2.route(n) == "block":
+            t.update(column_tile=k2.column_tile(n, batch), row_pairs=k2.row_pairs(n, batch))
+        else:
+            t["levels"] = list(device_route.device_plan(n, k2.SMEM_LIMIT).levels)
+        print(f"K2 n={n} batch {batch} ({t['route']} route): {t['ms']:.4f} ms/call, plain "
+              f"{t['plain_ms']:.4f} ms, bound "
               f"{t['bound_ms']:.6f} ms ({t['bound_by']}; x{t['ms'] / t['bound_ms']:.1f}); {card}",
               flush=True)
         del w
@@ -3455,8 +3525,14 @@ def grids_child(out_json: str) -> int:
             "ms": cuda_ms(lambda: ks_kernel.ks_cnab2_step(y, f, solver), iters),
             "plain_ms": cuda_ms(lambda: ks_kernel.ks_cnab2_plain(y, f, solver), plain_iters),
             "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms > o_ms else "operations",
-            "library_ms": None, "launch_shape": list(ks_kernel.launch_shape(nx, batch))}
-        print(f"K1 {batch}x{nx}, 30 substeps: {t['ms']:.4f} ms/launch, plain {t['plain_ms']:.4f} ms, "
+            "library_ms": None, "route": ks_kernel.route(nx)}
+        if ks_kernel.route(nx) == "block":
+            t["launch_shape"] = list(ks_kernel.launch_shape(nx, batch))
+        else:
+            plan = device_route.device_plan(nx, ks_kernel.SMEM_LIMIT)
+            t["levels"], t["bluestein_m"] = list(plan.levels), plan.m if plan.bluestein else None
+        print(f"K1 {batch}x{nx}, 30 substeps ({t['route']} route): {t['ms']:.4f} ms/launch, plain "
+              f"{t['plain_ms']:.4f} ms, "
               f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}; x{t['ms'] / t['bound_ms']:.1f}); {card}",
               flush=True)
     record["K2_times"], record["K1_times"] = k2_times, k1_times
@@ -3487,6 +3563,16 @@ def grids_child(out_json: str) -> int:
     check(got["grid"] == GRID_FLUID_NX and rel <= GRID_REL,
           f"the fluid eval at {GRID_FLUID_NX}^2 differs card vs CPU by rel {rel}")
     check(k2_fluid == k2_want, f"K2 launched {k2_fluid} times in the fluid eval, expected {k2_want}")
+    with device_route_forced():  # the same eval with every K2 stage on the device route
+        check(k2.route(GRID_FLUID_NX) == "device", "K2's device route was not forced at 96^2")
+        got_dm, _, k2_fluid_dm = cli(fluid + ["--out", str(base / "fluid_card_device_route")])
+    rel_dm = max(abs(got_dm[k] - want[k]) / abs(want[k]) for k in ("trained", "no action"))
+    record["fluid_cli_device_route"] = {"card": got_dm, "rel": rel_dm, "K2_launches": k2_fluid_dm}
+    print(json.dumps({"phase": 61, "fluid --mesh 1x1 --eval --nx, K2's device route forced":
+                      GRID_FLUID_NX, **record["fluid_cli_device_route"]}), flush=True)
+    check(rel_dm <= GRID_REL and k2_fluid_dm == k2_want,
+          f"the fluid eval on K2's device route differs card vs CPU by rel {rel_dm} "
+          f"({k2_fluid_dm} launches)")
 
     ks = ["KS22", "--eval", "--load-from", str(ROOT / "artifacts" / "KS22"), "--config-overrides",
           json.dumps({"nx": GRID_KS_NX}), "--p-te", str(GRID_KS_P_TE)]
@@ -3499,6 +3585,25 @@ def grids_child(out_json: str) -> int:
     print(json.dumps({"phase": 61, "KS22 --eval nx": GRID_KS_NX, **record["ks_cli"]}), flush=True)
     check(diff <= GRID_REL, f"the KS22 nx={GRID_KS_NX} suppression differs card vs CPU by {diff}")
     check(k1_ks == k1_want, f"K1 launched {k1_ks} times in the KS eval, expected {k1_want}")
+
+    # the paper's zero-shot transfer, to a domain 10x KS500's (K1's device route at nx = 6000)
+    transfer = ["KS500", "--eval", "--load-from", str(ROOT / "artifacts" / "KS200_batched_lh"),
+                "--config-overrides", json.dumps(TRANSFER_OVERRIDES), "--p-te", str(TRANSFER_P_TE)]
+    check(ks_kernel.route(TRANSFER_OVERRIDES["nx"]) == "device",
+          "the transfer's grid is on the block route")
+    t0 = time.perf_counter()
+    got, k1_transfer, _ = cli(transfer + ["--out", str(base / "transfer_card")])
+    card_s = time.perf_counter() - t0
+    want, _, _ = cli(transfer + ["--cpu", "--out", str(base / "transfer_cpu")])
+    k1_transfer_want = int(round(TRANSFER_P_TE / KS500.dt))
+    diff = abs(got["suppression"] - want["suppression"])
+    record["transfer_cli"] = {"card": got, "cpu": want, "abs_diff": diff, "seconds_card": card_s,
+                              "K1_launches": k1_transfer, "K1_launches_expected": k1_transfer_want}
+    print(json.dumps({"phase": 61, "KS500 --eval transfer": TRANSFER_OVERRIDES,
+                      **record["transfer_cli"]}), flush=True)
+    check(diff <= GRID_REL, f"the transfer's suppression differs card vs CPU by {diff}")
+    check(k1_transfer == k1_transfer_want,
+          f"K1 launched {k1_transfer} times in the transfer, expected {k1_transfer_want}")
 
     # the two root scripts through their entry points, cut in depth only
     import bench_decomp_torch
@@ -3522,8 +3627,10 @@ def grids_child(out_json: str) -> int:
     record["benches"] = {k: {"seconds": v["seconds"]} for k, v in benches.items()}
     record["peak_device_mb"] = torch.cuda.max_memory_allocated() / 2**20
     Path(out_json).write_text(json.dumps({
-        "K1": {"KS22 nx=190 --eval (phase 61)": k1_ks},
-        "K2": {"Fluid_16_256 --mesh 1x1 --eval --nx 96 (phase 61)": k2_fluid},
+        "K1": {"KS22 nx=190 --eval (phase 61)": k1_ks,
+               "KS500 Lx=5000 nx=6000 transfer --eval (phase 61)": k1_transfer},
+        "K2": {"Fluid_16_256 --mesh 1x1 --eval --nx 96 (phase 61)": k2_fluid,
+               "the same on the device route (phase 61)": k2_fluid_dm},
         "K1_times": k1_times, "K2_times": k2_times,
         "K1_max_abs_err": max(v["max_abs_err"] for k, v in parity.items() if k.startswith("K1")),
         "K2_max_err_of_scale": max(v["err_of_scale"] for k, v in parity.items()

@@ -53,20 +53,29 @@
 // remains is the shared-memory traffic of its passes (each reads and writes
 // the line once, the spectral pass also three half spectra), one barrier per
 // pass, and the registers of the 16-point passes (128 per thread, so an SM
-// holds 512 threads). Everything is float32. A CTA of one row pair needs
-// ~54 B of shared memory per grid point (~62 with a generic stage), so nx
-// goes up to 4,303 (3,748); the Python wrapper refuses more and names the
-// limit.
+// holds 512 threads). Everything is float32.
+//
+// Limits and routes. A CTA of one row pair needs ~54 B of shared memory per
+// grid point (~62 with a generic stage), so this design (the block route)
+// takes nx up to 4,303 (3,748). Above that the Python wrapper launches the
+// device route below (ks_cnab2_dm_kernel): the same step with the half
+// spectra and work lines in a workspace in device memory and the transforms
+// as dm_fft.cuh's levels, a split of nx or Bluestein. It refuses only a
+// workspace that does not fit the device's memory, and names the bytes.
 //
 // Plain C interface (built by nvcc, loaded with ctypes): every call returns
 // a cudaError_t code, 0 on success, checked by the Python wrapper.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#ifdef __CUDACC__
+#include <cooperative_groups.h>
+#endif
 
 namespace {
 
 #include "radix.cuh"
+#include "dm_fft.cuh"
 
 constexpr int kOps = 5;  // a_inv, b, g_alpha, dist_re, dist_im
 constexpr int kMaxFactors = 16;
@@ -364,6 +373,115 @@ ks_cnab2_kernel(const float* __restrict__ y, const float* __restrict__ f,
   }
 }
 
+// ------------------------------------------------------------ the device route
+// The same step for nx whose row pair does not fit one block: the half
+// spectra and one work line per row pair live in a workspace in device
+// memory, and the transforms run as dm_fft.cuh's levels (a split of nx, or
+// Bluestein). One cooperative launch per env step; every phase ends in a
+// grid barrier. A substep is the levels' inverse, the square and the
+// forward as one turn (four phases for a two-level split), then the
+// spectral pass. Work lines hold row a in .x and row b in .y as above, the
+// spectrum in natural order and real space in dm::real_pos order.
+struct DmWork {
+  float4* u;   // [line][nfh] u_hat of the pair's rows: (re a, im a, re b, im b)
+  float4* np;  // previous nonlinear term, same layout
+  float4* f;   // forcing spectrum * dt, same layout
+  float2* z;   // [line][nx] work lines
+  float2* w;   // [line][m] Bluestein's work lines (null for a split)
+};
+
+// Rows of src (batch, nx) into the work lines at their real-space places,
+// squared if asked; rows past the batch are zero.
+__device__ void dm_load_rows(const dm::Plan& p, float2* z, const float* __restrict__ src,
+                             int batch, long long lines, bool square) {
+  const int nx = p.n;
+  float* zf = reinterpret_cast<float*>(z);
+  for (long long e = dm::thread_index(); e < lines * 2 * nx; e += dm::thread_count()) {
+    const long long row = e / nx;
+    const int j = (int)(e - row * nx);
+    const float v = row < batch ? src[e] : 0.f;
+    zf[2 * ((row >> 1) * nx + dm::real_pos(p, j)) + (row & 1)] = square ? v * v : v;
+  }
+  grid_sync();
+}
+
+// spectral_pass over the work lines in device memory.
+__device__ void dm_spectral(const DmWork& wk, const float* __restrict__ ops, int mode, int nx,
+                            long long lines, float dt_os, float inv_nx) {
+  const int nfh = nx / 2 + 1;
+  const float dt2 = 0.5f * dt_os, dt32 = 1.5f * dt_os;
+  for (long long i = dm::thread_index(); i < lines * nfh; i += dm::thread_count()) {
+    const long long line = i / nfh;
+    const int k = (int)(i - line * nfh), km = k ? nx - k : 0;
+    float2* zk = wk.z + line * nx + k;
+    float2* zm = wk.z + line * nx + km;
+    const float2 za = *zk, zb = make_float2(zm->x, -zm->y);
+    const float xar = 0.5f * (za.x + zb.x), xai = 0.5f * (za.y + zb.y);
+    const float xbr = 0.5f * (za.y - zb.y), xbi = -0.5f * (za.x - zb.x);
+    if (mode == kInitU) {
+      wk.u[i] = make_float4(xar, xai, xbr, xbi);
+      continue;
+    }
+    const float g = ops[2 * nfh + k];
+    if (mode == kInitN) {
+      wk.np[i] = make_float4(g * xai, -g * xar, g * xbi, -g * xbr);
+      continue;
+    }
+    float4 u = wk.u[i];
+    if (mode == kInitF) {
+      wk.f[i] = make_float4(xar * dt_os, xai * dt_os, xbr * dt_os, xbi * dt_os);
+    } else {
+      const float4 n = make_float4(g * xai, -g * xar, g * xbi, -g * xbr);
+      const float4 np = wk.np[i], f = wk.f[i];
+      const float ai = ops[k], bk = ops[nfh + k], dr = ops[3 * nfh + k], di = ops[4 * nfh + k];
+      u.x = ai * (bk * u.x + dt32 * n.x - dt2 * np.x + f.x) + dr;
+      u.y = ai * (bk * u.y + dt32 * n.y - dt2 * np.y + f.y) + di;
+      u.z = ai * (bk * u.z + dt32 * n.z - dt2 * np.z + f.z) + dr;
+      u.w = ai * (bk * u.w + dt32 * n.w - dt2 * np.w + f.w) + di;
+      wk.u[i] = u;
+      wk.np[i] = n;
+    }
+    if (km == k || k == 0) {
+      *zk = make_float2(u.x * inv_nx, u.z * inv_nx);
+    } else {
+      *zk = make_float2((u.x - u.w) * inv_nx, (u.y + u.z) * inv_nx);
+      *zm = make_float2((u.x + u.w) * inv_nx, (u.z - u.y) * inv_nx);
+    }
+  }
+  grid_sync();
+}
+
+__global__ void __launch_bounds__(dm::kThreads)
+ks_cnab2_dm_kernel(const float* __restrict__ y, const float* __restrict__ f,
+                   const float* __restrict__ ops, float* __restrict__ out, DmWork wk,
+                   dm::Plan p, int batch, int substeps, float dt_os) {
+  extern __shared__ float4 smem4[];
+  float2* smem = reinterpret_cast<float2*>(smem4);
+  const int nx = p.n;
+  const long long lines = (batch + 1) / 2;
+  const float inv_nx = 1.0f / (float)nx;
+  const dm::Lines zl = dm::contiguous(wk.z, lines, nx), wl = dm::contiguous(wk.w, lines, p.m);
+  dm_load_rows(p, wk.z, y, batch, lines, false);
+  dm::forward(p, zl, wl, smem);
+  dm_spectral(wk, ops, kInitU, nx, lines, dt_os, inv_nx);  // u_hat = rdft(y)
+  dm_load_rows(p, wk.z, y, batch, lines, true);
+  dm::forward(p, zl, wl, smem);
+  dm_spectral(wk, ops, kInitN, nx, lines, dt_os, inv_nx);  // N_prev = G rdft(y^2)
+  dm_load_rows(p, wk.z, f, batch, lines, false);
+  dm::forward(p, zl, wl, smem);
+  dm_spectral(wk, ops, kInitF, nx, lines, dt_os, inv_nx);  // f_hat = dt rdft(f)
+  for (int step = 0; step < substeps; ++step) {
+    dm::inverse_square_forward(p, zl, wl, smem);  // rdft(irdft(u_hat)^2)
+    dm_spectral(wk, ops, kSubstep, nx, lines, dt_os, inv_nx);
+  }
+  dm::inverse(p, zl, wl, smem);
+  const float* zf = reinterpret_cast<const float*>(wk.z);
+  for (long long e = dm::thread_index(); e < (long long)batch * nx; e += dm::thread_count()) {
+    const long long row = e / nx;
+    out[e] = zf[2 * ((row >> 1) * nx + dm::real_pos(p, e - row * nx)) + (row & 1)];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -415,6 +533,39 @@ int ks_cnab2_launch(const float* y, const float* f, const float* ops, const floa
       y, f, ops, reinterpret_cast<const float2*>(twiddle), pos, out, batch, plan, generic, pairs,
       lgp, substeps, dt_os);
   return (int)cudaGetLastError();
+}
+
+// Floats of the device route's workspace, which the Python wrapper
+// allocates: three half spectra (float4 per bin) and one work line per row
+// pair, and Bluestein's work lines of m points.
+size_t ks_cnab2_dm_work_floats(int batch, int nx, int m, int bluestein) {
+  const size_t lines = (batch + 1) / 2, nfh = nx / 2 + 1;
+  return lines * (12 * nfh + 2 * (size_t)nx + (bluestein ? 2 * (size_t)m : 0));
+}
+
+// The device route: y, f, out, ops as in ks_cnab2_launch; work: the
+// workspace of ks_cnab2_dm_work_floats; desc, tw, pos, chirp, bh: the plan
+// and its tables (ops/kernels/device_route.py; chirp and bh null for a
+// split). One cooperative launch.
+int ks_cnab2_dm_launch(const float* y, const float* f, const float* ops, float* out, float* work,
+                       const int* desc, int ndesc, const float* tw, const int* pos,
+                       const float* chirp, const float* bh, int batch, int substeps,
+                       float dt_os, void* stream) {
+  dm::Plan p;
+  if (batch < 1 || substeps < 0 || dm::make_plan(desc, ndesc, tw, pos, chirp, bh, &p))
+    return (int)cudaErrorInvalidValue;
+  const size_t lines = (batch + 1) / 2, nfh = p.n / 2 + 1;
+  DmWork wk;
+  wk.u = reinterpret_cast<float4*>(work);
+  wk.np = wk.u + lines * nfh;
+  wk.f = wk.np + lines * nfh;
+  wk.z = reinterpret_cast<float2*>(wk.f + lines * nfh);
+  wk.w = p.bluestein ? wk.z + lines * p.n : nullptr;
+  static size_t allowed = 0, counted = 0;
+  static int blocks = 0;
+  return dm::cooperative_launch(ks_cnab2_dm_kernel, dm::smem_bytes(p),
+                                static_cast<cudaStream_t>(stream), allowed, counted, blocks, y, f,
+                                ops, out, wk, p, batch, substeps, dt_os);
 }
 
 const char* ks_cnab2_error_string(int code) {

@@ -78,13 +78,15 @@
 // odd n. The two kinds of line transform are two instantiations of every
 // kernel (kPow2), so that the power-of-two kernels keep their registers.
 //
-// Limits. A block holds whole lines: at one row pair per block, pass 1
-// needs (tlen + 2 n + 4 pad(n)) float2, twice the 4 pad(n) with a generic
-// stage. Within the 232,448 B a block may take that is every n up to 4,304
-// whose factors are 2, 3 and 5 (4,008 for odd n) and every n up to 2,527
-// with another prime factor (2,641 for even n). The Python wrapper refuses
-// n above them and names the limit; a longer line needs a four-step or
-// thread-block-cluster transform.
+// Limits and routes. A block holds whole lines: at one row pair per block,
+// pass 1 needs (tlen + 2 n + 4 pad(n)) float2, twice the 4 pad(n) with a
+// generic stage. Within the 232,448 B a block may take that is every n up to
+// 4,304 whose factors are 2, 3 and 5 (4,008 for odd n) and every n up to
+// 2,527 with another prime factor (2,641 for even n): the block route. Above
+// them the Python wrapper launches the device route (ns_adv_dm_kernel,
+// below): the same function with the line transforms as dm_fft.cuh's levels
+// through device memory (a split of n or Bluestein). It refuses only buffers
+// that do not fit the device's memory, and names the bytes.
 //
 // The passes are __device__ functions of a virtual block index. On the card
 // one cooperative kernel runs all three: persistent blocks walk each pass's
@@ -127,6 +129,7 @@
 namespace {
 
 #include "radix.cuh"
+#include "dm_fft.cuh"
 
 constexpr int kPacked = 2;  // u + i v and dw/dx + i dw/dy
 constexpr int kMaxThreads = 256;
@@ -650,6 +653,125 @@ ns_adv_cooperative(const float2* w, Stage st, const float* kx, const float* ky,
 }
 #endif
 
+// ------------------------------------------------------------ the device route
+// The same function for n whose lines do not fit one block: the line
+// transforms run as dm_fft.cuh's levels (a split of n, or Bluestein) through
+// device memory, the passes above become phases of one cooperative kernel
+// with a grid barrier after each, and the work between the transforms is
+// pointwise over the field:
+//
+//   E1  the packed spectra H u^ + i H v^ and H dwdx^ + i H dwdy^ of ws into
+//       the two scratch fields (ws read at k and at -k), natural order;
+//       then every scratch row and every scratch column inverse-transformed;
+//   E2  the product -u dwdx - v dwdy, column pairs (2j, 2j+1) packed as one
+//       complex column of `packed` (batch, n, nh), nh = ceil(n / 2), the
+//       last one of odd n with a zero partner; its columns forward-transformed;
+//   E3  split by symmetry into rows ky <= n/2 of scratch field 0; those rows
+//       forward-transformed;
+//   E4  rows ky and -ky of out, with the mask and the stage arithmetic.
+//
+// The real-space axes stay in the levels' order (dm::real_pos): the product
+// is pointwise and the packed column pairs are pairs of places, so nothing
+// is permuted. A block takes a tile of neighbouring columns of a level of
+// the column transforms, so that their reads run along rows.
+__device__ __forceinline__ int dm_neg(int i, int n) { return i ? n - i : 0; }
+
+__global__ void __launch_bounds__(dm::kThreads)
+ns_adv_dm_kernel(const float2* __restrict__ w, Stage st, const float* __restrict__ kx,
+                 const float* __restrict__ ky, const float* __restrict__ inv_k2,
+                 const float* __restrict__ mask, float2* scratch, float2* packed, float2* wbuf,
+                 float2* __restrict__ out, dm::Plan p, int batch, float scale) {
+  extern __shared__ float2 smem[];
+  const int n = p.n, nh = (n + 1) / 2, half = n / 2;
+  const long long nn = (long long)n * n;
+  const long long stride = dm::thread_count();
+
+  // E1: packed spectra, then the inverse along rows and along columns
+  for (long long e = dm::thread_index(); e < batch * nn; e += stride) {
+    const long long b = e / nn;
+    const int rem = (int)(e - b * nn), row = rem / n, c = rem - row * n;
+    const int rowm = dm_neg(row, n), cm = dm_neg(c, n);
+    const size_t field = b * nn;
+    const float2 a = stage_state(w, st, field + rem);
+    const float2 bm = cconj(stage_state(w, st, field + (size_t)rowm * n + cm));
+    const float kyr = ky[row], kym = ky[rowm], kxc = kx[c], kxm = kx[cm];
+    const float2 pa = scal(inv_k2[rem], a);
+    const float2 pb = scal(inv_k2[(size_t)rowm * n + cm], bm);
+    const float2 uq = csub(scal(kyr, pa), scal(kym, pb));
+    const float2 vq = csub(scal(kxc, pa), scal(kxm, pb));
+    const float2 dx = csub(scal(kxc, a), scal(kxm, bm));
+    const float2 dy = csub(scal(kyr, a), scal(kym, bm));
+    float2* s0 = scratch + b * kPacked * nn + rem;
+    s0[0] = make_float2(0.5f * (vq.x - uq.y), 0.5f * (vq.y + uq.x));   // H u^ + i H v^
+    s0[nn] = make_float2(0.5f * (-dx.y - dy.x), 0.5f * (dx.x - dy.y));  // H dwdx^ + i H dwdy^
+  }
+  grid_sync();
+  const long long fields = (long long)kPacked * batch;
+  const dm::Lines rows = dm::contiguous(scratch, fields * n, n);
+  const dm::Lines wrows = dm::contiguous(wbuf, fields * n, p.m);
+  dm::inverse(p, rows, wrows, smem);
+  const dm::Lines cols = {scratch, nn, 1, fields * n, n, n};
+  dm::inverse(p, cols, wrows, smem);
+
+  // E2: the product, column pairs packed; the forward along columns
+  const long long pfield = (long long)n * nh;
+  for (long long e = dm::thread_index(); e < batch * pfield; e += stride) {
+    const long long b = e / pfield;
+    const int rem = (int)(e - b * pfield), y = rem / nh, j = rem - y * nh;
+    const float2* uv = scratch + b * kPacked * nn + (size_t)y * n + 2 * j;
+    const float2 uva = uv[0], da = uv[nn];
+    float pb = 0.f;
+    if (2 * j + 1 < n) {
+      const float2 uvb = uv[1], db = uv[nn + 1];
+      pb = -(uvb.x * db.x + uvb.y * db.y) * scale;
+    }
+    packed[e] = make_float2(-(uva.x * da.x + uva.y * da.y) * scale, pb);
+  }
+  grid_sync();
+  const dm::Lines pcols = {packed, pfield, 1, batch * (long long)nh, nh, nh};
+  dm::forward(p, pcols, wrows, smem);
+
+  // E3: split into rows ky <= n/2 of scratch field 0; the forward along those rows
+  const long long srows = (long long)(half + 1) * nh;
+  for (long long e = dm::thread_index(); e < batch * srows; e += stride) {
+    const long long b = e / srows;
+    const int rem = (int)(e - b * srows), kyi = rem / nh, j = rem - kyi * nh;
+    const float2* pf = packed + b * pfield;
+    const float2 za = pf[(size_t)kyi * nh + j], zb = cconj(pf[(size_t)dm_neg(kyi, n) * nh + j]);
+    const float2 d = csub(za, zb);
+    float2* o = scratch + b * kPacked * nn + (size_t)kyi * n + 2 * j;
+    o[0] = scal(0.5f, cadd(za, zb));
+    if (2 * j + 1 < n) o[1] = make_float2(0.5f * d.y, -0.5f * d.x);
+  }
+  grid_sync();
+  const dm::Lines frows = {scratch, kPacked * nn, n, batch * (long long)(half + 1), half + 1, 1};
+  dm::forward(p, frows, wrows, smem);
+
+  // E4: rows ky and -ky of out, with the mask and the stage arithmetic
+  for (long long e = dm::thread_index(); e < batch * nn; e += stride) {
+    const long long b = e / nn;
+    const int rem = (int)(e - b * nn), row = rem / n, c = rem - row * n;
+    const float2* s0 = scratch + b * kPacked * nn;
+    const float2 t = row <= half ? s0[rem] : cconj(s0[(size_t)(n - row) * n + dm_neg(c, n)]);
+    const float m = mask[rem];
+    float2 r = make_float2(m * t.x, m * t.y);
+    if (st.lin) {
+      const float2 ws = stage_state(w, st, e);
+      const float l = st.lin[rem];
+      r.x += l * ws.x;
+      r.y += l * ws.y;
+    }
+    if (st.f) r = cadd(r, st.f[e]);
+    if (st.k1) {
+      float2 acc = scal(2.0f, cadd(st.k2[e], st.k_prev[e]));
+      acc = cadd(cadd(st.k1[e], acc), r);
+      const float2 w0 = w[e];
+      r = make_float2(w0.x + st.dt6 * acc.x, w0.y + st.dt6 * acc.y);
+    }
+    out[e] = r;
+  }
+}
+
 // ------------------------------------------------------------------ the host
 // Whether n has a prime factor other than 2, 3 and 5.
 bool has_generic_factor(int n) {
@@ -710,7 +832,8 @@ inline int block_threads(int work) {
   return t < 32 ? 32 : (t < kMaxThreads ? t : kMaxThreads);
 }
 
-// What every stage of one call shares.
+// What every stage of one call shares. dm: the device route's plan (null:
+// the block route) with its buffers.
 struct Launch {
   const float* kx;
   const float* ky;
@@ -721,6 +844,9 @@ struct Launch {
   Plan plan;
   int batch, tc, ppc, cooperative;
   cudaStream_t stream;
+  const dm::Plan* dm;
+  float2* packed;
+  float2* wbuf;
 };
 
 size_t smem_bytes(int pass, int n, int tc, int ppc) {
@@ -819,12 +945,61 @@ int launch_stage(const Launch& l, const float2* w, Stage stage, float2* out, int
   return (int)err;
 }
 
+// One stage by the device route: one cooperative launch.
+int launch_dm(const Launch& l, const float2* w, Stage stage, float2* out, int* launched) {
+  const float n = (float)l.dm->n;
+  static size_t allowed = 0, counted = 0;
+  static int blocks = 0;
+  const int err = dm::cooperative_launch(ns_adv_dm_kernel, dm::smem_bytes(*l.dm), l.stream,
+                                         allowed, counted, blocks, w, stage, l.kx, l.ky,
+                                         l.inv_k2, l.mask, l.scratch, l.packed, l.wbuf, out,
+                                         *l.dm, l.batch, 1.0f / (n * n * n * n));
+  if (err == 0) *launched += 1;
+  return err;
+}
+
 int launch_any(const Launch& l, const float2* w, Stage stage, float2* out, int* launched) {
+  if (l.dm) return launch_dm(l, w, stage, out, launched);
   return l.plan.logn >= 0 ? launch_stage<true>(l, w, stage, out, launched)
                           : launch_stage<false>(l, w, stage, out, launched);
 }
 
 inline const float2* c2(const float* p) { return reinterpret_cast<const float2*>(p); }
+
+// `substeps` classical RK4 substeps, four stages each (see ns_advection_rk4_launch).
+int rk4_substeps(const Launch& l, const float* w, float* work, float* out, const float* lin,
+                 const float* f, double dt, int substeps, int* launched) {
+  const size_t field = (size_t)l.batch * l.plan.n * l.plan.n;
+  float2* k = reinterpret_cast<float2*>(work);
+  float2* k1 = k, *k2 = k + field, *k3 = k + 2 * field;
+  const float2* src = c2(w);
+  const float half_dt = (float)(0.5 * dt);
+  for (int s = 0; s < substeps; ++s) {
+    float2* dst = s == substeps - 1 ? reinterpret_cast<float2*>(out) : k + (3 + (s & 1)) * field;
+    const Stage stages[4] = {{nullptr, 0.f, lin, c2(f), nullptr, nullptr, 0.f},
+                             {k1, half_dt, lin, c2(f), nullptr, nullptr, 0.f},
+                             {k2, half_dt, lin, c2(f), nullptr, nullptr, 0.f},
+                             {k3, (float)dt, lin, c2(f), k1, k2, (float)(dt / 6.0)}};
+    float2* outs[4] = {k1, k2, k3, dst};
+    for (int i = 0; i < 4; ++i) {
+      const int err = launch_any(l, src, stages[i], outs[i], launched);
+      if (err) return err;
+    }
+    src = dst;
+  }
+  return 0;
+}
+
+// The device route's buffers in `dm_work` (ns_advection_dm_work_floats): the
+// packed products, then Bluestein's work lines. Returns 0, or -1.
+int dm_launch_setup(Launch& l, dm::Plan& p, const int* desc, int ndesc, const float* tw,
+                    const int* pos, const float* chirp, const float* bh, float* dm_work) {
+  if (dm::make_plan(desc, ndesc, tw, pos, chirp, bh, &p) || p.n != l.plan.n) return -1;
+  l.dm = &p;
+  l.packed = reinterpret_cast<float2*>(dm_work);
+  l.wbuf = p.bluestein ? l.packed + (size_t)l.batch * p.n * ((p.n + 1) / 2) : nullptr;
+  return 0;
+}
 
 }  // namespace
 
@@ -848,7 +1023,8 @@ int ns_advection_launch(const float* w, const float* kx, const float* ky, const 
                         const float* lin, const float* f, int batch, int n, int tc, int ppc,
                         int cooperative, void* stream, int* launched) {
   Launch l = {kx, ky, inv_k2, mask, c2(twiddle), reinterpret_cast<float2*>(scratch), {},
-              batch, tc, ppc, cooperative, static_cast<cudaStream_t>(stream)};
+              batch, tc, ppc, cooperative, static_cast<cudaStream_t>(stream), nullptr, nullptr,
+              nullptr};
   if (make_plan(n, &l.plan) || tc < 2 || tc % 2 || ppc < 1) return (int)cudaErrorInvalidValue;
   const Stage stage = {nullptr, 0.f, lin, c2(f), nullptr, nullptr, 0.f};
   return launch_any(l, c2(w), stage, reinterpret_cast<float2*>(out), launched);
@@ -864,27 +1040,53 @@ int ns_advection_rk4_launch(const float* w, const float* kx, const float* ky,
                             const float* f, double dt, int substeps, int batch, int n, int tc,
                             int ppc, int cooperative, void* stream, int* launched) {
   Launch l = {kx, ky, inv_k2, mask, c2(twiddle), reinterpret_cast<float2*>(scratch), {},
-              batch, tc, ppc, cooperative, static_cast<cudaStream_t>(stream)};
+              batch, tc, ppc, cooperative, static_cast<cudaStream_t>(stream), nullptr, nullptr,
+              nullptr};
   if (make_plan(n, &l.plan) || tc < 2 || tc % 2 || ppc < 1) return (int)cudaErrorInvalidValue;
-  const size_t field = (size_t)batch * n * n;
-  float2* k = reinterpret_cast<float2*>(work);
-  float2* k1 = k, *k2 = k + field, *k3 = k + 2 * field;
-  const float2* src = c2(w);
-  const float half_dt = (float)(0.5 * dt);
-  for (int s = 0; s < substeps; ++s) {
-    float2* dst = s == substeps - 1 ? reinterpret_cast<float2*>(out) : k + (3 + (s & 1)) * field;
-    const Stage stages[4] = {{nullptr, 0.f, lin, c2(f), nullptr, nullptr, 0.f},
-                             {k1, half_dt, lin, c2(f), nullptr, nullptr, 0.f},
-                             {k2, half_dt, lin, c2(f), nullptr, nullptr, 0.f},
-                             {k3, (float)dt, lin, c2(f), k1, k2, (float)(dt / 6.0)}};
-    float2* outs[4] = {k1, k2, k3, dst};
-    for (int i = 0; i < 4; ++i) {
-      const int err = launch_any(l, src, stages[i], outs[i], launched);
-      if (err) return err;
-    }
-    src = dst;
-  }
-  return 0;
+  return rk4_substeps(l, w, work, out, lin, f, dt, substeps, launched);
+}
+
+// Floats of the device route's workspace, which the Python wrapper
+// allocates: the packed products (batch, n, ceil(n / 2)) complex, and for
+// Bluestein the work lines, one of m points per scratch row.
+size_t ns_advection_dm_work_floats(int batch, int n, int m, int bluestein) {
+  const size_t b = batch;
+  return 2 * b * n * ((n + 1) / 2) + (bluestein ? 2 * (size_t)kPacked * b * n * m : 0);
+}
+
+// The device route of ns_advection_launch: one cooperative launch. desc, tw,
+// pos, chirp, bh: the plan and its tables (ops/kernels/device_route.py;
+// chirp and bh null for a split); dm_work: ns_advection_dm_work_floats
+// floats. Other arguments as there (no tiles, no chain).
+int ns_advection_dm_launch(const float* w, const float* kx, const float* ky, const float* inv_k2,
+                           const float* mask, float* scratch, float* out, const float* lin,
+                           const float* f, int batch, int n, const int* desc, int ndesc,
+                           const float* tw, const int* pos, const float* chirp, const float* bh,
+                           float* dm_work, void* stream, int* launched) {
+  Launch l = {kx, ky, inv_k2, mask, nullptr, reinterpret_cast<float2*>(scratch), {},
+              batch, 0, 0, 1, static_cast<cudaStream_t>(stream), nullptr, nullptr, nullptr};
+  l.plan.n = n;
+  dm::Plan p;
+  if (batch < 1 || dm_launch_setup(l, p, desc, ndesc, tw, pos, chirp, bh, dm_work))
+    return (int)cudaErrorInvalidValue;
+  const Stage stage = {nullptr, 0.f, lin, c2(f), nullptr, nullptr, 0.f};
+  return launch_any(l, c2(w), stage, reinterpret_cast<float2*>(out), launched);
+}
+
+// The device route of ns_advection_rk4_launch: 4 * substeps cooperative launches.
+int ns_advection_dm_rk4_launch(const float* w, const float* kx, const float* ky,
+                               const float* inv_k2, const float* mask, float* scratch,
+                               float* work, float* out, const float* lin, const float* f,
+                               double dt, int substeps, int batch, int n, const int* desc,
+                               int ndesc, const float* tw, const int* pos, const float* chirp,
+                               const float* bh, float* dm_work, void* stream, int* launched) {
+  Launch l = {kx, ky, inv_k2, mask, nullptr, reinterpret_cast<float2*>(scratch), {},
+              batch, 0, 0, 1, static_cast<cudaStream_t>(stream), nullptr, nullptr, nullptr};
+  l.plan.n = n;
+  dm::Plan p;
+  if (batch < 1 || dm_launch_setup(l, p, desc, ndesc, tw, pos, chirp, bh, dm_work))
+    return (int)cudaErrorInvalidValue;
+  return rk4_substeps(l, w, work, out, lin, f, dt, substeps, launched);
 }
 
 const char* ns_advection_error_string(int code) {

@@ -28,9 +28,20 @@ needs (62 real FFTs and the per-bin update) whatever transform runs, and
 chip_smoke.py holds the kernel's time against that count.
 
 Grid sizes. Every nx >= 2, even or odd (odd nx has no Nyquist bin: the split
-and merge pair bins k and nx - k, and none is its own mirror but k = 0), up
-to the grid whose CTA of one row pair still fits the card's shared memory
-(``line_limit``); above it the wrapper raises and names the limit.
+and merge pair bins k and nx - k, and none is its own mirror but k = 0), by
+one of two routes (``route``), both hand-written kernels of the same source:
+
+  * "block", up to the grid whose CTA of one row pair still fits the card's
+    shared memory (``line_limit``: 4,303, or 3,748 with a prime factor above
+    5): the design above;
+  * "device", above it: the half spectra and the work lines live in a
+    workspace in device memory that the wrapper allocates and keeps per
+    device, stream and shape, and every transform runs as levels that fit a
+    block, a split of nx or Bluestein (``device_route.device_plan``), in one
+    cooperative launch per env step.
+
+The one grid refused is one whose workspace does not fit the device's free
+memory; the error names the bytes.
 """
 
 from __future__ import annotations
@@ -39,6 +50,8 @@ import ctypes
 
 import numpy as np
 import torch
+
+from distributedconvrl_pde_control_torch.ops.kernels import device_route
 
 SOURCE = "ks_cnab2.cu"
 REPLACES = "distributedconvrl_pde_control_tpu/ops/pallas/ks_kernel.py:96"
@@ -160,6 +173,20 @@ def line_limit(nx: int) -> int:
     return m
 
 
+def route(nx: int) -> str:
+    """"block" where a CTA of one row pair fits a block's shared memory
+    (nx up to ``line_limit``), else "device"."""
+    return "block" if smem_bytes(nx, 1, has_generic_stage(nx)) <= SMEM_LIMIT else "device"
+
+
+def dm_work_floats(batch: int, nx: int, plan: device_route.DevicePlan) -> int:
+    """Floats of the device route's workspace (`ks_cnab2_dm_work_floats` in
+    the source): per row pair three half spectra of float4 and a work line,
+    and Bluestein's work line of m points."""
+    lines, nf = (batch + 1) // 2, nx // 2 + 1
+    return lines * (12 * nf + 2 * nx + (2 * plan.m if plan.bluestein else 0))
+
+
 def launch_shape(nx: int, batch: int) -> tuple[int, int]:
     """(row pairs per CTA, threads per CTA) for a batch at grid size nx: as
     many pairs as the batch has, up to 8, fewer where two CTAs would not
@@ -199,6 +226,8 @@ class _KSCnab2Kernel:
     def __init__(self):
         self.launches = 0
         self._lib = None
+        # device route: (device, stream, batch, nx, SMEM_LIMIT) -> (plan, tables, workspace)
+        self._plans = {}
 
     def _load(self):
         if self._lib is None:
@@ -209,6 +238,9 @@ class _KSCnab2Kernel:
             lib.ks_cnab2_launch.argtypes = [ptr] * 6 + [i32] * 2 + [ptr] + [i32] * 4 + [
                 ctypes.c_float, ptr]
             lib.ks_cnab2_launch.restype = ctypes.c_int
+            lib.ks_cnab2_dm_launch.argtypes = [ptr] * 6 + [i32] + [ptr] * 4 + [i32] * 2 + [
+                ctypes.c_float, ptr]
+            lib.ks_cnab2_dm_launch.restype = ctypes.c_int
             lib.ks_cnab2_error_string.argtypes = [ctypes.c_int]
             lib.ks_cnab2_error_string.restype = ctypes.c_char_p
             self._lib = lib
@@ -235,17 +267,21 @@ class _KSCnab2Kernel:
         if radices.dtype != np.int32 or len(radices) > MAX_FACTORS or int(np.prod(radices)) != nx:
             raise ValueError(f"K1 radices: need at most {MAX_FACTORS} int32 factors of {nx}, "
                              f"got {radices}")
-        pairs, threads = launch_shape(nx, batch)
-        generic = any(int(r) not in BUTTERFLIES for r in radices)
-        if smem_bytes(nx, pairs, generic) > SMEM_LIMIT:
-            kind = "with a generic stage" if generic else "of butterfly radices"
-            raise ValueError(f"K1 at nx={nx} needs {smem_bytes(nx, pairs, generic)} B of shared "
-                             f"memory per CTA, above the card's {SMEM_LIMIT} B: it keeps a row "
-                             f"pair's spectra and work lines on chip, which takes nx {kind} up "
-                             f"to {line_limit(nx)}")
         lib = self._load()
         out = torch.empty_like(y)
         stream = torch.cuda.current_stream(y.device).cuda_stream
+        if route(nx) == "device":
+            plan, (desc, tw, dpos, chirp, bh), work = self._device_plan(y.device, stream, batch, nx)
+            ptr = device_route.ptr
+            err = lib.ks_cnab2_dm_launch(
+                y.data_ptr(), forcing.data_ptr(), ops.data_ptr(), out.data_ptr(), work.data_ptr(),
+                desc.ctypes.data, len(desc), tw.data_ptr(), dpos.data_ptr(), ptr(chirp), ptr(bh),
+                batch, oversampling, dt / oversampling, stream)
+            if err:
+                raise RuntimeError(f"K1 launch failed: {lib.ks_cnab2_error_string(err).decode()}")
+            self.launches += 1
+            return out
+        pairs, threads = launch_shape(nx, batch)
         err = lib.ks_cnab2_launch(y.data_ptr(), forcing.data_ptr(), ops.data_ptr(),
                                   twiddle.data_ptr(), pos.data_ptr(), out.data_ptr(), batch, nx,
                                   radices.ctypes.data, len(radices), pairs.bit_length() - 1,
@@ -254,6 +290,20 @@ class _KSCnab2Kernel:
             raise RuntimeError(f"K1 launch failed: {lib.ks_cnab2_error_string(err).decode()}")
         self.launches += 1
         return out
+
+    def _device_plan(self, device, stream, batch: int, nx: int):
+        """The device route's plan, tables and workspace of one shape, made
+        at its first call and kept; raises if they do not fit the device's
+        memory."""
+        key = (device.index, stream, batch, nx, SMEM_LIMIT)
+        if key not in self._plans:
+            plan = device_route.device_plan(nx, SMEM_LIMIT)
+            floats = dm_work_floats(batch, nx, plan)
+            device_route.check_memory(4 * floats + device_route.table_bytes(plan), device,
+                                      f"K1 at nx={nx}, batch {batch}")
+            self._plans[key] = (plan, device_route.device_tables(plan, device),
+                                torch.empty(floats, dtype=torch.float32, device=device))
+        return self._plans[key]
 
 
 KS_CNAB2 = _KSCnab2Kernel()

@@ -33,10 +33,21 @@ call checks only the tensors it is given. The (B, 2, n, n) scratch is kept
 per device, stream and shape and reused: calls on one stream are ordered, so
 a later call may overwrite what an earlier one has finished with.
 
-Grid sizes. The kernel takes every square grid n >= 8 whose lines fit one
-block's shared memory (``line_limit``): a power of two runs radix-2 groups,
-any other n the mixed-radix passes of K1, with a generic stage for a prime
-factor above 5. Above the limit the wrapper raises and names it.
+Grid sizes. Every square grid n >= 8, by one of two routes (``route``), both
+hand-written kernels of the same source:
+
+  * "block", up to the grid whose lines fit one block's shared memory
+    (``line_limit``: 4,304 for factors 2, 3 and 5, 4,008 odd; 2,641 / 2,527
+    with a larger prime factor): a power of two runs radix-2 groups, any
+    other n the mixed-radix passes of K1, with a generic stage for a prime
+    factor above 5;
+  * "device", above it: the line transforms run as levels that fit a block
+    (a split of n or Bluestein, ``device_route.device_plan``) through device
+    memory, one cooperative launch per call or stage, with a workspace for
+    the packed products (and Bluestein's lines) kept like the scratch.
+
+The one grid refused is one whose buffers do not fit the device's free
+memory; the error names the bytes.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from distributedconvrl_pde_control_torch.ops.kernels import device_route
 from distributedconvrl_pde_control_torch.ops.kernels.ks_kernel import has_generic_stage
 
 SOURCE = "ns_advection.cu"
@@ -108,26 +120,30 @@ def advection_constants(kx: np.ndarray, ky: np.ndarray, device="cuda") -> Advect
 
     The vectors are cast to float32 before k^2 is formed, as the reference
     does (`make_sharded_ops`, `PallasAdvection2D._consts`); the sign of the
-    Nyquist entry is the caller's convention."""
+    Nyquist entry is the caller's convention. The (n, n) arrays are made on
+    `device` from the vectors (float32 products, sums and quotients, each
+    rounded once: the values numpy gives), so that a large grid builds no
+    host arrays."""
     n = len(kx)
     if len(ky) != n:
         raise ValueError(f"K2 takes square grids, got kx ({len(kx)},) and ky ({len(ky)},)")
-    kx_row = np.broadcast_to(np.asarray(kx)[None, :], (n, n)).astype(np.float32)
-    ky_col = np.broadcast_to(np.asarray(ky)[:, None], (n, n)).astype(np.float32)
-    k2 = ky_col**2 + kx_row**2
-    inv_k2 = (1.0 / np.where(k2 == 0.0, 1.0, k2)).astype(np.float32)
-    inv_k2[k2 == 0.0] = 0.0
-    ii = np.abs(np.fft.fftfreq(n) * n)
-    mask = ((ii[:, None] <= n // 3) & (ii[None, :] <= n // 3)).astype(np.float32)
-    ang = 2.0 * np.pi * np.arange(twiddle_length(n)) / n
-    twiddle = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
 
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
 
-    return AdvectionConstants(n=n, kx=dev(kx_row), ky=dev(ky_col), k2=dev(k2), inv_k2=dev(inv_k2),
-                              mask23=dev(mask), kx_vec=dev(kx_row[0]), ky_vec=dev(ky_col[:, 0]),
-                              twiddle=dev(twiddle))
+    kx_vec = dev(np.asarray(kx).astype(np.float32))
+    ky_vec = dev(np.asarray(ky).astype(np.float32))
+    kx_row = kx_vec[None, :].expand(n, n).contiguous()
+    ky_col = ky_vec[:, None].expand(n, n).contiguous()
+    k2 = ky_col * ky_col + kx_row * kx_row
+    zero = k2 == 0.0
+    inv_k2 = torch.where(zero, 0.0, 1.0 / torch.where(zero, 1.0, k2))
+    ii = dev(np.abs(np.fft.fftfreq(n) * n) <= n // 3)
+    mask = (ii[:, None] * ii[None, :]).contiguous()
+    ang = 2.0 * np.pi * np.arange(twiddle_length(n)) / n
+    twiddle = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+    return AdvectionConstants(n=n, kx=kx_row, ky=ky_col, k2=k2, inv_k2=inv_k2, mask23=mask,
+                              kx_vec=kx_vec, ky_vec=ky_vec, twiddle=dev(twiddle))
 
 
 def fftfreq_constants(n: int, lx: float = 1.0, device="cuda") -> AdvectionConstants:
@@ -223,19 +239,25 @@ def column_tile(n: int, batch: int) -> int:
     return tc
 
 
+def route(n: int) -> str:
+    """"block" where every pass's lines fit one block at the narrowest
+    launch shape (n up to ``line_limit``), else "device"."""
+    return "block" if max(smem_bytes(i, n, 2, 1) for i in range(3)) <= SMEM_LIMIT else "device"
+
+
 def check_grid(n: int) -> None:
-    """Raises unless the kernel takes an n x n grid: n >= MIN_N, and lines
-    that fit one block's shared memory at the narrowest launch shape."""
+    """Raises unless the kernel takes an n x n grid: n >= MIN_N (the route
+    takes any larger n; only the device's memory bounds it)."""
     if n < MIN_N:
         raise ValueError(f"K2 takes grids of n >= {MIN_N}, got {n}")
-    need = max(smem_bytes(i, n, 2, 1) for i in range(3))
-    if need > SMEM_LIMIT:
-        kind = ("with a prime factor above 5" if has_generic_stage(n)
-                else "of factors 2, 3 and 5")
-        raise ValueError(
-            f"K2 at n={n} needs {need} B of shared memory per block, above the card's "
-            f"{SMEM_LIMIT} B: its line transforms hold whole lines, which takes "
-            f"{'odd' if n % 2 else 'even'} n {kind} up to {line_limit(n)}")
+
+
+def dm_work_floats(batch: int, n: int, plan: device_route.DevicePlan) -> int:
+    """Floats of the device route's workspace (`ns_advection_dm_work_floats`
+    in the source): the packed products (batch, n, ceil(n/2)) complex and,
+    for Bluestein, one work line of m points per scratch row."""
+    packed = 2 * batch * n * ((n + 1) // 2)
+    return packed + (2 * PACKED * batch * n * plan.m if plan.bluestein else 0)
 
 
 def row_pairs(n: int, batch: int) -> int:
@@ -270,14 +292,17 @@ class _NSAdvectionKernel:
     per device, stream and shape the scratch, the work fields and the launch
     shape kept between calls.
 
-    `chain` picks the form of a stage on the card: one cooperative launch
-    (the default, what every path runs) or the chain of three launches (what
-    the CPU tests emulate; timed beside the other by chip_smoke.py)."""
+    `chain` picks the form of a stage of the block route on the card: one
+    cooperative launch (the default, what every path runs) or the chain of
+    three launches (what the CPU tests emulate; timed beside the other by
+    chip_smoke.py). The device route is one cooperative launch."""
 
     def __init__(self):
         self.launches = 0  # kernel launches, as the library counts them where it makes them
         self._lib = None
-        self._plans = {}  # (device, stream, batch, n) -> [scratch, tc, ppc, work or None]
+        # (device, stream, batch, n, SMEM_LIMIT) -> [scratch, tc, ppc, work or None,
+        # device route: (tables, workspace) or None]
+        self._plans = {}
 
     def _load(self):
         if self._lib is None:
@@ -289,6 +314,11 @@ class _NSAdvectionKernel:
             lib.ns_advection_launch.restype = ctypes.c_int
             lib.ns_advection_rk4_launch.argtypes = [ptr] * 11 + [f64] + [i32] * 6 + [ptr] * 2
             lib.ns_advection_rk4_launch.restype = ctypes.c_int
+            lib.ns_advection_dm_launch.argtypes = [ptr] * 9 + [i32] * 2 + [ptr, i32] + [ptr] * 7
+            lib.ns_advection_dm_launch.restype = ctypes.c_int
+            lib.ns_advection_dm_rk4_launch.argtypes = ([ptr] * 10 + [f64] + [i32] * 3
+                                                       + [ptr, i32] + [ptr] * 7)
+            lib.ns_advection_dm_rk4_launch.restype = ctypes.c_int
             lib.ns_advection_error_string.argtypes = [ctypes.c_int]
             lib.ns_advection_error_string.restype = ctypes.c_char_p
             self._lib = lib
@@ -305,14 +335,25 @@ class _NSAdvectionKernel:
             raise ValueError(f"K2 w: need a contiguous complex64 (B, {n}, {n}), "
                              f"got {w.dtype} {tuple(w.shape)}")
         stream = torch.cuda.current_stream(device).cuda_stream
-        key = (device.index, stream, w.shape[0], n)
+        key = (device.index, stream, w.shape[0], n, SMEM_LIMIT)
         plan = self._plans.get(key)
         if plan is None:
             check_grid(n)
             batch = w.shape[0]
             self._load()
+            if route(n) == "device":
+                dplan = device_route.device_plan(n, SMEM_LIMIT)
+                floats = dm_work_floats(batch, n, dplan)
+                device_route.check_memory(
+                    8 * PACKED * batch * n * n + 4 * floats + device_route.table_bytes(dplan),
+                    device, f"K2 at n={n}, batch {batch}")
+                dm = (device_route.device_tables(dplan, device),
+                      torch.empty(floats, dtype=torch.float32, device=device))
+                tc = ppc = 0
+            else:
+                dm, tc, ppc = None, column_tile(n, batch), row_pairs(n, batch)
             scratch = torch.empty((batch, PACKED, n, n), dtype=torch.complex64, device=device)
-            plan = self._plans[key] = [scratch, column_tile(n, batch), row_pairs(n, batch), None]
+            plan = self._plans[key] = [scratch, tc, ppc, None, dm]
         return plan, stream
 
     @staticmethod
@@ -338,10 +379,19 @@ class _NSAdvectionKernel:
     def __call__(self, w: torch.Tensor, c: AdvectionConstants, lin=None, f=None,
                  chain: bool = False) -> torch.Tensor:
         """`ns_advection`: one launch of the kernel (three with `chain`)."""
-        (scratch, tc, ppc, _), stream = self._plan(w, c)
+        (scratch, tc, ppc, _, dm), stream = self._plan(w, c)
         self._check(c, lin, w=w, f=f)
         out = torch.empty_like(w)
         launched = ctypes.c_int(0)
+        if dm is not None:
+            if chain:
+                raise ValueError(f"K2 at n={c.n} runs its device route, which has no chain form")
+            err = self._lib.ns_advection_dm_launch(
+                w.data_ptr(), *c.pointers[:4], scratch.data_ptr(), out.data_ptr(),
+                None if lin is None else lin.data_ptr(), None if f is None else f.data_ptr(),
+                w.shape[0], c.n, *_dm_args(dm), stream, ctypes.byref(launched))
+            self._count(err, launched)
+            return out
         err = self._lib.ns_advection_launch(
             w.data_ptr(), *c.pointers, scratch.data_ptr(), out.data_ptr(),
             None if lin is None else lin.data_ptr(), None if f is None else f.data_ptr(),
@@ -361,15 +411,31 @@ class _NSAdvectionKernel:
         self._check(c, lin, w=w, f=f)
         if plan[3] is None:
             plan[3] = torch.empty((5, *w.shape), dtype=torch.complex64, device=w.device)
-        scratch, tc, ppc, work = plan
+        scratch, tc, ppc, work, dm = plan
         out = torch.empty_like(w)
         launched = ctypes.c_int(0)
+        if dm is not None:
+            if chain:
+                raise ValueError(f"K2 at n={c.n} runs its device route, which has no chain form")
+            err = self._lib.ns_advection_dm_rk4_launch(
+                w.data_ptr(), *c.pointers[:4], scratch.data_ptr(), work.data_ptr(),
+                out.data_ptr(), lin.data_ptr(), f.data_ptr(), dt, substeps, w.shape[0], c.n,
+                *_dm_args(dm), stream, ctypes.byref(launched))
+            self._count(err, launched)
+            return out
         err = self._lib.ns_advection_rk4_launch(
             w.data_ptr(), *c.pointers, scratch.data_ptr(), work.data_ptr(), out.data_ptr(),
             lin.data_ptr(), f.data_ptr(), dt, substeps, w.shape[0], c.n, tc, ppc,
             not chain, stream, ctypes.byref(launched))
         self._count(err, launched)
         return out
+
+
+def _dm_args(dm) -> tuple:
+    """The device route's plan, tables and workspace as the library takes them."""
+    (desc, tw, pos, chirp, bh), work = dm
+    return (desc.ctypes.data, len(desc), tw.data_ptr(), pos.data_ptr(), device_route.ptr(chirp),
+            device_route.ptr(bh), work.data_ptr())
 
 
 NS_ADVECTION = _NSAdvectionKernel()

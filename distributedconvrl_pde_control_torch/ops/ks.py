@@ -8,8 +8,9 @@ a periodic domain with the semantics of the reference's `do_step`
 environment step. The CNAB2 step itself is kernel K1
 (``ops/kernels/ks_kernel.py``): the CUDA kernel on CUDA tensors (all substeps
 in one launch, on an in-kernel mixed-radix FFT whose stage plan and tables
-the solver makes once, as ``kernel_constants``), its plain ``torch.fft``
-version on CPU tensors. K1 computes in float32 whatever transform tier
+the solver makes once, as ``kernel_constants``; above nx = 4,303 the
+kernel's device route, whose plan, tables and workspace the wrapper makes at
+first use), its plain ``torch.fft`` version on CPU tensors. K1 computes in float32 whatever transform tier
 the config names, as its Pallas twin does (HIGHEST only, ``ks_kernel.py:102``);
 the JAX package's non-Pallas ``KSSolver`` would round at the tier there. The
 ETDRK4 stepper has no hand kernel in either package: it transforms through

@@ -94,7 +94,10 @@ def make_sharded_ops(nx: int, ny: int, lx: float = 1.0, ly: float = 1.0, device:
                      mesh: Optional[RankMesh] = None) -> ShardedOps:
     """Operators of an (ny, nx) grid; kx, ky are cast to float32 before k^2
     is formed, as the reference does. At sp = 1 the constants of kernel K2,
-    which takes square grids; at sp > 1 this rank's column slices."""
+    which takes square grids of any size (its device route above one block's
+    shared memory), made on `device` from the wavenumber vectors: at 6144^2
+    each (n, n) array is 151 MB there and no host array of that size is
+    built; at sp > 1 this rank's column slices."""
     if nx != ny:
         raise ValueError(f"the advection kernel takes square grids, got nx={nx}, ny={ny}")
     consts = advection_constants(fft_wavenumbers(nx, lx), fft_wavenumbers(ny, ly), device)

@@ -165,9 +165,6 @@ def test_k2_wrapper_rejects_bad_inputs_on_gpu():
     for bad in (w.to(torch.complex128), w[0], w[:, :, :16].contiguous(), w.transpose(1, 2)):
         with pytest.raises(ValueError):
             ns_advection.NS_ADVECTION(bad, c)
-    with pytest.raises(ValueError, match="up to 4304"):  # above the shared-memory limit
-        ns_advection.NS_ADVECTION(torch.zeros(1, 6144, 6144, dtype=torch.complex64, device="cuda"),
-                                  ns_advection.fftfreq_constants(6144, device="cuda"))
     with pytest.raises(ValueError, match="float32 on cuda"):
         ns_advection.NS_ADVECTION(w, ns_advection.fftfreq_constants(32, device="cpu"))
     for kw in (dict(f=w[:1]), dict(f=w.to(torch.complex128)), dict(lin=c.k2.double()),
@@ -176,6 +173,114 @@ def test_k2_wrapper_rejects_bad_inputs_on_gpu():
             ns_advection.NS_ADVECTION(w, c, **kw)
     with pytest.raises(ValueError, match="substeps"):
         ns_advection.NS_ADVECTION.rk4(w, c, c.k2, w, 0.1, 0)
+
+
+@pytest.mark.gpu
+def test_k2_device_route_at_6144_matches_plain_on_gpu():
+    """Above the block route's shared-memory limit K2 takes its device route (it refused
+    6144^2 until the route came): one launch, within the Pallas tolerance."""
+    _need_cuda()
+    n = 6144
+    assert ns_advection.route(n) == "device"
+    rng = np.random.default_rng(n)
+    w = torch.fft.fft2(torch.tensor(rng.standard_normal((1, n, n)), dtype=torch.float32,
+                                    device="cuda"))
+    c = ns_advection.fftfreq_constants(n, device="cuda")
+    before = ns_advection.NS_ADVECTION.launches
+    got = ns_advection.NS_ADVECTION(w, c)
+    torch.cuda.synchronize()
+    assert ns_advection.NS_ADVECTION.launches == before + 1
+    want = ns_advection.ns_advection_plain(w, c)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    with pytest.raises(ValueError, match="no chain form"):
+        ns_advection.NS_ADVECTION(w, c, chain=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nx,batch", [(4320, 2), (4320, 64), (4327, 2), (4327, 64), (8192, 2),
+                                      (8192, 64)])
+def test_k1_device_route_matches_plain_on_gpu(nx, batch):
+    """K1 above its block route's limit: a split (4320, 8192) or Bluestein (4327, prime), 30
+    substeps at ||y|| ~ 30 per row, one launch."""
+    _need_cuda()
+    assert ks_kernel.route(nx) == "device"
+    rng = np.random.default_rng(nx + batch)
+    y = torch.tensor(3.0 * rng.standard_normal((batch, nx)), dtype=torch.float32, device="cuda")
+    f = torch.tensor(rng.standard_normal((batch, nx)), dtype=torch.float32, device="cuda")
+    solver = KSSolver(nx=nx, lx=22.0 * nx / 192, dt=0.1, oversampling=30, mu=0.02, device="cuda")
+    before = ks_kernel.KS_CNAB2.launches
+    got = solver.step(y, f)
+    torch.cuda.synchronize()
+    assert ks_kernel.KS_CNAB2.launches == before + 1
+    want = ks_kernel.ks_cnab2_plain(y, f, solver)
+    assert torch.isfinite(got).all() and (got - want).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4097, 4099])
+def test_k2_device_route_matches_plain_on_gpu(n):
+    """K2 above its limit: 4097 = 17 x 241 (generic stages in both levels), 4099 prime
+    (Bluestein over 8640)."""
+    _need_cuda()
+    assert ns_advection.route(n) == "device"
+    from distributedconvrl_pde_control_torch.parallel.ns_sharded import make_sharded_ops
+
+    c = make_sharded_ops(n, n, device="cuda")
+    w = _complex_spectra(np.random.default_rng(n), 1, n, float(n))
+    before = ns_advection.NS_ADVECTION.launches
+    got = ns_advection.ns_advection(w, c)
+    torch.cuda.synchronize()
+    assert ns_advection.NS_ADVECTION.launches == before + 1
+    want = ns_advection.ns_advection_plain(w, c)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+FORCED_SMEM_LIMIT = 4096  # no block-route line of 192 points or 256^2 fits it
+
+
+@pytest.mark.gpu
+def test_k1_device_route_forced_equals_block_route_on_gpu(monkeypatch):
+    """The device route forced at the main path's shape (16384 x 192, 30 substeps) equals the
+    block route within K1's tolerance."""
+    _need_cuda()
+    rng = np.random.default_rng(192)
+    y = torch.tensor(3.0 * rng.standard_normal((16384, 192)), dtype=torch.float32, device="cuda")
+    f = torch.tensor(rng.standard_normal((16384, 192)), dtype=torch.float32, device="cuda")
+    solver = KSSolver(nx=192, lx=22.0, dt=0.1, oversampling=30, mu=0.02, device="cuda")
+    block = solver.step(y, f)
+    monkeypatch.setattr(ks_kernel, "SMEM_LIMIT", FORCED_SMEM_LIMIT)
+    assert ks_kernel.route(192) == "device"
+    before = ks_kernel.KS_CNAB2.launches
+    got = solver.step(y, f)
+    torch.cuda.synchronize()
+    assert ks_kernel.KS_CNAB2.launches == before + 1
+    assert (got - block).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 16])
+def test_k2_device_route_forced_equals_block_route_on_gpu(monkeypatch, batch):
+    """The device route forced at the fluid path's shape: `ns_rk4_substeps` at 256^2 equals the
+    block route within K2's tolerance, one cooperative launch per stage."""
+    _need_cuda()
+    from distributedconvrl_pde_control_torch.ops.navier_stokes import initial_condition
+    from distributedconvrl_pde_control_torch.parallel.ns_sharded import make_sharded_ops
+
+    n = 256
+    c = make_sharded_ops(n, n, device="cuda")
+    rng = np.random.default_rng(76 + batch)
+    w = torch.tensor(np.stack([initial_condition(4, n, n, 1.0, 1.0, rng) for _ in range(batch)])
+                     .astype(np.complex64), device="cuda")
+    f = _complex_spectra(rng, batch, n, 0.05 * w.abs().max().item())
+    lin = (-5e-5 * c.k2).contiguous()
+    block = ns_advection.ns_rk4_substeps(w, c, lin, f, 2.5e-4, 3)
+    monkeypatch.setattr(ns_advection, "SMEM_LIMIT", FORCED_SMEM_LIMIT)
+    assert ns_advection.route(n) == "device"
+    before = ns_advection.NS_ADVECTION.launches
+    got = ns_advection.ns_rk4_substeps(w, c, lin, f, 2.5e-4, 3)
+    torch.cuda.synchronize()
+    assert ns_advection.NS_ADVECTION.launches == before + 12
+    assert (got - block).abs().max().item() <= 1e-4 * block.abs().max().item()
 
 
 def test_k1_wrapper_never_falls_back():

@@ -23,7 +23,7 @@ from distributedconvrl_pde_control_tpu.ops.pallas.ns_advection import (
     PallasAdvection2D,
     xla_advection_ri,
 )
-from distributedconvrl_pde_control_torch.ops.kernels import build, ns_advection as k2
+from distributedconvrl_pde_control_torch.ops.kernels import build, device_route, ns_advection as k2
 from distributedconvrl_pde_control_torch.ops.navier_stokes import initial_condition
 
 
@@ -94,19 +94,43 @@ def test_flops_bytes_and_tile():
 
 
 def test_k2_grid_limits():
-    """Every n >= 8 up to the shared-memory limit of its kind is taken; above
-    it the refusal names the limit, computed from smem_bytes."""
+    """Every n >= 8 up to the shared-memory limit of its kind takes the block
+    route, computed from smem_bytes; above it the device route (no refusal
+    but n < 8)."""
     # the limit of each kind: even and odd, with factors 2, 3 and 5 only or another prime
     assert [k2.line_limit(n) for n in (4096, 3645, 2638, 2527)] == [4304, 4008, 2641, 2527]
     for n in (8, 9, 45, 176, 2039, 2048, 4096, 3645, 2638, 2527):
         k2.check_grid(n)
         assert max(k2.smem_bytes(i, n, 2, 1) for i in range(3)) <= k2.SMEM_LIMIT
+        assert k2.route(n) == "block"
     with pytest.raises(ValueError, match="n >= 8"):
         k2.check_grid(7)
     for n, limit in ((4320, 4304), (6144, 4304), (6561, 4008), (2642, 2641), (4097, 2527)):
-        with pytest.raises(ValueError, match=f"up to {limit}$"):
-            k2.check_grid(n)
+        assert n > limit == k2.line_limit(n) and k2.route(n) == "device"
+        k2.check_grid(n)
     assert k2.twiddle_length(45) == 45 and k2.twiddle_length(96) == 48
+
+
+# above the block route's limits: (n, the split's levels or Bluestein's m)
+ROUTE_CASES = [(4320, (60, 72)), (6144, (64, 96)), (6561, (81, 81)), (2642, (2, 1321)),
+               (4097, (17, 241)), (4099, 8640), (8192, (64, 128))]
+
+
+@pytest.mark.parametrize("n,want", ROUTE_CASES)
+def test_k2_device_route_plan(n, want):
+    """Each grid the block route cannot take gets a device plan: a split whose levels the block
+    route takes as lines, or Bluestein of a 5-smooth m >= 2n - 1 that splits so."""
+    assert k2.route(n) == "device"
+    plan = device_route.device_plan(n, k2.SMEM_LIMIT)
+    assert all(length <= k2.line_limit(length) for length in plan.levels)
+    assert int(np.prod(plan.levels)) == plan.m and plan.smem <= k2.SMEM_LIMIT
+    if plan.bluestein:
+        assert plan.m == want and plan.m >= 2 * n - 1 and set(
+            device_route._factor_radices(plan.m)) <= {2, 3, 4, 5}
+    else:
+        assert plan.levels == want and plan.m == n
+    assert k2.dm_work_floats(1, n, plan) == 2 * n * ((n + 1) // 2) + (
+        4 * n * plan.m if plan.bluestein else 0)
 
 
 def test_k2_wrapper_never_falls_back():
@@ -141,33 +165,70 @@ _SHIM = r"""
 #define __host__
 #define __restrict__
 #define __forceinline__ inline
+#define __noinline__
 #define __launch_bounds__(x)
+#define DM_THREADS 64
 struct float2 { float x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 struct Dim { int x; };
-inline thread_local Dim threadIdx;
-inline Dim blockIdx, blockDim;
-inline std::unique_ptr<std::barrier<>> g_bar;
-inline void __syncthreads() { g_bar->arrive_and_wait(); }
+inline thread_local Dim threadIdx, blockIdx;
+inline Dim blockDim, gridDim;
+inline thread_local std::barrier<>* tl_bar;
+inline thread_local void* tl_smem;
+inline std::barrier<>* g_grid_bar;
+inline void __syncthreads() { tl_bar->arrive_and_wait(); }
+inline void grid_sync() { g_grid_bar->arrive_and_wait(); }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 #define cudaSuccess 0
 #define cudaErrorInvalidValue 1
+#define cudaErrorInvalidConfiguration 9
 #define cudaFuncAttributeMaxDynamicSharedMemorySize 0
+#define cudaDevAttrMultiProcessorCount 0
 template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "no error"; }
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 3; return 0; }  // three "SMs"
+template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;
+  return 0;
+}
 inline float2 g_smem[1 << 15];
 template <class F> void emu_launch(int grid, int threads, size_t smem_bytes, F fn) {
   if (smem_bytes > sizeof(g_smem)) throw 1;
   blockDim.x = threads;
-  for (int b = 0; b < grid; ++b) {
-    blockIdx.x = b;
-    g_bar = std::make_unique<std::barrier<>>(threads);
+  gridDim.x = grid;
+  for (int b = 0; b < grid; ++b) {  // blocks one after another
+    std::barrier<> bar(threads);
     std::vector<std::thread> ts;
-    for (int t = 0; t < threads; ++t) ts.emplace_back([=] { threadIdx.x = t; fn(); });
+    for (int t = 0; t < threads; ++t)
+      ts.emplace_back([&, b, t] { blockIdx.x = b; threadIdx.x = t; tl_bar = &bar; tl_smem = g_smem; fn(); });
     for (auto& th : ts) th.join();
   }
+}
+// a cooperative launch: every thread of every block at once, grid_sync a barrier of all of them
+template <class K, class... A> int host_cooperative_launch(K kernel, int grid, int threads,
+                                                           size_t smem, A... args) {
+  blockDim.x = threads;
+  gridDim.x = grid;
+  std::barrier<> all(grid * threads);
+  g_grid_bar = &all;
+  std::vector<std::unique_ptr<std::barrier<>>> bars;
+  std::vector<std::vector<float2>> mem;
+  for (int b = 0; b < grid; ++b) {
+    bars.push_back(std::make_unique<std::barrier<>>(threads));
+    mem.emplace_back(smem / sizeof(float2) + 1);
+  }
+  std::vector<std::thread> ts;
+  for (int b = 0; b < grid; ++b)
+    for (int t = 0; t < threads; ++t)
+      ts.emplace_back([&, b, t] {
+        blockIdx.x = b; threadIdx.x = t; tl_bar = bars[b].get(); tl_smem = mem[b].data();
+        kernel(args...);
+      });
+  for (auto& th : ts) th.join();
+  return 0;
 }
 """
 _LAUNCH = re.compile(r"([\w<>]+)<<<(\w+), (\w+), (\w+), st>>>\(([^;]*)\);")
@@ -181,7 +242,8 @@ def emulated_k2(tmp_path_factory):
     src = (build.CSRC_DIR / k2.SOURCE).read_text()
     assert len(_LAUNCH.findall(src)) == 3, "K2's launches changed: update the emulation"
     src = (src.replace("#include <cuda_runtime.h>", _SHIM)
-              .replace("extern __shared__ float2 smem[];", "float2* smem = g_smem;"))
+              .replace("extern __shared__ float2 smem[];",
+                       "float2* smem = static_cast<float2*>(tl_smem);"))
     src = _LAUNCH.sub(r"emu_launch(\2, \3, \4, [&] { \1(\5); });", src)
     d = tmp_path_factory.mktemp("k2emu")
     (d / "k2.cpp").write_text(src)
@@ -196,6 +258,13 @@ def emulated_k2(tmp_path_factory):
     lib.ns_advection_rk4_launch.restype = ctypes.c_int
     lib.ns_advection_smem_bytes.argtypes = [i32] * 4
     lib.ns_advection_smem_bytes.restype = ctypes.c_size_t
+    lib.ns_advection_dm_launch.argtypes = [ptr] * 9 + [i32] * 2 + [ptr, i32] + [ptr] * 7
+    lib.ns_advection_dm_launch.restype = ctypes.c_int
+    lib.ns_advection_dm_rk4_launch.argtypes = ([ptr] * 10 + [ctypes.c_double] + [i32] * 3
+                                               + [ptr, i32] + [ptr] * 7)
+    lib.ns_advection_dm_rk4_launch.restype = ctypes.c_int
+    lib.ns_advection_dm_work_floats.argtypes = [i32] * 4
+    lib.ns_advection_dm_work_floats.restype = ctypes.c_size_t
     return lib
 
 
@@ -340,3 +409,79 @@ def test_k2_stage_operands_are_checked():
         k2.AdvectionConstants(n=16, kx=c.kx, ky=c.ky, k2=c.k2, inv_k2=c.inv_k2.double(),
                               mask23=c.mask23, kx_vec=c.kx_vec, ky_vec=c.ky_vec, twiddle=c.twiddle)
     assert len(c.pointers) == 5 and c.pointers[2] == c.inv_k2.data_ptr() and c.device.type == "cpu"
+
+
+# ------------------------------------------------------------------------
+# K2's device route through the CUDA source on the CPU, its blocks run at once as host threads
+# so that its grid barriers hold. Plans are made at a shared-memory limit that forces them
+# where the grid is small: (n, batch, kind, limit, levels, Bluestein's m or 0)
+DM_CASES = [
+    pytest.param(16, 2, "nyquist", 232_448, (4, 4), 0, id="16-2-nyquist"),  # a two-level split
+    pytest.param(24, 3, "normal", 232_448, (4, 6), 0, id="24-3-normal"),
+    pytest.param(45, 2, "complex", 232_448, (5, 9), 0, id="45-2-complex"),  # odd: no Nyquist line
+    pytest.param(32, 1, "case4", 172, (2, 4, 4), 0, id="32-1-case4-3lv"),  # three levels
+    pytest.param(22, 2, "case4", 232_448, (2, 11), 0, id="22-2-case4"),  # a generic 11 in a level
+    pytest.param(13, 2, "nyquist", 232_448, (5, 5), 25, id="13-2-nyquist-bluestein"),  # prime
+    pytest.param(14, 1, "complex", 172, (3, 3, 3), 27, id="14-1-complex-bluestein-3lv"),
+]
+
+
+def _k2_dm_buffers(c, batch, plan):
+    tables = device_route.host_tables(plan)
+
+    def f32(a):
+        return None if a is None else torch.tensor(a, dtype=torch.float32)
+
+    tw, chirp, bh = f32(tables["twiddle"]), f32(tables["chirp"]), f32(tables["bh"])
+    pos = torch.tensor(tables["pos"], dtype=torch.int32)
+    desc = device_route.descriptor(plan)
+    floats = k2.dm_work_floats(batch, c.n, plan)
+    work = torch.full((floats,), float("nan"))
+    scratch = torch.full((batch, k2.PACKED, c.n, c.n), float("nan"), dtype=torch.complex64)
+    keep = (tw, chirp, bh, pos, work)  # alive through the call
+    return keep, scratch, (desc.ctypes.data, len(desc), tw.data_ptr(), pos.data_ptr(),
+                           device_route.ptr(chirp), device_route.ptr(bh), work.data_ptr())
+
+
+@pytest.mark.parametrize("n,batch,kind,limit,levels,m", DM_CASES)
+def test_k2_device_route_source_matches_plain(emulated_k2, n, batch, kind, limit, levels, m):
+    """The device route's kernel (line transforms as levels through device memory, one
+    cooperative launch) against the plain version, with the operands lin and f."""
+    w, c = _k2_inputs(n, batch, kind)
+    plan = device_route.device_plan(n, limit)
+    assert plan.levels == levels and plan.bluestein == bool(m) and (not m or plan.m == m)
+    assert emulated_k2.ns_advection_dm_work_floats(batch, n, plan.m, plan.bluestein) == \
+        k2.dm_work_floats(batch, n, plan)
+    _keep, scratch, dm = _k2_dm_buffers(c, batch, plan)
+    lin = -5e-3 * c.k2
+    f = _noise_spectra(np.random.default_rng(12), batch, n, 0.1 * w.abs().max().item())
+    for kw in ({}, dict(lin=lin, f=f)):
+        out = torch.full_like(w, float("nan"))
+        launched = ctypes.c_int(0)
+        err = emulated_k2.ns_advection_dm_launch(
+            w.data_ptr(), *c.pointers[:4], scratch.data_ptr(), out.data_ptr(),
+            kw["lin"].data_ptr() if kw else None, kw["f"].data_ptr() if kw else None,
+            batch, n, *dm, None, ctypes.byref(launched))
+        assert err == 0 and launched.value == 1  # one cooperative launch
+        _assert_close(out, k2.ns_rhs_plain(w, c, **kw), limit=4e-6)
+
+
+@pytest.mark.parametrize("n,batch,limit,substeps", [(16, 2, 232_448, 2), (13, 1, 232_448, 1),
+                                                    (24, 1, 400, 2)])
+def test_k2_device_route_rk4_matches_plain(emulated_k2, n, batch, limit, substeps):
+    """The library's RK4 loop on the device route: one cooperative launch per stage."""
+    w, c = _k2_inputs(n, batch, "case4")
+    plan = device_route.device_plan(n, limit)
+    _keep, scratch, dm = _k2_dm_buffers(c, batch, plan)
+    f = _noise_spectra(np.random.default_rng(5), batch, n, 0.05 * w.abs().max().item())
+    lin = -5e-3 * c.k2
+    out = torch.full_like(w, float("nan"))
+    work = torch.full((5, batch, n, n), float("nan"), dtype=torch.complex64)
+    launched = ctypes.c_int(0)
+    err = emulated_k2.ns_advection_dm_rk4_launch(
+        w.data_ptr(), *c.pointers[:4], scratch.data_ptr(), work.data_ptr(), out.data_ptr(),
+        lin.data_ptr(), f.data_ptr(), 1e-3, substeps, batch, n, *dm, None, ctypes.byref(launched))
+    assert err == 0 and launched.value == 4 * substeps
+    want = k2.ns_rk4_plain(w, c, lin, f, 1e-3, substeps)
+    assert (want - w).abs().max() > 1e-4 * w.abs().max()
+    _assert_close(out, want)
