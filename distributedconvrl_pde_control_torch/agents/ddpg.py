@@ -37,6 +37,7 @@ from distributedconvrl_pde_control_torch.models.mlp import (
     critic_sizes,
     init_chain,
 )
+from distributedconvrl_pde_control_torch.utils.profiling import annotate
 
 
 def dp_mean(grads, group) -> list:
@@ -193,6 +194,7 @@ class DDPGAgent:
             return torch.clamp(act.expand(shape), -1.0, 1.0)
         return torch.zeros(shape, dtype=torch.float32, device=device)
 
+    @annotate("agent.act")
     @torch.no_grad()
     def act(self, astate: DDPGState, obs: torch.Tensor,
             generator: Optional[torch.Generator] = None, learning: bool = True,
@@ -232,6 +234,7 @@ class DDPGAgent:
         reference's slot arithmetic in fidelity mode, agents/replay.py)."""
         return replay_sample(replay, batch_size, 0, generator=generator, offs=offs)
 
+    @annotate("agent.learn")
     def learn_batch(self, astate: DDPGState, batch, dp_group=None) -> DDPGState:
         """One sampled SGD step, the math of PDEagent.jl:363-418, in place
         on `astate`'s networks and optimizers. `dp_group` is the JAX

@@ -32,6 +32,8 @@ from typing import Optional
 
 import torch
 
+from distributedconvrl_pde_control_torch.utils.profiling import annotate
+
 
 @dataclasses.dataclass
 class Replay:
@@ -112,6 +114,7 @@ def replay_push_columns(rb: Replay, s_cols, a_cols, r_vec, terminal: bool, sn_co
     return replay_push_flat(rb, s_cols, a_cols, r_vec, t_vec, sn_cols)
 
 
+@annotate("replay.sample")
 def replay_sample(rb: Replay, batch_size: int, exclude_newest: int,
                   generator: Optional[torch.Generator] = None,
                   offs: Optional[torch.Tensor] = None):

@@ -25,6 +25,8 @@ from typing import Callable, Optional
 
 import torch
 
+from distributedconvrl_pde_control_torch.utils.profiling import annotate, span
+
 
 @dataclasses.dataclass
 class EnvState:
@@ -142,22 +144,26 @@ class PDEEnv:
             carry=carry,
         )
 
+    @annotate("env.step")
     def step(self, state: EnvState, action: torch.Tensor) -> EnvState:
         """Step operator (PDEenv.jl:195-241) on the whole batch."""
         delta_action = action - state.action
         forcing = self.prepare_action(action)
         spectral_io = self.featurize_carry is not None
         if spectral_io:
-            carry = self.step_carry_only(state.carry, action)
+            with span("env.solve"):
+                carry = self.step_carry_only(state.carry, action)
             y = state.y  # stale: the episode's reset field (tier contract)
             reward = self.reward_carry_fn(carry, action, delta_action)
             obs = self.featurize_carry(carry, state.obs, action)
         elif self.step_carry_fn is not None:
-            carry, y = self.step_carry_fn(state.carry, action)
+            with span("env.solve"):
+                carry, y = self.step_carry_fn(state.carry, action)
             reward = self.reward_fn(y, action, delta_action)
             obs = self.featurize(y, state.obs, action)
         else:
-            carry, y = None, self.step_fn(state.y, forcing)
+            with span("env.solve"):
+                carry, y = None, self.step_fn(state.y, forcing)
             reward = self.reward_fn(y, action, delta_action)
             obs = self.featurize(y, state.obs, action)
         steps = state.steps + 1

@@ -90,6 +90,7 @@ from distributedconvrl_pde_control_torch.train.records import (
     record_bytes,
     start_record_read,
 )
+from distributedconvrl_pde_control_torch.utils.profiling import annotate, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,6 +216,7 @@ class ShardedFluidTrainer:
         return self.mesh.broadcast_object(read() if self.is_root else None)
 
     # -------------------------------------------------------------- helpers
+    @annotate("env.solve")
     def _solver_step(self, w, f):
         """Preset-honoring stepper dispatch (see class docstring)."""
         cfg = self.cfg
@@ -363,13 +365,14 @@ class ShardedFluidTrainer:
         with torch.no_grad():
             actions = actions_flat.reshape(acfg.na_rows, bl, n_act).movedim(1, 0)
             delta = actions - st.action
-            # forcing, then the preset's stepper (K2 on every Runge-Kutta stage)
-            w_new = self._solver_step(st.w, self._forcing(actions))
-            dots = self._sensor_dots(w_new)
-            obs_new = self._featurize(dots, st.obs, actions)
-            reward = self._reward(dots, actions, delta)
-            steps = st.steps + 1
-            blowup = self._blowup(reward, w_new)
+            with span("env.step"):
+                # forcing, then the preset's stepper (K2 on every Runge-Kutta stage)
+                w_new = self._solver_step(st.w, self._forcing(actions))
+                dots = self._sensor_dots(w_new)
+                obs_new = self._featurize(dots, st.obs, actions)
+                reward = self._reward(dots, actions, delta)
+                steps = st.steps + 1
+                blowup = self._blowup(reward, w_new)
             horizon = steps >= self.max_steps
             done = horizon | blowup
             completed = horizon & ~blowup
@@ -476,11 +479,12 @@ class ShardedFluidTrainer:
                 if step_idx < t_action_steps:
                     actions = torch.zeros_like(actions)
                 delta = actions - est.action
-                w_new = self._solver_step(est.w, self._forcing(actions))
-                dots = self._sensor_dots(w_new)
-                obs_new = self._featurize(dots, est.obs, actions)
-                reward = self._reward(dots, actions, delta)
-                blowup = self._blowup(reward, w_new)
+                with span("env.step"):
+                    w_new = self._solver_step(est.w, self._forcing(actions))
+                    dots = self._sensor_dots(w_new)
+                    obs_new = self._featurize(dots, est.obs, actions)
+                    reward = self._reward(dots, actions, delta)
+                    blowup = self._blowup(reward, w_new)
                 active = ~est.done
                 keep = active & ~blowup
                 keepc = keep.reshape(bl, 1, 1)

@@ -51,6 +51,7 @@ from distributedconvrl_pde_control_torch.parallel.multichip import (
     ShardedFluidTrainer,
     ShardedTrainConfig,
 )
+from distributedconvrl_pde_control_torch.utils.profiling import annotate
 
 
 class ShardedKellerSegelTrainer(ShardedFluidTrainer):
@@ -120,6 +121,7 @@ class ShardedKellerSegelTrainer(ShardedFluidTrainer):
         """This rank's columns of whole fields (..., 2, nx) -> (..., 2, nx/S)."""
         return fields[..., self.rows]
 
+    @annotate("env.solve")
     def _solver_step(self, w, f):
         return self.solver.step(w, f, self.cfg.dt, self.cfg.oversampling)
 

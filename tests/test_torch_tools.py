@@ -411,3 +411,141 @@ def test_trace_and_step_timer(tmp_path):
     assert "the_block" in names and any("fft" in str(n) for n in names)
     assert timer.counts["work"] == 3 and timer.totals["work"] > 0
     assert timer.summary().startswith("work")
+
+
+def _ks_control_step():
+    """A tiny KS control step: the deterministic actor on the observation,
+    then the env's step (K1's plain version on the CPU)."""
+    setup = tks.build_ks(tks.KS22, device="cpu")
+    agent, acfg = setup.agent, setup.agent.cfg
+    astate = agent.init_state(torch.Generator().manual_seed(0), "cpu")
+    st = setup.env.reset()
+
+    def step():
+        obs = st.obs.permute(1, 0, 2).reshape(acfg.ns, acfg.n_actuators)
+        a = agent.act(astate, obs, learning=False)
+        return setup.env.step(st, a.reshape(acfg.na_rows, 1, acfg.n_actuators).permute(1, 0, 2))
+
+    return step
+
+
+def _ks_train_chunk():
+    """A tiny batched KS train chunk whose last step is the first to learn;
+    returns it and the actor's first weight."""
+    from distributedconvrl_pde_control_torch.train.batched import (
+        BatchedTrainer,
+        BatchedTrainerConfig,
+    )
+
+    setup = tks.build_ks(tks.KS22, device="cpu")
+    n_envs = 2
+    trainer = BatchedTrainer(setup.env, setup.agent,
+                             BatchedTrainerConfig(n_envs=n_envs, batch_size=8),
+                             random_init=setup.random_init)
+    ts = trainer.init(torch.Generator().manual_seed(0))
+    # each step pushes n_envs * n_act rows; learning starts past update_after * n_act
+    chunk = trainer.make_chunk_fn(setup.agent.cfg.update_after // n_envs + 1)
+    return lambda: chunk(ts), ts.agent.actor.w[0]
+
+
+def _fluid_local_step():
+    """One train step of a tiny fluid trainer (16^2 grid, 2 envs)."""
+    import dataclasses
+
+    from distributedconvrl_pde_control_torch.configs import fluid as tfluid
+    from distributedconvrl_pde_control_torch.parallel import multichip as tmc
+
+    cfg = dataclasses.replace(tfluid.FLUID_8, nx=16, sensors_per_axis=4, adaptive=False, te=0.3)
+    trainer = tmc.ShardedFluidTrainer(
+        cfg, (1, 1), tmc.ShardedTrainConfig(n_envs=2, batch_size=8, capacity_per_dp=1000,
+                                            y0_pool_size=3), device="cpu")
+    st = trainer.init(torch.Generator().manual_seed(0), seed=5)
+    return lambda: trainer._local_step(st)
+
+
+def _spans_traced(tmp_path, fn) -> list:
+    """The user annotations (the program's spans) in a trace of `fn()`."""
+    with profiling.trace(str(tmp_path / "profile")):
+        fn()
+    events = json.loads((tmp_path / "profile" / profiling.TRACE_FILE).read_text())["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+             and not e["name"].startswith("Optimizer.")]  # torch.optim's own annotations
+    assert {e["name"] for e in spans} <= set(profiling.SPANS)
+    return spans
+
+
+def _nested(spans, inner: str, outer: str) -> bool:
+    """Every `inner` span lies inside some `outer` span of its thread, and
+    there is at least one."""
+    outs = [e for e in spans if e["name"] == outer]
+    ins = [e for e in spans if e["name"] == inner]
+    return bool(ins) and all(
+        any(o["tid"] == i["tid"] and o["ts"] <= i["ts"]
+            and i["ts"] + i["dur"] <= o["ts"] + o["dur"] for o in outs) for i in ins)
+
+
+@pytest.mark.parametrize("path", ["control", "train"])
+def test_spans_off_never_record(monkeypatch, path):
+    """With no profiler recording, neither `span` nor `annotate` enters
+    `record_function`: a KS control step and a batched train chunk that
+    learns run with it made to raise."""
+
+    def refuse(*a, **k):
+        raise AssertionError("record_function entered with no profiler recording")
+
+    # the port's spans enter it through torch.profiler (torch.optim opens its
+    # own through torch.autograd.profiler, unguarded)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+
+    @profiling.annotate("agent.act")
+    def work(x):
+        with profiling.span("env.solve"):
+            return x + 1
+
+    assert work(1) == 2 and work.__name__ == "work"
+    if path == "control":
+        assert torch.isfinite(_ks_control_step()().y).all()
+    else:
+        chunk, w0 = _ks_train_chunk()
+        before = w0.detach().clone()
+        chunk()
+        assert not torch.equal(w0, before)  # the learner ran
+
+
+def test_control_step_spans(tmp_path):
+    """Under `profiling.trace` a KS control step shows `agent.act`,
+    `env.step` and `env.solve`, the solve nested in the step."""
+    spans = _spans_traced(tmp_path, _ks_control_step())
+    assert {e["name"] for e in spans} == {"agent.act", "env.step", "env.solve"}
+    assert _nested(spans, "env.solve", "env.step")
+
+
+def test_train_step_spans(tmp_path):
+    """A batched KS train chunk past `update_after` shows `replay.sample` and
+    `agent.learn` beside the act and env spans."""
+    chunk, _ = _ks_train_chunk()
+    spans = _spans_traced(tmp_path, chunk)
+    assert {e["name"] for e in spans} == set(profiling.SPANS)
+    assert _nested(spans, "env.solve", "env.step")
+
+
+def test_fluid_local_step_spans(tmp_path):
+    """The fluid trainer's inline env block is `env.step`, its solver
+    dispatch `env.solve` inside it."""
+    spans = _spans_traced(tmp_path, _fluid_local_step())
+    assert {"agent.act", "env.step", "env.solve"} <= {e["name"] for e in spans}
+    assert _nested(spans, "env.solve", "env.step")
+
+
+def test_span_table_is_complete():
+    """Every name in `SPANS` is opened somewhere in the port, and every span
+    the port opens (`span("...")` or `annotate("...")`) is in `SPANS`."""
+    import ast
+
+    opened = set()
+    for path in (ROOT / "distributedconvrl_pde_control_torch").rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Call) and getattr(node.func, "id", None) in ("span", "annotate")
+                    and node.args and isinstance(node.args[0], ast.Constant)):
+                opened.add(node.args[0].value)
+    assert opened == set(profiling.SPANS)
