@@ -60,7 +60,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      batch 1 and 16) on spectra of real case-4 vortex fields and of white
      noise; then, at the fluid path's two shapes with the solver's constants,
      on spectra with non-Hermitian content on the Nyquist row and column, in
-     both launch forms (one cooperative launch, the chain of three), with the
+     every launch form (the one launch the route gives the shape, the
+     cooperative kernel forced at batch 16 where that is the cluster route,
+     the chain of three), with the
      operands lin and f against their plain twin, and the library's loop of
      RK4 substeps (whose stages carry the stage state and the combination)
      against the plain composition;
@@ -78,7 +80,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
  12. K2's time per call (CUDA events) at n=256, batch 1 and 16, in both
      launch forms, beside its bound and its plain version's time; the time of
      the right-hand side (lin and f given) and of a stage inside the library's
-     substep loop, in both forms;
+     substep loop, in both forms; then the two routes of a stage in turns
+     (cooperative, cluster, cluster, cooperative) at 256^2, batch 1, 4, 8, 16
+     and 32, and at 96^2 and 384^2, batch 16, beside the route that
+     `cluster_size` picks there and how many clusters of each size the card
+     holds at once;
  13. the device time of one fluid env step by kernel group (torch.profiler),
      with the launches per env step and K2's launches per RK4 substep;
  14. the batched train step on the card against the port on the CPU: 4 envs,
@@ -116,8 +122,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      in this process (PERF.md: slower than the CLI alone);
  21. fluid training throughput at 16 envs (learner batch 32): a warm-up chunk,
      then 2 chunks of 25 steps under `torch.cuda.set_sync_debug_mode("error")`:
-     env-steps/s, peak memory, K2's launches equal 324 per train step, the
-     replay holds min(steps*4096, capacity) rows;
+     env-steps/s, peak memory, K2's launches equal 324 per train step, all of
+     them on its cluster route, the replay holds min(steps*4096, capacity)
+     rows;
  22. the device time of one fluid train step at 1 and at 16 envs by kernel
      group (K2 / cuFFT / matmul / optimizer / copies / elementwise), launches
      per train step and the device's idle share;
@@ -490,8 +497,68 @@ def times_only(tree) -> int:
         # a stage inside the library's loop of 20 RK4 substeps (80 launches per call)
         times[f"K2 n256_b{batch} stage in loop"] = cuda_ms(
             lambda: k2.ns_rk4_substeps(w, ops, lin, f, 1e-6, 20), 5) / 80
-    print(json.dumps({"tree": tree or ".", "card": card, "ms_per_call": times}))
+    print(json.dumps({"tree": tree or ".", "card": card, "ms_per_call": times,
+                      "K2_cluster_launches": getattr(k2.NS_ADVECTION, "cluster_launches", None)}))
+    if hasattr(k2, "cluster_size"):  # a checkout with K2's cluster route
+        k2_route_times(card)
     return 0
+
+
+K2_ROUTE_SHAPES = ((256, 1), (256, 4), (256, 8), (256, 16), (256, 32), (96, 16), (384, 16))
+
+
+def k2_route_times(card: str) -> dict:
+    """A K2 stage inside the library's loop of 20 RK4 substeps on each route,
+    in turns (cooperative, cluster, cluster, cooperative), at K2_ROUTE_SHAPES;
+    the cluster route on the cluster size `cluster_size` picks, the routes
+    forced through CLUSTER_FILL. Prints one JSON line and returns it: per
+    shape both routes' ms, the cluster size, its waves and the share of the
+    SMs it fills over them, the route `cluster_size` picks and whether it is
+    the faster one; the smallest share at which the cluster route won; the
+    clusters of each size the card holds at once at 96^2 and 256^2."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
+    from distributedconvrl_pde_control_torch.parallel.ns_sharded import make_sharded_ops
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(11)
+    fill, shapes = k2.CLUSTER_FILL, {}
+    k2.NS_ADVECTION._load()
+    try:
+        for n, batch in K2_ROUTE_SHAPES:
+            ops = make_sharded_ops(n, n, device="cuda")
+            resident = functools.partial(k2.NS_ADVECTION._resident, n)
+            w = torch.fft.fft2(torch.tensor(rng.standard_normal((batch, n, n)), dtype=torch.float32,
+                                            device="cuda"))
+            f, lin = (0.01 * w).contiguous(), (-1e-3 * ops.k2).contiguous()
+            ms = {"cooperative": [], "cluster": []}
+            for form in ("cooperative", "cluster", "cluster", "cooperative"):
+                k2.CLUSTER_FILL = float("inf") if form == "cooperative" else 0.0
+                ms[form].append(cuda_ms(lambda: k2.ns_rk4_substeps(w, ops, lin, f, 1e-6, 20), 5) / 80)
+            k2.CLUSTER_FILL = 0.0
+            c = k2.cluster_size(n, batch, sms, resident)
+            k2.CLUSTER_FILL = fill
+            waves = -(-batch // resident(c)) if c else None
+            picked = "cluster" if k2.cluster_size(n, batch, sms, resident) else "cooperative"
+            faster = min(ms, key=lambda form: sum(ms[form]))
+            shapes[f"n{n}_b{batch}"] = {
+                "cooperative_ms": ms["cooperative"], "cluster_ms": ms["cluster"], "cluster": c,
+                "waves": waves, "fill": batch * c / (waves * sms) if c else None,
+                "picked": picked, "faster": faster, "picked_the_faster": picked == faster}
+    finally:
+        k2.CLUSTER_FILL = fill
+    won = [v["fill"] for v in shapes.values() if v["faster"] == "cluster" and v["fill"]]
+    line = {"k2_routes": "a stage in the library's loop of 20 substeps, ms, in turns",
+            "shapes": shapes, "cluster_fill": fill, "smallest_fill_won": min(won, default=None),
+            "clusters_resident": {n: {c: k2.NS_ADVECTION._resident(n, c) for c in k2.CLUSTER_SIZES
+                                      if k2.cluster_smem_bytes(n, c)} for n in (96, 256)},
+            "sms": sms, "card": card}
+    print(json.dumps(line), flush=True)
+    return line
 
 
 def profile_groups(prof):
@@ -888,7 +955,7 @@ def fluid_train_rate(card: str) -> None:
     btr = ShardedFluidTrainer(FLUID_16_256, (1, 1), ShardedTrainConfig(
         n_envs=FLUID_TRAIN_ENVS, batch_size=FLUID_TRAIN_BATCH), device=dev)
     chunk_len = btr.tcfg.chunk_len
-    before = k2.NS_ADVECTION.launches
+    before, before_cluster = k2.NS_ADVECTION.launches, k2.NS_ADVECTION.cluster_launches
     torch.cuda.reset_peak_memory_stats()
     st = btr.init(torch.Generator(device=dev).manual_seed(1), seed=FLUID_16_256.seed)
     chunk_fn = btr.make_chunk_fn(chunk_len)
@@ -907,15 +974,19 @@ def fluid_train_rate(card: str) -> None:
     rate = 2 * chunk_len * FLUID_TRAIN_ENVS / secs
     steps = 3 * chunk_len
     k2_steps = k2.NS_ADVECTION.launches - before
+    k2_cluster = k2.NS_ADVECTION.cluster_launches - before_cluster
     push = FLUID_TRAIN_ENVS * btr.n_act
     print(json.dumps({"slice": "Fluid_16_256 training", "n_envs": FLUID_TRAIN_ENVS,
                       "env_steps_per_s": rate, "ms_per_train_step": 1e3 * secs / (2 * chunk_len),
                       "peak_mem_bytes": torch.cuda.max_memory_allocated(), "K2_launches": k2_steps,
+                      "K2_cluster_launches": k2_cluster,
                       "train_steps": steps, "replay_size": st.replay.size,
                       "replay_capacity": st.replay.capacity, "episodes": int(st.ep_count),
                       "card": card}))
     check(k2_steps == 4 * FLUID_16_256.oversampling * steps,
           f"K2 launched {k2_steps} times in {steps} train steps")
+    check(k2_cluster == k2_steps, f"K2's cluster route made {k2_cluster} of its {k2_steps} launches "
+          f"at {FLUID_TRAIN_ENVS} envs")
     check(bool(torch.isfinite(packed).all()), "fluid training records are not finite")
     check(st.replay.size == min(steps * push, st.replay.capacity) and st.agent.update_step == steps
           and st.global_step == steps, "fluid training state is malformed")
@@ -3946,6 +4017,15 @@ def main() -> int:
               and err <= K2_RTOL * scale, f"K2 disagrees at {label}")
         return err / scale
 
+    def k2_route(w):
+        """The one-launch form K2 takes at w's shape on this card."""
+        import functools
+
+        c = k2.cluster_size(w.shape[-1], w.shape[0], torch.cuda.get_device_properties(0)
+                            .multi_processor_count,
+                            functools.partial(k2.NS_ADVECTION._resident, w.shape[-1]))
+        return f"cluster route, {c} blocks a field" if c else "cooperative kernel"
+
     fluid_lin = (-FLUID_16_256.nu * fluid_ops.k2).contiguous()  # the solver's -nu k^2
     rng = np.random.default_rng(3)
 
@@ -3964,9 +4044,16 @@ def main() -> int:
         w_ny = (w + complex_noise(batch, amp, nyquist)).contiguous()
         want = k2.ns_advection_plain(w_ny, fluid_ops)
         for chain in (False, True):
-            form = "chain of three launches" if chain else "one cooperative launch"
+            form = "chain of three launches" if chain else f"one launch ({k2_route(w_ny)})"
             k2_check(f"{label} non-Hermitian Nyquist, {form}",
                      k2.NS_ADVECTION(w_ny, fluid_ops, chain=chain), want)
+        if k2_route(w_ny) != "cooperative kernel":  # the shape's other one-launch form
+            fill, k2.CLUSTER_FILL = k2.CLUSTER_FILL, float("inf")
+            try:
+                k2_check(f"{label} non-Hermitian Nyquist, one launch ({k2_route(w_ny)}, forced)",
+                         k2.NS_ADVECTION(w_ny, fluid_ops), want)
+            finally:
+                k2.CLUSTER_FILL = fill
         f_hat = complex_noise(batch, 0.1 * amp)
         k2_fused_errs[f"{label} rhs"] = k2_check(
             f"{label} fused right-hand side (lin, f)",
@@ -4104,13 +4191,16 @@ def main() -> int:
                            "bound_by": "bytes" if b_ms > o_ms else "operations", "chain_ms": chain_ms,
                            "rhs_ms": rhs_ms, "stage_in_loop_ms": loop_ms,
                            "chain_stage_in_loop_ms": chain_loop_ms}
-        print(f"K2 {label}: {ms:.4f} ms/call as one cooperative launch (the main path's form), "
+        print(f"K2 {label}: {ms:.4f} ms/call as one launch ({k2_route(w)}: the main path's form), "
               f"{chain_ms:.4f} ms as the chain of three launches, first design "
               f"{FIRST_DESIGN_MS['K2 ' + label]} ms; with lin and f {rhs_ms:.4f} ms; a stage "
               f"{loop_ms:.4f} ms inside the library's substep loop ({chain_loop_ms:.4f} ms as the "
               f"chain there); plain {pms:.4f} ms, "
               f"bound {max(b_ms, o_ms):.6f} ms (bytes {b_ms:.6f} ms for {k2.min_bytes(256, batch)} B, "
               f"operations {o_ms:.6f} ms for {k2.flops(256, batch):.0f} flop); {card}")
+    k2_routes = k2_route_times(card)
+    check(k2_routes["shapes"]["n256_b16"]["picked"] == "cluster",
+          "K2 does not take its cluster route at the fluid training cell's shape (256^2, batch 16)")
     step_ms_1 = 1e3 * fluid_secs["trained"] / n_steps
     calls_per_step = 4 * FLUID_16_256.oversampling
     k2_step_ms = calls_per_step * k2_times["n256_b1"]["stage_in_loop_ms"]
@@ -4199,6 +4289,8 @@ def main() -> int:
         "max_fused_err_of_scale": max(k2_fused_errs.values()),
         **k2_times["n256_b1"], "library_ms": None, "status": "ok",
         "shape": "n256_b1", "at_n256_b16": k2_times["n256_b16"],
+        "cluster_launches_in_this_process": k2.NS_ADVECTION.cluster_launches,
+        "routes": k2_routes["shapes"],
         "other_grids": grids["K2_times"],
         "other_grids_max_err_of_scale": grids["K2_max_err_of_scale"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

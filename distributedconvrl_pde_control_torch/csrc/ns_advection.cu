@@ -94,7 +94,17 @@
 // launch (at batch 1 the field and the scratch sit in L2 and launches are the
 // cost). Three __global__ wrappers launch the same passes as a chain; that
 // form is what runs on the CPU, one block after another, in the tests, and it
-// is timed beside the cooperative one by chip_smoke.py. The library has two
+// is timed beside the cooperative one by chip_smoke.py.
+//
+// The cluster route (ns_adv_cluster, below) runs the same three passes with
+// no scratch in device memory: one thread-block cluster of c blocks per
+// field, each block holding a share of the field's intermediates in its
+// shared memory, where the others store into it (distributed shared memory),
+// and cluster barriers in place of the grid's. The Python wrapper takes it
+// where one field fits a cluster of at most 16 blocks and the batch's
+// clusters fill the card (ops/kernels/ns_advection.py::cluster_size: at
+// 256^2 from batch 16, six blocks a field on an H100); every other shape runs
+// the cooperative kernel. The library has two
 // entry points. ns_advection_launch is the function with lin and f alone.
 // ns_advection_rk4_launch makes the 4 * substeps stage launches of a run of
 // RK4 substeps from one call, with k1, k2, k3 and the intermediate states in
@@ -653,6 +663,282 @@ ns_adv_cooperative(const float2* w, Stage st, const float* kx, const float* ky,
 }
 #endif
 
+// ----------------------------------------------------------- the cluster route
+// One cluster of c blocks per field b (blocks b * c .. b * c + c - 1). Block
+// `rank` owns columns [x0, x0 + tc), x0 = rank * tc, of the real-space fields
+// (the last blocks may own fewer, or none) and row pairs [p0, p0 + ppb), p0 =
+// rank * ppb, of passes 1 and 3. Its shared memory is the twiddles and X, n +
+// n/16 padded rows of ld points (with a generic stage a second buffer like
+// it), which holds in turn:
+//
+//   pass 1   the block's packed rows as lines of n + n/16 points: z1 and z2
+//            of row r of pair p at lines 2p and 2p + 1, those of row -r at
+//            lines lb + 2p and lb + 2p + 1, where lb puts them past every row
+//            y <= n/2 of the layout below; inverse-transformed along the rows
+//            in one batch;
+//   exchange the cluster's z1 and z2 at X[pad(y) * ld + x - x0] and
+//            X[pad(y) * ld + tc + x - x0] for the block's columns x, stored
+//            there by the blocks that transformed row y, in two rounds: the
+//            rows y <= n/2, then the rest. In each a block holds what it
+//            sends in registers across a cluster barrier before it stores, so
+//            that no store lands on what its owner has yet to send: the
+//            second round's lines lie where only it stores;
+//   pass 2   the columns inverse-transformed, the product written over z1's
+//            even columns (each thread overwrites only what it read), a
+//            cluster barrier (no block reads z2 any more), those column pairs
+//            forward-transformed in place (a generic stage's second line: z1's
+//            odd columns), and the split spectra of rows ky <= n/2 stored in
+//            place of z2 in the block that owns the row, row ky at
+//            X[pad(x) * ld + tc + ky - p0], two neighbouring rows to a
+//            16-byte store;
+//   pass 3   after a cluster barrier, those rows forward-transformed (lines
+//            across ld) and written out as pass_rows_forward does.
+//
+// The arithmetic is that of the passes above, point for point; only where the
+// intermediates live differs. No block touches another's shared memory after
+// the last barrier, so blocks may end freely; the first store into another
+// block follows a cluster barrier, so every block of the cluster runs.
+#ifndef CLUSTER_THREADS
+#define CLUSTER_THREADS 512
+#endif
+constexpr int kClusterThreads = CLUSTER_THREADS;
+constexpr int kClusterMax = 16;  // above 8 blocks the card's non-portable cluster sizes
+constexpr size_t kSmemLimit = 232448;  // bytes of shared memory a block may take
+constexpr int kStage = 12;  // column pairs a thread holds in registers in a round of the exchange
+constexpr int kStageThreads = 512;  // the card's threads a block, which the shape is held to
+
+#ifdef __CUDACC__
+__device__ __forceinline__ int cluster_rank() {
+  return (int)cooperative_groups::this_cluster().block_rank();
+}
+__device__ __forceinline__ void cluster_sync() { cooperative_groups::this_cluster().sync(); }
+__device__ __forceinline__ float2* cluster_map(float2* p, int rank) {
+  return cooperative_groups::this_cluster().map_shared_rank(p, rank);
+}
+// two neighbouring points as one 16-byte store (dst 16-byte aligned)
+__device__ __forceinline__ void store_pair(float2* dst, float2 a, float2 b) {
+  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
+}
+#endif
+
+// X starts 16-byte aligned: after the twiddles, rounded up to an even count
+__host__ __device__ inline int cluster_twiddles(int tlen) { return (tlen + 1) & ~1; }
+
+struct ClusterShape {
+  int c, tc, ppb, ld, lb;  // blocks; columns, row pairs (both even) a block; X's row; pass 1's -r lines
+};
+
+// The packed spectra H u^ + i H v^ (z1) and H dwdx^ + i H dwdy^ (z2) at
+// k = (row, c) from a = ws[k] and bm = conj ws[-k], as pass_rows_inverse.
+__device__ __forceinline__ void packed_spectra(float2 a, float2 bm, float kyr, float kym, float kxc,
+                                               float kxm, float ik, float ikm, float2& z1,
+                                               float2& z2) {
+  const float2 pa = scal(ik, a), pb = scal(ikm, bm);
+  const float2 uq = csub(scal(kyr, pa), scal(kym, pb));
+  const float2 vq = csub(scal(kxc, pa), scal(kxm, pb));
+  const float2 dx = csub(scal(kxc, a), scal(kxm, bm));
+  const float2 dy = csub(scal(kyr, a), scal(kym, bm));
+  z1 = make_float2(0.5f * (vq.x - uq.y), 0.5f * (vq.y + uq.x));
+  z2 = make_float2(0.5f * (-dx.y - dy.x), 0.5f * (dx.x - dy.y));
+}
+
+// Pass 1 up to the exchange: the np row pairs from p0 packed into lines and
+// inverse-transformed along the rows (the lines between are transformed too
+// and never read).
+template <bool kPow2>
+__device__ __forceinline__ void cluster_rows_inverse(
+    const float2* __restrict__ w, const Stage& st, const float* __restrict__ kx,
+    const float* __restrict__ ky, const float* __restrict__ inv_k2, const float2* tw,
+    const PlanOf<kPow2> plan, const ClusterShape& cs, int b, int p0, int np, float2* X,
+    float2* X2) {
+  const int n = plan.n, npad = pad(n);
+  const size_t field = (size_t)b * n * n;
+  // point (r, c) and its mirror (-r, -c), each from ws at both; a row that is its own
+  // mirror (0, n/2) is written once, from (r, c)
+  for (int e = threadIdx.x; e < np * n; e += blockDim.x) {
+    const int pr = e / n, c = e - pr * n;
+    const int r = p0 + pr, rm = neg<kPow2>(r, n), cm = neg<kPow2>(c, n);
+    const float2 a = stage_state(w, st, field + (size_t)r * n + c);
+    const float2 bq = stage_state(w, st, field + (size_t)rm * n + cm);
+    const float ik = inv_k2[(size_t)r * n + c], ikm = inv_k2[(size_t)rm * n + cm];
+    const float kyr = ky[r], kym = ky[rm], kxc = kx[c], kxm = kx[cm];
+    float2* l0 = X + (size_t)(2 * pr) * npad;
+    packed_spectra(a, cconj(bq), kyr, kym, kxc, kxm, ik, ikm, l0[pad(c)], l0[npad + pad(c)]);
+    if (rm != r) {
+      float2* l1 = l0 + (size_t)cs.lb * npad;
+      packed_spectra(bq, cconj(a), kym, kyr, kxm, kxc, ikm, ik, l1[pad(cm)], l1[npad + pad(cm)]);
+    }
+  }
+  __syncthreads();
+  const int lines = cs.lb + 2 * np;
+  const float2* y = fft_lines<kPow2, true>(X, X2, tw, plan, lines, npad, 1, false);
+  if (y != X) {  // a generic stage left the lines in the second buffer
+    for (int i = threadIdx.x; i < lines * npad; i += blockDim.x) X[i] = y[i];
+    __syncthreads();
+  }
+}
+
+// The exchange: round 0 the lines of rows r, round 1 those of rows -r (r not
+// its own mirror), each point pair (c, c + 1), c even, of z1 and z2 stored
+// into X of the block that owns column c. Ends in a cluster barrier.
+template <bool kPow2>
+__device__ __forceinline__ void cluster_exchange(int n, const ClusterShape& cs, int p0, int np,
+                                                 float2* X) {
+  const int npad = pad(n), halves = (n + 1) >> 1, items = 2 * np * halves;
+  for (int m = 0; m < 2; ++m) {
+    float4 v[kStage];
+#pragma unroll
+    for (int k = 0; k < kStage; ++k) {
+      const int e = threadIdx.x + k * blockDim.x;
+      if (e >= items) break;
+      const int line = e / halves, c = 2 * (e - line * halves);
+      const float2* at = X + (size_t)(m * cs.lb + line) * npad + pad(c);
+      const float2 a = at[0], b = c + 1 < n ? at[1] : a;  // pad(c + 1) = pad(c) + 1
+      v[k] = make_float4(a.x, a.y, b.x, b.y);
+    }
+    cluster_sync();  // every block holds what it sends in this round
+#pragma unroll
+    for (int k = 0; k < kStage; ++k) {
+      const int e = threadIdx.x + k * blockDim.x;
+      if (e >= items) break;
+      const int line = e / halves, c = 2 * (e - line * halves);
+      const int r = p0 + (line >> 1), row = m ? neg<kPow2>(r, n) : r;
+      if (m && row == r) continue;  // rows 0 and n/2 went in round 0
+      const int owner = c / cs.tc;
+      float2* dst = cluster_map(X, owner) + (size_t)pad(row) * cs.ld + (line & 1) * cs.tc + c -
+                    owner * cs.tc;
+      if (c + 1 < n)
+        store_pair(dst, make_float2(v[k].x, v[k].y), make_float2(v[k].z, v[k].w));
+      else
+        dst[0] = make_float2(v[k].x, v[k].y);  // the last column of odd n
+    }
+  }
+  cluster_sync();
+}
+
+// Pass 2 up to its barrier: the block's nc columns of both fields inverse-
+// transformed, and the product written over z1's even columns. Returns where
+// the product lies (X, or X2 after a generic stage).
+template <bool kPow2>
+__device__ __forceinline__ float2* cluster_columns_inverse(const float2* tw,
+                                                           const PlanOf<kPow2> plan,
+                                                           const ClusterShape& cs, int nc,
+                                                           float scale, float2* X, float2* X2) {
+  const int n = plan.n, tc = cs.tc, ld = cs.ld, half_tc = tc >> 1;
+  for (int e = threadIdx.x; e < n * (tc - nc); e += blockDim.x) {  // a partial tile's zeros
+    const int y = e / (tc - nc), c = nc + e - y * (tc - nc);
+    X[(size_t)pad(y) * ld + c] = X[(size_t)pad(y) * ld + tc + c] = make_float2(0.f, 0.f);
+  }
+  __syncthreads();
+  float2* u = fft_lines<kPow2, true>(X, X2, tw, plan, 2 * tc, 1, ld, true);
+  for (int e = threadIdx.x; e < n * half_tc; e += blockDim.x) {
+    const int y = e / half_tc, j = e - y * half_tc;
+    float2* row = u + (size_t)pad(y) * ld + 2 * j;
+    const float2 uva = row[0], uvb = row[1], da = row[tc], db = row[tc + 1];
+    row[0] = make_float2(-(uva.x * da.x + uva.y * da.y) * scale,
+                         -(uvb.x * db.x + uvb.y * db.y) * scale);
+  }
+  __syncthreads();
+  return u;
+}
+
+// Pass 2 after its barrier: the product's column pairs forward-transformed and
+// split; rows (ky, ky + 1), ky even, stored together in place of z2 of their
+// owner.
+template <bool kPow2>
+__device__ __forceinline__ void cluster_columns_forward(const float2* tw, const PlanOf<kPow2> plan,
+                                                        const ClusterShape& cs, int x0, int nc,
+                                                        float2* u, float2* X) {
+  const int n = plan.n, ld = cs.ld, half_tc = cs.tc >> 1;
+  const float2* zf = fft_lines<kPow2, false>(u, u + 1, tw, plan, half_tc, 2, ld, true);
+  const int pairs = (n >> 1) + 1, rows2 = (pairs + 1) >> 1;
+  for (int e = threadIdx.x; e < rows2 * half_tc; e += blockDim.x) {
+    const int k2 = e / half_tc, j = e - k2 * half_tc;
+    if (2 * j >= nc) continue;
+    float2 s0[2], s1[2];  // the spectra of columns 2j and 2j + 1 at rows 2 k2 and 2 k2 + 1
+    const int rows = 2 * k2 + 1 < pairs ? 2 : 1;
+    for (int i = 0; i < rows; ++i) {
+      const int kyi = 2 * k2 + i;
+      const float2 za = zf[(size_t)pad(kyi) * ld + 2 * j];
+      const float2 zb = cconj(zf[(size_t)pad(neg<kPow2>(kyi, n)) * ld + 2 * j]);
+      const float2 d = csub(za, zb);
+      s0[i] = scal(0.5f, cadd(za, zb));
+      s1[i] = make_float2(0.5f * d.y, -0.5f * d.x);
+    }
+    const int owner = 2 * k2 / cs.ppb;
+    float2* R = cluster_map(X, owner) + cs.tc + 2 * k2 - owner * cs.ppb;
+    float2* o0 = R + (size_t)pad(x0 + 2 * j) * ld;
+    float2* o1 = R + (size_t)pad(x0 + 2 * j + 1) * ld;
+    if (rows == 2) {
+      store_pair(o0, s0[0], s0[1]);
+      if (2 * j + 1 < nc) store_pair(o1, s1[0], s1[1]);
+    } else {
+      o0[0] = s0[0];
+      if (2 * j + 1 < nc) o1[0] = s1[0];
+    }
+  }
+}
+
+template <bool kPow2>
+__device__ __forceinline__ void cluster_rows_forward(
+    const float2* __restrict__ w, const Stage& st, const float* __restrict__ mask, const float2* tw,
+    float2* __restrict__ out, const PlanOf<kPow2> plan, const ClusterShape& cs, int b, int p0,
+    int np, float2* X) {
+  const int n = plan.n, ld = cs.ld;
+  const size_t field = (size_t)b * n * n;
+  const float2* y = fft_lines<kPow2, false>(X + cs.tc, X, tw, plan, np, 1, ld, true);
+  // the arithmetic of pass_rows_forward (rows 0 and n/2 mirror onto themselves)
+  for (int e = threadIdx.x; e < np * 2 * n; e += blockDim.x) {
+    const int h = e / n, c = e - h * n;
+    const int pr = h >> 1, kyi = p0 + pr;
+    const int row = (h & 1) ? neg<kPow2>(kyi, n) : kyi;
+    if ((h & 1) && row == kyi) continue;
+    const float2 t = (h & 1) ? cconj(y[(size_t)pad(neg<kPow2>(c, n)) * ld + pr])
+                             : y[(size_t)pad(c) * ld + pr];
+    const size_t plane = (size_t)row * n + c, at = field + plane;
+    const float m = mask[plane];
+    float2 r = make_float2(m * t.x, m * t.y);
+    if (st.lin) {
+      const float2 ws = stage_state(w, st, at);
+      const float l = st.lin[plane];
+      r.x += l * ws.x;
+      r.y += l * ws.y;
+    }
+    if (st.f) r = cadd(r, st.f[at]);
+    if (st.k1) {
+      float2 acc = scal(2.0f, cadd(st.k2[at], st.k_prev[at]));
+      acc = cadd(cadd(st.k1[at], acc), r);
+      const float2 w0 = w[at];
+      r = make_float2(w0.x + st.dt6 * acc.x, w0.y + st.dt6 * acc.y);
+    }
+    out[at] = r;
+  }
+}
+
+// One stage of `gridDim.x / cs.c` fields, one cluster each.
+template <bool kPow2>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+ns_adv_cluster(const float2* w, Stage st, const float* kx, const float* ky, const float* inv_k2,
+               const float* mask, const float2* twiddle, float2* out, PlanOf<kPow2> plan,
+               ClusterShape cs, float scale) {
+  extern __shared__ __align__(16) float2 smem[];
+  const int n = plan.n, b = blockIdx.x / cs.c, rank = cluster_rank();
+  const int pairs = (n >> 1) + 1, p0 = rank * cs.ppb;
+  const int np = pairs - p0 < cs.ppb ? (pairs > p0 ? pairs - p0 : 0) : cs.ppb;
+  const int x0 = rank * cs.tc, nc = n - x0 < cs.tc ? (n > x0 ? n - x0 : 0) : cs.tc;
+  float2* tw = smem;
+  float2* X = tw + cluster_twiddles(plan.tlen);
+  float2* X2 = X + (size_t)pad(n) * cs.ld;  // with a generic stage: X's second buffer
+  load_twiddle(tw, twiddle, plan.tlen);
+  if (np > 0) cluster_rows_inverse<kPow2>(w, st, kx, ky, inv_k2, tw, plan, cs, b, p0, np, X, X2);
+  cluster_exchange<kPow2>(n, cs, p0, np, X);
+  float2* u = nc > 0 ? cluster_columns_inverse<kPow2>(tw, plan, cs, nc, scale, X, X2) : X;
+  cluster_sync();  // no block reads its z2 any more
+  if (nc > 0) cluster_columns_forward<kPow2>(tw, plan, cs, x0, nc, u, X);
+  cluster_sync();
+  if (np > 0) cluster_rows_forward<kPow2>(w, st, mask, tw, out, plan, cs, b, p0, np, X);
+}
+
 // ------------------------------------------------------------ the device route
 // The same function for n whose lines do not fit one block: the line
 // transforms run as dm_fft.cuh's levels (a split of n, or Bluestein) through
@@ -847,6 +1133,7 @@ struct Launch {
   const dm::Plan* dm;
   float2* packed;
   float2* wbuf;
+  int cluster;  // > 0: the cluster route, on clusters of that many blocks
 };
 
 size_t smem_bytes(int pass, int n, int tc, int ppc) {
@@ -945,6 +1232,102 @@ int launch_stage(const Launch& l, const float2* w, Stage stage, float2* out, int
   return (int)err;
 }
 
+// The cluster route's shape of grid size n on clusters of c blocks, and its
+// bytes of shared memory a block. Returns 0, or -1 where the field does not
+// fit c blocks: their shared memory, or the registers that the exchange
+// stages a field's rows in (kStage column pairs a thread at kStageThreads).
+int cluster_shape(int n, int c, ClusterShape* cs, size_t* smem) {
+  if (n < 2 || c < 1 || c > kClusterMax) return -1;
+  const int npad = pad(n), tw = cluster_twiddles((n & 1) ? n : n / 2);
+  const int g = has_generic_factor(n) ? 2 : 1;  // a generic stage's second buffer
+  const int tc = 2 * ((n + 2 * c - 1) / (2 * c)), pairs = n / 2 + 1;
+  const int ppb = 2 * ((pairs + 2 * c - 1) / (2 * c)), top = pad(pairs);
+  // the narrowest even row that holds both fields' columns, pass 1's lines of rows r
+  // within the rows y <= n/2, and its lines of rows -r past them
+  int ld = 2 * tc, lb = 0;
+  for (;; ld += 2) {
+    lb = (top * ld + npad - 1) / npad;
+    if (2 * ppb <= lb && lb + 2 * ppb <= ld) break;
+  }
+  const size_t bytes = (tw + (size_t)g * npad * ld) * sizeof(float2);
+  if (bytes > kSmemLimit || 2 * ppb * ((n + 1) / 2) > kStage * kStageThreads) return -1;
+  *cs = ClusterShape{c, tc, ppb, ld, lb};
+  *smem = bytes;
+  return 0;
+}
+
+#ifdef __CUDACC__
+// The launch configuration of `batch` clusters of c blocks with smem bytes
+// each, the kernel first allowed that much shared memory (and, above 8
+// blocks, the non-portable cluster sizes); *err says whether that went well.
+template <bool kPow2>
+cudaLaunchConfig_t cluster_config(int batch, int c, size_t smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr, cudaError_t* err) {
+  static size_t allowed = 0;
+  static bool nonportable = false;
+  *err = cudaSuccess;
+  if (smem > allowed) {
+    *err = cudaFuncSetAttribute(ns_adv_cluster<kPow2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem);
+    if (*err == cudaSuccess) allowed = smem;
+  }
+  if (*err == cudaSuccess && c > 8 && !nonportable) {
+    *err = cudaFuncSetAttribute(ns_adv_cluster<kPow2>,
+                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    nonportable = *err == cudaSuccess;
+  }
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(batch * c);
+  config.blockDim = dim3(kClusterThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return config;
+}
+
+template <bool kPow2>
+int cluster_capacity(int c, size_t smem) {
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = cudaSuccess;
+  const cudaLaunchConfig_t config = cluster_config<kPow2>(1, c, smem, nullptr, attr, &err);
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, ns_adv_cluster<kPow2>, &config);
+  return err == cudaSuccess ? clusters : -(int)err;
+}
+#endif
+
+// One stage by the cluster route: one launch of batch clusters.
+template <bool kPow2>
+int launch_cluster(const Launch& l, const float2* w, Stage stage, float2* out, int* launched) {
+  ClusterShape cs;
+  size_t smem = 0;
+  const int n = l.plan.n;
+  if (cluster_shape(n, l.cluster, &cs, &smem) ||
+      2 * cs.ppb * ((n + 1) / 2) > kStage * kClusterThreads)
+    return (int)cudaErrorInvalidValue;
+  const float scale = 1.0f / ((float)n * (float)n * (float)n * (float)n);
+  const PlanOf<kPow2> plan = plan_of<kPow2>(l.plan);
+  cudaError_t err = cudaSuccess;
+#ifdef __CUDACC__
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t config = cluster_config<kPow2>(l.batch, cs.c, smem, l.stream, attr, &err);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&config, ns_adv_cluster<kPow2>, w, stage, l.kx, l.ky, l.inv_k2, l.mask,
+                           l.twiddle, out, plan, cs, scale);
+#else
+  err = host_cluster_launch(ns_adv_cluster<kPow2>, l.batch * cs.c, cs.c, kClusterThreads, smem, w,
+                            stage, l.kx, l.ky, l.inv_k2, l.mask, l.twiddle, out, plan, cs, scale);
+#endif
+  if (err == cudaSuccess) *launched += 1;
+  return (int)err;
+}
+
 // One stage by the device route: one cooperative launch.
 int launch_dm(const Launch& l, const float2* w, Stage stage, float2* out, int* launched) {
   const float n = (float)l.dm->n;
@@ -960,6 +1343,9 @@ int launch_dm(const Launch& l, const float2* w, Stage stage, float2* out, int* l
 
 int launch_any(const Launch& l, const float2* w, Stage stage, float2* out, int* launched) {
   if (l.dm) return launch_dm(l, w, stage, out, launched);
+  if (l.cluster)
+    return l.plan.logn >= 0 ? launch_cluster<true>(l, w, stage, out, launched)
+                            : launch_cluster<false>(l, w, stage, out, launched);
   return l.plan.logn >= 0 ? launch_stage<true>(l, w, stage, out, launched)
                           : launch_stage<false>(l, w, stage, out, launched);
 }
@@ -1043,6 +1429,53 @@ int ns_advection_rk4_launch(const float* w, const float* kx, const float* ky,
               batch, tc, ppc, cooperative, static_cast<cudaStream_t>(stream), nullptr, nullptr,
               nullptr};
   if (make_plan(n, &l.plan) || tc < 2 || tc % 2 || ppc < 1) return (int)cudaErrorInvalidValue;
+  return rk4_substeps(l, w, work, out, lin, f, dt, substeps, launched);
+}
+
+// Bytes of shared memory a block of the cluster route takes at grid size n on
+// clusters of c blocks; 0 where the field does not fit them.
+size_t ns_advection_cluster_smem_bytes(int n, int c) {
+  ClusterShape cs;
+  size_t smem = 0;
+  return cluster_shape(n, c, &cs, &smem) ? 0 : smem;
+}
+
+// Clusters of c blocks at grid size n that the card holds at once (0: none
+// fits, and a launch would be refused), or minus a cudaError_t code.
+int ns_advection_cluster_capacity(int n, int c) {
+  ClusterShape cs;
+  size_t smem = 0;
+  Plan plan;
+  if (make_plan(n, &plan) || cluster_shape(n, c, &cs, &smem)) return -(int)cudaErrorInvalidValue;
+#ifdef __CUDACC__
+  return plan.logn >= 0 ? cluster_capacity<true>(c, smem) : cluster_capacity<false>(c, smem);
+#else
+  return 1;
+#endif
+}
+
+// ns_advection_launch on the cluster route: one launch of batch clusters of
+// `cluster` blocks (no scratch). Other arguments as there.
+int ns_advection_cluster_launch(const float* w, const float* kx, const float* ky,
+                                const float* inv_k2, const float* mask, const float* twiddle,
+                                float* out, const float* lin, const float* f, int batch, int n,
+                                int cluster, void* stream, int* launched) {
+  Launch l = {kx, ky, inv_k2, mask, c2(twiddle), nullptr, {}, batch, 0, 0, 0,
+              static_cast<cudaStream_t>(stream), nullptr, nullptr, nullptr, cluster};
+  if (make_plan(n, &l.plan) || batch < 1 || cluster < 1) return (int)cudaErrorInvalidValue;
+  const Stage stage = {nullptr, 0.f, lin, c2(f), nullptr, nullptr, 0.f};
+  return launch_any(l, c2(w), stage, reinterpret_cast<float2*>(out), launched);
+}
+
+// ns_advection_rk4_launch on the cluster route: 4 * substeps launches.
+int ns_advection_cluster_rk4_launch(const float* w, const float* kx, const float* ky,
+                                    const float* inv_k2, const float* mask, const float* twiddle,
+                                    float* work, float* out, const float* lin, const float* f,
+                                    double dt, int substeps, int batch, int n, int cluster,
+                                    void* stream, int* launched) {
+  Launch l = {kx, ky, inv_k2, mask, c2(twiddle), nullptr, {}, batch, 0, 0, 0,
+              static_cast<cudaStream_t>(stream), nullptr, nullptr, nullptr, cluster};
+  if (make_plan(n, &l.plan) || batch < 1 || cluster < 1) return (int)cudaErrorInvalidValue;
   return rk4_substeps(l, w, work, out, lin, f, dt, substeps, launched);
 }
 

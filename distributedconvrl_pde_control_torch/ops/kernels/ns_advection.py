@@ -48,12 +48,23 @@ hand-written kernels of the same source:
 
 The one grid refused is one whose buffers do not fit the device's free
 memory; the error names the bytes.
+
+Within the block route, a stage runs one of two kernels, chosen from n, the
+batch and what the card reports (its SM count, and how many clusters of each
+size it holds at once) alone, with no option (``cluster_size``): where one
+field's intermediates fit the shared memory of a thread-block cluster of at
+most 16 blocks and the batch's clusters fill the card, the cluster route (one
+cluster per field, its intermediates in distributed shared memory, no
+scratch in device memory); everywhere else, batch 1 included, the
+cooperative kernel. ``NS_ADVECTION.cluster_launches`` counts the cluster
+route's launches, which ``launches`` includes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -68,6 +79,12 @@ MIN_N = 8
 SMEM_TARGET = 98_304  # what a block takes at most here, so that two fit an SM
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on Hopper
 MIN_BLOCKS = 132  # one block per SM of an H100
+CLUSTER_SIZES = tuple(range(1, 17))  # blocks of a cluster; above 8 the card's non-portable sizes
+CLUSTER_THREADS, CLUSTER_STAGE = 512, 12  # a block's threads; column pairs each stages
+# the cluster route runs where its blocks fill at least this share of the card's SMs over its
+# waves: it won at 0.73 (256^2 and 96^2 at batch 16, 256^2 at 32) and lost at 0.55 (256^2 at
+# batch 8) and below (chip_smoke.py's phase 12 times both routes in turns)
+CLUSTER_FILL = 0.7
 
 
 def twiddle_length(n: int) -> int:
@@ -245,6 +262,48 @@ def route(n: int) -> str:
     return "block" if max(smem_bytes(i, n, 2, 1) for i in range(3)) <= SMEM_LIMIT else "device"
 
 
+def cluster_smem_bytes(n: int, c: int) -> int:
+    """Shared memory of a block of the cluster route at grid size n on
+    clusters of c blocks (`ns_advection_cluster_smem_bytes` in the source), 0
+    where one field does not fit them: the twiddles and n + n/16 rows of ld
+    points (twice with a generic stage), ld the narrowest even row that holds
+    both fields' tc = 2 ceil(n / 2c) columns and lets pass 1 lay the lines of
+    its ppb = 2 ceil((n/2 + 1) / 2c) row pairs' mirror rows past the rows
+    y <= n/2. A block also stages what it sends in a round of the exchange in
+    registers: CLUSTER_STAGE column pairs a thread of CLUSTER_THREADS."""
+    if n < 2 or not 1 <= c <= CLUSTER_SIZES[-1]:
+        return 0
+    npad, g = n + (n >> 4), 2 if has_generic_stage(n) else 1
+    tw = twiddle_length(n) + twiddle_length(n) % 2  # X starts 16-byte aligned
+    tc, ppb = 2 * -(-n // (2 * c)), 2 * -(-(n // 2 + 1) // (2 * c))
+    top, ld = (n // 2 + 1) + ((n // 2 + 1) >> 4), 2 * tc
+    while not 2 * ppb <= -(-top * ld // npad) <= ld - 2 * ppb:
+        ld += 2
+    smem = 8 * (tw + g * npad * ld)
+    if smem > SMEM_LIMIT or 2 * ppb * ((n + 1) // 2) > CLUSTER_STAGE * CLUSTER_THREADS:
+        return 0
+    return smem
+
+
+def cluster_size(n: int, batch: int, sms: int, resident) -> int:
+    """Blocks per cluster of the cluster route for a (batch, n, n) stage, or 0
+    for the cooperative kernel, from what the card reports: its SM count
+    `sms` and `resident(c)`, how many clusters of c blocks it holds at once.
+    Of the clusters that hold one field (and that the card can place), those
+    that run the batch in the fewest waves, and of them the largest; the
+    cluster route where its blocks fill at least CLUSTER_FILL of the card's
+    SMs over those waves. 0 on the device route and where no cluster of up to
+    16 blocks holds a field."""
+    if route(n) != "block":
+        return 0
+    fits = [c for c in CLUSTER_SIZES if cluster_smem_bytes(n, c) and resident(c) > 0]
+    if not fits:
+        return 0
+    waves = {c: -(-batch // resident(c)) for c in fits}
+    c = max(fits, key=lambda c: (-waves[c], c))
+    return c if batch * c >= CLUSTER_FILL * waves[c] * sms else 0
+
+
 def check_grid(n: int) -> None:
     """Raises unless the kernel takes an n x n grid: n >= MIN_N (the route
     takes any larger n; only the device's memory bounds it)."""
@@ -293,15 +352,17 @@ class _NSAdvectionKernel:
     shape kept between calls.
 
     `chain` picks the form of a stage of the block route on the card: one
-    cooperative launch (the default, what every path runs) or the chain of
-    three launches (what the CPU tests emulate; timed beside the other by
+    launch (the default, what every path runs: the cluster route where
+    `cluster_size` gives one, else the cooperative kernel) or the chain of
+    three launches (what the CPU tests emulate; timed beside the others by
     chip_smoke.py). The device route is one cooperative launch."""
 
     def __init__(self):
         self.launches = 0  # kernel launches, as the library counts them where it makes them
+        self.cluster_launches = 0  # those of them on the cluster route
         self._lib = None
-        # (device, stream, batch, n, SMEM_LIMIT) -> [scratch, tc, ppc, work or None,
-        # device route: (tables, workspace) or None]
+        # (device, stream, batch, n, SMEM_LIMIT, CLUSTER_FILL) -> [scratch or None, tc, ppc,
+        # work or None, device route: (tables, workspace) or None, cluster size or 0]
         self._plans = {}
 
     def _load(self):
@@ -319,6 +380,13 @@ class _NSAdvectionKernel:
             lib.ns_advection_dm_rk4_launch.argtypes = ([ptr] * 10 + [f64] + [i32] * 3
                                                        + [ptr, i32] + [ptr] * 7)
             lib.ns_advection_dm_rk4_launch.restype = ctypes.c_int
+            lib.ns_advection_cluster_launch.argtypes = [ptr] * 9 + [i32] * 3 + [ptr] * 2
+            lib.ns_advection_cluster_launch.restype = ctypes.c_int
+            lib.ns_advection_cluster_rk4_launch.argtypes = ([ptr] * 10 + [f64] + [i32] * 4
+                                                            + [ptr] * 2)
+            lib.ns_advection_cluster_rk4_launch.restype = ctypes.c_int
+            lib.ns_advection_cluster_capacity.argtypes = [i32] * 2
+            lib.ns_advection_cluster_capacity.restype = ctypes.c_int
             lib.ns_advection_error_string.argtypes = [ctypes.c_int]
             lib.ns_advection_error_string.restype = ctypes.c_char_p
             self._lib = lib
@@ -335,12 +403,14 @@ class _NSAdvectionKernel:
             raise ValueError(f"K2 w: need a contiguous complex64 (B, {n}, {n}), "
                              f"got {w.dtype} {tuple(w.shape)}")
         stream = torch.cuda.current_stream(device).cuda_stream
-        key = (device.index, stream, w.shape[0], n, SMEM_LIMIT)
+        key = (device.index, stream, w.shape[0], n, SMEM_LIMIT, CLUSTER_FILL)
         plan = self._plans.get(key)
         if plan is None:
             check_grid(n)
             batch = w.shape[0]
             self._load()
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+            cluster = cluster_size(n, batch, sms, functools.partial(self._resident, n))
             if route(n) == "device":
                 dplan = device_route.device_plan(n, SMEM_LIMIT)
                 floats = dm_work_floats(batch, n, dplan)
@@ -352,9 +422,26 @@ class _NSAdvectionKernel:
                 tc = ppc = 0
             else:
                 dm, tc, ppc = None, column_tile(n, batch), row_pairs(n, batch)
-            scratch = torch.empty((batch, PACKED, n, n), dtype=torch.complex64, device=device)
-            plan = self._plans[key] = [scratch, tc, ppc, None, dm]
+            plan = self._plans[key] = [None, tc, ppc, None, dm, cluster]
         return plan, stream
+
+    def _resident(self, n: int, c: int) -> int:
+        """Clusters of c blocks at grid size n that the current card holds at
+        once (`ns_advection_cluster_capacity`)."""
+        got = self._lib.ns_advection_cluster_capacity(n, c)
+        if got < 0:
+            raise RuntimeError(f"K2 cluster capacity at n={n}, {c} blocks: "
+                               f"{self._lib.ns_advection_error_string(-got).decode()}")
+        return got
+
+    @staticmethod
+    def _scratch(plan, w: torch.Tensor) -> torch.Tensor:
+        """The (B, 2, n, n) scratch of the routes that pass through device
+        memory, made at their first launch of the shape."""
+        if plan[0] is None:
+            plan[0] = torch.empty((w.shape[0], PACKED, w.shape[1], w.shape[2]),
+                                  dtype=torch.complex64, device=w.device)
+        return plan[0]
 
     @staticmethod
     def _check(c: AdvectionConstants, lin, **fields):
@@ -370,8 +457,10 @@ class _NSAdvectionKernel:
             raise ValueError(f"K2 lin: need a contiguous float32 {tuple(c.inv_k2.shape)} on "
                              f"{device}, got {lin.dtype} {tuple(lin.shape)} on {lin.device}")
 
-    def _count(self, err: int, launched: ctypes.c_int):
+    def _count(self, err: int, launched: ctypes.c_int, cluster: bool = False):
         self.launches += launched.value
+        if cluster:
+            self.cluster_launches += launched.value
         if err:
             raise RuntimeError(
                 f"K2 launch failed: {self._lib.ns_advection_error_string(err).decode()}")
@@ -379,10 +468,19 @@ class _NSAdvectionKernel:
     def __call__(self, w: torch.Tensor, c: AdvectionConstants, lin=None, f=None,
                  chain: bool = False) -> torch.Tensor:
         """`ns_advection`: one launch of the kernel (three with `chain`)."""
-        (scratch, tc, ppc, _, dm), stream = self._plan(w, c)
+        plan, stream = self._plan(w, c)
+        _, tc, ppc, _, dm, cluster = plan
         self._check(c, lin, w=w, f=f)
         out = torch.empty_like(w)
         launched = ctypes.c_int(0)
+        if cluster and not chain:
+            err = self._lib.ns_advection_cluster_launch(
+                w.data_ptr(), *c.pointers, out.data_ptr(),
+                None if lin is None else lin.data_ptr(), None if f is None else f.data_ptr(),
+                w.shape[0], c.n, cluster, stream, ctypes.byref(launched))
+            self._count(err, launched, cluster=True)
+            return out
+        scratch = self._scratch(plan, w)
         if dm is not None:
             if chain:
                 raise ValueError(f"K2 at n={c.n} runs its device route, which has no chain form")
@@ -411,9 +509,17 @@ class _NSAdvectionKernel:
         self._check(c, lin, w=w, f=f)
         if plan[3] is None:
             plan[3] = torch.empty((5, *w.shape), dtype=torch.complex64, device=w.device)
-        scratch, tc, ppc, work, dm = plan
+        _, tc, ppc, work, dm, cluster = plan
         out = torch.empty_like(w)
         launched = ctypes.c_int(0)
+        if cluster and not chain:
+            err = self._lib.ns_advection_cluster_rk4_launch(
+                w.data_ptr(), *c.pointers, work.data_ptr(), out.data_ptr(), lin.data_ptr(),
+                f.data_ptr(), dt, substeps, w.shape[0], c.n, cluster, stream,
+                ctypes.byref(launched))
+            self._count(err, launched, cluster=True)
+            return out
+        scratch = self._scratch(plan, w)
         if dm is not None:
             if chain:
                 raise ValueError(f"K2 at n={c.n} runs its device route, which has no chain form")

@@ -283,6 +283,104 @@ def test_k2_device_route_forced_equals_block_route_on_gpu(monkeypatch, batch):
     assert (got - block).abs().max().item() <= 1e-4 * block.abs().max().item()
 
 
+def _k2_route_inputs(n, batch, seed=76):
+    from distributedconvrl_pde_control_torch.ops.navier_stokes import initial_condition
+    from distributedconvrl_pde_control_torch.parallel.ns_sharded import make_sharded_ops
+
+    c = make_sharded_ops(n, n, device="cuda")
+    rng = np.random.default_rng(seed + n + batch)
+    w = torch.tensor(np.stack([initial_condition(4, n, n, 1.0, 1.0, rng) for _ in range(batch)])
+                     .astype(np.complex64), device="cuda")
+    f = _complex_spectra(rng, batch, n, 0.05 * w.abs().max().item())
+    return c, w, f, (-5e-5 * c.k2).contiguous()
+
+
+def _k2_cluster(n, batch):
+    import functools
+
+    return ns_advection.cluster_size(n, batch, torch.cuda.get_device_properties(0)
+                                     .multi_processor_count,
+                                     functools.partial(ns_advection.NS_ADVECTION._resident, n))
+
+
+@pytest.mark.gpu
+def test_k2_route_choice_on_gpu():
+    """On the card the fluid training cell's shape (256^2, batch 16) takes the cluster route,
+    batch 1 the cooperative kernel, and the device route's grids neither."""
+    _need_cuda()
+    ns_advection.NS_ADVECTION._load()
+    assert _k2_cluster(256, 16) > 0 and _k2_cluster(256, 1) == 0
+    assert _k2_cluster(6144, 16) == 0 and ns_advection.route(6144) == "device"
+    c = _k2_cluster(256, 16)
+    assert ns_advection.NS_ADVECTION._resident(256, c) >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,batch,what", [(256, 16, "stage"), (256, 16, "fused"), (256, 16, "rk4"),
+                                          (96, 16, "stage"), (96, 16, "rk4"), (384, 16, "stage"),
+                                          (384, 16, "rk4")])
+def test_k2_cluster_route_matches_plain_on_gpu(monkeypatch, n, batch, what):
+    """K2's cluster route against the plain version at the tolerance of the cooperative route's
+    tests: a stage, the right-hand side with lin and f, and the library's RK4 loop (81 substeps
+    at 256^2, the Fluid_16_256 step's, 3 elsewhere). Where the route choice does not take it
+    (384^2 holds 16 fields only in three waves) it is forced; one launch a stage either way,
+    counted in `cluster_launches`."""
+    _need_cuda()
+    c, w, f, lin = _k2_route_inputs(n, batch)
+    ns_advection.NS_ADVECTION._load()
+    if n == 256:
+        assert _k2_cluster(n, batch) > 0  # the route the shape takes anyway
+    else:
+        monkeypatch.setattr(ns_advection, "CLUSTER_FILL", 0.0)
+    before = (ns_advection.NS_ADVECTION.launches, ns_advection.NS_ADVECTION.cluster_launches)
+    if what == "rk4":
+        substeps = 81 if n == 256 else 3
+        got = ns_advection.ns_rk4_substeps(w, c, lin, f, 2.5e-4, substeps)
+        want = ns_advection.ns_rk4_plain(w, c, lin, f, 2.5e-4, substeps)
+        launched = 4 * substeps
+        assert (want - w).abs().max() > 0
+    else:
+        kw = dict(lin=lin, f=f) if what == "fused" else {}
+        got = ns_advection.ns_advection(w, c, **kw)
+        want = ns_advection.ns_rhs_plain(w, c, **kw)
+        launched = 1
+    torch.cuda.synchronize()
+    assert (ns_advection.NS_ADVECTION.launches - before[0],
+            ns_advection.NS_ADVECTION.cluster_launches - before[1]) == (launched, launched)
+    assert torch.isfinite(torch.view_as_real(got)).all()
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_k2_cluster_route_in_the_solver_range_on_gpu():
+    """In a profiler trace the cluster kernel is launched (cudaLaunchKernelExC, which the
+    benchmark counts as a launch) inside `env.solve` and the benchmark's `bench.range.ns_step`,
+    as the cooperative kernel was, so that `k2_roofline.train` reads its device time: every
+    `ns_adv_cluster` kernel of the window is claimed by the range, and they are the range's
+    device time."""
+    _need_cuda()
+    from benchmark import tracing
+
+    c, w, f, lin = _k2_route_inputs(256, 16)
+    ns_advection.ns_rk4_substeps(w, c, lin, f, 2.5e-4, 2)  # the plan and the build, untraced
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiler session can lose records: trace again
+        sink, before = {}, ns_advection.NS_ADVECTION.cluster_launches
+        with tracing.profiled(sink):
+            for _ in range(3):
+                with torch.profiler.record_function("env.solve"):
+                    with torch.profiler.record_function(tracing.RANGE_PREFIX + "ns_step"):
+                        ns_advection.ns_rk4_substeps(w, c, lin, f, 2.5e-4, 4)
+        tr, launched = sink["trace"], ns_advection.NS_ADVECTION.cluster_launches - before
+        kernels = [e for e in tr.device if "ns_adv_cluster" in e.get("name", "")]
+        if len(kernels) == launched:
+            break
+    assert launched == 48 and len(kernels) == launched
+    assert tr.launches == launched
+    assert tr.range_device_s("ns_step") == pytest.approx(tr.kernel_s(["ns_adv_cluster"]), rel=1e-6)
+    assert tr.range_device_s("ns_step") > 0
+
+
 def test_k1_wrapper_never_falls_back():
     """A tensor off the CUDA device never reaches the plain version through
     the kernel handle, and a non-CPU, non-CUDA tensor is refused by the

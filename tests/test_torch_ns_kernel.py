@@ -5,10 +5,13 @@ The same numpy spectra go through the Pallas kernel in interpret mode, its
 XLA comparator `xla_advection_ri` and the port's plain version, at the shape
 and tolerance of tests/test_pallas_kernels.py (1e-4 of the largest value).
 K2's CUDA source is run on the CPU too: compiled by the host C++ compiler
-against a small shim that runs each CUDA thread of a block as a host thread.
+against a small shim that runs each CUDA thread of a block as a host thread,
+and the blocks of a thread-block cluster at once, each with its own shared
+memory, which the others reach as the card's distributed shared memory.
 """
 
 import ctypes
+import inspect
 import re
 import shutil
 import subprocess
@@ -111,6 +114,63 @@ def test_k2_grid_limits():
     assert k2.twiddle_length(45) == 45 and k2.twiddle_length(96) == 48
 
 
+# What an H100 80GB HBM3 reports: clusters of c blocks of the cluster route resident at once
+# (`ns_advection_cluster_capacity`: one block an SM), on its 132 SMs
+H100_RESIDENT = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 9: 9, **dict.fromkeys(
+    range(10, 17), 7)}
+
+
+def test_k2_cluster_route_choice():
+    """Which kernel runs a stage follows from n, the batch and what the card reports (its SM
+    count, and how many clusters of c blocks it holds at once) alone: of the clusters that hold
+    one field, those with the fewest waves, the largest; the cluster route where its blocks fill
+    CLUSTER_FILL of the SMs over those waves, the cooperative kernel elsewhere."""
+    choose = k2.cluster_size
+    assert list(inspect.signature(choose).parameters) == ["n", "batch", "sms", "resident"]
+
+    def h100(n, batch):
+        return choose(n, batch, 132, H100_RESIDENT.get)
+
+    # the fluid training cell's grid: 6 blocks a field at batch 16 (17 clusters of 6 resident,
+    # 15 of 7 or 8: one wave, 96 of 132 SMs), two waves of them at 32; the cooperative kernel
+    # at batch 1, 4 and 8 (64 and 72 blocks), where it was the faster (chip_smoke.py phase 12)
+    assert k2.cluster_smem_bytes(256, 5) == 0 < k2.cluster_smem_bytes(256, 6) <= k2.SMEM_LIMIT
+    assert [h100(256, b) for b in (1, 4, 8, 16, 32)] == [0, 0, 0, 6, 6]
+    assert h100(96, 16) == 6
+    assert h100(384, 16) == 0  # 16 fields of 384^2 need three waves of 7 clusters of 16
+    # the device route's grids never take it, nor a field that 16 blocks do not hold
+    for n in (4097, 4320, 6144, 8192):
+        assert k2.route(n) == "device" and all(h100(n, b) == 0 for b in (1, 16, 4096))
+    for n in (406, 512, 1024, 2048):
+        assert k2.route(n) == "block" and k2.cluster_smem_bytes(n, 16) == 0
+        assert all(h100(n, b) == 0 for b in (1, 16, 4096))
+    # nor a cluster that the card cannot place
+    assert choose(256, 16, 132, lambda c: 0) == 0
+    assert choose(256, 16, 132, lambda c: H100_RESIDENT[c] if c != 6 else 0) == 0  # 7: 2 waves
+    # the rule over a sweep of shapes and two cards
+    for n in (8, 12, 28, 45, 96, 128, 176, 256, 320, 384, 405, 406):
+        for sms, resident in ((132, H100_RESIDENT.get), (114, lambda c: 114 // c)):
+            fits = [c for c in k2.CLUSTER_SIZES if k2.cluster_smem_bytes(n, c)]
+            for batch in range(1, 70):
+                c = choose(n, batch, sms, resident)
+                if not fits:
+                    assert c == 0
+                    continue
+                waves = {d: -(-batch // resident(d)) for d in fits}
+                best = min(waves.values())
+                pick = max(d for d in fits if waves[d] == best)
+                fills = batch * pick >= k2.CLUSTER_FILL * best * sms
+                assert c == (pick if fills else 0), (n, sms, batch, c, pick)
+
+
+def test_k2_cluster_shape_matches_source(emulated_k2):
+    """The wrapper's account of the cluster route's shared memory is the source's, at every
+    grid up to the largest that a cluster holds and every cluster size."""
+    for n in range(8, 410):
+        for c in k2.CLUSTER_SIZES:
+            assert emulated_k2.ns_advection_cluster_smem_bytes(n, c) == k2.cluster_smem_bytes(n, c)
+
+
 # above the block route's limits: (n, the split's levels or Bluestein's m)
 ROUTE_CASES = [(4320, (60, 72)), (6144, (64, 96)), (6561, (81, 81)), (2642, (2, 1321)),
                (4097, (17, 241)), (4099, 8640), (8192, (64, 128))]
@@ -166,10 +226,13 @@ _SHIM = r"""
 #define __restrict__
 #define __forceinline__ inline
 #define __noinline__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define DM_THREADS 64
+#define CLUSTER_THREADS 64
 struct float2 { float x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct Dim { int x; };
 inline thread_local Dim threadIdx, blockIdx;
 inline Dim blockDim, gridDim;
@@ -230,6 +293,44 @@ template <class K, class... A> int host_cooperative_launch(K kernel, int grid, i
   for (auto& th : ts) th.join();
   return 0;
 }
+// a cluster launch: the clusters one after another, the blocks of one at once, each with its
+// own shared memory (NaN until written); the cluster barrier a barrier of all their threads
+inline thread_local int tl_rank;
+inline thread_local float2* const* tl_cluster_smem;
+inline thread_local std::barrier<>* tl_cluster_bar;
+inline int cluster_rank() { return tl_rank; }
+inline void cluster_sync() { tl_cluster_bar->arrive_and_wait(); }
+inline float2* cluster_map(float2* p, int rank) {
+  return tl_cluster_smem[rank] + (p - static_cast<float2*>(tl_smem));
+}
+inline void store_pair(float2* dst, float2 a, float2 b) { dst[0] = a; dst[1] = b; }
+template <class K, class... A> int host_cluster_launch(K kernel, int grid, int cluster, int threads,
+                                                       size_t smem, A... args) {
+  if (grid % cluster) return 9;
+  blockDim.x = threads;
+  gridDim.x = grid;
+  for (int g = 0; g < grid / cluster; ++g) {
+    std::barrier<> all(cluster * threads);
+    std::vector<std::unique_ptr<std::barrier<>>> bars;
+    std::vector<std::vector<float2>> mem;
+    std::vector<float2*> ptrs;
+    for (int r = 0; r < cluster; ++r) {
+      bars.push_back(std::make_unique<std::barrier<>>(threads));
+      mem.emplace_back(smem / sizeof(float2) + 1, float2{NAN, NAN});
+    }
+    for (auto& m : mem) ptrs.push_back(m.data());
+    std::vector<std::thread> ts;
+    for (int r = 0; r < cluster; ++r)
+      for (int t = 0; t < threads; ++t)
+        ts.emplace_back([&, r, t] {
+          blockIdx.x = g * cluster + r; threadIdx.x = t; tl_bar = bars[r].get();
+          tl_smem = mem[r].data(); tl_rank = r; tl_cluster_smem = ptrs.data(); tl_cluster_bar = &all;
+          kernel(args...);
+        });
+    for (auto& th : ts) th.join();
+  }
+  return 0;
+}
 """
 _LAUNCH = re.compile(r"([\w<>]+)<<<(\w+), (\w+), (\w+), st>>>\(([^;]*)\);")
 
@@ -243,6 +344,8 @@ def emulated_k2(tmp_path_factory):
     assert len(_LAUNCH.findall(src)) == 3, "K2's launches changed: update the emulation"
     src = (src.replace("#include <cuda_runtime.h>", _SHIM)
               .replace("extern __shared__ float2 smem[];",
+                       "float2* smem = static_cast<float2*>(tl_smem);")
+              .replace("extern __shared__ __align__(16) float2 smem[];",
                        "float2* smem = static_cast<float2*>(tl_smem);"))
     src = _LAUNCH.sub(r"emu_launch(\2, \3, \4, [&] { \1(\5); });", src)
     d = tmp_path_factory.mktemp("k2emu")
@@ -265,13 +368,32 @@ def emulated_k2(tmp_path_factory):
     lib.ns_advection_dm_rk4_launch.restype = ctypes.c_int
     lib.ns_advection_dm_work_floats.argtypes = [i32] * 4
     lib.ns_advection_dm_work_floats.restype = ctypes.c_size_t
+    lib.ns_advection_cluster_launch.argtypes = [ptr] * 9 + [i32] * 3 + [ptr] * 2
+    lib.ns_advection_cluster_launch.restype = ctypes.c_int
+    lib.ns_advection_cluster_rk4_launch.argtypes = ([ptr] * 10 + [ctypes.c_double] + [i32] * 4
+                                                    + [ptr] * 2)
+    lib.ns_advection_cluster_rk4_launch.restype = ctypes.c_int
+    lib.ns_advection_cluster_smem_bytes.argtypes = [i32] * 2
+    lib.ns_advection_cluster_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
-def _emulate(lib, w, c, tc, ppc, lin=None, f=None):
-    """The CUDA source's launch chain on CPU tensors, as the wrapper calls it."""
+def _emulate(lib, w, c, tc, ppc, lin=None, f=None, cluster=0):
+    """The CUDA source's launch chain on CPU tensors, as the wrapper calls it;
+    with `cluster` > 0 the cluster route on clusters of that many blocks."""
     batch, n = w.shape[0], c.n
     out = torch.full_like(w, float("nan"))
+    if cluster:
+        before = k2.NS_ADVECTION.cluster_launches
+        launched = ctypes.c_int(0)
+        err = lib.ns_advection_cluster_launch(
+            w.data_ptr(), *c.pointers, out.data_ptr(),
+            None if lin is None else lin.data_ptr(), None if f is None else f.data_ptr(),
+            batch, n, cluster, None, ctypes.byref(launched))
+        assert err == 0 and launched.value == 1  # one launch of `batch` clusters
+        k2.NS_ADVECTION._count(err, launched, cluster=True)  # counted as the wrapper counts it
+        assert k2.NS_ADVECTION.cluster_launches == before + 1
+        return out
     scratch = torch.full((batch, k2.PACKED, n, n), float("nan"), dtype=torch.complex64)
     launched = ctypes.c_int(0)
     err = lib.ns_advection_launch(
@@ -317,34 +439,58 @@ def _assert_close(got, want, limit=2e-6):
     assert (got - want).abs().max().item() <= limit * scale
 
 
-@pytest.mark.parametrize("n,batch,kind,tc,ppc", [
+# The chain form (cluster 0; ids as before the cluster route came) and the cluster route on
+# clusters of 2 and 4 blocks (tc and ppc unused): (n, batch, kind, tc, ppc, cluster)
+@pytest.mark.parametrize("n,batch,kind,tc,ppc,cluster", [
     # the Pallas test's shape; line groups of 3 + 2 stages
-    pytest.param(32, 4, "normal", 4, 1, id="32-4-normal"),
+    pytest.param(32, 4, "normal", 4, 1, 0, id="32-4-normal"),
     # two column tiles; row tiles of 4, 4 and 1 pairs
-    pytest.param(16, 4, "normal", 8, 4, id="16-4-normal"),
+    pytest.param(16, 4, "normal", 8, 4, 0, id="16-4-normal"),
     # the smallest grid, one group of 3 stages
-    pytest.param(8, 1, "normal", 4, 1, id="8-1-normal"),
-    (8, 2, "normal", 8, 2),  # one column tile as wide as the grid
+    pytest.param(8, 1, "normal", 4, 1, 0, id="8-1-normal"),
+    pytest.param(8, 2, "normal", 8, 2, 0, id="8-2-normal-8-2"),  # one column tile as wide as the grid
     # spectra of real vortex fields, positive-Nyquist wavenumbers
-    pytest.param(64, 2, "case4", 16, 2, id="64-2-case4"),
-    (16, 2, "nyquist", 2, 1),  # non-Hermitian Nyquist row and column; the narrowest tile
-    (32, 2, "complex", 8, 3),  # non-Hermitian everywhere
-    (128, 1, "nyquist", 4, 1),  # Fluid_8's grid: groups of 4 + 3 stages
-    (256, 1, "complex", 4, 1),  # the fluid path's grid at batch 1: 4 + 4 stages
+    pytest.param(64, 2, "case4", 16, 2, 0, id="64-2-case4"),
+    # non-Hermitian Nyquist row and column; the narrowest tile
+    pytest.param(16, 2, "nyquist", 2, 1, 0, id="16-2-nyquist-2-1"),
+    pytest.param(32, 2, "complex", 8, 3, 0, id="32-2-complex-8-3"),  # non-Hermitian everywhere
+    pytest.param(128, 1, "nyquist", 4, 1, 0, id="128-1-nyquist-4-1"),  # Fluid_8's grid: 4 + 3 stages
+    # the fluid path's grid at batch 1: 4 + 4 stages
+    pytest.param(256, 1, "complex", 4, 1, 0, id="256-1-complex-4-1"),
     # grids other than powers of two: mixed-radix passes
-    pytest.param(12, 3, "normal", 4, 2, id="12-3-normal"),  # one pass (4, 3)
-    (24, 2, "nyquist", 10, 2),  # passes (4, 2), 3; tiles of 10 columns, the last one of 4
-    pytest.param(45, 2, "normal", 4, 3, id="45-2-normal"),  # odd: passes (3, 3), 5; no Nyquist
-    (45, 1, "complex", 2, 1),  # odd, non-Hermitian everywhere, the narrowest tile
-    (48, 2, "case4", 14, 2),  # passes (4, 4), 3; tiles of 14 columns, the last one of 6
-    (96, 1, "nyquist", 8, 1),  # passes (4, 4), (2, 3)
-    pytest.param(176, 1, "case4", 8, 1, id="176-1-case4"),  # (4, 4), then 11: a generic stage
+    pytest.param(12, 3, "normal", 4, 2, 0, id="12-3-normal"),  # one pass (4, 3)
+    # passes (4, 2), 3; tiles of 10 columns, the last one of 4
+    pytest.param(24, 2, "nyquist", 10, 2, 0, id="24-2-nyquist-10-2"),
+    pytest.param(45, 2, "normal", 4, 3, 0, id="45-2-normal"),  # odd: passes (3, 3), 5; no Nyquist
+    # odd, non-Hermitian everywhere, the narrowest tile
+    pytest.param(45, 1, "complex", 2, 1, 0, id="45-1-complex-2-1"),
+    # passes (4, 4), 3; tiles of 14 columns, the last one of 6
+    pytest.param(48, 2, "case4", 14, 2, 0, id="48-2-case4-14-2"),
+    pytest.param(96, 1, "nyquist", 8, 1, 0, id="96-1-nyquist-8-1"),  # passes (4, 4), (2, 3)
+    pytest.param(176, 1, "case4", 8, 1, 0, id="176-1-case4"),  # (4, 4), then 11: a generic stage
+    # the cluster route: each block's columns and row pairs in its shared memory
+    pytest.param(16, 2, "nyquist", 0, 0, 2, id="cluster-16-2-nyquist-c2"),
+    pytest.param(32, 3, "complex", 0, 0, 4, id="cluster-32-3-complex-c4"),
+    pytest.param(32, 1, "case4", 0, 0, 2, id="cluster-32-1-case4-c2"),
+    pytest.param(24, 2, "nyquist", 0, 0, 4, id="cluster-24-2-nyquist-c4"),  # mixed radix: 6 columns
+    pytest.param(45, 2, "normal", 0, 0, 4, id="cluster-45-2-normal-c4"),  # odd: a last tile of 9
+    pytest.param(45, 1, "complex", 0, 0, 2, id="cluster-45-1-complex-c2"),
+    pytest.param(28, 3, "case4", 0, 0, 2, id="cluster-28-3-case4-c2"),  # 4 x 7: a generic stage
+    pytest.param(28, 1, "nyquist", 0, 0, 4, id="cluster-28-1-nyquist-c4"),  # tiles 8, 8, 8, 4
+    # more blocks than tiles and row pairs: blocks with no columns and no rows
+    pytest.param(8, 2, "normal", 0, 0, 16, id="cluster-8-2-normal-c16"),
+    # cluster sizes that divide neither n nor the row pairs
+    pytest.param(32, 2, "case4", 0, 0, 7, id="cluster-32-2-case4-c7"),
+    pytest.param(45, 1, "nyquist", 0, 0, 3, id="cluster-45-1-nyquist-c3"),
 ])
-def test_k2_source_matches_plain(emulated_k2, n, batch, kind, tc, ppc):
+def test_k2_source_matches_plain(emulated_k2, n, batch, kind, tc, ppc, cluster):
     w, c = _k2_inputs(n, batch, kind)
-    for which in range(3):
+    if cluster:
+        assert emulated_k2.ns_advection_cluster_smem_bytes(n, cluster) == \
+            k2.cluster_smem_bytes(n, cluster) > 0
+    for which in range(3 if not cluster else 0):
         assert emulated_k2.ns_advection_smem_bytes(which, n, tc, ppc) == k2.smem_bytes(which, n, tc, ppc)
-    _assert_close(_emulate(emulated_k2, w, c, tc, ppc), k2.ns_advection_plain(w, c))
+    _assert_close(_emulate(emulated_k2, w, c, tc, ppc, cluster=cluster), k2.ns_advection_plain(w, c))
 
 
 def _noise_spectra(rng, batch, n, scale):
@@ -353,29 +499,47 @@ def _noise_spectra(rng, batch, n, scale):
 
 
 @pytest.mark.parametrize("operands", ["lin_f", "lin_only", "f_only"])
-@pytest.mark.parametrize("n,batch,kind", [(16, 2, "nyquist"), (32, 3, "case4"), (45, 2, "case4")])
-def test_k2_source_fused_operands_match_plain(emulated_k2, n, batch, kind, operands):
+@pytest.mark.parametrize("n,batch,kind,cluster", [
+    pytest.param(16, 2, "nyquist", 0, id="16-2-nyquist"),
+    pytest.param(32, 3, "case4", 0, id="32-3-case4"),
+    pytest.param(45, 2, "case4", 0, id="45-2-case4"),
+    # the cluster route (the chain form above)
+    pytest.param(32, 2, "case4", 4, id="cluster-32-2-case4-c4"),
+    pytest.param(24, 3, "nyquist", 2, id="cluster-24-3-nyquist-c2"),
+    pytest.param(45, 1, "case4", 4, id="cluster-45-1-case4-c4"),
+    pytest.param(28, 2, "case4", 2, id="cluster-28-2-case4-c2"),
+])
+def test_k2_source_fused_operands_match_plain(emulated_k2, n, batch, kind, cluster, operands):
     """The optional operands of the function's launch against their plain
     twin, on the solver's constants and operator."""
     w, c = _k2_inputs(n, batch, kind)
     lin, f = -5e-3 * c.k2, _noise_spectra(np.random.default_rng(11), batch, n, 0.1 * w.abs().max().item())
     kw = {"lin_f": dict(lin=lin, f=f), "lin_only": dict(lin=lin), "f_only": dict(f=f)}[operands]
-    got = _emulate(emulated_k2, w, c, 4, 2, **kw)
+    got = _emulate(emulated_k2, w, c, 4, 2, cluster=cluster, **kw)
     _assert_close(got, k2.ns_rhs_plain(w, c, **kw), limit=4e-6)
     assert k2.ns_advection(w, c, **kw).equal(k2.ns_rhs_plain(w, c, **kw))  # the CPU route
 
 
-@pytest.mark.parametrize("n,batch,kind,substeps,dt", [
-    (16, 2, "case4", 1, 2.5e-4),
-    (32, 1, "case4", 3, 2.5e-4),  # the states alternate between the two work fields
-    (8, 1, "case4", 2, 1e-3),  # the smallest grid
-    (16, 3, "nyquist", 2, 2.5e-4),  # stage states that are not Hermitian on the Nyquist lines
-    (32, 2, "complex", 1, 1e-4),  # nor anywhere
-    (64, 1, "case4", 1, 1e-3),  # a long substep: the stage arithmetic carries weight
-    (24, 2, "nyquist", 2, 2.5e-4),  # mixed radix
-    (45, 1, "case4", 2, 1e-3),  # odd
+@pytest.mark.parametrize("n,batch,kind,substeps,dt,cluster", [
+    pytest.param(16, 2, "case4", 1, 2.5e-4, 0, id="16-2-case4-1-0.00025"),
+    # the states alternate between the two work fields
+    pytest.param(32, 1, "case4", 3, 2.5e-4, 0, id="32-1-case4-3-0.00025"),
+    pytest.param(8, 1, "case4", 2, 1e-3, 0, id="8-1-case4-2-0.001"),  # the smallest grid
+    # stage states that are not Hermitian on the Nyquist lines
+    pytest.param(16, 3, "nyquist", 2, 2.5e-4, 0, id="16-3-nyquist-2-0.00025"),
+    pytest.param(32, 2, "complex", 1, 1e-4, 0, id="32-2-complex-1-0.0001"),  # nor anywhere
+    # a long substep: the stage arithmetic carries weight
+    pytest.param(64, 1, "case4", 1, 1e-3, 0, id="64-1-case4-1-0.001"),
+    pytest.param(24, 2, "nyquist", 2, 2.5e-4, 0, id="24-2-nyquist-2-0.00025"),  # mixed radix
+    pytest.param(45, 1, "case4", 2, 1e-3, 0, id="45-1-case4-2-0.001"),  # odd
+    # the cluster route (the chain form above)
+    pytest.param(16, 3, "nyquist", 2, 2.5e-4, 2, id="cluster-16-3-nyquist-c2"),
+    pytest.param(32, 2, "case4", 3, 1e-3, 4, id="cluster-32-2-case4-c4"),
+    pytest.param(24, 1, "case4", 2, 1e-3, 4, id="cluster-24-1-case4-c4"),
+    pytest.param(45, 2, "case4", 1, 1e-3, 2, id="cluster-45-2-case4-c2"),
+    pytest.param(28, 1, "nyquist", 2, 1e-3, 4, id="cluster-28-1-nyquist-c4"),
 ])
-def test_k2_source_rk4_matches_plain(emulated_k2, n, batch, kind, substeps, dt):
+def test_k2_source_rk4_matches_plain(emulated_k2, n, batch, kind, substeps, dt, cluster):
     """The library's loop of RK4 substeps (four stage launches each with the
     stage state, the operator, the forcing and, in the fourth, the
     combination folded in; states alternating between two work fields)
@@ -384,14 +548,24 @@ def test_k2_source_rk4_matches_plain(emulated_k2, n, batch, kind, substeps, dt):
     f = _noise_spectra(np.random.default_rng(5), batch, n, 0.05 * w.abs().max().item())
     lin = -5e-3 * c.k2
     out = torch.full_like(w, float("nan"))
-    scratch = torch.full((batch, k2.PACKED, n, n), float("nan"), dtype=torch.complex64)
     work = torch.full((5, batch, n, n), float("nan"), dtype=torch.complex64)
     launched = ctypes.c_int(0)
-    err = emulated_k2.ns_advection_rk4_launch(
-        w.data_ptr(), *c.pointers, scratch.data_ptr(), work.data_ptr(), out.data_ptr(),
-        lin.data_ptr(), f.data_ptr(), dt, substeps, batch, n, 4, 2, 0, None,
-        ctypes.byref(launched))
-    assert err == 0 and launched.value == 3 * 4 * substeps  # four stages, each a chain of three
+    if cluster:  # no scratch: the intermediates live in the clusters' shared memory
+        before = (k2.NS_ADVECTION.launches, k2.NS_ADVECTION.cluster_launches)
+        err = emulated_k2.ns_advection_cluster_rk4_launch(
+            w.data_ptr(), *c.pointers, work.data_ptr(), out.data_ptr(), lin.data_ptr(),
+            f.data_ptr(), dt, substeps, batch, n, cluster, None, ctypes.byref(launched))
+        assert err == 0 and launched.value == 4 * substeps  # one launch per stage
+        k2.NS_ADVECTION._count(err, launched, cluster=True)
+        assert (k2.NS_ADVECTION.launches - before[0], k2.NS_ADVECTION.cluster_launches
+                - before[1]) == (4 * substeps, 4 * substeps)
+    else:
+        scratch = torch.full((batch, k2.PACKED, n, n), float("nan"), dtype=torch.complex64)
+        err = emulated_k2.ns_advection_rk4_launch(
+            w.data_ptr(), *c.pointers, scratch.data_ptr(), work.data_ptr(), out.data_ptr(),
+            lin.data_ptr(), f.data_ptr(), dt, substeps, batch, n, 4, 2, 0, None,
+            ctypes.byref(launched))
+        assert err == 0 and launched.value == 3 * 4 * substeps  # four stages, each a chain of three
     want = k2.ns_rk4_plain(w, c, lin, f, dt, substeps)
     assert (want - w).abs().max() > 1e-4 * w.abs().max()  # the substeps moved the state
     _assert_close(out, want)
