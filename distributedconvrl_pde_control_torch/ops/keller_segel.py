@@ -12,15 +12,22 @@ reference overwrites the wrapped ghost values with the boundary values,
 KellerSegelSetup.jl:221-224), and fixed-step RK4 with `oversampling`
 substeps as in the JAX package. States are (B, 2, nx), forcings (B, nx).
 
-Design. At nx = 100 a right-hand side is ~20 elementwise launches of a few
-hundred points each, so an env step of 10 substeps is ~800 launches whose
-device work is a few microseconds apiece: the host's launch rate would set
-the pace. Nothing in the step reads the device, so on the card
+Design. At nx = 100 a right-hand side is 21 elementwise launches of a few
+hundred points per env each, so an env step of the published 50 substeps is
+4,800 launches (960 at the 10 substeps of the `_fast` tier) whose device
+work is a few microseconds apiece: the host's launch rate would set the
+pace. Nothing in the step reads the device, so on the card
 `KellerSegelSolver.step` is one captured CUDA graph per (device, batch
 shape, dt, oversampling): the inputs are copied into the graph's static
 buffers, the graph is replayed, and a copy of its output is returned. A
 capture that fails raises; nothing falls back to eager launches on the
 card. On the CPU the same arithmetic runs eagerly.
+
+`KELLER_SEGEL_STEPS` counts the routes on the card, as K2's
+`NS_ADVECTION.launches` counts its launches: graphs captured, steps served
+by a replay, and steps launched op by op on a CUDA tensor (`step_eager`
+called directly). The capture (its warm-up included) is the span
+`solver.capture`.
 """
 
 from __future__ import annotations
@@ -29,6 +36,25 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from distributedconvrl_pde_control_torch.utils.profiling import span
+
+
+class _StepCounters:
+    """How `KellerSegelSolver` served the steps of CUDA tensors."""
+
+    def __init__(self):
+        self.captures = 0  # graphs captured
+        self.replays = 0  # steps served by a graph replay
+        self.eager_steps = 0  # steps launched op by op on a CUDA tensor
+
+
+KELLER_SEGEL_STEPS = _StepCounters()
+
+
+def _on_card(y: torch.Tensor) -> bool:
+    """Whether steps of `y` run on the card: a graph replay per step."""
+    return y.is_cuda
 
 
 def _clamped_shifts(w: torch.Tensor):
@@ -92,7 +118,13 @@ class KellerSegelSolver:
         return torch.stack([du, dv], dim=1)
 
     def step_eager(self, y, forcing, dt, oversampling: int):
-        """One env step = `oversampling` classic-RK4 substeps, launched op by op."""
+        """One env step = `oversampling` classic-RK4 substeps, launched op by
+        op (on a CUDA tensor counted in `KELLER_SEGEL_STEPS.eager_steps`)."""
+        if _on_card(y):
+            KELLER_SEGEL_STEPS.eager_steps += 1
+        return self._rk4(y, forcing, dt, oversampling)
+
+    def _rk4(self, y, forcing, dt, oversampling: int):
         dt_os = dt / oversampling
         for _ in range(oversampling):
             k1 = self.rhs(y, forcing)
@@ -105,15 +137,19 @@ class KellerSegelSolver:
     @torch.no_grad()
     def step(self, y, forcing, dt, oversampling: int):
         """One env step: a replay of the step's CUDA graph on a CUDA tensor
-        (captured at the first call of its shape), `step_eager` on a CPU one."""
-        if not y.is_cuda:
-            return self.step_eager(y, forcing, dt, oversampling)
+        (captured at the first call of its shape), the same arithmetic
+        eagerly on a CPU one."""
+        if not _on_card(y):
+            return self._rk4(y, forcing, dt, oversampling)
         y, forcing = y.to(torch.float32).contiguous(), forcing.to(torch.float32).contiguous()
         key = (str(y.device), tuple(y.shape), tuple(forcing.shape), float(dt), int(oversampling))
         graph = self.graphs.get(key)
         if graph is None:
-            graph = self.graphs[key] = _CapturedStep(
-                lambda a, b: self.step_eager(a, b, dt, oversampling), y, forcing)
+            with span("solver.capture"):
+                graph = self.graphs[key] = _CapturedStep(
+                    lambda a, b: self._rk4(a, b, dt, oversampling), y, forcing)
+            KELLER_SEGEL_STEPS.captures += 1
+        KELLER_SEGEL_STEPS.replays += 1
         return graph(y, forcing)
 
 

@@ -28,8 +28,9 @@ Counterpart of ``distributedconvrl_pde_control_tpu/utils/profiling.py``:
     view of whole phases (a loop, the steady loops), which a trace of one
     loop does not give.
 
-The kernels' launch counters (`ops/kernels/*.launches`) are counters of
-the program that `chip_smoke.py` reads; they are not spans.
+The kernels' launch counters (`ops/kernels/*.launches`) and the
+Keller-Segel step's routes (`ops/keller_segel.py::KELLER_SEGEL_STEPS`) are
+counters of the program; they are not spans.
 """
 
 from __future__ import annotations
@@ -53,6 +54,8 @@ SPANS = {
     "env.step": "PDEEnv.step, or the fluid trainer's inline env block: forcing, solve, "
                 "observation, reward and done",
     "env.solve": "the PDE solver entry inside env.step (K1 / K2 and their boundary transforms)",
+    "solver.capture": "KellerSegelSolver.step's first call at a shape, inside env.solve: the "
+                      "step's warm-up and CUDA graph capture",
 }
 
 _profiler_enabled = torch._C._autograd._profiler_enabled

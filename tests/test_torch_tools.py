@@ -522,10 +522,11 @@ def test_control_step_spans(tmp_path):
 
 def test_train_step_spans(tmp_path):
     """A batched KS train chunk past `update_after` shows `replay.sample` and
-    `agent.learn` beside the act and env spans."""
+    `agent.learn` beside the act and env spans (every span but the
+    Keller-Segel step's graph capture)."""
     chunk, _ = _ks_train_chunk()
     spans = _spans_traced(tmp_path, chunk)
-    assert {e["name"] for e in spans} == set(profiling.SPANS)
+    assert {e["name"] for e in spans} == set(profiling.SPANS) - {"solver.capture"}
     assert _nested(spans, "env.solve", "env.step")
 
 
