@@ -24,8 +24,9 @@ view, the population evaluation scripts, the profiler), `--mesh-only`
 phases 1, 2 and 51-54 (the rank mesh), `--dp-only` phases 1, 2 and 55-60
 (data and tensor parallelism) and `--grids-only` phases 1, 2 and 61 (both
 kernels on grids other than the main paths'); these five end with the ok line. `--times-only` prints the card and
-one JSON line of both kernels' times through their wrappers at the main
-paths' shapes and nothing else; `--tree DIR` imports the package from another
+one JSON line of K1's and K2's times through their wrappers at the main
+paths' shapes, K2's routes and K3 against the graph route it replaced
+(`k3_times`), and nothing else; `--tree DIR` imports the package from another
 checkout inside this one (an unpacked earlier commit under build/, say), so
 that two designs of a kernel are timed in turns within one run on one card.
 
@@ -35,7 +36,7 @@ process prints the seconds of its phases as one JSON line before it ends.
 Phases, each of which fails the run (non-zero exit, no result line):
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the port's CUDA kernels (K1, K2) from the sources in the checkout,
+  2. build the port's CUDA kernels (K1, K2, K3) from the sources in the checkout,
      one nvcc each, started together, and print ptxas's register/shared-memory
      lines;
   3. kernel K1 (the fused KS CNAB2 step) against its plain PyTorch version
@@ -334,6 +335,8 @@ and the last line is {"ok": true, "device": {...}}.
 
 import argparse
 import contextlib
+import ctypes
+import importlib.util
 import json
 import subprocess
 import sys
@@ -501,7 +504,73 @@ def times_only(tree) -> int:
                       "K2_cluster_launches": getattr(k2.NS_ADVECTION, "cluster_launches", None)}))
     if hasattr(k2, "cluster_size"):  # a checkout with K2's cluster route
         k2_route_times(card)
+    if importlib.util.find_spec("distributedconvrl_pde_control_torch.ops.kernels."
+                                "keller_segel_kernel"):  # a checkout with K3
+        k3_times(card)
     return 0
+
+
+K3_SHAPES = ((N_ENVS, 100, 50), (1, 100, 50))  # (envs, nx, substeps): KellerSegel10_16's step
+K3_LIMIT = 2e-6  # K3 against the eager step, of the field's scale: float32 rounding only
+K3_TRAIN_CHUNKS = 3  # phase 30's main path: chunks of 25 train steps at N_ENVS envs
+
+
+def k3_times(card: str) -> dict:
+    """K3 against the route it replaced at the main path's shapes
+    (K3_SHAPES): one env step through `KellerSegelSolver.step` with the
+    route pinned, in turns (graph, kernel, kernel, graph), CUDA events; the
+    eager step's time ("plain") and the bound by operations
+    (`keller_segel_kernel.flops` at 67 TFLOP/s) beside them; K3's blocks per
+    SM. At each shape K3's step and the eager step of the same fields must
+    agree within K3_LIMIT of the field's scale; the gaps are in the line.
+    Prints one JSON line and returns it."""
+    import numpy as np
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.keller_segel import KELLER_SEGEL_10_16 as cfg
+    from distributedconvrl_pde_control_torch.ops import keller_segel as ksg
+    from distributedconvrl_pde_control_torch.ops.kernels import keller_segel_kernel as k3
+
+    lib = k3.KELLER_SEGEL_RK4._load()
+    rng = np.random.default_rng(21)
+    route, shapes = ksg._route, {}
+    try:
+        for batch, nx, os_ in K3_SHAPES:
+            solver = ksg.KellerSegelSolver(nx=nx, lx=cfg.lx)
+            y = torch.tensor(1.0 + 0.1 * rng.standard_normal((batch, 2, nx)), dtype=torch.float32,
+                             device="cuda")
+            f = torch.tensor(0.5 * rng.standard_normal((batch, nx)), dtype=torch.float32,
+                             device="cuda")
+            ms = {"graph": [], "kernel": []}
+            for form in ("graph", "kernel", "kernel", "graph"):
+                ksg._route = lambda y, nx, form=form: form
+                ms[form].append(cuda_ms(lambda: solver.step(y, f, cfg.dt, os_),
+                                        20 if batch > 1 else 200))
+            ksg._route = lambda y, nx: "kernel"
+            got = solver.step(y, f, cfg.dt, os_)
+            ksg._route = route
+            want = solver.step_eager(y, f, cfg.dt, os_)
+            abs_err = float((got.double() - want.double()).abs().max())
+            err = _rel(got, want)
+            label = f"{batch}x{nx}x{os_}"
+            check(err <= K3_LIMIT, f"K3 disagrees with the eager step at {label}: {err}")
+            blocks = ctypes.c_int()
+            check(lib.ksg_rk4_blocks_per_sm(nx, ctypes.byref(blocks)) == 0,
+                  "K3's occupancy query failed")
+            shapes[label] = {
+                "graph_ms": ms["graph"], "kernel_ms": ms["kernel"],
+                "plain_ms": cuda_ms(lambda: solver.step_eager(y, f, cfg.dt, os_), 3),
+                "bound_ms": 1e3 * k3.flops(batch, nx, os_) / PEAK_F32_FLOPS,
+                "max_abs_err": abs_err, "max_err_of_scale": err,
+                "blocks_per_sm": blocks.value}
+    finally:
+        ksg._route = route
+    line = {"k3": "one Keller-Segel env step, ms, in turns with the graph route; K3's gap to the "
+                  "eager step", "shapes": shapes,
+            "max_abs_err": max(v["max_abs_err"] for v in shapes.values()),
+            "max_err_of_scale": max(v["max_err_of_scale"] for v in shapes.values()), "card": card}
+    print(json.dumps(line), flush=True)
+    return line
 
 
 K2_ROUTE_SHAPES = ((256, 1), (256, 4), (256, 8), (256, 16), (256, 32), (96, 16), (384, 16))
@@ -1391,40 +1460,120 @@ def fluid_env_vs_cpu(card: str) -> None:
               f"the adaptive stepper's trial counts differ between card and CPU ({label})")
 
 
-def keller_segel_vs_cpu(card: str) -> None:
-    """Phase 30: the Keller-Segel env on the card against the CPU, and the
-    step's CUDA graph against its eager launches on the card."""
+def keller_segel_vs_cpu(card: str) -> dict:
+    """Phase 30: the Keller-Segel env on the card against the CPU; the step's
+    route at the preset's 100 points, K3, against its eager launches on the
+    card, and the CUDA graph route (the one above K3's 256 points), pinned,
+    against them too; the main path with K3's counts zeroed before it
+    (`keller_segel_main_path`); then K3's times and its gaps to the eager
+    step at the main path's shapes (`k3_times`). Returns K3's entry of the
+    kernels line."""
     import torch
 
     from distributedconvrl_pde_control_torch.configs.keller_segel import (
         KELLER_SEGEL_10_16_FAST as cfg,
         build_keller_segel,
     )
-    from distributedconvrl_pde_control_torch.ops.keller_segel import KellerSegelSolver
+    from distributedconvrl_pde_control_torch.ops import keller_segel as ksg
+    from distributedconvrl_pde_control_torch.ops.kernels import keller_segel_kernel as k3
 
     phase("== 30. the Keller-Segel env (4 envs, 20 steps) on the card against the CPU; the step's "
-          "CUDA graph against its eager launches")
+          "K3 and its CUDA graph, pinned, against its eager launches")
     setups = {d: build_keller_segel(cfg, device=d) for d in ("cuda", "cpu")}
     y0 = setups["cpu"].random_init(torch.Generator().manual_seed(30), 4)
     actions = torch.rand((20, 4, 1, 16), generator=torch.Generator().manual_seed(31)) * 2 - 1
     states = {d: s.env.reset(y0.to(d)) for d, s in setups.items()}
-    solver = KellerSegelSolver(nx=cfg.nx, lx=cfg.lx)
-    graph_err, errs = 0.0, {"y": 0.0, "obs": 0.0, "reward": 0.0}
+    solver = ksg.KellerSegelSolver(nx=cfg.nx, lx=cfg.lx)
+    pinned = ksg.KellerSegelSolver(nx=cfg.nx, lx=cfg.lx)
+    route, kernel_steps = ksg._route, ksg.KELLER_SEGEL_STEPS.kernel_steps
+    k3.KELLER_SEGEL_RK4.launches = 0
+    k3_err, graph_err, errs = 0.0, 0.0, {"y": 0.0, "obs": 0.0, "reward": 0.0}
     for i in range(20):
         y, forcing = states["cuda"].y, setups["cuda"].env.prepare_action(actions[i].cuda())
-        graph_err = max(graph_err, _rel(solver.step(y, forcing, cfg.dt, cfg.oversampling),
-                                        solver.step_eager(y, forcing, cfg.dt, cfg.oversampling)))
+        eager = solver.step_eager(y, forcing, cfg.dt, cfg.oversampling)
+        k3_err = max(k3_err, _rel(solver.step(y, forcing, cfg.dt, cfg.oversampling), eager))
+        ksg._route = lambda y, nx: "graph"
+        try:
+            graph_err = max(graph_err, _rel(pinned.step(y, forcing, cfg.dt, cfg.oversampling),
+                                            eager))
+        finally:
+            ksg._route = route
         for d, s in setups.items():
             states[d] = s.env.step(states[d], actions[i].to(d))
         for k in errs:
             errs[k] = max(errs[k], _rel(getattr(states["cuda"], k), getattr(states["cpu"], k)))
     moved = float((states["cpu"].y - y0).abs().max())
-    print(json.dumps({"phase": 30, "graph_vs_eager_max_rel": graph_err,
-                      "card_vs_cpu_max_rel": errs, "field_moved_by": moved,
-                      "graphs": len(solver.graphs), "card": card}))
+    kernel_steps = ksg.KELLER_SEGEL_STEPS.kernel_steps - kernel_steps
+    launches = k3.KELLER_SEGEL_RK4.launches
+    print(json.dumps({"phase": 30, "k3_vs_eager_max_rel": k3_err,
+                      "graph_vs_eager_max_rel": graph_err, "card_vs_cpu_max_rel": errs,
+                      "field_moved_by": moved, "k3_steps": kernel_steps, "k3_launches": launches,
+                      "graphs": len(pinned.graphs), "card": card}))
+    check(k3_err <= K3_LIMIT, f"K3 disagrees with the eager Keller-Segel step: {k3_err}")
     check(graph_err <= 1e-6, f"the Keller-Segel graph disagrees with the eager step: {graph_err}")
-    check(all(v <= 1e-4 for v in errs.values()) and moved > 1e-2 and len(solver.graphs) == 1,
+    check(kernel_steps == launches == 40 and not solver.graphs and len(pinned.graphs) == 1,
+          f"the Keller-Segel steps took other routes: {kernel_steps} K3 steps and {launches} "
+          "launches of 40")
+    check(all(v <= 1e-4 for v in errs.values()) and moved > 1e-2,
           f"the Keller-Segel env on the card disagrees with the CPU: {errs}")
+    main_path = keller_segel_main_path(card)
+    times = k3_times(card)
+    return {"launches": launches + main_path["launches"],
+            "launches_by_path": {
+                "the env and the step against eager (phase 30)": launches,
+                f"training: ShardedKellerSegelTrainer 1x1, KellerSegel10_16, {N_ENVS} envs "
+                "(phase 30)": main_path["launches"]},
+            "shape": f"{N_ENVS}x100, 50 substeps",
+            "env_4x100x10_max_err_of_scale": k3_err, "main_path": main_path, **times}
+
+
+def keller_segel_main_path(card: str) -> dict:
+    """Phase 30, the main path: K3's launch count and the solver's route
+    counters set to 0, then K3_TRAIN_CHUNKS chunks of the sharded trainer at
+    1x1 with KellerSegel10_16 (50 substeps) at N_ENVS envs, the benchmark
+    cell's trainer; every solver call must be one K3 launch, with nothing
+    captured, replayed or stepped op by op. Returns the counts."""
+    import torch
+
+    from distributedconvrl_pde_control_torch.configs.keller_segel import KELLER_SEGEL_10_16
+    from distributedconvrl_pde_control_torch.ops import keller_segel as ksg
+    from distributedconvrl_pde_control_torch.ops.kernels import keller_segel_kernel as k3
+    from distributedconvrl_pde_control_torch.parallel.multichip import ShardedTrainConfig
+    from distributedconvrl_pde_control_torch.parallel.multichip_keller_segel import (
+        ShardedKellerSegelTrainer,
+    )
+
+    phase(f"-- phase 30, the main path: {K3_TRAIN_CHUNKS} chunks of KellerSegel10_16 training at "
+          f"1x1, {N_ENVS} envs, K3's counts zeroed before")
+    tcfg = ShardedTrainConfig(n_envs=N_ENVS, batch_size=32, capacity_per_dp=100_000,
+                              y0_pool_size=32)
+    tr = ShardedKellerSegelTrainer(KELLER_SEGEL_10_16, (1, 1), tcfg, device="cuda")
+    st = tr.init(torch.Generator(device="cuda").manual_seed(30), seed=30)
+    chunk = tr.make_chunk_fn(tcfg.chunk_len)
+    solve, calls = tr._solver_step, [0]
+
+    def counted(*args):  # the trainer's `env.solve`: one solver call each
+        calls[0] += 1
+        return solve(*args)
+
+    tr._solver_step = counted
+    counters = ksg.KELLER_SEGEL_STEPS
+    k3.KELLER_SEGEL_RK4.launches = 0
+    counters.kernel_steps = counters.captures = counters.replays = counters.eager_steps = 0
+    for _ in range(K3_TRAIN_CHUNKS):
+        st, _ = chunk(st)
+    torch.cuda.synchronize()
+    out = {"solver_calls": calls[0], "launches": k3.KELLER_SEGEL_RK4.launches,
+           "kernel_steps": counters.kernel_steps, "captures": counters.captures,
+           "replays": counters.replays, "eager_steps": counters.eager_steps,
+           "graphs": len(tr.solver.graphs), "finite": bool(torch.isfinite(st.w).all())}
+    print(json.dumps({"phase": 30, "main_path": out, "card": card}))
+    check(out["solver_calls"] == K3_TRAIN_CHUNKS * tcfg.chunk_len
+          and out["launches"] == out["kernel_steps"] == out["solver_calls"]
+          and out["captures"] == out["replays"] == out["eager_steps"] == out["graphs"] == 0
+          and out["finite"],
+          f"the main path's Keller-Segel steps took other routes than K3: {out}")
+    return out
 
 
 def families_child(out_json: str) -> int:
@@ -1623,7 +1772,7 @@ def families_profile(card: str) -> None:
     phase("== 33. device time of one adaptive Fluid_8 env step and one Keller-Segel env step by "
           "kernel group (torch.profiler)")
     for label, setup in (("Fluid_8 (128x128, adaptive RK4, 1 env)", build_fluid(FLUID_8, "cuda")),
-                         ("KellerSegel10_16_fast (1 env, 10 RK4 substeps in one graph)",
+                         ("KellerSegel10_16_fast (1 env, 10 RK4 substeps in one launch of K3)",
                           build_keller_segel(KELLER_SEGEL_10_16_FAST, "cuda"))):
         env = setup.env
         action = torch.rand((1,) + tuple(env.action_shape), generator=torch.Generator()
@@ -1654,10 +1803,10 @@ def families_profile(card: str) -> None:
         check(bool(torch.isfinite(state.y).all()), f"the profiled env step is not finite ({label})")
 
 
-def families_phases(card: str) -> None:
-    """Phases 29-33."""
+def families_phases(card: str) -> dict:
+    """Phases 29-33; returns K3's entry of the kernels line (phase 30)."""
     fluid_env_vs_cpu(card)
-    keller_segel_vs_cpu(card)
+    k3 = keller_segel_vs_cpu(card)
     phase("-- phases 31-32 in a process of their own")
     out_json = ROOT / "build" / "smoke_families.json"
     out_json.unlink(missing_ok=True)
@@ -1666,6 +1815,7 @@ def families_phases(card: str) -> None:
     check(proc.returncode == 0 and out_json.exists(),
           f"phases 31-32 failed in their process (exit {proc.returncode})")
     families_profile(card)
+    return k3
 
 
 # ------------------------------------------------------ PPO and populations (34-39)
@@ -3784,7 +3934,7 @@ def main() -> int:
 
     from distributedconvrl_pde_control_torch.configs.fluid import FLUID_16_256
     from distributedconvrl_pde_control_torch.configs.ks import KS22, build_ks
-    from distributedconvrl_pde_control_torch.ops.kernels import build, ks_kernel
+    from distributedconvrl_pde_control_torch.ops.kernels import build, keller_segel_kernel, ks_kernel
     from distributedconvrl_pde_control_torch.ops.kernels import ns_advection as k2
     from distributedconvrl_pde_control_torch.ops.ks import KSSolver
     from distributedconvrl_pde_control_torch.ops.navier_stokes import initial_condition
@@ -3807,7 +3957,7 @@ def main() -> int:
 
     phase("== 2. build")
     t0 = time.perf_counter()
-    sources = (ks_kernel.SOURCE, k2.SOURCE)
+    sources = (ks_kernel.SOURCE, k2.SOURCE, keller_segel_kernel.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         logs = list(pool.map(build.build, sources))
     print(f"built {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
@@ -4248,7 +4398,7 @@ def main() -> int:
     k1_training = train_phases(card)
     k2_training = fluid_train_phases(card)
     k1_fidelity = fidelity_phases(card)
-    families_phases(card)
+    k3 = families_phases(card)
     k1_agents = agents_phases(card)
     k_tiers = tiers_phases(card)
     k1_tools = tools_phases(card)
@@ -4292,7 +4442,10 @@ def main() -> int:
         "cluster_launches_in_this_process": k2.NS_ADVECTION.cluster_launches,
         "routes": k2_routes["shapes"],
         "other_grids": grids["K2_times"],
-        "other_grids_max_err_of_scale": grids["K2_max_err_of_scale"]}]}))
+        "other_grids_max_err_of_scale": grids["K2_max_err_of_scale"]}, {
+        "name": "keller_segel_rk4", "route": "cuda",
+        "source": "distributedconvrl_pde_control_torch/csrc/" + keller_segel_kernel.SOURCE,
+        "replaces": None, "status": "ok", **k3}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -15,19 +15,23 @@ substeps as in the JAX package. States are (B, 2, nx), forcings (B, nx).
 Design. At nx = 100 a right-hand side is 21 elementwise launches of a few
 hundred points per env each, so an env step of the published 50 substeps is
 4,800 launches (960 at the 10 substeps of the `_fast` tier) whose device
-work is a few microseconds apiece: the host's launch rate would set the
-pace. Nothing in the step reads the device, so on the card
-`KellerSegelSolver.step` is one captured CUDA graph per (device, batch
-shape, dt, oversampling): the inputs are copied into the graph's static
-buffers, the graph is replayed, and a copy of its output is returned. A
-capture that fails raises; nothing falls back to eager launches on the
-card. On the CPU the same arithmetic runs eagerly.
+work is a few microseconds apiece, each reading and writing whole arrays
+through device memory. On the card `KellerSegelSolver.step` is therefore one
+launch of kernel K3 (`ops/kernels/keller_segel_kernel.py`,
+`csrc/keller_segel_rk4.cu`): a warp holds an env's u, v and forcing in
+registers through every substep, at every batch, for nx up to K3's
+`MAX_NX` (256). Above it the step is one captured CUDA graph of the eager
+arithmetic per (device, batch shape, dt, oversampling): the inputs are
+copied into the graph's static buffers, the graph is replayed, and a copy
+of its output is returned. `_route` picks the route from the tensor and nx
+alone. A launch or a capture that fails raises; nothing falls back to eager
+launches on the card. On the CPU the same arithmetic runs eagerly.
 
 `KELLER_SEGEL_STEPS` counts the routes on the card, as K2's
-`NS_ADVECTION.launches` counts its launches: graphs captured, steps served
-by a replay, and steps launched op by op on a CUDA tensor (`step_eager`
-called directly). The capture (its warm-up included) is the span
-`solver.capture`.
+`NS_ADVECTION.launches` counts its launches: steps served by K3, graphs
+captured, steps served by a replay, and steps launched op by op on a CUDA
+tensor (`step_eager` called directly). The capture (its warm-up included)
+is the span `solver.capture`.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from distributedconvrl_pde_control_torch.ops.kernels import keller_segel_kernel
 from distributedconvrl_pde_control_torch.utils.profiling import span
 
 
@@ -44,6 +49,7 @@ class _StepCounters:
     """How `KellerSegelSolver` served the steps of CUDA tensors."""
 
     def __init__(self):
+        self.kernel_steps = 0  # steps served by a launch of K3
         self.captures = 0  # graphs captured
         self.replays = 0  # steps served by a graph replay
         self.eager_steps = 0  # steps launched op by op on a CUDA tensor
@@ -53,8 +59,17 @@ KELLER_SEGEL_STEPS = _StepCounters()
 
 
 def _on_card(y: torch.Tensor) -> bool:
-    """Whether steps of `y` run on the card: a graph replay per step."""
+    """Whether steps of `y` run on the card."""
     return y.is_cuda
+
+
+def _route(y: torch.Tensor, nx: int) -> str:
+    """How `KellerSegelSolver.step` steps `y` of `nx` points: "eager" on the
+    CPU; on the card "kernel" (one launch of K3) where nx is within K3's
+    range, else "graph" (a replay of the step's captured CUDA graph)."""
+    if not _on_card(y):
+        return "eager"
+    return "kernel" if nx <= keller_segel_kernel.MAX_NX else "graph"
 
 
 def _clamped_shifts(w: torch.Tensor):
@@ -136,12 +151,19 @@ class KellerSegelSolver:
 
     @torch.no_grad()
     def step(self, y, forcing, dt, oversampling: int):
-        """One env step: a replay of the step's CUDA graph on a CUDA tensor
-        (captured at the first call of its shape), the same arithmetic
-        eagerly on a CPU one."""
-        if not _on_card(y):
+        """One env step, by the route `_route` picks: K3 on a CUDA tensor of
+        up to K3's `MAX_NX` points, else a replay of the step's CUDA graph
+        (captured at the first call of its shape); the same arithmetic
+        eagerly on a CPU tensor."""
+        route = _route(y, y.shape[-1])
+        if route == "eager":
             return self._rk4(y, forcing, dt, oversampling)
         y, forcing = y.to(torch.float32).contiguous(), forcing.to(torch.float32).contiguous()
+        if route == "kernel":
+            out = keller_segel_kernel.KELLER_SEGEL_RK4(y, forcing, dt, oversampling, self.dx,
+                                                       self.chi)
+            KELLER_SEGEL_STEPS.kernel_steps += 1
+            return out
         key = (str(y.device), tuple(y.shape), tuple(forcing.shape), float(dt), int(oversampling))
         graph = self.graphs.get(key)
         if graph is None:

@@ -7,9 +7,9 @@ into contiguous blocks the ghosts come from the ring neighbours
 (`parallel.halo.halo_exchange_1d`), and the reference's clamped boundary
 (KellerSegelSetup.jl:221-224) is `periodic=False`: the first and last blocks
 replicate their own edge. One exchange per right-hand side carries the ghosts
-of both fields (u, v) at once. The step runs eagerly: a captured CUDA graph
-(the single-device solver's form on the card) cannot hold the group's
-collectives.
+of both fields (u, v) at once. The step runs eagerly: neither kernel K3 nor
+a captured CUDA graph (the single-device solver's forms on the card) holds
+the group's collectives.
 """
 
 from __future__ import annotations

@@ -12,9 +12,9 @@ checkpoints, the drivers) and replaces only the physics:
 
   * solver: the halo-exchange RK4 at the preset's fixed substeps
     (KellerSegelSetup.jl:213-239) at sp > 1; at sp = 1 the block is the
-    whole grid and the single-device solver steps it (one CUDA graph per
-    step on the card, `ops/keller_segel.py`), as the fluid trainer keeps K2
-    at sp = 1;
+    whole grid and the single-device solver steps it (one launch of kernel
+    K3 per step on the card, `ops/keller_segel.py`), as the fluid trainer
+    keeps K2 at sp = 1;
   * sensors: each field's rectangle dots <y_f, rect_i> as partial products
     of this rank's grid columns, psum'd over sp (KellerSegelSetup.jl:112-128);
   * featurization: `TwoFieldFeaturizer.from_dots` (KellerSegelSetup.jl:265-316);

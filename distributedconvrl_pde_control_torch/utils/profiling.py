@@ -29,8 +29,9 @@ Counterpart of ``distributedconvrl_pde_control_tpu/utils/profiling.py``:
     loop does not give.
 
 The kernels' launch counters (`ops/kernels/*.launches`) and the
-Keller-Segel step's routes (`ops/keller_segel.py::KELLER_SEGEL_STEPS`) are
-counters of the program; they are not spans.
+Keller-Segel step's routes (`ops/keller_segel.py::KELLER_SEGEL_STEPS`: K3
+steps, graph captures and replays, eager steps on the card) are counters of
+the program; they are not spans.
 """
 
 from __future__ import annotations

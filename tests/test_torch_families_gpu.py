@@ -1,6 +1,6 @@
 """The single-device fluid env and the Keller-Segel env on the card against
-the port on the CPU, and the Keller-Segel step's CUDA graph against its
-eager launches.
+the port on the CPU, and the Keller-Segel step's routes (K3 and the CUDA
+graph) against its eager launches.
 
 Tests marked `gpu` need a CUDA device; they decide inside the test whether
 there is one and skip without it. They import nothing of JAX:
@@ -16,6 +16,7 @@ import torch
 
 from distributedconvrl_pde_control_torch.configs import fluid as F
 from distributedconvrl_pde_control_torch.configs import keller_segel as K
+from distributedconvrl_pde_control_torch.ops import keller_segel as ksg_ops
 from distributedconvrl_pde_control_torch.ops.navier_stokes import initial_condition
 
 
@@ -30,10 +31,12 @@ def _rel(got, want):
 
 
 @pytest.mark.gpu
-def test_keller_segel_graph_matches_eager_and_cpu():
-    """4 envs, 20 env steps: the captured graph against the eager step on the
-    card (1e-6 of the field's scale: the same kernels in the same order), and
-    the env on the card against the env on the CPU (1e-4)."""
+def test_keller_segel_graph_matches_eager_and_cpu(monkeypatch):
+    """4 envs, 20 env steps: the solver's route at the preset's 100 points,
+    K3, against the eager step on the card (2e-6 of the field's scale:
+    float32 rounding, K3 contracts products and sums), the captured graph,
+    pinned, against the eager step (1e-6: the same kernels in the same
+    order), and the env on the card against the env on the CPU (1e-4)."""
     _need_cuda()
     cfg = K.KELLER_SEGEL_10_16_FAST
     setups = {d: K.build_keller_segel(cfg, device=d) for d in ("cuda", "cpu")}
@@ -41,15 +44,22 @@ def test_keller_segel_graph_matches_eager_and_cpu():
     actions = torch.rand((20, 4, 1, 16), generator=torch.Generator().manual_seed(4)) * 2 - 1
     states = {d: s.env.reset(y0.to(d)) for d, s in setups.items()}
     solver = K.KellerSegelSolver(nx=cfg.nx, lx=cfg.lx)
+    pinned = K.KellerSegelSolver(nx=cfg.nx, lx=cfg.lx)
+    kernel_steps = ksg_ops.KELLER_SEGEL_STEPS.kernel_steps
     for i in range(20):
         y, forcing = states["cuda"].y, setups["cuda"].env.prepare_action(actions[i].cuda())
-        graph = solver.step(y, forcing, cfg.dt, cfg.oversampling)
-        assert _rel(graph, solver.step_eager(y, forcing, cfg.dt, cfg.oversampling)) <= 1e-6
+        eager = solver.step_eager(y, forcing, cfg.dt, cfg.oversampling)
+        assert _rel(solver.step(y, forcing, cfg.dt, cfg.oversampling), eager) <= 2e-6
+        with monkeypatch.context() as m:
+            m.setattr(ksg_ops, "_route", lambda y, nx: "graph")
+            assert _rel(pinned.step(y, forcing, cfg.dt, cfg.oversampling), eager) <= 1e-6
         for d, s in setups.items():
             states[d] = s.env.step(states[d], actions[i].to(d))
         for name in ("y", "obs", "reward"):
             assert _rel(getattr(states["cuda"], name), getattr(states["cpu"], name)) <= 1e-4, name
-    assert len(solver.graphs) == 1
+    # the solver's 20 steps and the env's 20, all by K3
+    assert ksg_ops.KELLER_SEGEL_STEPS.kernel_steps == kernel_steps + 40
+    assert not solver.graphs and len(pinned.graphs) == 1
 
 
 @pytest.mark.gpu

@@ -5,8 +5,10 @@ The chunk is the sharded trainer's at 1x1, the path of `run.py
 KellerSegel10_16 --train --mesh 1x1`, at 4 envs and the configuration's own
 widths (100 points, 50 RK4 substeps); the reference
 (`benchmark/reference/keller_segel.py`) imports nothing of the port. The
-card's route (a captured CUDA graph per step) is reached here through a
-stubbed capture that runs the captured function eagerly.
+card's routes are reached here through stubs that run the eager step: K3
+(the route at the preset's 100 points) through a stubbed launcher, and the
+captured CUDA graph (the route above K3's 256 points) through a stubbed
+capture, pinned by `keller_segel._route`.
 """
 
 import dataclasses
@@ -75,8 +77,31 @@ class _StubCapture:
 
 @pytest.fixture
 def card_route(monkeypatch):
+    """The graph route, pinned at any nx."""
     monkeypatch.setattr(ks_ops, "_on_card", lambda y: True)
+    monkeypatch.setattr(ks_ops, "_route", lambda y, nx: "graph")
     monkeypatch.setattr(ks_ops, "_CapturedStep", _StubCapture)
+
+
+class _StubLauncher:
+    """K3's launcher, running the eager step, with the arguments it got."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, y, forcing, dt, oversampling, dx, chi):
+        self.calls.append((tuple(y.shape), dt, oversampling, dx, chi))
+        return ks_ops.KellerSegelSolver(nx=y.shape[-1], lx=dx * y.shape[-1])._rk4(
+            y, forcing, dt, oversampling)
+
+
+@pytest.fixture
+def kernel_route(monkeypatch):
+    """The card's route at K3's sizes, through a stubbed launcher."""
+    launcher = _StubLauncher()
+    monkeypatch.setattr(ks_ops, "_on_card", lambda y: True)
+    monkeypatch.setattr(ks_ops.keller_segel_kernel, "KELLER_SEGEL_RK4", launcher)
+    return launcher
 
 
 def _counts():
@@ -99,7 +124,7 @@ def test_counters_stay_still_on_the_cpu_path():
     a = solver.step(y, f, 0.006, 5)
     b = solver.step_eager(y, f, 0.006, 5)
     assert torch.equal(a, b) and not solver.graphs
-    assert _delta(before) == {"captures": 0, "replays": 0, "eager_steps": 0}
+    assert _delta(before) == {"kernel_steps": 0, "captures": 0, "replays": 0, "eager_steps": 0}
 
 
 def test_counters_through_a_stubbed_capture(card_route):
@@ -109,10 +134,10 @@ def test_counters_through_a_stubbed_capture(card_route):
     y, f = _fields()
     before = _counts()
     out = [solver.step(y, f, 0.006, 5) for _ in range(3)]
-    assert _delta(before) == {"captures": 1, "replays": 3, "eager_steps": 0}
+    assert _delta(before) == {"kernel_steps": 0, "captures": 1, "replays": 3, "eager_steps": 0}
     solver.step(*_fields(3), 0.006, 5)
     eager = solver.step_eager(y, f, 0.006, 5)
-    assert _delta(before) == {"captures": 2, "replays": 4, "eager_steps": 1}
+    assert _delta(before) == {"kernel_steps": 0, "captures": 2, "replays": 4, "eager_steps": 1}
     assert all(torch.equal(o, eager) for o in out) and len(solver.graphs) == 2
 
 
@@ -134,3 +159,44 @@ def test_capture_span_in_a_traced_chunk(card_route, tmp_path):
     assert len(capture) == 1 and len(solves) == 2
     c = capture[0]
     assert any(s["ts"] <= c["ts"] and c["ts"] + c["dur"] <= s["ts"] + s["dur"] for s in solves)
+
+
+def test_route_from_the_tensor_and_nx(monkeypatch):
+    """Eager on the CPU; on the card K3 up to its 256 points, the graph above."""
+    y = torch.zeros((1, 2, 100))
+    assert ks_ops._route(y, 100) == "eager"
+    monkeypatch.setattr(ks_ops, "_on_card", lambda y: True)
+    assert ks_ops.keller_segel_kernel.MAX_NX == 256
+    assert [ks_ops._route(y, nx) for nx in (1, 3, 100, 256, 257, 1000)] == [
+        "kernel"] * 4 + ["graph"] * 2
+
+
+def test_kernel_route_counts_each_step(kernel_route):
+    """Every step of the preset's 100 points is one launch of K3, counted in
+    `kernel_steps`; nothing is captured or replayed, no graph is kept (so
+    the benchmark's `graph` check reads 0), and the launcher gets the
+    solver's dx and chi."""
+    solver = ks_ops.KellerSegelSolver(nx=100, lx=10.0)
+    y, f = _fields()
+    before = _counts()
+    out = [solver.step(y, f, 0.006, 5) for _ in range(3)]
+    solver.step(*_fields(3), 0.006, 5)
+    assert _delta(before) == {"kernel_steps": 4, "captures": 0, "replays": 0, "eager_steps": 0}
+    assert not solver.graphs
+    assert kernel_route.calls[0] == ((2, 2, 100), 0.006, 5, solver.dx, solver.chi)
+    eager = solver.step_eager(y, f, 0.006, 5)
+    assert all(torch.equal(o, eager) for o in out)
+
+
+def test_kernel_route_on_the_train_chunk(kernel_route):
+    """The main path, the sharded trainer at 1x1 with the preset: each
+    `env.solve` of a chunk is one K3 step and no capture."""
+    tr = ShardedKellerSegelTrainer(KELLER_SEGEL_10_16, (1, 1),
+                                   ShardedTrainConfig(n_envs=2, batch_size=8, capacity_per_dp=1024,
+                                                      y0_pool_size=2), device="cpu")
+    st = tr.init(torch.Generator().manual_seed(0), seed=1)
+    chunk = tr.make_chunk_fn(3)
+    before = _counts()
+    chunk(st)
+    assert _delta(before) == {"kernel_steps": 3, "captures": 0, "replays": 0, "eager_steps": 0}
+    assert len(kernel_route.calls) == 3 and not tr.solver.graphs

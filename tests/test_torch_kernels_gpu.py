@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 on the card, the wrappers' refusal to fall back, and the
+"""Kernels K1, K2 and K3 on the card, the wrappers' refusal to fall back, and the
 port's independence from JAX.
 
 Tests marked `gpu` build a kernel with nvcc and compare it with its plain
@@ -17,7 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from distributedconvrl_pde_control_torch.ops.kernels import build, ks_kernel, ns_advection
+from distributedconvrl_pde_control_torch.ops import keller_segel as ksg
+from distributedconvrl_pde_control_torch.ops.kernels import (
+    build,
+    keller_segel_kernel,
+    ks_kernel,
+    ns_advection,
+)
 from distributedconvrl_pde_control_torch.ops.ks import KSSolver
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -379,6 +385,66 @@ def test_k2_cluster_route_in_the_solver_range_on_gpu():
     assert tr.launches == launched
     assert tr.range_device_s("ns_step") == pytest.approx(tr.kernel_s(["ns_adv_cluster"]), rel=1e-6)
     assert tr.range_device_s("ns_step") > 0
+
+
+def _ksg_fields(batch, nx, seed):
+    """Keller-Segel fields near 1 with structure on every scale, and a
+    forcing of the actions' size, on the card."""
+    rng = np.random.default_rng(seed)
+    y = torch.tensor(1.0 + 0.3 * rng.standard_normal((batch, 2, nx)), dtype=torch.float32)
+    f = torch.tensor(0.5 * rng.standard_normal((batch, nx)), dtype=torch.float32)
+    return y.cuda(), f.cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,nx,os_", [(16384, 100, 50), (1, 100, 50), (4096, 100, 10),
+                                          (33, 37, 50), (33, 256, 50)])
+def test_k3_matches_the_eager_step_on_gpu(batch, nx, os_):
+    """K3 (the solver's route at these nx) against the eager step launched op
+    by op on the card, at the preset's grid spacing: float32 rounding only,
+    as on the CPU (tests/test_torch_keller_segel_kernel.py)."""
+    _need_cuda()
+    y, f = _ksg_fields(batch, nx, seed=batch + nx + os_)
+    solver = ksg.KellerSegelSolver(nx=nx, lx=0.1 * nx)
+    before = (ksg.KELLER_SEGEL_STEPS.kernel_steps, keller_segel_kernel.KELLER_SEGEL_RK4.launches)
+    got = solver.step(y, f, 0.006, os_)
+    torch.cuda.synchronize()
+    assert (ksg.KELLER_SEGEL_STEPS.kernel_steps, keller_segel_kernel.KELLER_SEGEL_RK4.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = solver.step_eager(y, f, 0.006, os_)
+    assert torch.isfinite(got).all() and not solver.graphs
+    gap = float((got.double() - want.double()).abs().max() / want.double().abs().max())
+    assert gap <= 2e-6, gap
+    assert float((got - y).abs().max()) > 1e-3
+
+
+@pytest.mark.gpu
+def test_k3_wrapper_rejects_bad_inputs_on_gpu():
+    _need_cuda()
+    y, f = _ksg_fields(4, 100, seed=0)
+    launch = keller_segel_kernel.KELLER_SEGEL_RK4
+    before = launch.launches
+    for bad_y, bad_f in ((y.double(), f), (y, f.double()),
+                         (y.transpose(0, 1).contiguous().transpose(0, 1), f),
+                         (y, f.t().contiguous().t()), (y, f.cpu()), (y[:, :, :99], f),
+                         (y[:1], f)):
+        with pytest.raises(ValueError):
+            launch(bad_y, bad_f, 0.006, 50, 0.1, 5.6)
+    wide, wide_f = _ksg_fields(2, 257, seed=1)
+    with pytest.raises(ValueError, match="nx <= 256"):
+        launch(wide, wide_f, 0.006, 50, 0.1, 5.6)
+    with pytest.raises(ValueError, match="oversampling"):
+        launch(y, f, 0.006, 0, 0.1, 5.6)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch(y.cpu(), f.cpu(), 0.006, 50, 0.1, 5.6)
+    assert launch.launches == before
+    # above K3's range the solver takes the graph route
+    solver = ksg.KellerSegelSolver(nx=257, lx=25.7)
+    captures = ksg.KELLER_SEGEL_STEPS.captures
+    got = solver.step(wide, wide_f, 0.006, 5)
+    assert ksg.KELLER_SEGEL_STEPS.captures == captures + 1 and len(solver.graphs) == 1
+    want = solver.step_eager(wide, wide_f, 0.006, 5)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-6
 
 
 def test_k1_wrapper_never_falls_back():
